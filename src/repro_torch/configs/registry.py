@@ -1,0 +1,20 @@
+"""Config registry of the architectures the port runs."""
+from __future__ import annotations
+
+from repro_torch.configs.base import ArchConfig, reduced
+from repro_torch.configs.qwen3_0_6b import CONFIG as qwen3_0_6b
+
+CONFIGS = {c.name: c for c in (qwen3_0_6b,)}
+
+
+def get_config(name: str) -> ArchConfig:
+    if name not in CONFIGS:
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(CONFIGS)}")
+    return CONFIGS[name]
+
+
+def get_reduced_config(name: str, **overrides) -> ArchConfig:
+    return reduced(get_config(name), **overrides)
+
+
+__all__ = ["CONFIGS", "get_config", "get_reduced_config"]

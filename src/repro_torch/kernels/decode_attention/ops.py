@@ -1,0 +1,91 @@
+"""Decode attention as one custom op: the Hopper kernel on a CUDA tensor,
+the plain version on a CPU tensor.  Registered as
+``repro_torch::decode_attention`` so a traced graph keeps it as one node."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import library
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+HEAD_DIMS = (32, 64, 128, 256)
+MAX_REP = 8     # query heads per KV head the kernel serves from one K/V read
+
+
+def decode_attention_cuda(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    kv_len: torch.Tensor,
+    window: Optional[int],
+) -> torch.Tensor:
+    """Launch the CUDA kernel; raises on anything it does not take."""
+    b, hq, d = q.shape
+    if k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(
+            f"k/v cache shapes {tuple(k_cache.shape)} {tuple(v_cache.shape)}"
+        )
+    _, s, hkv, dk = k_cache.shape
+    if k_cache.shape[0] != b or dk != d:
+        raise ValueError(f"q {tuple(q.shape)} vs cache {tuple(k_cache.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if hq % hkv or hq // hkv > MAX_REP:
+        raise ValueError(f"Hq={hq}, Hkv={hkv}: need Hkv | Hq and Hq/Hkv <= {MAX_REP}")
+    if not (k_cache.dtype == v_cache.dtype == q.dtype):
+        raise TypeError(f"q {q.dtype}, k {k_cache.dtype}, v {v_cache.dtype}")
+    if kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (b,):
+        raise TypeError(f"kv_len must be int32 of shape ({b},)")
+    tensors = (q, k_cache, v_cache, kv_len)
+    if not all(t.is_contiguous() and t.device == q.device for t in tensors):
+        raise ValueError("decode attention takes contiguous tensors on one device")
+    dtype = library.dtype_code(q.dtype)
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    fn = library.entry("decode_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    library.LAUNCHES["decode_attention"] += 1
+    library.check("decode_attention", fn(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr(),
+        out.data_ptr(), b, hq, hkv, s, d, 0 if window is None else int(window),
+        dtype, stream,
+    ))
+    return out
+
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
+def decode_attention_op(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    kv_len: torch.Tensor,
+    window: Optional[int],
+) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k_cache, v_cache, kv_len, window=window)
+    if q.device.type == "cuda":
+        return decode_attention_cuda(q, k_cache, v_cache, kv_len, window)
+    raise ValueError(f"decode_attention runs on cpu or cuda tensors, not {q.device}")
+
+
+@decode_attention_op.register_fake
+def _(q, k_cache, v_cache, kv_len, window):
+    return torch.empty_like(q)
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    kv_len: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """q (B,Hq,D) × cache (B,S,Hkv,D), valid lengths (B,) int32 -> (B,Hq,D)."""
+    return decode_attention_op(q, k_cache, v_cache, kv_len, window)
+
+
+__all__ = ["decode_attention", "decode_attention_ref", "decode_attention_cuda"]

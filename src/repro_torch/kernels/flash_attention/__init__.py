@@ -1,0 +1,6 @@
+from repro_torch.kernels.flash_attention.ops import (
+    attention_chunked,
+    attention_dense,
+    flash_attention,
+    flash_attention_cuda,
+)

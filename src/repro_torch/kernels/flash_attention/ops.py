@@ -1,0 +1,100 @@
+"""Flash attention as one custom op: the Hopper kernel on a CUDA tensor, the
+chunked plain version on a CPU tensor.  Registered as
+``repro_torch::flash_attention`` so a traced graph keeps it as one node."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import library
+from repro_torch.kernels.flash_attention.ref import attention_chunked, attention_dense
+
+HEAD_DIMS = (32, 64, 128, 256)
+
+
+def flash_attention_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool,
+    window: Optional[int],
+    logit_cap: Optional[float],
+    q_offset: int,
+) -> torch.Tensor:
+    """Launch the CUDA kernel; raises on anything it does not take."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    b, sq, hq, d = q.shape
+    bk, sk, hkv, dk = k.shape
+    if bk != b or dk != d:
+        raise ValueError(f"q {tuple(q.shape)} vs k {tuple(k.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
+    if not (k.dtype == v.dtype == q.dtype):
+        raise TypeError(f"q {q.dtype}, k {k.dtype}, v {v.dtype}")
+    if not all(t.is_contiguous() and t.device == q.device for t in (q, k, v)):
+        raise ValueError("flash attention takes contiguous tensors on one device")
+    if q_offset < 0:
+        raise ValueError(f"q_offset {q_offset} < 0")
+    dtype = library.dtype_code(q.dtype)
+    out = torch.empty_like(q)
+    if b == 0 or sq == 0:
+        return out
+    fn = library.entry("flash_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    library.LAUNCHES["flash_attention"] += 1
+    library.check("flash_attention", fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, sq, sk, hq, hkv, d, int(causal),
+        0 if window is None else int(window),
+        0.0 if logit_cap is None else float(logit_cap),
+        int(q_offset), dtype, stream,
+    ))
+    return out
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool,
+    window: Optional[int],
+    logit_cap: Optional[float],
+    q_offset: int,
+) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return attention_chunked(
+            q, k, v, causal=causal, window=window, logit_cap=logit_cap,
+            q_offset=q_offset,
+        )
+    if q.device.type == "cuda":
+        return flash_attention_cuda(q, k, v, causal, window, logit_cap, q_offset)
+    raise ValueError(f"flash_attention runs on cpu or cuda tensors, not {q.device}")
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal, window, logit_cap, q_offset):
+    return torch.empty_like(q)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    logit_cap: Optional[float] = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Fused attention: q (B,Sq,Hq,D) × kv (B,Sk,Hkv,D) -> (B,Sq,Hq,D)."""
+    return flash_attention_op(q, k, v, causal, window, logit_cap, q_offset)
+
+
+__all__ = [
+    "flash_attention", "flash_attention_cuda", "attention_chunked", "attention_dense",
+]

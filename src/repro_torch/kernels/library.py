@@ -1,0 +1,149 @@
+"""Build and load the hand-written Hopper kernels.
+
+Each kernel's CUDA C++ source (``kernels/<name>/csrc/<name>.cu``) compiles
+with one ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library
+with a plain C interface, loaded with ``ctypes``: a build of seconds, where a
+source that includes PyTorch's headers takes minutes.  The first use builds
+every kernel, one ``nvcc`` per source, all started together, into
+``build/kernels/`` at the root of the checkout (a library is named by the
+hash of its source, so an edited source rebuilds and an unchanged one is
+reused).  Nothing here runs on import: the CPU tests import this module on
+machines that have no ``nvcc``.
+
+``LAUNCHES`` counts, per kernel, the launches its wrapper made: each wrapper
+adds one where it calls its C entry point, and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+KERNELS = ("rmsnorm", "decode_attention", "flash_attention")
+
+_PKG = Path(__file__).resolve().parent
+BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+# C signatures: every entry point returns cudaGetLastError() as an int
+_C = ctypes
+_ARGTYPES = {
+    # x, scale, y, rows, d, eps, offset, dtype, stream
+    "repro_rmsnorm": [
+        _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_longlong, _C.c_int,
+        _C.c_float, _C.c_float, _C.c_int, _C.c_void_p,
+    ],
+    # q, k, v, kv_len, out, b, hq, hkv, s, d, window, dtype, stream
+    "repro_decode_attention": [
+        _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
+        _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
+        _C.c_int, _C.c_void_p,
+    ],
+    # q, k, v, out, b, sq, sk, hq, hkv, d, causal, window, logit_cap,
+    # q_offset, dtype, stream
+    "repro_flash_attention": [
+        _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
+        _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
+        _C.c_int, _C.c_int, _C.c_float, _C.c_int, _C.c_int, _C.c_void_p,
+    ],
+}
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+_entries: Dict[str, object] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def source_path(name: str) -> Path:
+    return _PKG / name / "csrc" / f"{name}.cu"
+
+
+def _library_path(name: str) -> Path:
+    digest = hashlib.sha256(source_path(name).read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    found = candidate if os.path.exists(candidate) else shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels build only where the CUDA "
+            "toolkit is installed"
+        )
+    return found
+
+
+def build_all(verbose: bool = False) -> Dict[str, Path]:
+    """Compile every kernel library that is not built yet, one ``nvcc`` per
+    source, all running at once.  Returns the library path of each kernel.
+    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {name: _library_path(name) for name in KERNELS}
+    procs = {}
+    for name, out in paths.items():
+        if out.exists() and not verbose:
+            continue
+        tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
+        if verbose:
+            cmd[1:1] = ["-Xptxas", "-v"]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        if verbose and log:
+            print(f"[nvcc {name}]\n{log}")
+        os.replace(tmp, paths[name])   # atomic: a reader never sees half a file
+    if failed:
+        raise RuntimeError("kernel build failed\n" + "\n".join(failed))
+    return paths
+
+
+def entry(name: str):
+    """The C entry point ``repro_<name>`` of kernel ``name``, building and
+    loading its library on first use."""
+    fn = _entries.get(name)
+    if fn is None:
+        path = _library_path(name)
+        if not path.exists():
+            build_all()
+        fn = getattr(ctypes.CDLL(str(path)), f"repro_{name}")
+        fn.argtypes = _ARGTYPES[f"repro_{name}"]
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
+    return fn
+
+
+def check(name: str, rc: int) -> None:
+    """Raise if a launch reported a CUDA error (a refused launch never runs,
+    and ``torch.cuda.synchronize()`` would not report it)."""
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def dtype_code(dtype) -> int:
+    """The C entry points' dtype argument: 0 = float32, 1 = bfloat16."""
+    import torch
+
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if dtype not in codes:
+        raise TypeError(f"kernels take float32 or bfloat16, not {dtype}")
+    return codes[dtype]

@@ -1,0 +1,35 @@
+"""Shared layer utilities: initializers and dense application."""
+from __future__ import annotations
+
+from typing import Sequence, Union
+
+import torch
+
+
+def dense_init(
+    gen: torch.Generator,
+    in_dim: int,
+    out_dims: Union[int, Sequence[int]],
+    dtype: torch.dtype,
+    *,
+    layers: int = 0,
+) -> torch.Tensor:
+    """Truncated-normal fan-in init of shape ([layers,] in_dim, *out_dims):
+    N(0, 1) cut at ±2, times in_dim**-0.5 (the reference's rule; the draws
+    differ, since torch and jax generators differ)."""
+    if isinstance(out_dims, int):
+        out_dims = (out_dims,)
+    shape = (*((layers,) if layers else ()), in_dim, *out_dims)
+    w = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (w * in_dim ** -0.5).to(dtype)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., in) @ w (in, *out) -> (..., *out) in x's dtype.  The product
+    accumulates in f32 (bf16 matmuls accumulate in f32 on both the CPU and
+    the card) and rounds once to x's dtype, as the reference's
+    ``preferred_element_type=f32`` product followed by a cast does."""
+    out_shape = x.shape[:-1] + w.shape[1:]
+    y = torch.matmul(x, w.reshape(w.shape[0], -1))
+    return y.reshape(out_shape)

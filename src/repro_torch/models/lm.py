@@ -1,0 +1,156 @@
+"""Decoder-only dense LM (the qwen3 family): the dense, single-device part of
+``repro.models.lm``.
+
+Parameters keep the reference's layout so conversion is a dtype move: dense
+weights are (in, out); the layer stack is ``blocks/sub0/...`` with a leading
+layer axis; the KV cache is ``{"sub0": {"k": (L,B,S,Hkv,D), "v": ...}}``.
+The reference runs the stack as one ``lax.scan``; here it is a Python loop
+over the layer axis, so a traced step holds every layer's operators.
+
+API:
+    init_params(cfg, seed, device)             -> params dict
+    forward(params, batch, cfg)                -> logits
+    init_cache(cfg, batch, max_seq, device)    -> decode cache dict
+    prefill(params, batch, cfg, max_seq)       -> (last logits, cache)
+    decode_step(params, token, cache, pos, cfg) -> (logits, cache)
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.layers.attention import (
+    attn_decode_step,
+    attn_forward,
+    attn_init,
+    init_kv_cache,
+)
+from repro_torch.layers.common import dense, dense_init
+from repro_torch.layers.mlp import mlp_apply, mlp_init
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _layer(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer ``i`` of a stacked parameter (or cache) tree: views, no copies."""
+    return {
+        k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()
+    }
+
+
+def _layer_forward(lp, x, cfg: ArchConfig, positions):
+    h = rmsnorm(x, lp["attn_norm"], eps=cfg.norm_eps)
+    x = x + attn_forward(lp["attn"], h, cfg, positions=positions)
+    h = rmsnorm(x, lp["mlp_norm"], eps=cfg.norm_eps)
+    return x + mlp_apply(lp["ffn"], h)
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, device: Any = "cuda") -> Dict[str, Any]:
+    """Random weights with the reference's shapes and scales, drawn from a
+    ``torch.Generator`` seeded with ``seed`` on ``device``."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dtype = _dtype(cfg)
+    n = cfg.n_layers
+    embed = torch.randn(
+        (cfg.padded_vocab, cfg.d_model), generator=gen, device=dev
+    ) * cfg.d_model ** -0.5
+    p = {
+        "embed": embed.to(dtype),
+        "blocks": {
+            "sub0": {
+                "attn_norm": torch.ones((n, cfg.d_model), dtype=dtype, device=dev),
+                "mlp_norm": torch.ones((n, cfg.d_model), dtype=dtype, device=dev),
+                "attn": attn_init(gen, cfg, dtype, n),
+                "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, n),
+            }
+        },
+        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab, dtype)
+    return p
+
+
+def head_weights(params, cfg: ArchConfig) -> torch.Tensor:
+    return params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+
+
+def _logits(params, h, cfg: ArchConfig) -> torch.Tensor:
+    h = rmsnorm(h, params["final_norm"], eps=cfg.norm_eps)
+    return dense(h, head_weights(params, cfg)).float()
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
+def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig) -> torch.Tensor:
+    """Full-sequence forward.  batch: {"tokens": (B, S) int}."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    h = params["embed"][tokens]
+    positions = _positions(b, s, h.device)
+    for i in range(cfg.n_layers):
+        h = _layer_forward(_layer(params["blocks"]["sub0"], i), h, cfg, positions)
+    return _logits(params, h, cfg)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device: Any = "cuda"):
+    one = init_kv_cache(cfg, batch, max_seq, _dtype(cfg), resolve_device(device))
+    return {
+        "sub0": {
+            name: leaf[None].expand(cfg.n_layers, *leaf.shape).contiguous()
+            for name, leaf in one.items()
+        }
+    }
+
+
+def prefill(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, max_seq: int):
+    """Run the full prompt, return (last-position logits, filled cache)."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = params["embed"][tokens]
+    positions = _positions(b, s, x.device)
+    pad = max_seq - s
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = _layer(params["blocks"]["sub0"], i)
+        hn = rmsnorm(x, lp["attn_norm"], eps=cfg.norm_eps)
+        a, (k, v) = attn_forward(lp["attn"], hn, cfg, positions=positions, return_kv=True)
+        ks.append(F.pad(k, (0, 0, 0, 0, 0, pad)))
+        vs.append(F.pad(v, (0, 0, 0, 0, 0, pad)))
+        x = x + a
+        hn = rmsnorm(x, lp["mlp_norm"], eps=cfg.norm_eps)
+        x = x + mlp_apply(lp["ffn"], hn)
+    logits = _logits(params, x[:, -1:].contiguous(), cfg)
+    return logits, {"sub0": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+
+
+def decode_step(params, token: torch.Tensor, cache, pos: torch.Tensor, cfg: ArchConfig):
+    """One decode step.  token (B, 1) int32; pos 0-d int32 (current length).
+    Each layer writes its own (B,S,Hkv,D) cache slice; the stacked cache is
+    built once at the end, not rewritten inside every layer."""
+    x = params["embed"][token]
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = _layer(params["blocks"]["sub0"], i)
+        lc = _layer(cache["sub0"], i)
+        hn = rmsnorm(x, lp["attn_norm"], eps=cfg.norm_eps)
+        a, c_new = attn_decode_step(lp["attn"], hn, lc, pos, cfg)
+        ks.append(c_new["k"])
+        vs.append(c_new["v"])
+        x = x + a
+        hn = rmsnorm(x, lp["mlp_norm"], eps=cfg.norm_eps)
+        x = x + mlp_apply(lp["ffn"], hn)
+    logits = _logits(params, x, cfg)
+    return logits, {"sub0": {"k": torch.stack(ks), "v": torch.stack(vs)}}

@@ -1,0 +1,52 @@
+"""The port stands alone: it imports neither JAX nor anything of the JAX
+package, so it runs where JAX is not installed."""
+from __future__ import annotations
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = re.compile(r"^\s*(import jax|from jax|import repro\b|from repro\b|import repro\.)",
+                       re.M)
+
+SCRIPT = """
+import sys
+import numpy as np
+import repro_torch.configs, repro_torch.convert, repro_torch.core.offload
+import repro_torch.kernels.library
+from repro_torch.configs import get_reduced_config
+from repro_torch.serving.engine import LocalServing, RRTOServedLM
+cfg = get_reduced_config("qwen3-0.6b")
+prompt = np.arange(4, dtype=np.int32)[None]
+a = RRTOServedLM(cfg, bucket_len=12, seed=1, device="cpu").generate(prompt, 5).tokens
+b = LocalServing(cfg, seed=1, device="cpu").generate({"tokens": prompt}, 5).tokens
+assert (a == b).all(), (a, b)
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro")
+print("LOADED", bad)
+"""
+
+
+def test_no_jax_or_repro_modules_loaded():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", SCRIPT], capture_output=True, text=True, env=env,
+        cwd=ROOT, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(str(p.relative_to(ROOT)) for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
+    + ["chip_smoke.py"],
+)
+def test_sources_import_no_jax_or_repro(path):
+    assert not FORBIDDEN.search((ROOT / path).read_text()), path

@@ -1,0 +1,235 @@
+"""The port's kernels: each plain PyTorch version against the JAX package's
+Pallas kernel in interpret mode (and its ref.py), at the shapes of
+tests/test_kernels.py plus ragged ones; the CPU custom ops go to the plain
+versions and trace as one operator; the CUDA wrappers raise on what they do
+not take.  Holding each CUDA kernel against its plain version needs the card
+(``requires_cuda``)."""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from torch.fx.experimental.proxy_tensor import make_fx  # noqa: E402
+
+from repro_torch.kernels import library  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention,
+    decode_attention_cuda,
+    decode_attention_ref,
+)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_chunked,
+    attention_dense,
+    flash_attention,
+    flash_attention_cuda,
+)
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_cuda, rmsnorm_ref  # noqa: E402
+
+TOL = dict(rtol=2e-4, atol=2e-4)       # tests/test_kernels.py, f32
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)  # tests/test_kernels.py, bf16
+
+
+@pytest.fixture(scope="module")
+def jref():
+    """The JAX package's kernels (imported here, not at module level, so the
+    card-only test below also runs where JAX is not installed)."""
+    pytest.importorskip("jax")
+    from repro.kernels import decode_attention, flash_attention, rmsnorm
+
+    return dict(
+        rmsnorm=rmsnorm.rmsnorm, decode=decode_attention.decode_attention,
+        decode_ref=decode_attention.decode_attention_ref,
+        flash=flash_attention.flash_attention, dense=flash_attention.attention_dense,
+    )
+
+
+def _t(a: np.ndarray, dtype=torch.float32) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+
+
+class TestRMSNorm:
+    @pytest.mark.parametrize(
+        "shape,offset",
+        [((4, 128, 256), 0.0), ((2, 64, 512), 1.0), ((3, 7, 96), 0.0), ((5, 13, 130), 0.0)],
+    )
+    def test_plain_vs_pallas(self, jref, rng, shape, offset):
+        x = rng.normal(0, 1, shape).astype(np.float32)
+        s = rng.normal(0, 0.1, shape[-1:]).astype(np.float32)
+        ref = np.asarray(jref["rmsnorm"](x, s, offset=offset, interpret=True))
+        out = rmsnorm_ref(_t(x), _t(s), 1e-6, offset).numpy()
+        np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+
+    def test_bf16(self, jref, rng):
+        import jax.numpy as jnp
+
+        x = rng.normal(0, 1, (4, 96)).astype(np.float32)
+        s = rng.normal(0, 0.1, (96,)).astype(np.float32)
+        ref = jref["rmsnorm"](
+            jnp.asarray(x, jnp.bfloat16), jnp.asarray(s, jnp.bfloat16), interpret=True
+        )
+        out = rmsnorm_ref(_t(x, torch.bfloat16), _t(s, torch.bfloat16))
+        np.testing.assert_allclose(
+            out.float().numpy(), np.asarray(ref, np.float32), **BF16_TOL
+        )
+
+    def test_cpu_op_is_the_plain_version(self, rng):
+        x = _t(rng.normal(0, 1, (3, 5, 64)))
+        s = _t(rng.normal(0, 0.1, (64,)))
+        assert torch.equal(rmsnorm(x, s, offset=1.0), rmsnorm_ref(x, s, 1e-6, 1.0))
+
+
+class TestDecodeAttention:
+    @pytest.mark.parametrize(
+        "b,s,hq,hkv,d,window",
+        [
+            (2, 1024, 8, 2, 64, None),
+            (1, 2048, 16, 8, 128, None),
+            (2, 1024, 4, 4, 64, 256),
+            (1, 512, 8, 1, 64, None),
+            (3, 512, 40, 40, 64, None),     # MHA-style
+            (2, 333, 16, 8, 128, 50),       # ragged cache, window
+        ],
+    )
+    def test_plain_vs_pallas(self, jref, rng, b, s, hq, hkv, d, window):
+        q = rng.normal(0, 1, (b, hq, d)).astype(np.float32)
+        kc = rng.normal(0, 1, (b, s, hkv, d)).astype(np.float32)
+        vc = rng.normal(0, 1, (b, s, hkv, d)).astype(np.float32)
+        kv_len = (np.arange(b) * 97 % (s - 8) + 8).astype(np.int32)
+        ref = np.asarray(jref["decode"](q, kc, vc, kv_len, window=window, interpret=True))
+        np.testing.assert_allclose(
+            np.asarray(jref["decode_ref"](q, kc, vc, kv_len, window=window)), ref, **TOL
+        )
+        out = decode_attention_ref(_t(q), _t(kc), _t(vc), _t(kv_len, torch.int32),
+                                   window=window)
+        np.testing.assert_allclose(out.numpy(), ref, **TOL)
+
+    def test_cpu_op_is_the_plain_version(self, rng):
+        q = _t(rng.normal(0, 1, (2, 4, 32)))
+        kc = _t(rng.normal(0, 1, (2, 20, 2, 32)))
+        kv_len = torch.tensor([3, 20], dtype=torch.int32)
+        assert torch.equal(
+            decode_attention(q, kc, kc, kv_len, window=5),
+            decode_attention_ref(q, kc, kc, kv_len, window=5),
+        )
+
+
+class TestFlashAttention:
+    @pytest.mark.parametrize(
+        "b,sq,sk,hq,hkv,d,causal,window",
+        [
+            (2, 128, 128, 4, 2, 64, True, None),
+            (1, 256, 256, 8, 8, 128, True, 128),
+            (1, 128, 384, 4, 1, 64, True, None),
+            (2, 128, 128, 4, 4, 64, False, None),
+            (1, 256, 256, 2, 2, 128, True, None),
+        ],
+    )
+    def test_plain_vs_pallas(self, jref, rng, b, sq, sk, hq, hkv, d, causal, window):
+        q = rng.normal(0, 1, (b, sq, hq, d)).astype(np.float32)
+        k = rng.normal(0, 1, (b, sk, hkv, d)).astype(np.float32)
+        v = rng.normal(0, 1, (b, sk, hkv, d)).astype(np.float32)
+        kw = dict(causal=causal, window=window, q_offset=sk - sq)
+        ref = np.asarray(jref["flash"](q, k, v, interpret=True, **kw))
+        for fn in (attention_chunked, attention_dense):
+            out = fn(_t(q), _t(k), _t(v), **kw)
+            np.testing.assert_allclose(out.numpy(), ref, **TOL)
+
+    @pytest.mark.parametrize(
+        "sq,sk,q_offset,window,cap",
+        [(45, 77, 32, 16, 30.0), (7, 1100, 1093, None, None), (33, 33, 0, None, 5.0)],
+    )
+    def test_ragged_plain_vs_reference(self, jref, rng, sq, sk, q_offset, window, cap):
+        """Lengths the Pallas kernel's 128 tiling refuses: the port's plain
+        versions against the JAX package's dense reference."""
+        q = rng.normal(0, 1, (2, sq, 4, 32)).astype(np.float32)
+        k = rng.normal(0, 1, (2, sk, 2, 32)).astype(np.float32)
+        v = rng.normal(0, 1, (2, sk, 2, 32)).astype(np.float32)
+        kw = dict(causal=True, window=window, logit_cap=cap, q_offset=q_offset)
+        ref = np.asarray(jref["dense"](q, k, v, **kw))
+        for fn in (attention_chunked, attention_dense):
+            np.testing.assert_allclose(fn(_t(q), _t(k), _t(v), **kw).numpy(), ref, **TOL)
+
+    def test_bf16(self, jref, rng):
+        import jax.numpy as jnp
+
+        q = rng.normal(0, 1, (1, 128, 4, 64)).astype(np.float32)
+        k = rng.normal(0, 1, (1, 128, 2, 64)).astype(np.float32)
+        v = rng.normal(0, 1, (1, 128, 2, 64)).astype(np.float32)
+        ref = jref["flash"](
+            *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), interpret=True
+        )
+        out = flash_attention(*(_t(a, torch.bfloat16) for a in (q, k, v)))
+        np.testing.assert_allclose(
+            out.float().numpy(), np.asarray(ref, np.float32), **BF16_TOL
+        )
+
+
+def test_custom_ops_trace_as_one_node(rng):
+    """make_fx keeps each kernel as a single graph node, as one pallas_call
+    is one jaxpr equation."""
+    x = _t(rng.normal(0, 1, (1, 4, 2, 32)))
+    kv_len = torch.tensor([4], dtype=torch.int32)
+
+    def app(x, kv_len):
+        h = rmsnorm(x, x[0, 0, 0])
+        a = flash_attention(h, h, h)
+        return decode_attention(a[:, 0], h, h, kv_len)
+
+    gm = make_fx(app, tracing_mode="fake")(x, kv_len)
+    targets = [str(n.target) for n in gm.graph.nodes if n.op == "call_function"]
+    for name in ("rmsnorm", "flash_attention", "decode_attention"):
+        assert targets.count(f"repro_torch.{name}.default") == 1
+
+
+class TestCudaWrappersRaise:
+    """On a CUDA tensor a wrapper launches its kernel or raises; the checks
+    run before any device call, so they are exercised here on CPU tensors."""
+
+    def test_rmsnorm(self):
+        with pytest.raises(TypeError):
+            rmsnorm_cuda(torch.zeros(2, 8), torch.zeros(8, dtype=torch.bfloat16), 1e-6, 0.0)
+        with pytest.raises(ValueError):
+            rmsnorm_cuda(torch.zeros(8, 2).t(), torch.zeros(8), 1e-6, 0.0)
+
+    def test_decode_attention(self):
+        q = torch.zeros(1, 16, 64)
+        kv = torch.zeros(1, 8, 1, 64)
+        with pytest.raises(ValueError):   # 16 query heads on 1 KV head > 8
+            decode_attention_cuda(q, kv, kv, torch.ones(1, dtype=torch.int32), None)
+        with pytest.raises(TypeError):
+            decode_attention_cuda(q, torch.zeros(1, 8, 2, 64), torch.zeros(1, 8, 2, 64),
+                                  torch.ones(1, dtype=torch.int64), None)
+
+    def test_flash_attention(self):
+        q = torch.zeros(1, 4, 2, 16)       # head dim 16 is not taken
+        with pytest.raises(ValueError):
+            flash_attention_cuda(q, q, q, True, None, None, 0)
+        with pytest.raises(TypeError):
+            library.dtype_code(torch.float16)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernels_match_plain_on_card(rng, dtype):
+    """Each CUDA kernel against its plain version on the card, at a served
+    decode shape and a ragged one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: python -m pytest -m requires_cuda tests/")
+    dt = getattr(torch, dtype)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-4
+
+    def r(*shape):
+        return _t(rng.normal(0, 1, shape), dt).cuda()
+
+    x, w = r(3, 7, 96), r(96)
+    torch.testing.assert_close(rmsnorm(x, w), rmsnorm_ref(x, w), rtol=tol, atol=tol)
+    q, kc, vc = r(1, 16, 128), r(1, 512, 8, 128), r(1, 512, 8, 128)
+    kv_len = torch.tensor([63], dtype=torch.int32, device="cuda")
+    torch.testing.assert_close(decode_attention(q, kc, vc, kv_len),
+                               decode_attention_ref(q, kc, vc, kv_len), rtol=tol, atol=tol)
+    q, k, v = r(2, 45, 4, 64), r(2, 77, 2, 64), r(2, 77, 2, 64)
+    kw = dict(q_offset=32, window=16, logit_cap=30.0)
+    torch.testing.assert_close(flash_attention(q, k, v, **kw), attention_dense(q, k, v, **kw),
+                               rtol=tol, atol=tol)
