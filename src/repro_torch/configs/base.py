@@ -1,7 +1,8 @@
-"""Architecture config schema of the dense LM slice, and the reduced variant
+"""Architecture config schema of the ported families, and the reduced variant
 the CPU tests run.  An own copy of ``repro.configs.base``: the fields the
-dense GQA decoder reads, with the same names and defaults, so a config built
-here describes the same model as its JAX counterpart."""
+dense GQA decoder and the Mamba2 hybrid read, with the same names and
+defaults, so a config built here describes the same model as its JAX
+counterpart."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,7 +18,7 @@ def pad_to_multiple(n: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                     # dense is the only family ported so far
+    family: str                     # dense | hybrid (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -31,6 +32,14 @@ class ArchConfig:
     window: Optional[int] = None    # sliding-window attention
     rope_theta: float = 1e6
 
+    # SSM / hybrid
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_groups: int = 1
+    ssm_expand: int = 2
+    ssm_chunk: int = 128
+    attn_every: int = 0             # zamba2: shared attn after every k blocks
+
     # numerics
     dtype: str = "bfloat16"
     norm_eps: float = 1e-6
@@ -42,7 +51,8 @@ class ArchConfig:
 
 
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
-    """Small same-family variant for CPU tests (the reference's dense rule)."""
+    """Small same-family variant for CPU tests (the reference's rule for the
+    dense and SSM families)."""
     base = dict(
         n_layers=2,
         d_model=64,
@@ -53,6 +63,8 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
         vocab=256,
         dtype="float32",
     )
+    if cfg.ssm_state:
+        base.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16)
     if cfg.window:
         base.update(window=32)
     base.update(overrides)

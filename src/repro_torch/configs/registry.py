@@ -3,8 +3,9 @@ from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig, reduced
 from repro_torch.configs.qwen3_0_6b import CONFIG as qwen3_0_6b
+from repro_torch.configs.zamba2_1_2b import CONFIG as zamba2_1_2b
 
-CONFIGS = {c.name: c for c in (qwen3_0_6b,)}
+CONFIGS = {c.name: c for c in (qwen3_0_6b, zamba2_1_2b)}
 
 
 def get_config(name: str) -> ArchConfig:

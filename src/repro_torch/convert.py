@@ -21,17 +21,20 @@ def tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig, device: Any = "cuda"):
-    """Convert a nested dict of numpy arrays; every leaf must have the
-    config's dtype."""
+    """Convert a nested dict of numpy arrays.  Each leaf keeps its own dtype,
+    which must be the config's or float32 (the reference keeps a Mamba2
+    block's ``A_log``, ``D`` and ``dt_bias`` in f32 in a bf16 model); any
+    other dtype raises."""
     dev = resolve_device(device)
-    want = getattr(torch, cfg.dtype)
+    allowed = {getattr(torch, cfg.dtype), torch.float32}
 
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
         t = tensor_from_numpy(np.asarray(node))
-        if t.dtype != want:
-            raise TypeError(f"leaf dtype {t.dtype} != config dtype {want}")
+        if t.dtype not in allowed:
+            raise TypeError(f"leaf dtype {t.dtype} is neither the config's "
+                            f"{cfg.dtype} nor float32")
         return t.to(dev)
 
     return conv(tree)

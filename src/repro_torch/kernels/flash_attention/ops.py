@@ -67,10 +67,11 @@ def flash_attention_op(
     q_offset: int,
 ) -> torch.Tensor:
     if q.device.type == "cpu":
+        # contiguous, as the fake output says: a traced graph views it
         return attention_chunked(
             q, k, v, causal=causal, window=window, logit_cap=logit_cap,
             q_offset=q_offset,
-        )
+        ).contiguous()
     if q.device.type == "cuda":
         return flash_attention_cuda(q, k, v, causal, window, logit_cap, q_offset)
     raise ValueError(f"flash_attention runs on cpu or cuda tensors, not {q.device}")

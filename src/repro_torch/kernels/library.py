@@ -23,7 +23,7 @@ import subprocess
 from pathlib import Path
 from typing import Dict
 
-KERNELS = ("rmsnorm", "decode_attention", "flash_attention")
+KERNELS = ("rmsnorm", "decode_attention", "flash_attention", "ssm_scan")
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
@@ -53,6 +53,14 @@ _ARGTYPES = {
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
         _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
         _C.c_int, _C.c_int, _C.c_float, _C.c_int, _C.c_int, _C.c_void_p,
+    ],
+    # x, ld, gi, B, C, D (or null), h0 (or null), y, h_out, b, s, h, p, g, n,
+    # chunk, dtype, stream: x, B, C and y in the working dtype, the rest f32
+    "repro_ssm_scan": [
+        _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
+        _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
+        _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
+        _C.c_int, _C.c_void_p,
     ],
 }
 

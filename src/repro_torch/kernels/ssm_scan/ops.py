@@ -1,0 +1,162 @@
+"""The gated SSD scan as one custom op: the Hopper kernel on a CUDA tensor,
+the plain chunked version on a CPU tensor.  Registered as
+``repro_torch::gated_scan`` (returning ``(y, h)``) so a traced graph keeps it
+as one node with two outputs, as one ``pallas_call`` is one jaxpr equation.
+
+The wrappers follow ``repro.kernels.ssm_scan.ops``: the chunk is
+``min(chunk, S)`` and the plain version pads S to a chunk multiple with
+identity steps (log-decay 0 keeps the state, input scale 0 injects nothing);
+the kernel masks a ragged last chunk instead, which computes the same thing.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import library
+from repro_torch.kernels.ssm_scan.ref import (
+    gated_scan_ref,
+    gated_step_ref,
+    ssm_scan_ref,
+    ssm_step_ref,
+)
+
+MAX_CHUNK = 128   # the kernel stages one chunk of up to 128 steps
+MAX_STATE = 128   # and a state of up to 128 rows (N) in shared memory
+
+
+def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """Append ``pad`` zero steps on axis 1."""
+    widths = [0, 0] * (t.dim() - 2) + [0, pad]
+    return F.pad(t, widths)
+
+
+def gated_scan_padded(x, ld, gi, Bm, Cm, D, h0, chunk: int):
+    """The plain version with the reference's padding rule.  Its outputs are
+    contiguous, as the op's fake outputs say: a traced graph reshapes them
+    with views."""
+    s = x.shape[1]
+    eff = min(chunk, s)
+    pad = (-s) % eff
+    if pad:
+        x, ld, gi, Bm, Cm = (_pad_seq(t, pad) for t in (x, ld, gi, Bm, Cm))
+    y, h = gated_scan_ref(x, ld, gi, Bm, Cm, D, chunk=eff, h0=h0)
+    return y[:, :s].contiguous(), h.contiguous()
+
+
+def gated_scan_cuda(
+    x: torch.Tensor,
+    ld: torch.Tensor,
+    gi: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    D: Optional[torch.Tensor],
+    h0: Optional[torch.Tensor],
+    chunk: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel; raises on anything it does not take."""
+    if x.dim() != 4 or Bm.dim() != 4 or Bm.shape != Cm.shape:
+        raise ValueError(f"x {tuple(x.shape)}, B {tuple(Bm.shape)}, C {tuple(Cm.shape)}")
+    b, s, h, p = x.shape
+    _, _, g, n = Bm.shape
+    if tuple(Bm.shape[:2]) != (b, s) or g == 0 or h % g:
+        raise ValueError(f"x {tuple(x.shape)} vs B/C {tuple(Bm.shape)}: need G | H")
+    if tuple(ld.shape) != (b, s, h) or ld.shape != gi.shape:
+        raise ValueError(f"log_decay {tuple(ld.shape)}, in_scale {tuple(gi.shape)} != {(b, s, h)}")
+    if n > MAX_STATE:
+        raise ValueError(f"state size N={n} > {MAX_STATE}: the kernel keeps N x 32 of the "
+                         "state and a chunk of B and C in shared memory")
+    chunk = min(int(chunk), s)
+    if not 0 < chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} not in 1..{MAX_CHUNK}")
+    if not (Bm.dtype == Cm.dtype == x.dtype):
+        raise TypeError(f"x {x.dtype}, B {Bm.dtype}, C {Cm.dtype}")
+    f32 = [t for t in (ld, gi, D, h0) if t is not None]
+    if any(t.dtype != torch.float32 for t in f32):
+        raise TypeError("log_decay, in_scale, D and h0 must be float32")
+    if D is not None and tuple(D.shape) != (h,):
+        raise ValueError(f"D shape {tuple(D.shape)} != ({h},)")
+    if h0 is not None and tuple(h0.shape) != (b, h, n, p):
+        raise ValueError(f"h0 shape {tuple(h0.shape)} != {(b, h, n, p)}")
+    ts = [x, ld, gi, Bm, Cm, *(t for t in (D, h0) if t is not None)]
+    if not all(t.is_contiguous() and t.device == x.device for t in ts):
+        raise ValueError("the scan kernel takes contiguous tensors on one device")
+    dtype = library.dtype_code(x.dtype)
+    y = torch.empty_like(x)
+    hout = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        return y, hout.zero_()
+    fn = library.entry("ssm_scan")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    library.LAUNCHES["ssm_scan"] += 1
+    library.check("ssm_scan", fn(
+        x.data_ptr(), ld.data_ptr(), gi.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        None if D is None else D.data_ptr(), None if h0 is None else h0.data_ptr(),
+        y.data_ptr(), hout.data_ptr(), b, s, h, p, g, n, chunk, dtype, stream,
+    ))
+    return y, hout
+
+
+@torch.library.custom_op("repro_torch::gated_scan", mutates_args=())
+def gated_scan_op(
+    x: torch.Tensor,
+    log_decay: torch.Tensor,
+    in_scale: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    D: Optional[torch.Tensor],
+    h0: Optional[torch.Tensor],
+    chunk: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    if x.device.type == "cpu":
+        return gated_scan_padded(x, log_decay, in_scale, Bm, Cm, D, h0, chunk)
+    if x.device.type == "cuda":
+        return gated_scan_cuda(x, log_decay, in_scale, Bm, Cm, D, h0, chunk)
+    raise ValueError(f"gated_scan runs on cpu or cuda tensors, not {x.device}")
+
+
+@gated_scan_op.register_fake
+def _(x, log_decay, in_scale, Bm, Cm, D, h0, chunk):
+    b, _, h, p = x.shape
+    return torch.empty_like(x), x.new_empty((b, h, Bm.shape[-1], p), dtype=torch.float32)
+
+
+def gated_scan(
+    x: torch.Tensor,
+    log_decay: torch.Tensor,
+    in_scale: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    D: Optional[torch.Tensor] = None,
+    *,
+    chunk: int = 128,
+    h0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """y (B,S,H,P) in x's dtype and the final state (B,H,N,P) f32.  Views
+    (the split projections of a Mamba2 block) are made contiguous here, so the
+    kernel never reads a view as if it were dense; the f32 operands are cast."""
+    f32 = torch.float32
+    return gated_scan_op(
+        x.contiguous(), log_decay.to(f32).contiguous(), in_scale.to(f32).contiguous(),
+        Bm.contiguous(), Cm.contiguous(),
+        None if D is None else D.to(f32).contiguous(),
+        None if h0 is None else h0.to(f32).contiguous(),
+        int(chunk),
+    )
+
+
+def ssm_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 128, h0=None):
+    """Mamba2 wrapper: log-decay = dt*A, input scale = dt."""
+    ld = dt.to(torch.float32) * A.to(torch.float32)[None, None, :]
+    return gated_scan(x, ld, dt, Bm, Cm, D, chunk=chunk, h0=h0)
+
+
+gated_step = gated_step_ref
+ssm_step = ssm_step_ref
+
+__all__ = [
+    "gated_scan", "gated_scan_cuda", "gated_scan_padded", "gated_step", "ssm_scan",
+    "ssm_step", "gated_scan_ref", "gated_step_ref", "ssm_scan_ref", "ssm_step_ref",
+]

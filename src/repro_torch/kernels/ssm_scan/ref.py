@@ -1,0 +1,132 @@
+"""Plain PyTorch versions of the chunked gated linear recurrence (SSD form),
+a copy of ``repro.kernels.ssm_scan.ref``.
+
+The recurrence per head (state h in R^{N x P}):
+    h_t = exp(ld_t) * h_{t-1} + gi_t * B_t x_t^T
+    y_t = C_t @ h_t + D * x_t
+
+with ld_t <= 0 the log-decay and gi_t >= 0 the input scale.  Mamba2 takes
+ld = dt * A, gi = dt; mLSTM takes ld = log sigmoid(f), gi = exp(i), B = k,
+C = q, x = v.
+
+Chunked evaluation: within a chunk of length Q the outputs are an
+intra-chunk causal part (a (Q,Q) decay-masked score matrix) plus the carried
+state's contribution; chunk states combine through an inter-chunk scan.
+
+Shapes: x (B,S,H,P), ld/gi (B,S,H), Bm/Cm (B,S,G,N) with G | H, D (H,)|None.
+Returns y (B,S,H,P) in x's dtype and the final state (B,H,N,P) in f32.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def _expand_groups(m: torch.Tensor, rep: int) -> torch.Tensor:
+    """(B,NC,Q,G,N) -> (B,NC,Q,G*rep,N), group g serving heads g*rep.."""
+    if rep == 1:
+        return m
+    b, nc, q, g, n = m.shape
+    return m[:, :, :, :, None, :].expand(b, nc, q, g, rep, n).reshape(b, nc, q, g * rep, n)
+
+
+def gated_scan_ref(
+    x: torch.Tensor,
+    log_decay: torch.Tensor,
+    in_scale: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    D: Optional[torch.Tensor] = None,
+    *,
+    chunk: int = 128,
+    h0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """S must be a multiple of ``min(chunk, S)`` (``ops.gated_scan`` pads)."""
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    if h % g:
+        raise ValueError(f"heads {h} not a multiple of groups {g}")
+    rep = h // g
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"seq {s} not divisible by chunk {chunk}")
+    nc = s // chunk
+    f32 = torch.float32
+
+    xf = x.to(f32).reshape(b, nc, chunk, h, p)
+    ldf = log_decay.to(f32).reshape(b, nc, chunk, h)
+    gif = in_scale.to(f32).reshape(b, nc, chunk, h)
+    Bf = _expand_groups(Bm.to(f32).reshape(b, nc, chunk, g, n), rep)
+    Cf = _expand_groups(Cm.to(f32).reshape(b, nc, chunk, g, n), rep)
+
+    cs = torch.cumsum(ldf, dim=2)                           # inclusive
+    diff = cs[:, :, :, None, :] - cs[:, :, None, :, :]      # (B,NC,Q,Q,H)
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    # exp only where j <= i: above the diagonal the difference is positive
+    # and may overflow before the mask would zero it
+    decay = torch.exp(diff.masked_fill(~causal[None, None, :, :, None], float("-inf")))
+
+    scores = torch.einsum("bcihn,bcjhn->bcijh", Cf, Bf) * decay
+    scores = scores * gif[:, :, None, :, :]                 # gi_j on the j axis
+    y_diag = torch.einsum("bcijh,bcjhp->bcihp", scores, xf)
+
+    decay_to_end = torch.exp(cs[:, :, -1:, :] - cs)         # (B,NC,Q,H)
+    chunk_states = torch.einsum(
+        "bcjhn,bcjhp->bchnp", Bf * (decay_to_end * gif)[..., None], xf
+    )                                                       # (B,NC,H,N,P)
+    chunk_decay = torch.exp(cs[:, :, -1, :])                # (B,NC,H)
+
+    h_prev = (
+        h0.to(f32) if h0 is not None
+        else torch.zeros((b, h, n, p), dtype=f32, device=x.device)
+    )
+    h_prevs = []                                            # state entering each chunk
+    for c in range(nc):
+        h_prevs.append(h_prev)
+        h_prev = h_prev * chunk_decay[:, c, :, None, None] + chunk_states[:, c]
+    h_in = torch.stack(h_prevs, dim=1)                      # (B,NC,H,N,P)
+
+    y_off = torch.einsum("bcihn,bchnp->bcihp", Cf * torch.exp(cs)[..., None], h_in)
+    y = y_diag + y_off
+    if D is not None:
+        y = y + xf * D.to(f32)[None, None, None, :, None]
+    return y.reshape(b, s, h, p).to(x.dtype), h_prev
+
+
+def ssm_scan_ref(x, dt, A, Bm, Cm, D, *, chunk: int = 128, h0=None):
+    """Mamba2 wrapper: log-decay = dt*A, input scale = dt."""
+    ld = dt.to(torch.float32) * A.to(torch.float32)[None, None, :]
+    return gated_scan_ref(x, ld, dt, Bm, Cm, D, chunk=chunk, h0=h0)
+
+
+def gated_step_ref(
+    x: torch.Tensor,           # (B, H, P)
+    log_decay: torch.Tensor,   # (B, H)
+    in_scale: torch.Tensor,    # (B, H)
+    Bm: torch.Tensor,          # (B, G, N)
+    Cm: torch.Tensor,          # (B, G, N)
+    D: Optional[torch.Tensor],
+    h: torch.Tensor,           # (B, H, N, P) f32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single decode step of the recurrence (plain torch here as in the
+    reference: one token is an outer product and a matrix-vector product)."""
+    nh = x.shape[1]
+    rep = nh // Bm.shape[1]
+    f32 = torch.float32
+    Bf = Bm.to(f32).repeat_interleave(rep, dim=1)
+    Cf = Cm.to(f32).repeat_interleave(rep, dim=1)
+    dec = torch.exp(log_decay.to(f32))
+    h_new = h * dec[..., None, None] + torch.einsum(
+        "bhn,bhp->bhnp", Bf * in_scale.to(f32)[..., None], x.to(f32)
+    )
+    y = torch.einsum("bhn,bhnp->bhp", Cf, h_new)
+    if D is not None:
+        y = y + x.to(f32) * D.to(f32)[None, :, None]
+    return y.to(x.dtype), h_new
+
+
+def ssm_step_ref(x, dt, A, Bm, Cm, D, h):
+    """Mamba2 decode-step wrapper."""
+    ld = dt.to(torch.float32) * A.to(torch.float32)[None, :]
+    return gated_step_ref(x, ld, dt, Bm, Cm, D, h)

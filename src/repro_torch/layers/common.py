@@ -1,7 +1,7 @@
 """Shared layer utilities: initializers and dense application."""
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import Any, Dict, Sequence, Union
 
 import torch
 
@@ -33,3 +33,10 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out_shape = x.shape[:-1] + w.shape[1:]
     y = torch.matmul(x, w.reshape(w.shape[0], -1))
     return y.reshape(out_shape)
+
+
+def layer_slice(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer ``i`` of a stacked parameter (or cache) tree: views, no copies."""
+    return {
+        k: layer_slice(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()
+    }

@@ -30,19 +30,12 @@ from repro_torch.layers.attention import (
     attn_init,
     init_kv_cache,
 )
-from repro_torch.layers.common import dense, dense_init
+from repro_torch.layers.common import dense, dense_init, layer_slice
 from repro_torch.layers.mlp import mlp_apply, mlp_init
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def _layer(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
-    """Layer ``i`` of a stacked parameter (or cache) tree: views, no copies."""
-    return {
-        k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()
-    }
 
 
 def _layer_forward(lp, x, cfg: ArchConfig, positions):
@@ -101,7 +94,7 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig) -> torch.Te
     h = params["embed"][tokens]
     positions = _positions(b, s, h.device)
     for i in range(cfg.n_layers):
-        h = _layer_forward(_layer(params["blocks"]["sub0"], i), h, cfg, positions)
+        h = _layer_forward(layer_slice(params["blocks"]["sub0"], i), h, cfg, positions)
     return _logits(params, h, cfg)
 
 
@@ -124,7 +117,7 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, max_seq: in
     pad = max_seq - s
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        lp = _layer(params["blocks"]["sub0"], i)
+        lp = layer_slice(params["blocks"]["sub0"], i)
         hn = rmsnorm(x, lp["attn_norm"], eps=cfg.norm_eps)
         a, (k, v) = attn_forward(lp["attn"], hn, cfg, positions=positions, return_kv=True)
         ks.append(F.pad(k, (0, 0, 0, 0, 0, pad)))
@@ -143,8 +136,8 @@ def decode_step(params, token: torch.Tensor, cache, pos: torch.Tensor, cfg: Arch
     x = params["embed"][token]
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        lp = _layer(params["blocks"]["sub0"], i)
-        lc = _layer(cache["sub0"], i)
+        lp = layer_slice(params["blocks"]["sub0"], i)
+        lc = layer_slice(cache["sub0"], i)
         hn = rmsnorm(x, lp["attn_norm"], eps=cfg.norm_eps)
         a, c_new = attn_decode_step(lp["attn"], hn, lc, pos, cfg)
         ks.append(c_new["k"])

@@ -183,6 +183,29 @@ def test_custom_ops_trace_as_one_node(rng):
         assert targets.count(f"repro_torch.{name}.default") == 1
 
 
+def test_cpu_ops_return_the_strides_of_their_fakes(rng):
+    """A traced graph reshapes a kernel's output with ``aten.view`` when the
+    fake output is contiguous, so the CPU op must return a contiguous tensor
+    too (the plain chunked attention computes in (B,H,S,D) order; replaying a
+    prefill failed on its transposed output before)."""
+    q = _t(rng.normal(0, 1, (1, 32, 4, 16)))
+    kv_len = torch.tensor([4], dtype=torch.int32)
+    outs = [
+        flash_attention(q, q, q),
+        flash_attention(q, q[:, :20], q[:, :20], causal=False),
+        decode_attention(q[:, 0], q, q, kv_len),
+        rmsnorm(q, q[0, 0, 0]),
+    ]
+    assert all(o.is_contiguous() for o in outs)
+
+    def app(q):
+        return flash_attention(q, q, q).reshape(1, 32, -1)
+
+    gm = make_fx(app, tracing_mode="fake")(q)
+    assert "aten.view.default" in [str(n.target) for n in gm.graph.nodes]
+    torch.testing.assert_close(gm(q), app(q))
+
+
 class TestCudaWrappersRaise:
     """On a CUDA tensor a wrapper launches its kernel or raises; the checks
     run before any device call, so they are exercised here on CPU tensors."""

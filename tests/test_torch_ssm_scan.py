@@ -1,0 +1,247 @@
+"""The port's gated SSD scan: its plain PyTorch version against the JAX
+package's Pallas kernel in interpret mode and its ref.py, at the shapes of
+tests/test_kernels.py::TestSSMScan (2e-4; 3e-4 against the naive recurrence;
+2e-3 for the decode step against the scan), plus the mLSTM gated form,
+padding of a sequence that is no chunk multiple, and an initial state.  The
+CPU op is the plain version and traces as one node with two outputs; the CUDA
+wrapper raises on what the kernel does not take; holding the kernel against
+its plain version needs the card (``requires_cuda``)."""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from torch.fx.experimental.proxy_tensor import make_fx  # noqa: E402
+
+from repro_torch.kernels.ssm_scan import (  # noqa: E402
+    gated_scan,
+    gated_scan_cuda,
+    gated_scan_padded,
+    gated_scan_ref,
+    ssm_scan,
+    ssm_scan_ref,
+    ssm_step,
+)
+
+TOL = dict(rtol=2e-4, atol=2e-4)        # tests/test_kernels.py, f32
+NAIVE_TOL = dict(rtol=3e-4, atol=3e-4)  # against the step-by-step recurrence
+STEP_TOL = dict(rtol=2e-3, atol=2e-3)   # decode steps against the chunked scan
+SHAPES = [(2, 64, 4, 8, 2, 16, 16), (1, 96, 8, 16, 1, 32, 32), (1, 48, 2, 8, 2, 8, 16)]
+
+
+@pytest.fixture(scope="module")
+def jref():
+    pytest.importorskip("jax")
+    from repro.kernels import ssm_scan as j
+
+    return j
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _mamba_inputs(rng, b, s, h, p, g, n):
+    x = rng.normal(0, 1, (b, s, h, p)).astype(np.float32)
+    dt = (np.abs(rng.normal(0.5, 0.2, (b, s, h))) + 0.01).astype(np.float32)
+    A = -np.abs(rng.normal(1, 0.3, (h,))).astype(np.float32)
+    Bm = rng.normal(0, 1, (b, s, g, n)).astype(np.float32)
+    Cm = rng.normal(0, 1, (b, s, g, n)).astype(np.float32)
+    D = rng.normal(0, 1, (h,)).astype(np.float32)
+    return x, dt, A, Bm, Cm, D
+
+
+def _naive(x, dt, A, Bm, Cm, D):
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    rep = h // g
+    hst = np.zeros((b, h, n, p), np.float64)
+    ys = np.zeros_like(x, dtype=np.float64)
+    for t in range(s):
+        for bb in range(b):
+            for hh in range(h):
+                gg = hh // rep
+                hst[bb, hh] = np.exp(dt[bb, t, hh] * A[hh]) * hst[bb, hh] + dt[
+                    bb, t, hh
+                ] * np.outer(Bm[bb, t, gg], x[bb, t, hh])
+                ys[bb, t, hh] = Cm[bb, t, gg] @ hst[bb, hh] + D[hh] * x[bb, t, hh]
+    return ys, hst
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SHAPES)
+def test_plain_vs_pallas_and_naive(jref, rng, b, s, h, p, g, n, chunk):
+    args = _mamba_inputs(rng, b, s, h, p, g, n)
+    y_pl, h_pl = jref.ssm_scan(*args, chunk=chunk, interpret=True)
+    y_jr, h_jr = jref.ssm_scan_ref(*args, chunk=chunk)
+    y, hf = ssm_scan(*(_t(a) for a in args), chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_pl), **TOL)
+    np.testing.assert_allclose(hf.numpy(), np.asarray(h_pl), **TOL)
+    y_r, h_r = ssm_scan_ref(*(_t(a) for a in args), chunk=chunk)
+    np.testing.assert_allclose(y_r.numpy(), np.asarray(y_jr), **TOL)
+    np.testing.assert_allclose(h_r.numpy(), np.asarray(h_jr), **TOL)
+    y_naive, h_naive = _naive(*args)
+    np.testing.assert_allclose(y.numpy(), y_naive, **NAIVE_TOL)
+    np.testing.assert_allclose(hf.numpy(), h_naive, **NAIVE_TOL)
+
+
+def test_gated_form_mlstm(jref, rng):
+    """mLSTM: ld = log sigmoid(f), gi = exp(i), one group per head, no D."""
+    b, s, h, p, g, n, chunk = 2, 48, 4, 8, 4, 8, 16
+    x = rng.normal(0, 1, (b, s, h, p)).astype(np.float32)
+    ld = -np.abs(rng.normal(0.3, 0.2, (b, s, h))).astype(np.float32)
+    gi = np.abs(rng.normal(0.8, 0.3, (b, s, h))).astype(np.float32)
+    Bm = rng.normal(0, 1, (b, s, g, n)).astype(np.float32)
+    Cm = rng.normal(0, 1, (b, s, g, n)).astype(np.float32)
+    y_pl, h_pl = jref.gated_scan(x, ld, gi, Bm, Cm, None, chunk=chunk, interpret=True)
+    y, hf = gated_scan(_t(x), _t(ld), _t(gi), _t(Bm), _t(Cm), None, chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_pl), **TOL)
+    np.testing.assert_allclose(hf.numpy(), np.asarray(h_pl), **TOL)
+
+
+def test_nondivisible_seq_padding(jref, rng):
+    """S = 17 with chunk 8: padded with identity steps to 24, as the
+    reference's wrapper pads."""
+    args = _mamba_inputs(rng, 1, 17, 2, 4, 1, 8)
+    y, hf = ssm_scan(*(_t(a) for a in args), chunk=8)
+    y_naive, h_naive = _naive(*args)
+    np.testing.assert_allclose(y.numpy(), y_naive, **NAIVE_TOL)
+    np.testing.assert_allclose(hf.numpy(), h_naive, **NAIVE_TOL)
+    y_j, h_j = jref.ssm_scan(*args, chunk=8)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), **TOL)
+    np.testing.assert_allclose(hf.numpy(), np.asarray(h_j), **TOL)
+
+
+def test_initial_state(jref, rng):
+    """A scan from h0 against the reference's ``gated_scan_ref(h0=)``, and
+    against two halves chained through the first half's final state."""
+    b, s, h, p, g, n = 2, 32, 4, 8, 2, 16
+    x, dt, A, Bm, Cm, D = _mamba_inputs(rng, b, s, h, p, g, n)
+    h0 = rng.normal(0, 1, (b, h, n, p)).astype(np.float32)
+    ld = (dt * A[None, None]).astype(np.float32)
+    y_j, h_j = jref.gated_scan_ref(x, ld, dt, Bm, Cm, D, chunk=8, h0=h0)
+    y, hf = gated_scan(_t(x), _t(ld), _t(dt), _t(Bm), _t(Cm), _t(D), chunk=8, h0=_t(h0))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), **TOL)
+    np.testing.assert_allclose(hf.numpy(), np.asarray(h_j), **TOL)
+    half = s // 2
+    y1, h1 = gated_scan(*(_t(a[:, :half]) for a in (x, ld, dt, Bm, Cm)), _t(D), chunk=8)
+    y2, h2 = gated_scan(*(_t(a[:, half:]) for a in (x, ld, dt, Bm, Cm)), _t(D), chunk=8,
+                        h0=h1)
+    y_full, h_full = gated_scan(_t(x), _t(ld), _t(dt), _t(Bm), _t(Cm), _t(D), chunk=8)
+    np.testing.assert_allclose(torch.cat([y1, y2], 1).numpy(), y_full.numpy(), **TOL)
+    np.testing.assert_allclose(h2.numpy(), h_full.numpy(), **TOL)
+
+
+def test_step_matches_scan(jref, rng):
+    b, s, h, p, g, n = 2, 32, 4, 8, 2, 16
+    x, dt, A, Bm, Cm, D = _mamba_inputs(rng, b, s, h, p, g, n)
+    y_scan, h_scan = ssm_scan(*(_t(a) for a in (x, dt, A, Bm, Cm, D)), chunk=8)
+    hst = torch.zeros((b, h, n, p))
+    hst_j = np.zeros((b, h, n, p), np.float32)
+    for t in range(s):
+        y_t, hst = ssm_step(_t(x[:, t]), _t(dt[:, t]), _t(A), _t(Bm[:, t]), _t(Cm[:, t]),
+                            _t(D), hst)
+        yj_t, hst_j = jref.ssm_step(x[:, t], dt[:, t], A, Bm[:, t], Cm[:, t], D, hst_j)
+        np.testing.assert_allclose(y_t.numpy(), np.asarray(yj_t), **TOL)
+    np.testing.assert_allclose(y_t.numpy(), y_scan[:, -1].numpy(), **STEP_TOL)
+    np.testing.assert_allclose(hst.numpy(), h_scan.numpy(), **STEP_TOL)
+    np.testing.assert_allclose(hst.numpy(), np.asarray(hst_j), **TOL)
+
+
+def test_cpu_op_is_the_plain_version(rng):
+    x, dt, A, Bm, Cm, D = (_t(a) for a in _mamba_inputs(rng, 1, 20, 4, 8, 2, 16))
+    ld = dt * A
+    y, hf = gated_scan(x, ld, dt, Bm, Cm, D, chunk=8)
+    y_r, h_r = gated_scan_padded(x, ld, dt, Bm, Cm, D, None, 8)
+    assert torch.equal(y, y_r) and torch.equal(hf, h_r)
+    assert y.is_contiguous() and hf.dtype == torch.float32
+
+
+def test_traces_as_one_node_with_two_outputs(rng):
+    """make_fx keeps the scan as one node (the wrapper's casts and copies of
+    views are their own aten nodes) whose fake outputs are y in x's dtype and
+    the f32 state."""
+    x = _t(rng.normal(0, 1, (1, 16, 4, 8)).astype(np.float32)).to(torch.bfloat16)
+    bc = _t(rng.normal(0, 1, (1, 16, 1, 16)).astype(np.float32)).to(torch.bfloat16)
+    ld = torch.full((1, 16, 4), -0.1)
+
+    def app(x, ld, bc):
+        y, h = gated_scan(x, ld, ld.exp(), bc, bc, None, chunk=8)
+        return y, h
+
+    gm = make_fx(app, tracing_mode="fake")(x, ld, bc)
+    nodes = [n for n in gm.graph.nodes if n.op == "call_function"]
+    scans = [n for n in nodes if str(n.target) == "repro_torch.gated_scan.default"]
+    assert len(scans) == 1
+    y_meta, h_meta = scans[0].meta["val"]
+    assert y_meta.dtype == torch.bfloat16 and tuple(y_meta.shape) == (1, 16, 4, 8)
+    assert h_meta.dtype == torch.float32 and tuple(h_meta.shape) == (1, 4, 16, 8)
+
+
+class TestCudaWrapperRaises:
+    """The checks run before any device call, so they are exercised here on
+    CPU tensors."""
+
+    def _args(self, n=16, dtype=torch.float32, chunk=16):
+        x = torch.zeros(1, 32, 4, 8, dtype=dtype)
+        ld = torch.zeros(1, 32, 4)
+        bc = torch.zeros(1, 32, 2, n, dtype=dtype)
+        return [x, ld, ld, bc, bc, None, None, chunk]
+
+    def test_state_too_large(self):
+        with pytest.raises(ValueError, match="N=256"):
+            gated_scan_cuda(*self._args(n=256))
+
+    def test_dtype(self):
+        with pytest.raises(TypeError):
+            gated_scan_cuda(*self._args(dtype=torch.float16))
+        args = self._args()
+        args[1] = args[1].double()
+        with pytest.raises(TypeError, match="float32"):
+            gated_scan_cuda(*args)
+
+    def test_chunk_and_views(self):
+        with pytest.raises(ValueError, match="chunk"):
+            gated_scan_cuda(*self._args(chunk=0))
+        args = self._args()
+        args[0] = torch.zeros(1, 32, 8, 4).transpose(2, 3)
+        with pytest.raises(ValueError, match="contiguous"):
+            gated_scan_cuda(*args)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "b,s,h,p,g,n,chunk,use_d",
+    [(1, 16, 64, 64, 1, 64, 16, True), (1, 300, 64, 64, 1, 64, 128, True),
+     (2, 77, 4, 33, 4, 16, 32, False)],
+)
+def test_kernel_matches_plain_on_card(rng, dtype, b, s, h, p, g, n, chunk, use_d):
+    """The CUDA kernel against its plain version on the card: zamba2's
+    prefill shape, a padded multi-chunk sequence, and the mLSTM form at a
+    ragged P."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: python -m pytest -m requires_cuda tests/")
+    dt_ = getattr(torch, dtype)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-4
+    x, dt, A, Bm, Cm, D = _mamba_inputs(rng, b, s, h, p, g, n)
+    x, Bm, Cm = (_t(a).to(dt_).cuda() for a in (x, Bm, Cm))
+    dt, A = _t(dt).cuda(), _t(A).cuda()
+    D = _t(D).cuda() if use_d else None
+    ld = dt * A
+    y, hf = gated_scan(x, ld, dt, Bm, Cm, D, chunk=chunk)
+    y_r, h_r = gated_scan_padded(x, ld, dt, Bm, Cm, D, None, chunk)
+    torch.testing.assert_close(y.float(), y_r.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(hf, h_r, rtol=tol, atol=tol)
+
+
+@pytest.mark.requires_cuda
+def test_kernel_refuses_large_state_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: python -m pytest -m requires_cuda tests/")
+    x = torch.zeros(1, 8, 2, 8, device="cuda")
+    ld = torch.zeros(1, 8, 2, device="cuda")
+    bc = torch.zeros(1, 8, 1, 512, device="cuda")
+    with pytest.raises(ValueError, match="N=512"):
+        gated_scan(x, ld, ld, bc, bc)
