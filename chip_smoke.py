@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # everything (the check of a change)
+    python3 chip_smoke.py --kernels-only   # build, check and time the kernels only
 
 Builds the hand-written kernels from the sources in this checkout, holds each
 against its plain PyTorch version at the shapes the served paths give it (and
@@ -54,6 +55,7 @@ LOGIT_REL_TOL = 0.05
 HYBRID_LOGIT_REL_TOL = 0.10
 PROMPT_LEN, NEW_TOKENS, BUCKET = 32, 32, 512       # qwen3-0.6b
 Z_PROMPT, Z_NEW, Z_BUCKET, Z_STATELESS_BUCKET = 16, 16, 128, 64   # zamba2-1.2b
+LONG_KV = 16384     # the long decode row: K/V of 67 MB, more than the 50 MB L2
 REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:26",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:94",
@@ -99,10 +101,18 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+MISMATCHES = []    # phase 2 holds every case, then fails if any disagreed
+
+
 def close(out, ref, tol) -> float:
     err = (out.float() - ref.float()).abs()
     bad = err > tol + tol * ref.float().abs()
-    check(not bool(bad.any()), f"max |d| {err.max().item():.3g} over tolerance {tol}")
+    if bool(bad.any()):
+        at = tuple(int(i) for i in torch.nonzero(bad)[0])
+        msg = (f"max |d| {err.max().item():.3g} over tolerance {tol}; {int(bad.sum())} of "
+               f"{bad.numel()} values, first at {at} of {tuple(out.shape)}")
+        print(f"MISMATCH: {msg}", flush=True)
+        MISMATCHES.append(msg)
     return err.max().item()
 
 
@@ -150,16 +160,27 @@ def phase_kernels(dev):
         kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
         return q, k, v, kv_len, window
 
+    # the served shapes and the first ragged ones, then split-KV cases: many
+    # splits (up to 16), splits wholly masked (past kv_len, before a window),
+    # windows across a split edge, kv_len 1 and S, and GQA groups of 4 and 8
     for args in [(1, 512, 16, 8, 128, [63], None), (1, 512, 16, 8, 128, [1], None),
                  (2, 1000, 8, 2, 64, [700, 37], 256), (3, 333, 40, 40, 64, [333, 5, 200], None),
                  (1, 100, 8, 1, 256, [99], None), (1, 77, 4, 4, 32, [77], 8),
-                 (1, Z_BUCKET, 32, 32, 64, [Z_PROMPT + Z_NEW - 1], None)]:
+                 (1, Z_BUCKET, 32, 32, 64, [Z_PROMPT + Z_NEW - 1], None),
+                 (1, 4096, 16, 8, 128, [4000], None), (2, 1000, 32, 4, 64, [900, 1000], 100),
+                 (1, 640, 64, 8, 128, [640], 200), (2, 300, 8, 8, 32, [1, 300], None),
+                 (1, 2000, 8, 1, 256, [1999], 600), (1, 8192, 8, 2, 64, [8000], None),
+                 (1, 1200, 16, 8, 128, [600], 200)]:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, kv_len, window = dec_case(*args, dtype)
             out = decode_attention(q, k, v, kv_len, window=window)
             torch.cuda.synchronize()
             err = close(out, decode_attention_ref(q, k, v, kv_len, window=window), TOL[dtype])
             print(f"decode_attention {args} {dtype}: max|d| {err:.3g} (tol {TOL[dtype]})")
+    # the splits merge in a fixed order: two runs agree bit for bit
+    q, k, v, kv_len, _ = dec_case(1, 4096, 16, 8, 128, [4000], None, torch.bfloat16)
+    check(torch.equal(decode_attention(q, k, v, kv_len), decode_attention(q, k, v, kv_len)),
+          "decode_attention: two runs differ")
     q, k, v, kv_len, _ = dec_case(1, 512, 16, 8, 128, [63], None, torch.bfloat16)
     err = close(decode_attention(q, k, v, kv_len), decode_attention_ref(q, k, v, kv_len),
                 TOL[torch.bfloat16])
@@ -188,6 +209,24 @@ def phase_kernels(dev):
         library_ms=graph_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kt, vt)),
         bound_ms=b_ms, bound_by=b_by,
     ))
+    # a long cache: K/V (67 MB) exceed the 50 MB L2, so even the graph's
+    # warm-L2 timing reads them from HBM
+    n = LONG_KV - 1
+    q, k, v, kv_len, _ = dec_case(1, LONG_KV, 16, 8, 128, [n], None, torch.bfloat16)
+    kt, vt = k[:, :n].transpose(1, 2), v[:, :n].transpose(1, 2)
+    b_ms, b_by = bound_ms(2 * q.numel() * 2 + 2 * n * 8 * 128 * 2 + 4, 4 * 16 * n * 128,
+                          torch.bfloat16)
+    extra.append(dict(
+        name="decode_attention", shape=f"q (1,16,128), K/V (1,{LONG_KV},8,128) bf16, kv_len {n}",
+        ms=graph_ms(lambda: decode_attention(q, k, v, kv_len), reps=10),
+        plain_ms=graph_ms(lambda: decode_attention_ref(q, k, v, kv_len), reps=10),
+        library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kt, vt, enable_gqa=True), reps=10),
+        bound_ms=b_ms, bound_by=b_by,
+    ))
+    del q, k, v, kt, vt
+    split_sweep(dec_case)
+    kv_len_sweep(dec_case)
 
     # ---- flash attention: the served prefill, ragged/offset/window/cap, D=256
     def fl_case(b, sq, sk, hq, hkv, d, dtype):
@@ -202,7 +241,14 @@ def phase_kernels(dev):
                       ((1, 128, 384, 4, 1, 64), dict(causal=True, q_offset=256)),
                       ((1, Z_PROMPT, Z_PROMPT, 32, 32, 64), dict(causal=True)),
                       ((1, Z_STATELESS_BUCKET, Z_STATELESS_BUCKET, 32, 32, 64),
-                       dict(causal=True))]:
+                       dict(causal=True)),
+                      # packed GQA rows (n_rep 2, 4, 8), ragged last tiles, D 32 and 256
+                      ((1, 50, 50, 16, 8, 128), dict(causal=True)),
+                      ((2, 45, 45, 16, 4, 64), dict(causal=True, window=20)),
+                      ((1, 30, 94, 16, 2, 128), dict(causal=True, q_offset=64)),
+                      ((1, 70, 70, 4, 2, 256), dict(causal=True, logit_cap=20.0)),
+                      ((1, 33, 40, 8, 1, 32), dict(causal=False)),
+                      ((1, 200, 200, 8, 2, 32), dict(causal=True, window=50))]:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = fl_case(*shape, dtype)
             out = flash_attention(q, k, v, **kw)
@@ -238,6 +284,23 @@ def phase_kernels(dev):
             bound_ms=b_ms, bound_by=b_by,
         ))
 
+    # a long prefill with qwen3's heads: 16 tiles of 64 packed rows per KV head (128
+    # blocks), up to 8 K/V tiles each
+    q, k, v = fl_case(1, 512, 512, 16, 8, 128, torch.bfloat16)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    b_ms, b_by = bound_ms(2 * (2 * q.numel() + 2 * k.numel()), 4 * 16 * 512 * 513 / 2 * 128,
+                          torch.bfloat16)
+    extra.append(dict(
+        name="flash_attention", shape="q (1,512,16,128), K/V (1,512,8,128) bf16, causal",
+        ms=graph_ms(lambda: flash_attention(q, k, v)),
+        plain_ms=graph_ms(lambda: attention_dense(q, k, v)),
+        library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        bound_ms=b_ms, bound_by=b_by,
+    ))
+
+    profile_attention(dec_case, fl_case)
+
     rows["ssm_scan"], scan_extra = phase_scan(dev, randn)
     extra += scan_extra
     for r in [dict(name=n, **r) for n, r in rows.items()] + extra:
@@ -246,6 +309,92 @@ def phase_kernels(dev):
               f"{r['plain_ms'] * 1e3:.2f} us, library {lib}, "
               f"bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
     return rows
+
+
+def split_sweep(dec_case) -> None:
+    """Decode attention's time at split lengths around the wrapper's
+    ``SPLIT_LEN``, at the served shapes and the long cache (printed only)."""
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+
+    for args in [(1, 512, 16, 8, 128, [63], None),
+                 (1, Z_BUCKET, 32, 32, 64, [Z_PROMPT + Z_NEW - 1], None),
+                 (1, LONG_KV, 16, 8, 128, [LONG_KV - 1], None)]:
+        q, k, v, kv_len, _ = dec_case(*args, torch.bfloat16)
+        times = {n: graph_ms(lambda: decode_attention_cuda(q, k, v, kv_len, None, n), reps=10)
+                 for n in (64, 128, 256, 512, 1024)}
+        print(f"decode split sweep {args[:5]} kv_len {args[5]}: " +
+              ", ".join(f"L={n} {t * 1e3:.2f} us" for n, t in times.items()))
+
+
+def kv_len_sweep(dec_case) -> None:
+    """Decode attention against SDPA on the same valid keys, as kv_len grows
+    in qwen3's 512-position cache (printed only): the kernel's fixed cost and
+    its cost per chunk of keys."""
+    for n in (1, 16, 32, 63, 127, 255, 511):
+        q, k, v, kv_len, _ = dec_case(1, 512, 16, 8, 128, [n], None, torch.bfloat16)
+        kt, vt = k[:, :n].transpose(1, 2), v[:, :n].transpose(1, 2)
+        from repro_torch.kernels.decode_attention import decode_attention
+
+        t = graph_ms(lambda: decode_attention(q, k, v, kv_len), reps=20)
+        t_lib = graph_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kt, vt, enable_gqa=True), reps=20)
+        print(f"decode kv_len sweep (1, 512, 16, 8, 128) kv_len {n}: kernel {t * 1e3:.2f} us, "
+              f"SDPA {t_lib * 1e3:.2f} us")
+
+
+def profile_attention(dec_case, fl_case) -> None:
+    """Device time of each kernel launched by the two attention kernels and
+    by SDPA on the same inputs, from ``torch.profiler`` (printed only; the
+    graph timings above include the gaps between launches, these do not):
+    qwen3's decode step and a 512-token prefill."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v, kv_len, _ = dec_case(1, 512, 16, 8, 128, [63], None, torch.bfloat16)
+    kt, vt = k[:, :63].transpose(1, 2), v[:, :63].transpose(1, 2)
+    qf, kf, vf = fl_case(1, 512, 512, 16, 8, 128, torch.bfloat16)
+    calls = [lambda: decode_attention(q, k, v, kv_len),
+             lambda: F.scaled_dot_product_attention(q[:, :, None], kt, vt, enable_gqa=True),
+             lambda: flash_attention(qf, kf, vf),
+             lambda: F.scaled_dot_product_attention(
+                 qf.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2), is_causal=True,
+                 enable_gqa=True)]
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    reps = 20
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for fn in calls:
+                fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+    if not kernels:
+        print("profile: no device time in the trace (not measured)")
+    for e in kernels:
+        print(f"profile kernel {e.key[:100]}: {e.count} launches, device "
+              f"{e.device_time_total / e.count:.2f} us each")
+
+
+def sass_count(path: str, opcode: str) -> int:
+    """Instructions of ``opcode`` in a built library's SASS (``cuobjdump``
+    of the CUDA toolkit, or the one Triton's package carries)."""
+    cands = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")]
+    try:
+        import triton
+
+        cands.append(os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia",
+                                  "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    tool = next((c for c in cands if os.path.exists(c)), None)
+    check(tool is not None, "no cuobjdump to read the kernels' SASS")
+    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+    return sum(1 for line in sass.splitlines() if opcode in line)
 
 
 def scan_inputs(randn, b, s, h, p, g, n, dtype, *, mlstm=False):
@@ -585,13 +734,20 @@ def main() -> None:
     t_all = time.perf_counter()
 
     t0 = time.perf_counter()
-    library.build_all(verbose=True)
+    paths = library.build_all(verbose=True)
+    hgmma = sass_count(str(paths["flash_attention"]), "HGMMA")
+    print(f"flash_attention SASS: {hgmma} HGMMA instructions (the bf16 route's wgmma)")
+    check(hgmma > 0, "flash_attention's library has no HGMMA: the tensor cores are not used")
     print(f"[phase 1] kernels built in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     rows = phase_kernels(dev)
     phase_small_reference(dev)
+    check(not MISMATCHES, f"{len(MISMATCHES)} kernel checks disagreed with the plain versions")
     print(f"[phase 2] kernels vs plain versions: ok ({time.perf_counter() - t0:.1f} s)")
+    if "--kernels-only" in sys.argv[1:]:
+        print("--kernels-only: stopping before the served paths")
+        sys.exit(0)
 
     by_path = {}
     attn = ("rmsnorm", "decode_attention", "flash_attention")

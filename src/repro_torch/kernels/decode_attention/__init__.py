@@ -1,5 +1,8 @@
 from repro_torch.kernels.decode_attention.ops import (
+    SPLIT_LEN,
     decode_attention,
     decode_attention_cuda,
     decode_attention_ref,
+    decode_attention_split_ref,
+    split_plan,
 )

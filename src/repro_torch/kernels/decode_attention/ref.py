@@ -42,3 +42,46 @@ def decode_attention_ref(
     p = torch.softmax(s_mat, dim=-1)
     out = torch.einsum("bgrs,bsgd->bgrd", p, vf)
     return out.reshape(b, hq, d).to(q.dtype)
+
+
+def decode_attention_split_ref(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    kv_len: torch.Tensor,
+    window: Optional[int] = None,
+    split: int = 64,
+) -> torch.Tensor:
+    """The split-KV kernel's arithmetic in plain PyTorch: the cache is cut
+    into ceil(S / split) splits of ``split`` positions; each split keeps its
+    own max m, sum l and unnormalised P.V acc over its valid keys (an empty
+    split has l = 0), and the splits merge in split order as
+    sum acc e^(m - M) / sum l e^(m - M), empty splits skipped.  Used by the
+    tests and the smoke run, never by the op."""
+    b, hq, d = q.shape
+    _, s, hkv, _ = k_cache.shape
+    n_rep = hq // hkv
+    n_split = -(-s // split)
+    scale = 1.0 / float(d) ** 0.5
+    pad = n_split * split - s
+    kf = torch.nn.functional.pad(k_cache.float(), (0, 0, 0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v_cache.float(), (0, 0, 0, 0, 0, pad))
+    kf = kf.reshape(b, n_split, split, hkv, d)
+    vf = vf.reshape(b, n_split, split, hkv, d)
+    qf = q.float().reshape(b, hkv, n_rep, d)
+    sc = torch.einsum("bgrd,bzjgd->bgrzj", qf, kf) * scale     # (B, Hkv, R, Z, L)
+    pos = torch.arange(n_split * split, device=q.device).reshape(n_split, split)
+    lens = torch.clamp(kv_len.to(torch.int64), max=s)[:, None, None]
+    ok = pos[None] < lens
+    if window is not None:
+        ok &= pos[None] >= lens - window
+    ok = ok[:, None, None]                                      # (B, 1, 1, Z, L)
+    m = torch.where(ok, sc, NEG_INF).amax(dim=-1)               # (B, Hkv, R, Z)
+    p = torch.where(ok, torch.exp(sc - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bgrzj,bzjgd->bgrzd", p, vf)
+    live = l > 0
+    big_m = torch.where(live, m, NEG_INF).amax(dim=-1, keepdim=True)
+    a = torch.where(live, torch.exp(m - big_m), 0.0)
+    out = (acc * a[..., None]).sum(dim=-2) / torch.clamp((l * a).sum(dim=-1), min=1e-30)[..., None]
+    return out.reshape(b, hq, d).to(q.dtype)

@@ -3,7 +3,7 @@ chunked plain version on a CPU tensor.  Registered as
 ``repro_torch::flash_attention`` so a traced graph keeps it as one node."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -11,6 +11,30 @@ from repro_torch.kernels import library
 from repro_torch.kernels.flash_attention.ref import attention_chunked, attention_dense
 
 HEAD_DIMS = (32, 64, 128, 256)
+TILE_ROWS = 64   # packed (query, head) rows per block of the wgmma route
+TILE_KEYS = 64   # keys per K/V tile of the wgmma route
+
+
+def packed_row(p: int, n_rep: int) -> Tuple[int, int]:
+    """(query, head within the GQA group) of packed row p of the wgmma
+    route: the n_rep heads of one KV head are neighbouring rows."""
+    return divmod(p, n_rep)
+
+
+def tile_plan(b: int, sq: int, hq: int, hkv: int, dtype: torch.dtype) -> Dict[str, object]:
+    """The grid the kernel launches for these shapes, as its C entry point
+    computes it.  bf16 takes the tensor cores (wgmma): one block per 64
+    packed rows of one (KV head, batch row), grid (ceil(Sq n_rep / 64),
+    Hkv, B).  f32 takes the CUDA cores (wgmma multiplies f32 only as TF32,
+    short of the f32 tolerance): one block per 16 queries of one (batch row,
+    query head), grid (ceil(Sq / 16), B Hq)."""
+    n_rep = hq // hkv
+    if dtype == torch.bfloat16:
+        rows = sq * n_rep
+        return dict(route="wgmma", rows=rows, grid=(-(-rows // TILE_ROWS), hkv, b))
+    if dtype == torch.float32:
+        return dict(route="cuda_cores", rows=sq, grid=(-(-sq // 16), b * hq))
+    raise TypeError(f"kernels take float32 or bfloat16, not {dtype}")
 
 
 def flash_attention_cuda(
@@ -40,6 +64,13 @@ def flash_attention_cuda(
     if q_offset < 0:
         raise ValueError(f"q_offset {q_offset} < 0")
     dtype = library.dtype_code(q.dtype)
+    plan = tile_plan(b, sq, hq, hkv, q.dtype)
+    if plan["route"] == "wgmma":
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("the wgmma route copies 16-byte vectors: q, k, v must be "
+                             "16-byte aligned")
+        if max(plan["grid"][1:]) > 65535:
+            raise ValueError(f"grid {plan['grid']} over the launch limit")
     out = torch.empty_like(q)
     if b == 0 or sq == 0:
         return out
@@ -98,4 +129,5 @@ def flash_attention(
 
 __all__ = [
     "flash_attention", "flash_attention_cuda", "attention_chunked", "attention_dense",
+    "packed_row", "tile_plan",
 ]

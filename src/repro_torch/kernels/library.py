@@ -6,8 +6,8 @@ with a plain C interface, loaded with ``ctypes``: a build of seconds, where a
 source that includes PyTorch's headers takes minutes.  The first use builds
 every kernel, one ``nvcc`` per source, all started together, into
 ``build/kernels/`` at the root of the checkout (a library is named by the
-hash of its source, so an edited source rebuilds and an unchanged one is
-reused).  Nothing here runs on import: the CPU tests import this module on
+hash of its ``csrc/`` files and the nvcc flags, so an edited source or
+header rebuilds and an unchanged one is reused).  Nothing here runs on import: the CPU tests import this module on
 machines that have no ``nvcc``.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made: each wrapper
@@ -41,11 +41,12 @@ _ARGTYPES = {
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_longlong, _C.c_int,
         _C.c_float, _C.c_float, _C.c_int, _C.c_void_p,
     ],
-    # q, k, v, kv_len, out, b, hq, hkv, s, d, window, dtype, stream
+    # q, k, v, kv_len, out, part (f32 split scratch, or null), b, hq, hkv, s,
+    # d, window, split_len, dtype, stream
     "repro_decode_attention": [
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
-        _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
-        _C.c_int, _C.c_void_p,
+        _C.c_void_p, _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
+        _C.c_int, _C.c_int, _C.c_int, _C.c_void_p,
     ],
     # q, k, v, out, b, sq, sk, hq, hkv, d, causal, window, logit_cap,
     # q_offset, dtype, stream
@@ -77,9 +78,19 @@ def source_path(name: str) -> Path:
     return _PKG / name / "csrc" / f"{name}.cu"
 
 
+def build_digest(name: str) -> str:
+    """Hash of what a kernel's library is built from: every file under its
+    ``csrc/`` (the ``.cu`` and any header it includes) and the nvcc flags, so
+    an edited header or flag rebuilds it."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    csrc = source_path(name).parent
+    for f in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        h.update(f.relative_to(csrc).as_posix().encode() + b"\0" + f.read_bytes())
+    return h.hexdigest()[:12]
+
+
 def _library_path(name: str) -> Path:
-    digest = hashlib.sha256(source_path(name).read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{name}-{build_digest(name)}.so"
 
 
 def _nvcc() -> str:

@@ -15,15 +15,20 @@ from torch.fx.experimental.proxy_tensor import make_fx  # noqa: E402
 
 from repro_torch.kernels import library  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
+    SPLIT_LEN,
     decode_attention,
     decode_attention_cuda,
     decode_attention_ref,
+    decode_attention_split_ref,
+    split_plan,
 )
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_chunked,
     attention_dense,
     flash_attention,
     flash_attention_cuda,
+    packed_row,
+    tile_plan,
 )
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_cuda, rmsnorm_ref  # noqa: E402
 
@@ -105,6 +110,42 @@ class TestDecodeAttention:
                                    window=window)
         np.testing.assert_allclose(out.numpy(), ref, **TOL)
 
+    @pytest.mark.parametrize(
+        "b,s,hq,hkv,d,lens,window,split",
+        [
+            (2, 256, 8, 8, 32, [256, 1], None, 64),      # kv_len S and 1, rep 1
+            (1, 512, 16, 8, 64, [63], None, 64),         # the served cache in 64s: 7 empty splits
+            (1, 1024, 16, 8, 64, [1000], None, SPLIT_LEN),   # the kernel's split length
+            (2, 320, 8, 2, 32, [300, 100], 70, 32),      # rep 4, window edge inside a split
+            (1, 256, 16, 2, 32, [200], 40, 16),          # rep 8, splits empty before the window
+            (2, 512, 12, 4, 64, [512, 77], None, 128),   # rep 3
+            (1, 100, 4, 2, 32, [100], None, 48),         # S not a multiple of the split
+        ],
+    )
+    def test_split_ref_vs_pallas(self, jref, rng, b, s, hq, hkv, d, lens, window, split):
+        """The split-KV kernel's arithmetic (per-split m, l, acc, merged in
+        split order) against the Pallas kernel in interpret mode."""
+        q = rng.normal(0, 1, (b, hq, d)).astype(np.float32)
+        kc = rng.normal(0, 1, (b, s, hkv, d)).astype(np.float32)
+        vc = rng.normal(0, 1, (b, s, hkv, d)).astype(np.float32)
+        kv_len = np.asarray(lens, np.int32)
+        ref = np.asarray(jref["decode"](q, kc, vc, kv_len, window=window, interpret=True))
+        out = decode_attention_split_ref(_t(q), _t(kc), _t(vc), _t(kv_len, torch.int32),
+                                         window, split)
+        np.testing.assert_allclose(out.numpy(), ref, **TOL)
+
+    @pytest.mark.parametrize(
+        "s,split_len,n_split",
+        [(512, SPLIT_LEN, 1), (128, SPLIT_LEN, 1), (16384, SPLIT_LEN, 32), (1, SPLIT_LEN, 1),
+         (513, SPLIT_LEN, 2), (64, 64, 1), (65, 64, 2), (100, 32, 4), (16384, 64, 256)],
+    )
+    def test_split_plan(self, s, split_len, n_split):
+        """The grid's split count comes from the cache length S alone: the
+        served caches (512 and 128 positions) are one split, so the step is
+        one launch with no merge."""
+        assert SPLIT_LEN == 512
+        assert split_plan(s, split_len) == (split_len, n_split)
+
     def test_cpu_op_is_the_plain_version(self, rng):
         q = _t(rng.normal(0, 1, (2, 4, 32)))
         kc = _t(rng.normal(0, 1, (2, 20, 2, 32)))
@@ -166,6 +207,38 @@ class TestFlashAttention:
         )
 
 
+class TestFlashTilePlan:
+    """The wgmma route's packed rows and grid, and the route by dtype."""
+
+    @pytest.mark.parametrize(
+        "b,sq,hq,hkv,rows,grid",
+        [
+            (1, 32, 16, 8, 64, (1, 8, 1)),      # qwen3's prefill: one tile per KV head
+            (1, 64, 32, 32, 64, (1, 32, 1)),    # zamba2's stateless bucket: one per head
+            (1, 16, 32, 32, 16, (1, 32, 1)),    # zamba2's prefill: 48 masked rows
+            (1, 512, 16, 8, 1024, (16, 8, 1)),  # the long prefill
+            (2, 45, 16, 4, 180, (3, 4, 2)),     # rep 4, a ragged last tile of 52 rows
+            (1, 30, 16, 2, 240, (4, 2, 1)),     # rep 8
+        ],
+    )
+    def test_bf16_takes_wgmma(self, b, sq, hq, hkv, rows, grid):
+        assert tile_plan(b, sq, hq, hkv, torch.bfloat16) == dict(
+            route="wgmma", rows=rows, grid=grid)
+
+    def test_f32_takes_the_cuda_cores(self):
+        assert tile_plan(2, 45, 16, 4, torch.float32) == dict(
+            route="cuda_cores", rows=45, grid=(3, 32))
+        with pytest.raises(TypeError):
+            tile_plan(1, 32, 16, 8, torch.float16)
+
+    @pytest.mark.parametrize("sq,n_rep", [(32, 2), (45, 4), (30, 8), (16, 1)])
+    def test_packed_rows_cover_each_query_head_once(self, sq, n_rep):
+        pairs = [packed_row(p, n_rep) for p in range(sq * n_rep)]
+        assert sorted(pairs) == [(i, r) for i in range(sq) for r in range(n_rep)]
+        # the heads of one query are neighbouring rows, so a row's query is p // n_rep
+        assert all(i == p // n_rep for p, (i, _) in enumerate(pairs))
+
+
 def test_custom_ops_trace_as_one_node(rng):
     """make_fx keeps each kernel as a single graph node, as one pallas_call
     is one jaxpr equation."""
@@ -225,12 +298,41 @@ class TestCudaWrappersRaise:
             decode_attention_cuda(q, torch.zeros(1, 8, 2, 64), torch.zeros(1, 8, 2, 64),
                                   torch.ones(1, dtype=torch.int64), None)
 
+        with pytest.raises(ValueError):   # 16-byte vector loads need 16-byte alignment
+            qm = torch.zeros(16 * 64 + 1)[1:].view(1, 16, 64)
+            kv = torch.zeros(1, 8, 8, 64)
+            decode_attention_cuda(qm, kv, kv, torch.ones(1, dtype=torch.int32), None)
+        with pytest.raises(ValueError):   # no split length of 0
+            decode_attention_cuda(q, kv, kv, torch.ones(1, dtype=torch.int32), None, 0)
+
     def test_flash_attention(self):
         q = torch.zeros(1, 4, 2, 16)       # head dim 16 is not taken
         with pytest.raises(ValueError):
             flash_attention_cuda(q, q, q, True, None, None, 0)
         with pytest.raises(TypeError):
             library.dtype_code(torch.float16)
+        # the wgmma route copies 16-byte vectors: a misaligned bf16 view raises
+        qm = torch.zeros(4 * 2 * 64 + 1, dtype=torch.bfloat16)[1:].view(1, 4, 2, 64)
+        with pytest.raises(ValueError):
+            flash_attention_cuda(qm, qm, qm, True, None, None, 0)
+
+
+def test_library_name_hashes_every_csrc_file_and_the_flags(tmp_path, monkeypatch):
+    """A built library is named by the hash of all of its kernel's csrc/
+    files and the nvcc flags: an edited header, or another flag, rebuilds."""
+    csrc = tmp_path / "k" / "csrc"
+    csrc.mkdir(parents=True)
+    (csrc / "k.cu").write_text('#include "k.cuh"\n')
+    (csrc / "k.cuh").write_text("constexpr int kTile = 64;\n")
+    monkeypatch.setattr(library, "source_path", lambda name: csrc / f"{name}.cu")
+    first = library._library_path("k")
+    assert first == library._library_path("k")       # unchanged sources are reused
+    (csrc / "k.cuh").write_text("constexpr int kTile = 32;\n")
+    edited = library._library_path("k")
+    assert edited != first
+    monkeypatch.setattr(library, "NVCC_FLAGS", library.NVCC_FLAGS + ("-lineinfo",))
+    assert library._library_path("k") != edited
+    assert edited.parent == library.BUILD_DIR and edited.name.startswith("libk-")
 
 
 @pytest.mark.requires_cuda
@@ -252,7 +354,18 @@ def test_kernels_match_plain_on_card(rng, dtype):
     kv_len = torch.tensor([63], dtype=torch.int32, device="cuda")
     torch.testing.assert_close(decode_attention(q, kc, vc, kv_len),
                                decode_attention_ref(q, kc, vc, kv_len), rtol=tol, atol=tol)
+    # many splits, some wholly masked, a window edge inside a split, rep 4
+    q, kc, vc = r(2, 32, 64), r(2, 1000, 8, 64), r(2, 1000, 8, 64)
+    kv_len = torch.tensor([900, 1], dtype=torch.int32, device="cuda")
+    for window in (None, 100):
+        torch.testing.assert_close(decode_attention(q, kc, vc, kv_len, window=window),
+                                   decode_attention_ref(q, kc, vc, kv_len, window=window),
+                                   rtol=tol, atol=tol)
     q, k, v = r(2, 45, 4, 64), r(2, 77, 2, 64), r(2, 77, 2, 64)
     kw = dict(q_offset=32, window=16, logit_cap=30.0)
     torch.testing.assert_close(flash_attention(q, k, v, **kw), attention_dense(q, k, v, **kw),
+                               rtol=tol, atol=tol)
+    # packed GQA rows (rep 4) over two tiles, the last one ragged
+    q, k, v = r(1, 45, 16, 128), r(1, 45, 4, 128), r(1, 45, 4, 128)
+    torch.testing.assert_close(flash_attention(q, k, v), attention_dense(q, k, v),
                                rtol=tol, atol=tol)
