@@ -19,8 +19,10 @@ random weights from a seed:
   the bucket per token, so the gated-scan kernel runs inside the replay.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
-read just after.  Any failed check exits non-zero.  The last two lines of
-standard output are the kernel table and the device, as JSON.
+read just after; each path's replayed step is also timed as one CUDA graph,
+and the zamba2 steps' device time is read by kernel with ``torch.profiler``.
+Any failed check exits non-zero.  The last two lines of standard output are
+the kernel table and the device, as JSON.
 """
 from __future__ import annotations
 
@@ -56,6 +58,10 @@ HYBRID_LOGIT_REL_TOL = 0.10
 PROMPT_LEN, NEW_TOKENS, BUCKET = 32, 32, 512       # qwen3-0.6b
 Z_PROMPT, Z_NEW, Z_BUCKET, Z_STATELESS_BUCKET = 16, 16, 128, 64   # zamba2-1.2b
 LONG_KV = 16384     # the long decode row: K/V of 67 MB, more than the 50 MB L2
+# rmsnorm's served shapes (rows, d): qwen3's d_model at decode, its q- and
+# k-norm rows, zamba2's d_model and gated-norm width at decode, qwen3's
+# 32-token prefill and the stateless bucket's 64 rows of d_inner
+RMSNORM_SHAPES = [(1, 1024), (16, 128), (8, 128), (1, 2048), (1, 4096), (32, 1024), (64, 4096)]
 REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:26",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:94",
@@ -74,10 +80,8 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def graph_ms(fn, reps: int = 50) -> float:
-    """Device time of one call: ``reps`` calls captured in a CUDA graph,
-    replayed and timed with CUDA events (launch overhead of the host is not
-    in the number; L2 is warm, as it is for the main path's operands)."""
+def capture(fn, reps: int) -> "torch.cuda.CUDAGraph":
+    """``reps`` calls of ``fn`` captured in one CUDA graph, replayed once."""
     fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
@@ -86,6 +90,14 @@ def graph_ms(fn, reps: int = 50) -> float:
             fn()
     g.replay()
     torch.cuda.synchronize()
+    return g
+
+
+def graph_ms(fn, reps: int = 50) -> float:
+    """Device time of one call: ``reps`` calls captured in a CUDA graph,
+    replayed and timed with CUDA events (launch overhead of the host is not
+    in the number; L2 is warm, as it is for the main path's operands)."""
+    g = capture(fn, reps)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(5):
@@ -119,7 +131,7 @@ def close(out, ref, tol) -> float:
 def phase_kernels(dev):
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
     from repro_torch.kernels.flash_attention import attention_dense, flash_attention
-    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plan, rmsnorm_ref
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -127,30 +139,34 @@ def phase_kernels(dev):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
     rows, extra = {}, []
-    # ---- rmsnorm: decode (d_model, qk-norm heads), prefill, ragged, offset
+    # ---- rmsnorm: decode (d_model, qk-norm heads), prefill, ragged, offset;
+    # every route: warp (d <= 1024), block (2048, 4096, many rows), scalar
+    # (130, a row too long for the block route, and an unaligned view)
     for shape, offset in [((1, 1, 1024), 0.0), ((1, 1, 16, 128), 0.0),
                           ((1, 1, 8, 128), 0.0), ((1, 32, 1024), 0.0),
-                          ((3, 7, 96), 0.0), ((2, 64, 512), 1.0)]:
+                          ((3, 7, 96), 0.0), ((2, 64, 512), 1.0), ((1, 1, 2048), 0.0),
+                          ((1, 1, 4096), 1.0), ((1, 64, 4096), 0.0), ((1, 64, 2048), 0.0),
+                          ((5, 13, 130), 0.0), ((2, 3, 20000), 0.0)]:
         for dtype in (torch.float32, torch.bfloat16):
             x = randn(*shape, dtype=dtype)
             w = (randn(shape[-1], dtype=torch.float32) * 0.1 + 1.0).to(dtype)
             out = rmsnorm(x, w, eps=1e-6, offset=offset)
             torch.cuda.synchronize()
             err = close(out, rmsnorm_ref(x, w, 1e-6, offset), RMSNORM_TOL[dtype])
-            print(f"rmsnorm {shape} {dtype} offset={offset}: max|d| {err:.3g}"
-                  f" (tol {RMSNORM_TOL[dtype]})")
-    x = randn(1, 1, 1024, dtype=torch.bfloat16)
-    w = torch.ones(1024, dtype=torch.bfloat16, device=dev)
-    err = close(rmsnorm(x, w), rmsnorm_ref(x, w), RMSNORM_TOL[torch.bfloat16])
-    nbytes = 2 * x.numel() * 2 + w.numel() * 2
-    b_ms, b_by = bound_ms(nbytes, 4 * x.numel(), torch.bfloat16)
-    rows["rmsnorm"] = dict(
-        shape="x (1,1,1024) bf16", max_abs_err=err,
-        ms=graph_ms(lambda: rmsnorm(x, w)),
-        plain_ms=graph_ms(lambda: rmsnorm_ref(x, w)),
-        library_ms=graph_ms(lambda: F.rms_norm(x, (1024,), w, 1e-6)),
-        bound_ms=b_ms, bound_by=b_by,
-    )
+            print(f"rmsnorm {shape} {dtype} offset={offset} "
+                  f"({rmsnorm_plan(x.numel() // shape[-1], shape[-1], dtype)['route']}): "
+                  f"max|d| {err:.3g} (tol {RMSNORM_TOL[dtype]})")
+    for dtype in (torch.float32, torch.bfloat16):   # x 2 bytes past 16-byte alignment
+        x = randn(2 * 1024 + 8, dtype=dtype)[1:1 + 2 * 1024].view(2, 1024)
+        w = randn(1024, dtype=dtype)
+        err = close(rmsnorm(x, w), rmsnorm_ref(x, w), RMSNORM_TOL[dtype])
+        print(f"rmsnorm unaligned (2, 1024) {dtype} (scalar): max|d| {err:.3g}")
+    for shape in RMSNORM_SHAPES:
+        row = rmsnorm_row(randn, shape)
+        if shape == RMSNORM_SHAPES[0]:
+            rows["rmsnorm"] = row
+        else:
+            extra.append(dict(name="rmsnorm", **row))
 
     # ---- decode attention: the served step (S=512 bucket), ragged, window
     def dec_case(b, s, hq, hkv, d, lens, window, dtype):
@@ -311,6 +327,30 @@ def phase_kernels(dev):
     return rows
 
 
+def rmsnorm_row(randn, shape) -> dict:
+    """rmsnorm at one served shape in bf16: checked, then timed in turns
+    with ``F.rms_norm`` (kernel, library, library, kernel: the mean of each
+    pair) beside the plain version and the byte bound."""
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plan, rmsnorm_ref
+
+    n, d = shape
+    x = randn(*shape, dtype=torch.bfloat16)
+    w = (randn(d, dtype=torch.float32) * 0.1 + 1.0).to(torch.bfloat16)
+    err = close(rmsnorm(x, w), rmsnorm_ref(x, w), RMSNORM_TOL[torch.bfloat16])
+    turns = [graph_ms(lambda: rmsnorm(x, w)), graph_ms(lambda: F.rms_norm(x, (d,), w, 1e-6)),
+             graph_ms(lambda: F.rms_norm(x, (d,), w, 1e-6)), graph_ms(lambda: rmsnorm(x, w))]
+    b_ms, b_by = bound_ms(2 * x.numel() * 2 + w.numel() * 2, 4 * x.numel(), torch.bfloat16)
+    plan = rmsnorm_plan(n, d, torch.bfloat16)
+    print(f"rmsnorm turns x {shape} bf16 ({plan['route']}, {plan['threads']} threads, grid "
+          f"{plan['grid']}): kernel {turns[0] * 1e3:.2f} / {turns[3] * 1e3:.2f} us, "
+          f"F.rms_norm {turns[1] * 1e3:.2f} / {turns[2] * 1e3:.2f} us")
+    return dict(
+        shape=f"x {shape} bf16 ({plan['route']})", max_abs_err=err,
+        ms=(turns[0] + turns[3]) / 2, plain_ms=graph_ms(lambda: rmsnorm_ref(x, w)),
+        library_ms=(turns[1] + turns[2]) / 2, bound_ms=b_ms, bound_by=b_by,
+    )
+
+
 def split_sweep(dec_case) -> None:
     """Decode attention's time at split lengths around the wrapper's
     ``SPLIT_LEN``, at the served shapes and the long cache (printed only)."""
@@ -431,13 +471,17 @@ def scan_cost(b, s, h, p, g, n, chunk, dtype) -> tuple:
 def phase_scan(dev, randn):
     """The gated scan against its plain version: zamba2's prefill shapes
     (S = 16 and 32, chunk = S), the stateless bucket (S = 64), a padded
-    multi-chunk sequence (S = 300, chunk 128) and the mLSTM form (G = H, no
-    D) at a ragged P, in f32 and bf16; timed at the stateless bucket."""
-    from repro_torch.kernels.ssm_scan import gated_scan, gated_scan_padded
+    multi-chunk sequence (S = 300, chunk 128), a ragged last chunk (S = 77,
+    chunk 32), the mLSTM form (G = H, no D) at a ragged P, N and P no
+    multiple of 8, and an initial state, in f32 and bf16; timed at S = 64
+    (the kernels line), 16 and 300 in bf16 and at S = 64 in f32."""
+    from repro_torch.kernels.ssm_scan import gated_scan, gated_scan_padded, scan_plan
 
     cases = [((1, 16, 64, 64, 1, 64), 128, False), ((1, 32, 64, 64, 1, 64), 128, False),
              ((1, Z_STATELESS_BUCKET, 64, 64, 1, 64), 128, False),
-             ((1, 300, 64, 64, 1, 64), 128, False), ((2, 77, 8, 33, 8, 64), 32, True)]
+             ((1, 300, 64, 64, 1, 64), 128, False), ((2, 77, 8, 33, 8, 64), 32, True),
+             ((1, 77, 4, 64, 1, 64), 32, False), ((2, 40, 8, 33, 8, 20), 40, True),
+             ((1, 200, 8, 130, 2, 128), 100, False)]
     for shape, chunk, mlstm in cases:
         for dtype in (torch.float32, torch.bfloat16):
             args = scan_inputs(randn, *shape, dtype, mlstm=mlstm)
@@ -446,20 +490,31 @@ def phase_scan(dev, randn):
             y_r, h_r = gated_scan_padded(*args, None, chunk)
             ey = close(y, y_r, TOL[dtype])
             eh = close(h, h_r, TOL[dtype])
-            print(f"gated_scan {shape} chunk {chunk} {'mlstm' if mlstm else 'mamba2'} {dtype}: "
-                  f"max|d| y {ey:.3g}, h {eh:.3g} (tol {TOL[dtype]})")
+            route = scan_plan(*shape, min(chunk, shape[1]), dtype)["route"]
+            print(f"gated_scan {shape} chunk {chunk} {'mlstm' if mlstm else 'mamba2'} {dtype} "
+                  f"({route}): max|d| y {ey:.3g}, h {eh:.3g} (tol {TOL[dtype]})")
+    for dtype in (torch.float32, torch.bfloat16):   # from a given state, over 3 chunks
+        x, ld, gi, bm, cm, d = scan_inputs(randn, 1, 70, 8, 64, 2, 64, dtype)
+        h0 = randn(1, 8, 64, 64, dtype=torch.float32)
+        y, h = gated_scan(x, ld, gi, bm, cm, d, chunk=32, h0=h0)
+        y_r, h_r = gated_scan_padded(x, ld, gi, bm, cm, d, h0, 32)
+        print(f"gated_scan h0 (1, 70, 8, 64, 2, 64) chunk 32 {dtype}: max|d| "
+              f"y {close(y, y_r, TOL[dtype]):.3g}, h {close(h, h_r, TOL[dtype]):.3g}")
     timed = []
-    for s in (Z_STATELESS_BUCKET, Z_PROMPT):
+    for s, dtype in [(Z_STATELESS_BUCKET, torch.bfloat16), (Z_PROMPT, torch.bfloat16),
+                     (300, torch.bfloat16), (Z_STATELESS_BUCKET, torch.float32)]:
         shape = (1, s, 64, 64, 1, 64)
-        args = scan_inputs(randn, *shape, torch.bfloat16)
+        args = scan_inputs(randn, *shape, dtype)
         y, h = gated_scan(*args)
         y_r, h_r = gated_scan_padded(*args, None, 128)
-        err = max(close(y, y_r, TOL[torch.bfloat16]), close(h, h_r, TOL[torch.bfloat16]))
-        b_ms, b_by = bound_ms(*scan_cost(*shape, min(128, s), torch.bfloat16), torch.bfloat16)
+        ey, eh = close(y, y_r, TOL[dtype]), close(h, h_r, TOL[dtype])
+        b_ms, b_by = bound_ms(*scan_cost(*shape, min(128, s), dtype), dtype)
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        print(f"gated_scan timed x {shape[:4]} {name}: max|d| y {ey:.3g}, h {eh:.3g}")
         timed.append(dict(
             name="ssm_scan",
-            shape=f"x (1,{s},64,64), B/C (1,{s},1,64) bf16, chunk {min(128, s)}",
-            max_abs_err=err,
+            shape=f"x (1,{s},64,64), B/C (1,{s},1,64) {name}, chunk {min(128, s)}",
+            max_abs_err=max(ey, eh),
             ms=graph_ms(lambda: gated_scan(*args)),
             plain_ms=graph_ms(lambda: gated_scan_padded(*args, None, 128)),
             library_ms=None,    # no single PyTorch call computes this scan
@@ -626,21 +681,33 @@ def check_main_path(m) -> None:
           f"{t.mean_ms('replaying', skip=1):.1f} ms (steady, first replay excluded)")
 
 
-def measure_replay_step(m, dev) -> dict:
+def measure_replay_step(m, dev, *, profile: bool = False) -> dict:
     """Split a replayed step: the replay program alone, dispatched eagerly
     (host + device), and captured once in a CUDA graph (device only); the
-    rest of a replayed step's wall time is the host's interception."""
+    rest of a replayed step's wall time is the host's interception.  The
+    step gets the wire a served token uploads: the stateful app's token and
+    position, or the stateless app's whole bucket and its length.  With
+    ``profile``, ``torch.profiler`` reads the graph-replayed step's device
+    time by kernel."""
     sess = m["sess"]
     bound = sess.server.ctx.replay
     env = sess.server.ctx.env
     params_flat = [env[a] for a in bound.param_addrs]
-    wire = [torch.zeros((1, 1), dtype=torch.int32, device=dev),
-            torch.tensor(m["prompt"].shape[1] + m["new_tokens"] - 1, dtype=torch.int32,
-                         device=dev)]
-    state = list(bound.carried_state)
+    cur = m["prompt"].shape[1] + m["new_tokens"] - 1
+    if m["stateful"]:
+        wire = [torch.zeros((1, 1), dtype=torch.int32, device=dev),
+                torch.tensor(cur, dtype=torch.int32, device=dev)]
+        state = list(bound.carried_state)
 
-    def step():
-        bound.program.step_fn(params_flat, wire, state)
+        def step():
+            bound.program.step_fn(params_flat, wire, state)
+    else:
+        tokens = np.zeros((1, m["bucket"]), np.int32)
+        tokens[:, :cur] = np.concatenate([m["prompt"], m["r_srv"].tokens], axis=1)[:, :cur]
+        wire = [torch.from_numpy(tokens).to(dev), torch.tensor(cur, dtype=torch.int32, device=dev)]
+
+        def step():
+            bound.program.fn(params_flat, wire)
 
     step()
     torch.cuda.synchronize()
@@ -652,11 +719,44 @@ def measure_replay_step(m, dev) -> dict:
     device_ms = graph_ms(step, reps=5)
     wall_ms = m["timer"].mean_ms("replaying", skip=1)
     weight_bytes = sum(t.numel() * t.element_size() for t in params_flat)
-    print(f"{m['name']} replayed step: wall {wall_ms:.1f} ms = replay program {eager_ms:.1f} ms "
-          f"(eager dispatch; {device_ms:.2f} ms of it as one CUDA graph) + "
-          f"interception {wall_ms - eager_ms:.1f} ms; weight-read bound "
+    print(f"{m['name']} {'stateful' if m['stateful'] else 'stateless'} replayed step: wall "
+          f"{wall_ms:.1f} ms = replay program {eager_ms:.1f} ms (eager dispatch; "
+          f"{device_ms:.2f} ms of it as one CUDA graph) + interception "
+          f"{wall_ms - eager_ms:.1f} ms; weight-read bound "
           f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms ({weight_bytes / 1e9:.3f} GB)")
+    if profile:
+        profile_step(m, step)
     return dict(wall_ms=wall_ms, eager_ms=eager_ms, device_ms=device_ms)
+
+
+def profile_step(m, step, reps: int = 3) -> None:
+    """Device time of one graph-replayed step by kernel name, from
+    ``torch.profiler`` over ``reps`` replays: the top 10 kernels, and the
+    shares of rmsnorm and the scan (printed only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = capture(step, 1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            g.replay()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+    kind = "stateful" if m["stateful"] else "stateless"
+    if not kernels:
+        print(f"{m['name']} {kind} step profile: no device time in the trace (not measured)")
+        return
+    total = sum(e.device_time_total for e in kernels) / reps
+    print(f"{m['name']} {kind} step profile (graph replay, {reps} steps): device time "
+          f"{total / 1e3:.3f} ms a step; {sum(e.count for e in kernels)} kernel records")
+    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:10]:
+        t = e.device_time_total / reps
+        print(f"  {t:9.1f} us {100 * t / total:5.1f}%  {e.count:5d} records  {e.key[:90]}")
+    for label, keys in (("rmsnorm", ("rmsnorm_",)), ("gated scan", ("ssd_kernel", "ssd_mma_"))):
+        t = sum(e.device_time_total for e in kernels if any(k in e.key for k in keys)) / reps
+        n = sum(e.count for e in kernels if any(k in e.key for k in keys))
+        print(f"  share of {label}: {t:.1f} us a step ({n} records in {reps} steps), "
+              f"{100 * t / total:.1f}% of the step")
 
 
 def prefill_and_decode_logits(m, dev, params, cfg) -> tuple:
@@ -738,6 +838,9 @@ def main() -> None:
     hgmma = sass_count(str(paths["flash_attention"]), "HGMMA")
     print(f"flash_attention SASS: {hgmma} HGMMA instructions (the bf16 route's wgmma)")
     check(hgmma > 0, "flash_attention's library has no HGMMA: the tensor cores are not used")
+    hmma = sass_count(str(paths["ssm_scan"]), "HMMA")
+    print(f"ssm_scan SASS: {hmma} HMMA instructions (the bf16 route's mma.sync)")
+    check(hmma > 0, "ssm_scan's library has no HMMA: the tensor cores are not used")
     print(f"[phase 1] kernels built in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -764,7 +867,7 @@ def main() -> None:
         library, "phase 4 zamba2-1.2b stateful", attn + ("ssm_scan",),
         lambda: phase_main_path(dev, "zamba2-1.2b", Z_PROMPT, Z_NEW, Z_BUCKET))
     check_main_path(m)
-    measure_replay_step(m, dev)
+    measure_replay_step(m, dev, profile=True)
     check_prefill_vs_decode(m, dev, HYBRID_LOGIT_REL_TOL)
     params = m["params"]
     del m
@@ -774,6 +877,7 @@ def main() -> None:
         lambda: phase_main_path(dev, "zamba2-1.2b", Z_PROMPT, Z_NEW, Z_STATELESS_BUCKET,
                                 stateful=False, params=params))
     check_main_path(m)
+    measure_replay_step(m, dev, profile=True)
     del m, params
     print(f"launches by path: {by_path}")
 

@@ -18,10 +18,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 KERNELS = ("rmsnorm", "decode_attention", "flash_attention", "ssm_scan")
 
@@ -36,10 +37,12 @@ NVCC_FLAGS = (
 # C signatures: every entry point returns cudaGetLastError() as an int
 _C = ctypes
 _ARGTYPES = {
-    # x, scale, y, rows, d, eps, offset, dtype, stream
+    # x, scale, y, rows, d, eps, offset, dtype, route, threads,
+    # rows_per_block, grid, stream (the launch of rmsnorm_plan)
     "repro_rmsnorm": [
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_longlong, _C.c_int,
-        _C.c_float, _C.c_float, _C.c_int, _C.c_void_p,
+        _C.c_float, _C.c_float, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
+        _C.c_longlong, _C.c_void_p,
     ],
     # q, k, v, kv_len, out, part (f32 split scratch, or null), b, hq, hkv, s,
     # d, window, split_len, dtype, stream
@@ -56,12 +59,13 @@ _ARGTYPES = {
         _C.c_int, _C.c_int, _C.c_float, _C.c_int, _C.c_int, _C.c_void_p,
     ],
     # x, ld, gi, B, C, D (or null), h0 (or null), y, h_out, b, s, h, p, g, n,
-    # chunk, dtype, stream: x, B, C and y in the working dtype, the rest f32
+    # chunk, dtype, route, warps, smem bytes, vec, stream: x, B, C and y in
+    # the working dtype, the rest f32; route, warps and smem from scan_plan
     "repro_ssm_scan": [
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
         _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
-        _C.c_int, _C.c_void_p,
+        _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_void_p,
     ],
 }
 
@@ -108,7 +112,8 @@ def _nvcc() -> str:
 def build_all(verbose: bool = False) -> Dict[str, Path]:
     """Compile every kernel library that is not built yet, one ``nvcc`` per
     source, all running at once.  Returns the library path of each kernel.
-    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report."""
+    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report, one
+    line per kernel function."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {name: _library_path(name) for name in KERNELS}
     procs = {}
@@ -129,11 +134,36 @@ def build_all(verbose: bool = False) -> Dict[str, Path]:
             failed.append(f"{name}:\n{log}")
             continue
         if verbose and log:
-            print(f"[nvcc {name}]\n{log}")
+            print(f"[nvcc {name}]\n" + "\n".join(ptxas_summary(log)))
         os.replace(tmp, paths[name])   # atomic: a reader never sees half a file
     if failed:
         raise RuntimeError("kernel build failed\n" + "\n".join(failed))
     return paths
+
+
+def ptxas_summary(log: str) -> List[str]:
+    """One line per kernel function of an ``-Xptxas -v`` report: its name
+    (demangled where ``c++filt`` is installed), then its registers, barriers
+    and shared memory, then its stack frame and spills."""
+    funcs, used, spills = [], {}, {}
+    current = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = m.group(1)
+            funcs.append(current)
+        elif current and "spill stores" in line:
+            spills[current] = line.strip()
+        elif current and "Used" in line and "registers" in line:
+            used[current] = line.split(":", 1)[1].strip()
+    names = funcs
+    cxxfilt = shutil.which("c++filt")
+    if cxxfilt and funcs:
+        out = subprocess.run([cxxfilt], input="\n".join(funcs), capture_output=True, text=True)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(funcs):
+            names = [n.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+                     for n in out.stdout.splitlines()]
+    return [f"  {n}: {used.get(f, '?')}; {spills.get(f, '?')}" for n, f in zip(names, funcs)]
 
 
 def entry(name: str):

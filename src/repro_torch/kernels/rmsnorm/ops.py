@@ -6,10 +6,45 @@ node, just as one ``pallas_call`` is one jaxpr equation in the reference.
 """
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 
 from repro_torch.kernels import library
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+VEC_BYTES = 16          # one vector load or store per lane
+WARP_ROW_MAX = 1024     # the warp route's longest row
+ROWS_PER_BLOCK = 4      # warps (rows) per block on the warp route
+BLOCK_THREADS_MAX = 512
+VECTORS_MAX = 4         # 16-byte vectors a thread of the block route holds
+ROUTE_CODES = {"scalar": 0, "warp": 1, "block": 2}
+
+
+def rmsnorm_plan(
+    rows: int, d: int, dtype: torch.dtype, *, aligned: bool = True
+) -> Dict[str, object]:
+    """The launch the kernel makes for ``rows`` rows of ``d``: its route,
+    threads per block, rows per block and grid.  Rows whose length is a
+    multiple of the 16-byte vector, on 16-byte aligned pointers
+    (``aligned``), are held in registers: one warp per row (up to
+    ``ROWS_PER_BLOCK`` rows a block) for d <= 1024, else one block per row
+    with one to ``VECTORS_MAX`` vectors a thread, threads for two each (more
+    would spill registers at 512 threads).
+    Anything else takes the scalar route, one block per row."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"kernels take float32 or bfloat16, not {dtype}")
+    per_vec = VEC_BYTES // (4 if dtype == torch.float32 else 2)
+    nvec = d // per_vec
+    vectorised = aligned and d > 0 and d % per_vec == 0
+    if vectorised and d <= WARP_ROW_MAX:
+        rpb = max(1, min(ROWS_PER_BLOCK, rows))
+        return dict(route="warp", threads=32 * rpb, rows_per_block=rpb, grid=-(-rows // rpb))
+    if vectorised and nvec <= VECTORS_MAX * BLOCK_THREADS_MAX:
+        threads = min(BLOCK_THREADS_MAX, 32 * -(-nvec // 64))
+        return dict(route="block", threads=threads, rows_per_block=1, grid=rows)
+    threads = 256 if d >= 256 else 32 * -(-d // 32)
+    return dict(route="scalar", threads=threads, rows_per_block=1, grid=rows)
 
 
 def rmsnorm_cuda(
@@ -30,12 +65,15 @@ def rmsnorm_cuda(
     rows = x.numel() // d if d else 0
     if rows == 0:
         return y
+    aligned = all(t.data_ptr() % VEC_BYTES == 0 for t in (x, scale, y))
+    plan = rmsnorm_plan(rows, d, x.dtype, aligned=aligned)
     fn = library.entry("rmsnorm")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     library.LAUNCHES["rmsnorm"] += 1
     library.check("rmsnorm", fn(
         x.data_ptr(), scale.data_ptr(), y.data_ptr(), rows, d,
-        float(eps), float(offset), dtype, stream,
+        float(eps), float(offset), dtype, ROUTE_CODES[plan["route"]], plan["threads"],
+        plan["rows_per_block"], plan["grid"], stream,
     ))
     return y
 
@@ -62,4 +100,4 @@ def rmsnorm(
     return rmsnorm_op(x, scale, float(eps), float(offset))
 
 
-__all__ = ["rmsnorm", "rmsnorm_ref", "rmsnorm_cuda"]
+__all__ = ["rmsnorm", "rmsnorm_ref", "rmsnorm_cuda", "rmsnorm_plan"]

@@ -18,42 +18,137 @@
 // input byte at Q = 64: below the card's ~295 flops per byte, so the bound
 // is bytes.  At the short prompts and buckets the served path gives it
 // (S = 16 .. 64) the largest single transfer is the f32 final state
-// (H N P 4 = 1 MB per batch row), more than x and y together.
+// (H N P 4 = 1 MB per batch row), more than x and y together; both bounds
+// (0.4-0.6 us) lie below one launch's floor of about 1.1 us (an empty launch
+// of this grid from a CUDA graph, tools/scan_variants.py).
 //
-// Design.  The TPU kernel carries h in VMEM along a sequential chunk grid
-// axis; blocks on the GPU run in parallel with nothing carried between them.
-// Here one block of 8 warps serves one (batch, head, 32-column tile of P)
-// and loops over the chunks itself, keeping its N x 32 slice of the state in
-// shared memory the whole time: the state never goes to device memory
-// between chunks, and is written once at the end.  Columns of h evolve
-// independently given B, C, ld and gi, so P tiles across blocks (a ragged P
-// is masked), which also doubles the blocks at P = 64 (128 blocks at batch 1
-// on 132 SMs).  Per chunk the block stages x (Q x 32), B (Q x N, rows padded
-// by one float against bank conflicts), C (Q x N), the cumulative sum of ld
-// (one warp scan) and the decay factors in shared memory, all as f32.  The
-// decay-masked scores are formed one row at a time: the warp that owns row
-// i computes C_i.B_j for its lanes' j <= i only (so exp(cs_i - cs_j) is only
-// taken where it is <= 1 and cannot overflow), parks them in a per-warp row
-// of shared memory, and then each lane sums its own column of y.  A ragged
-// last chunk is masked in the kernel (its missing steps are identity steps:
-// ld 0, gi 0), so S needs no padding.  The products run on the CUDA cores:
-// wgmma tiles and a chunk-parallel split (chunk states, state passing,
-// outputs) are the later, fast version.
+// The TPU kernel carries h in VMEM along a sequential chunk grid axis;
+// blocks on the GPU run in parallel with nothing carried between them, so
+// each block loops over the chunks itself with its slice of the state in
+// shared memory, written once at the end.  A ragged last chunk is masked in
+// the kernel (its missing steps are identity steps: ld 0, gi 0), so S needs
+// no padding.  Columns of h evolve independently given B, C, ld and gi, so
+// P tiles across blocks (a ragged P is masked).  The dtype picks the route
+// (ops.py:scan_plan):
+//
+// f32, the CUDA cores (ssd_kernel): one block of 8 warps per (batch, head,
+// 32 columns of P).  Per chunk it stages x (Q x 32), B (Q x N, rows padded by
+// one float against bank conflicts), C, the cumulative sum of ld and the
+// decay factors in shared memory as f32.  The decay-masked scores are formed
+// one row at a time: the warp that owns row i computes C_i.B_j for its
+// lanes' j <= i only (so exp(cs_i - cs_j) is only taken where it is <= 1 and
+// cannot overflow), parks them in a per-warp row of shared memory, and then
+// each lane sums its own column of y.  It holds the f32 tolerance (2e-4),
+// which no bf16 product can.
+//
+// bf16, the tensor cores (ssd_mma_kernel): one block per (batch, head, 32
+// columns of P); 4 warps for Q <= 64 and 8 for Q <= 128, warp w owning the
+// 16 rows [16w, 16w + 16) of the chunk.  At P = 64 the two blocks of a head
+// each form the scores C.B^T: that was measured faster than one block per
+// head, and 16 columns slower again (tools/scan_variants.py, PERF.md): with
+// one block of 4 warps per SM every latency is exposed, and half the
+// columns halve the two longest chains.
+// Per chunk x (Q x 32), B and C (Q x N) are copied as bf16 into shared
+// memory rows padded by 16 bytes (so ldmatrix's eight row addresses fall in
+// distinct banks) with 16-byte cp.async where P and N are multiples of 8
+// and the pointers 16-byte aligned (else scalar loads); ld and gi arrive as
+// f32 through the same one-warp shuffle scan, their loads issued before the
+// copies.  All three products run on mma.sync.m16n8k16 (bf16 in, f32
+// accumulate), fed by ldmatrix:
+//   S = C.B^T    per k16 step of N the warp's C strip as A, B rows as the
+//                col-major B operand, for all column blocks on or below the
+//                strip's diagonal at once (blocks wholly above it are
+//                skipped; the blocks' chains overlap); exp(cs_i - cs_j) gi_j
+//                is applied on the accumulator fragments with j > i zeroed
+//                before the exponent, so no exponent is positive;
+//   Y = S.X      S's accumulators are the A operand (the m16n8 accumulator
+//                layout of two column tiles is the m16n8k16 A layout once
+//                packed to bf16), X through ldmatrix.trans; Y starts as
+//                exp(cs_i) C.h_prev, formed in the same k16 steps as S from
+//                the f32 state (skipped while h is zero: the first chunk
+//                without h0), and D x_i is added after; y goes back through
+//                shared memory as 16-byte stores;
+//   h update     h <- exp(cs_end) h + (B o w)^T X with w_j = exp(cs_end -
+//                cs_j) gi_j: B through ldmatrix.trans as the A operand,
+//                scaled by w in registers once per k16 step and used for all
+//                of the warp's column pairs; each warp owns 16-row tiles of
+//                the N x 32 state, which stays f32 in shared memory for the
+//                whole loop.  While h is zero no barrier separates this from
+//                the y rows, so warps with fewer rows start on it early.
+// Exponents are ex2.approx.ftz (denormal results flushed): the accurate
+// expf's branch for denormal results costs more than a microsecond a
+// launch (tools/scan_variants.py).
+// Precision: S, B o w and h are f32 intermediates that enter bf16 products.
+// Rounded once to bf16 they miss the 2e-2 tolerance (max |d| / tol 1.65 at
+// zamba2's head shape; tests/test_torch_ssm_scan.py), so each is carried as
+// two bf16 terms, t = hi + lo (hi = bf16(t), lo = bf16(t - hi)), and its
+// product runs twice: 16 significant bits, one more mma per product.
+// ref.py:gated_scan_mma_ref is the plain mirror of these roundings.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTileP = 32;      // state columns per block (one per lane)
 constexpr int kMaxChunk = 128;  // Q
 constexpr int kMaxState = 128;  // N
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+constexpr int kPer = kMaxChunk / 32;  // steps per lane of the chunk's scan
+
+// One warp's loads of a chunk's log-decays and input scales: lane l holds
+// steps l * kPer .. l * kPer + kPer - 1; step j reads ld[off0 + j * stride];
+// steps from `valid` on are identity steps (ld 0, gi 0).
+__device__ __forceinline__ void chunk_load(const float* __restrict__ ld,
+                                           const float* __restrict__ gi, long long off0,
+                                           int stride, int valid, int lane, float (&ldv)[kPer],
+                                           float (&giv)[kPer]) {
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) {
+    const int j = lane * kPer + e;
+    ldv[e] = giv[e] = 0.f;
+    if (j < valid) {
+      const long long off = off0 + static_cast<long long>(j) * stride;
+      ldv[e] = ld[off];
+      giv[e] = gi[off];
+    }
+  }
+}
+
+// The inclusive cumulative sum of the loaded log-decays into cs[0, rows),
+// and the input scales into gis[0, rows): each lane sums its run of steps,
+// then the lanes' totals are scanned with shuffles.
+__device__ __forceinline__ void chunk_scan(const float (&ldv)[kPer], const float (&giv)[kPer],
+                                           int rows, float* cs, float* gis, int lane) {
+  float run[kPer];
+  float tot = 0.f;
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) {
+    tot += ldv[e];
+    run[e] = tot;
+  }
+  float incl = tot;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float up = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += up;
+  }
+  const float before = incl - tot;
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) {
+    const int j = lane * kPer + e;
+    if (j < rows) {
+      cs[j] = before + run[e];
+      gis[j] = giv[e];
+    }
+  }
+}
+
+// ------------------------------------------------------------------------
+// f32: the CUDA cores
+// ------------------------------------------------------------------------
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kTileP = 32;      // state columns per block (one per lane)
 
 // floats of dynamic shared memory for a chunk of q steps and state size n
 __host__ __device__ constexpr int smem_floats(int q, int n) {
@@ -65,11 +160,11 @@ __host__ __device__ constexpr int smem_floats(int q, int n) {
        + kWarps * q;       // sw: one score row per warp
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-ssd_kernel(const T* __restrict__ x, const float* __restrict__ ld, const float* __restrict__ gi,
-           const T* __restrict__ bmat, const T* __restrict__ cmat, const float* __restrict__ dvec,
-           const float* __restrict__ h0, T* __restrict__ y, float* __restrict__ hout, int s,
+ssd_kernel(const float* __restrict__ x, const float* __restrict__ ld,
+           const float* __restrict__ gi, const float* __restrict__ bmat,
+           const float* __restrict__ cmat, const float* __restrict__ dvec,
+           const float* __restrict__ h0, float* __restrict__ y, float* __restrict__ hout, int s,
            int nh, int p, int ng, int n, int q) {
   extern __shared__ float smem[];
   float* hs = smem;
@@ -111,7 +206,7 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ ld, const float* _
       const int j = idx / kTileP;
       const int pp = p0 + idx % kTileP;
       xs[idx] = (j < valid && pp < p)
-          ? to_f(x[((static_cast<long long>(b) * s + t0 + j) * nh + head) * p + pp])
+          ? x[((static_cast<long long>(b) * s + t0 + j) * nh + head) * p + pp]
           : 0.f;
     }
     for (int idx = tid; idx < q * n; idx += kThreads) {
@@ -120,44 +215,17 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ ld, const float* _
       float bv = 0.f, cv = 0.f;
       if (j < valid) {
         const long long off = ((static_cast<long long>(b) * s + t0 + j) * ng + grp) * n + nn;
-        bv = to_f(bmat[off]);
-        cv = to_f(cmat[off]);
+        bv = bmat[off];
+        cv = cmat[off];
       }
       bs[j * (n + 1) + nn] = bv;
       cm[idx] = cv;
     }
     if (warp == 0) {
-      // inclusive cumulative sum of ld over the chunk: each lane sums a run of
-      // consecutive steps, then the lanes' totals are scanned with shuffles
-      constexpr int kPer = kMaxChunk / 32;
-      float run[kPer];
-      float tot = 0.f;
-#pragma unroll
-      for (int e = 0; e < kPer; ++e) {
-        const int j = lane * kPer + e;
-        float v = 0.f;
-        if (j < valid) {
-          const long long off = (static_cast<long long>(b) * s + t0 + j) * nh + head;
-          v = ld[off];
-          gis[j] = gi[off];
-        } else if (j < q) {
-          gis[j] = 0.f;
-        }
-        tot += v;
-        run[e] = tot;
-      }
-      float incl = tot;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float up = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += up;
-      }
-      const float before = incl - tot;
-#pragma unroll
-      for (int e = 0; e < kPer; ++e) {
-        const int j = lane * kPer + e;
-        if (j < q) cs[j] = before + run[e];
-      }
+      float ldv[kPer], giv[kPer];
+      chunk_load(ld, gi, (static_cast<long long>(b) * s + t0) * nh + head, nh, valid, lane, ldv,
+                 giv);
+      chunk_scan(ldv, giv, q, cs, gis, lane);
     }
     __syncthreads();
     const float cs_end = cs[q - 1];
@@ -187,7 +255,7 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ ld, const float* _
       float off = 0.f;
       for (int nn = 0; nn < n; ++nn) off += ci[nn] * hs[nn * kTileP + lane];
       acc += ecs[i] * off + dh * xs[i * kTileP + lane];
-      if (col_ok) store(y + ((static_cast<long long>(b) * s + t0 + i) * nh + head) * p + col, acc);
+      if (col_ok) y[((static_cast<long long>(b) * s + t0 + i) * nh + head) * p + col] = acc;
       __syncwarp();  // the row buffer is free for the warp's next row
     }
     __syncthreads();  // every row has read the chunk's entering state
@@ -209,23 +277,456 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ ld, const float* _
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const float* ld, const float* gi, const void* bmat,
-                   const void* cmat, const float* dvec, const float* h0, void* y, float* hout,
-                   int b, int s, int nh, int p, int ng, int n, int q, cudaStream_t stream) {
+// ------------------------------------------------------------------------
+// bf16: the tensor cores
+// ------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaTileP = 32;           // state columns per block
+constexpr int kLdx = kMmaTileP + 8;     // bf16 per shared row of x and y
+constexpr int kLdh = kMmaTileP + 4;     // floats per shared row of the state
+
+__host__ __device__ constexpr int round16(int v) { return (v + 15) / 16 * 16; }
+
+// The mma route's dynamic shared memory for a chunk of q steps and state
+// size n, as byte offsets (ops.py:scan_plan computes the same total).
+struct MmaSmem {
+  int qp, np, ldn;                  // padded chunk rows and state rows; bf16 per B/C row
+  int xs, ys, bs, cm, hs, cs, gis;  // offsets
+  int bytes;
+};
+
+__host__ __device__ inline MmaSmem mma_smem(int q, int n) {
+  MmaSmem m{};
+  m.qp = round16(q);
+  m.np = round16(n);
+  m.ldn = m.np + 8;
+  int o = 0;
+  m.xs = o; o += m.qp * kLdx * 2;   // x chunk (Qp, 32) bf16
+  m.ys = o; o += m.qp * kLdx * 2;   // y chunk (Qp, 32) bf16, stored 16 bytes at a time
+  m.bs = o; o += m.qp * m.ldn * 2;  // B chunk (Qp, Np) bf16
+  m.cm = o; o += m.qp * m.ldn * 2;  // C chunk (Qp, Np) bf16
+  m.hs = o; o += m.np * kLdh * 4;   // state (Np, 32) f32
+  m.cs = o; o += m.qp * 4;          // cumulative log-decay
+  m.gis = o; o += m.qp * 4;         // input scales
+  m.bytes = o;
+  return m;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a b on one m16n8k16 tile, bf16 in, f32 accumulate (not volatile: the
+// compiler may interleave independent products)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// e^x as 2^(x log2 e) on the special-function unit, denormal results
+// flushed to zero: no branch for them (the route's exponents are <= 0, and
+// a result below 2^-126 is below any tolerance)
+__device__ __forceinline__ float exp_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
+
+// (a, b) as two bf16 terms each: hi = bf16(.), lo = bf16(. - hi), packed in
+// pairs (a in the low half, as the fragments want the lower index there)
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = pack_bf16(h);
+  lo = pack_bf16(__floats2bfloat162_rn(a - hf.x, b - hf.y));
+}
+
+// d += (a_hi + a_lo) b
+__device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4], uint32_t b0, uint32_t b1) {
+  mma_bf16(d, ah, b0, b1);
+  mma_bf16(d, al, b0, b1);
+}
+
+template <int kWarpsT>
+__global__ void __launch_bounds__(kWarpsT * 32)
+ssd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ ld,
+               const float* __restrict__ gi, const bf16* __restrict__ bmat,
+               const bf16* __restrict__ cmat, const float* __restrict__ dvec,
+               const float* __restrict__ h0, bf16* __restrict__ y, float* __restrict__ hout,
+               int s, int nh, int p, int ng, int n, int q, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const MmaSmem m = mma_smem(q, n);
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw + m.xs);
+  bf16* ys = reinterpret_cast<bf16*>(smem_raw + m.ys);
+  bf16* bs = reinterpret_cast<bf16*>(smem_raw + m.bs);
+  bf16* cm = reinterpret_cast<bf16*>(smem_raw + m.cm);
+  float* hs = reinterpret_cast<float*>(smem_raw + m.hs);
+  float* cs = reinterpret_cast<float*>(smem_raw + m.cs);
+  float* gis = reinterpret_cast<float*>(smem_raw + m.gis);
+  const int qp = m.qp, np = m.np, ldn = m.ldn;
+
+  const int p0 = blockIdx.x * kMmaTileP;
+  const int head = blockIdx.y;
+  const int b = blockIdx.z;
+  const int grp = head / (nh / ng);
+  const int tid = threadIdx.x;
+  constexpr int nthreads = kWarpsT * 32;
+  const int lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);  // uniform in the warp
+  constexpr int nwarps = kWarpsT;
+  const int g8 = lane >> 2;         // fragment row (and B column) of this lane
+  const int t4 = lane & 3;          // fragment column pair
+  const int pw = min(kMmaTileP, p - p0);   // live state columns of this block
+  const int npair = (pw + 15) / 16;        // 16-column pairs of n8 tiles that hold them
+  const float dh = dvec != nullptr ? dvec[head] : 0.f;
+  const long long xstep = static_cast<long long>(nh) * p;   // elements between steps of x, y
+  const long long bstep = static_cast<long long>(ng) * n;
+  const long long hbase = (static_cast<long long>(b) * nh + head) * n * p + p0;
+  const bf16 zero = __float2bfloat16(0.f);
+
+  // state: h0 or zeros (rows past N and columns past P stay zero)
+  if (h0 != nullptr) {
+    for (int idx = tid; idx < np * kMmaTileP; idx += nthreads) {
+      const int nn = idx / kMmaTileP;
+      const int c = idx % kMmaTileP;
+      hs[nn * kLdh + c] = (nn < n && c < pw) ? h0[hbase + nn * p + c] : 0.f;
+    }
+  } else {
+    for (int idx = tid; idx < np * (kMmaTileP / 4); idx += nthreads) {
+      *reinterpret_cast<float4*>(hs + idx / (kMmaTileP / 4) * kLdh + idx % (kMmaTileP / 4) * 4) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  bool has_h = h0 != nullptr;
+
+  for (int t0 = 0; t0 < s; t0 += q) {
+    const int valid = min(q, s - t0);
+    const long long row0 = static_cast<long long>(b) * s + t0;
+    const bf16* xg = x + (row0 * nh + head) * p + p0;
+    const bf16* bg = bmat + (row0 * ng + grp) * n;
+    const bf16* cg = cmat + (row0 * ng + grp) * n;
+    __syncthreads();  // the previous chunk is consumed: y stored, hs updated (or initialised)
+    float ldv[kPer], giv[kPer];
+    if (warp == 0) chunk_load(ld, gi, row0 * nh + head, nh, valid, lane, ldv, giv);
+
+    // ---- stage x (Qp x 32), B and C (Qp x Np) as bf16; rows past the end of
+    // the chunk and columns past P or N are zeros
+    if (vec) {
+      for (int idx = tid; idx < qp * (kMmaTileP / 8); idx += nthreads) {
+        const int j = idx / (kMmaTileP / 8);
+        const int c = idx % (kMmaTileP / 8) * 8;
+        bf16* dst = xs + j * kLdx + c;
+        if (j < valid && c < pw) cp_async16(dst, xg + j * xstep + c);
+        else *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+      }
+      const int nv = np / 8;
+      for (int idx = tid; idx < qp * nv; idx += nthreads) {
+        const int j = idx / nv;
+        const int c = idx % nv * 8;
+        bf16* db = bs + j * ldn + c;
+        bf16* dc = cm + j * ldn + c;
+        if (j < valid && c < n) {
+          cp_async16(db, bg + j * bstep + c);
+          cp_async16(dc, cg + j * bstep + c);
+        } else {
+          *reinterpret_cast<uint4*>(db) = make_uint4(0u, 0u, 0u, 0u);
+          *reinterpret_cast<uint4*>(dc) = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+    } else {
+      for (int idx = tid; idx < qp * kMmaTileP; idx += nthreads) {
+        const int j = idx / kMmaTileP;
+        const int c = idx % kMmaTileP;
+        xs[j * kLdx + c] = (j < valid && c < pw) ? xg[j * xstep + c] : zero;
+      }
+      for (int idx = tid; idx < qp * np; idx += nthreads) {
+        const int j = idx / np;
+        const int c = idx % np;
+        const bool ok = j < valid && c < n;
+        bs[j * ldn + c] = ok ? bg[j * bstep + c] : zero;
+        cm[j * ldn + c] = ok ? cg[j * bstep + c] : zero;
+      }
+    }
+    if (warp == 0) chunk_scan(ldv, giv, qp, cs, gis, lane);
+    cp_async_wait_all();
+    __syncthreads();
+    const float cs_end = cs[qp - 1];   // identity steps past the end keep it
+
+    // ---- y: warp w owns rows [16w, 16w + 16) of the chunk
+    const int i0 = warp * 16;
+    if (i0 < valid) {
+      const int ra = i0 + g8;          // this lane's two fragment rows
+      const int rb = ra + 8;
+      const float csa = cs[ra], csb = cs[rb];
+      float acc[kMmaTileP / 8][4];
+#pragma unroll
+      for (int t = 0; t < kMmaTileP / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+      const int nkt = min(warp + 1, (valid + 15) / 16);
+      float sc[kWarpsT][2][4];
+#pragma unroll
+      for (int kt = 0; kt < kWarpsT; ++kt) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) sc[kt][u][0] = sc[kt][u][1] = sc[kt][u][2] = sc[kt][u][3] = 0.f;
+      }
+      // one k16 step of N at a time: the strip of C as the A fragment, then
+      // C.h (the f32 state read straight into B fragments: rows 2 t4, 2 t4 + 1,
+      // + 8, + 9 of the step, column g8; split) while h is not zero, and
+      // S = C.B^T on the column blocks on or below the diagonal, all blocks'
+      // products issued together so their accumulation chains overlap
+      for (int k0 = 0; k0 < np; k0 += 16) {
+        uint32_t ca[4];
+        ldsm_x4(ca, cm + (i0 + (lane & 15)) * ldn + k0 + (lane >> 4) * 8);
+        if (has_h) {
+          const float* hr = hs + (k0 + 2 * t4) * kLdh + g8;
+#pragma unroll
+          for (int t = 0; t < kMmaTileP / 8; ++t) {
+            if (t < 2 * npair) {
+              const float* h = hr + t * 8;
+              uint32_t b0h, b0l, b1h, b1l;
+              split2(h[0], h[kLdh], b0h, b0l);
+              split2(h[8 * kLdh], h[9 * kLdh], b1h, b1l);
+              mma_bf16(acc[t], ca, b0h, b1h);
+              mma_bf16(acc[t], ca, b0l, b1l);
+            }
+          }
+        }
+#pragma unroll
+        for (int kt = 0; kt < kWarpsT; ++kt) {
+          if (kt < nkt) {
+            uint32_t bf[4];
+            ldsm_x4(bf, bs + (kt * 16 + (lane & 7) + (lane >> 4) * 8) * ldn + k0 +
+                            ((lane >> 3) & 1) * 8);
+            mma_bf16(sc[kt][0], ca, bf[0], bf[1]);
+            mma_bf16(sc[kt][1], ca, bf[2], bf[3]);
+          }
+        }
+      }
+      if (has_h) {
+        const float ea = exp_ftz(csa), eb = exp_ftz(csb);
+#pragma unroll
+        for (int t = 0; t < kMmaTileP / 8; ++t) {
+          acc[t][0] *= ea;
+          acc[t][1] *= ea;
+          acc[t][2] *= eb;
+          acc[t][3] *= eb;
+        }
+      }
+      // decay and input scale on the accumulators (j > i zeroed before the
+      // exponent), split into two bf16 terms, then Y += S.X
+#pragma unroll
+      for (int kt = 0; kt < kWarpsT; ++kt) {
+        if (kt < nkt) {
+          const int j0 = kt * 16;
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = e < 2 ? ra : rb;
+              const int j = j0 + u * 8 + 2 * t4 + (e & 1);
+              const float csi = e < 2 ? csa : csb;
+              sc[kt][u][e] = j <= i ? sc[kt][u][e] * exp_ftz(csi - cs[j]) * gis[j] : 0.f;
+            }
+          }
+          uint32_t ah[4], al[4];
+          split2(sc[kt][0][0], sc[kt][0][1], ah[0], al[0]);
+          split2(sc[kt][0][2], sc[kt][0][3], ah[1], al[1]);
+          split2(sc[kt][1][0], sc[kt][1][1], ah[2], al[2]);
+          split2(sc[kt][1][2], sc[kt][1][3], ah[3], al[3]);
+#pragma unroll
+          for (int pr = 0; pr < kMmaTileP / 16; ++pr) {
+            if (pr < npair) {
+              uint32_t xf[4];
+              ldsm_x4_t(xf, xs + (j0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdx + pr * 16 +
+                                (lane >> 4) * 8);
+              mma_split(acc[2 * pr], ah, al, xf[0], xf[1]);
+              mma_split(acc[2 * pr + 1], ah, al, xf[2], xf[3]);
+            }
+          }
+        }
+      }
+
+      // + D x_i, to shared memory as bf16
+#pragma unroll
+      for (int t = 0; t < kMmaTileP / 8; ++t) {
+        if (t < 2 * npair) {
+          const int c = t * 8 + 2 * t4;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int r = hf ? rb : ra;
+            const float2 xv =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xs + r * kLdx + c));
+            *reinterpret_cast<__nv_bfloat162*>(ys + r * kLdx + c) = __floats2bfloat162_rn(
+                acc[t][2 * hf] + dh * xv.x, acc[t][2 * hf + 1] + dh * xv.y);
+          }
+        }
+      }
+    }
+    // C.h has read the entering state before the update overwrites it; while
+    // h is zero no warp reads it, and warps done with their rows go on
+    if (has_h) __syncthreads();
+
+    // ---- state update: h <- exp(cs_end) h + (B o w)^T X.  A unit is one
+    // 16-row tile of the state (m0) and every `groups`-th 16-column pair of
+    // it; per k16 step the warp builds B^T's A fragment, scaled by w and
+    // split, once and uses it for all its column pairs
+    const float dec_end = exp_ftz(cs_end);
+    const int mtiles = np / 16;
+    const int groups = max(1, nwarps / mtiles);
+    for (int u = warp; u < mtiles * groups; u += nwarps) {
+      const int m0 = u % mtiles * 16;
+      const int pr0 = u / mtiles;
+      float ha[kMmaTileP / 16][2][4];
+#pragma unroll
+      for (int k = 0; k < kMmaTileP / 16; ++k) {
+#pragma unroll
+        for (int v8 = 0; v8 < 2; ++v8) ha[k][v8][0] = ha[k][v8][1] = ha[k][v8][2] = ha[k][v8][3] = 0.f;
+      }
+      for (int k0 = 0; k0 < valid; k0 += 16) {
+        // a0/a1 hold steps k0 + 2 t4 (+1), a2/a3 steps k0 + 8 + 2 t4 (+1)
+        uint32_t a[4];
+        ldsm_x4_t(a, bs + (k0 + (lane & 7) + (lane >> 4) * 8) * ldn + m0 + ((lane >> 3) & 1) * 8);
+        const int j = k0 + 2 * t4;
+        const float w0 = exp_ftz(cs_end - cs[j]) * gis[j];
+        const float w1 = exp_ftz(cs_end - cs[j + 1]) * gis[j + 1];
+        const float w2 = exp_ftz(cs_end - cs[j + 8]) * gis[j + 8];
+        const float w3 = exp_ftz(cs_end - cs[j + 9]) * gis[j + 9];
+        uint32_t ah[4], al[4];
+        float2 v = unpack_bf16(a[0]);
+        split2(v.x * w0, v.y * w1, ah[0], al[0]);
+        v = unpack_bf16(a[1]);
+        split2(v.x * w0, v.y * w1, ah[1], al[1]);
+        v = unpack_bf16(a[2]);
+        split2(v.x * w2, v.y * w3, ah[2], al[2]);
+        v = unpack_bf16(a[3]);
+        split2(v.x * w2, v.y * w3, ah[3], al[3]);
+#pragma unroll
+        for (int k = 0; k < kMmaTileP / 16; ++k) {
+          const int pr = pr0 + k * groups;
+          if (k * groups < kMmaTileP / 16 && pr < npair) {
+            uint32_t xf[4];
+            ldsm_x4_t(xf, xs + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdx + pr * 16 +
+                              (lane >> 4) * 8);
+            mma_split(ha[k][0], ah, al, xf[0], xf[1]);
+            mma_split(ha[k][1], ah, al, xf[2], xf[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kMmaTileP / 16; ++k) {
+        const int pr = pr0 + k * groups;
+        if (k * groups < kMmaTileP / 16 && pr < npair) {
+#pragma unroll
+          for (int v8 = 0; v8 < 2; ++v8) {
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              float2* hp = reinterpret_cast<float2*>(hs + (m0 + g8 + hf * 8) * kLdh + pr * 16 +
+                                                     v8 * 8 + 2 * t4);
+              const float2 old = *hp;
+              *hp = make_float2(dec_end * old.x + ha[k][v8][2 * hf],
+                                dec_end * old.y + ha[k][v8][2 * hf + 1]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // y is staged
+
+    // ---- store y
+    bf16* yg = y + (row0 * nh + head) * p + p0;
+    if (vec) {
+      for (int idx = tid; idx < qp * (kMmaTileP / 8); idx += nthreads) {
+        const int j = idx / (kMmaTileP / 8);
+        const int c = idx % (kMmaTileP / 8) * 8;
+        if (j < valid && c < pw) {
+          *reinterpret_cast<uint4*>(yg + j * xstep + c) =
+              *reinterpret_cast<const uint4*>(ys + j * kLdx + c);
+        }
+      }
+    } else {
+      for (int idx = tid; idx < qp * kMmaTileP; idx += nthreads) {
+        const int j = idx / kMmaTileP;
+        const int c = idx % kMmaTileP;
+        if (j < valid && c < pw) yg[j * xstep + c] = ys[j * kLdx + c];
+      }
+    }
+    has_h = true;
+  }
+  __syncthreads();
+  if (vec) {
+    for (int idx = tid; idx < n * (kMmaTileP / 4); idx += nthreads) {
+      const int nn = idx / (kMmaTileP / 4);
+      const int c = idx % (kMmaTileP / 4) * 4;
+      if (c < pw) {
+        *reinterpret_cast<float4*>(hout + hbase + nn * p + c) =
+            *reinterpret_cast<const float4*>(hs + nn * kLdh + c);
+      }
+    }
+  } else {
+    for (int idx = tid; idx < n * kMmaTileP; idx += nthreads) {
+      const int nn = idx / kMmaTileP;
+      const int c = idx % kMmaTileP;
+      if (c < pw) hout[hbase + nn * p + c] = hs[nn * kLdh + c];
+    }
+  }
+}
+
+// ------------------------------------------------------------------------
+enum Route { kCudaCores = 0, kMma = 1 };
+
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+cudaError_t launch_cuda_cores(const float* x, const float* ld, const float* gi, const float* bmat,
+                              const float* cmat, const float* dvec, const float* h0, float* y,
+                              float* hout, int b, int s, int nh, int p, int ng, int n, int q,
+                              int smem, cudaStream_t stream) {
   static bool attr_set = false;  // raise the dynamic shared-memory cap once
   if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem_floats(kMaxChunk, kMaxState) * sizeof(float)));
+    cudaError_t err =
+        allow_smem(ssd_kernel, static_cast<int>(smem_floats(kMaxChunk, kMaxState) * sizeof(float)));
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  const size_t smem = static_cast<size_t>(smem_floats(q, n)) * sizeof(float);
   const dim3 grid((p + kTileP - 1) / kTileP, nh, b);
-  ssd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), ld, gi, static_cast<const T*>(bmat), static_cast<const T*>(cmat),
-      dvec, h0, static_cast<T*>(y), hout, s, nh, p, ng, n, q);
+  ssd_kernel<<<grid, kThreads, smem, stream>>>(x, ld, gi, bmat, cmat, dvec, h0, y, hout, s, nh, p,
+                                               ng, n, q);
   return cudaGetLastError();
 }
 
@@ -233,14 +734,19 @@ cudaError_t launch(const void* x, const float* ld, const float* gi, const void* 
 
 // d and h0 may be null (no skip term; a zero initial state).  chunk: the
 // chunk length Q (1..128; the caller passes min(chunk, S)).  n: 1..128.
-// dtype of x, B, C and y: 0 = float32, 1 = bfloat16.  Returns
-// cudaGetLastError() after the launch.
+// dtype of x, B, C and y: 0 = float32, 1 = bfloat16.  route (0 the CUDA
+// cores: f32 only; 1 the tensor cores: bf16 only), warps and smem (dynamic shared
+// memory in bytes) come from ops.py:scan_plan; vec: P and N are multiples
+// of 8 and x, B, C and y 16-byte aligned, so the mma route moves them 16
+// bytes at a time.  A plan that does not match the shapes returns
+// cudaErrorInvalidValue and launches nothing.  Returns cudaGetLastError()
+// after the launch.
 extern "C" int repro_ssm_scan(const void* x, const void* ld, const void* gi, const void* bmat,
                               const void* cmat, const void* d, const void* h0, void* y,
                               void* hout, int b, int s, int nh, int p, int ng, int n, int chunk,
-                              int dtype, void* stream) {
+                              int dtype, int route, int warps, int smem, int vec, void* stream) {
   if (b <= 0 || s <= 0 || nh <= 0 || p <= 0 || ng <= 0 || nh % ng != 0 || n <= 0 ||
-      n > kMaxState || chunk <= 0 || chunk > kMaxChunk) {
+      n > kMaxState || chunk <= 0 || chunk > kMaxChunk || b > 65535 || nh > 65535) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -249,9 +755,34 @@ extern "C" int repro_ssm_scan(const void* x, const void* ld, const void* gi, con
   const float* df = static_cast<const float*>(d);
   const float* h0f = static_cast<const float*>(h0);
   float* ho = static_cast<float*>(hout);
-  cudaError_t err = dtype == 1
-      ? launch<__nv_bfloat16>(x, ldf, gif, bmat, cmat, df, h0f, y, ho, b, s, nh, p, ng, n, chunk,
-                              st)
-      : launch<float>(x, ldf, gif, bmat, cmat, df, h0f, y, ho, b, s, nh, p, ng, n, chunk, st);
-  return static_cast<int>(err);
+  if (route == kMma) {
+    if (dtype != 1 || (warps != 4 && warps != 8) || warps * 16 < round16(chunk) ||
+        smem != mma_smem(chunk, n).bytes || (vec && (p % 8 != 0 || n % 8 != 0))) {
+      return cudaErrorInvalidValue;
+    }
+    static bool attr_set = false;
+    if (!attr_set) {
+      cudaError_t err = allow_smem(ssd_mma_kernel<4>, mma_smem(kMaxChunk, kMaxState).bytes);
+      if (err == cudaSuccess) {
+        err = allow_smem(ssd_mma_kernel<8>, mma_smem(kMaxChunk, kMaxState).bytes);
+      }
+      if (err != cudaSuccess) return static_cast<int>(err);
+      attr_set = true;
+    }
+    const dim3 grid((p + kMmaTileP - 1) / kMmaTileP, nh, b);
+    auto kernel = warps == 4 ? ssd_mma_kernel<4> : ssd_mma_kernel<8>;
+    kernel<<<grid, warps * 32, smem, st>>>(
+        static_cast<const bf16*>(x), ldf, gif, static_cast<const bf16*>(bmat),
+        static_cast<const bf16*>(cmat), df, h0f, static_cast<bf16*>(y), ho, s, nh, p, ng, n, chunk,
+        vec);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (route != kCudaCores || dtype != 0 || warps != kWarps ||
+      smem != static_cast<int>(smem_floats(chunk, n) * sizeof(float))) {
+    return cudaErrorInvalidValue;
+  }
+  return static_cast<int>(launch_cuda_cores(
+      static_cast<const float*>(x), ldf, gif, static_cast<const float*>(bmat),
+      static_cast<const float*>(cmat), df, h0f, static_cast<float*>(y), ho, b, s, nh, p, ng, n,
+      chunk, smem, st));
 }

@@ -10,13 +10,14 @@ the kernel masks a ragged last chunk instead, which computes the same thing.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import library
 from repro_torch.kernels.ssm_scan.ref import (
+    gated_scan_mma_ref,
     gated_scan_ref,
     gated_step_ref,
     ssm_scan_ref,
@@ -25,6 +26,34 @@ from repro_torch.kernels.ssm_scan.ref import (
 
 MAX_CHUNK = 128   # the kernel stages one chunk of up to 128 steps
 MAX_STATE = 128   # and a state of up to 128 rows (N) in shared memory
+ROUTE_CODES = {"cuda_cores": 0, "mma": 1}
+
+
+def _round16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def scan_plan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
+              dtype: torch.dtype) -> Dict[str, object]:
+    """The launch the kernel makes for these shapes (``chunk`` is the
+    wrapper's ``min(chunk, S)``): its route, warps per block, grid and
+    dynamic shared memory in bytes, as the C entry point checks them.  bf16
+    takes the tensor cores (``mma``): one block per (32 columns of P, head,
+    batch row), 4 warps for a chunk of up to 64 steps and 8 up to 128, each
+    owning 16 rows of the chunk; shared memory holds x and y (chunk rows
+    padded to 16, rows of 32 + 8 bf16), B and C (rows of N padded to 16,
+    + 8 bf16), the f32 state (N padded to 16, rows of 32 + 4 floats) and the
+    chunk's cumulative log-decay and input scales.  f32 takes the CUDA cores:
+    8 warps per (32 columns of P, head, batch row)."""
+    if dtype == torch.bfloat16:
+        qp, np_ = _round16(chunk), _round16(n)
+        smem = 2 * qp * (32 + 8) * 2 + 2 * qp * (np_ + 8) * 2 + np_ * (32 + 4) * 4 + 2 * qp * 4
+        return dict(route="mma", warps=4 if chunk <= 64 else 8, grid=(-(-p // 32), h, b),
+                    smem=smem)
+    if dtype == torch.float32:
+        floats = n * 32 + chunk * 32 + chunk * (n + 1) + chunk * n + 4 * chunk + 8 * chunk
+        return dict(route="cuda_cores", warps=8, grid=(-(-p // 32), h, b), smem=4 * floats)
+    raise TypeError(f"kernels take float32 or bfloat16, not {dtype}")
 
 
 def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
@@ -66,7 +95,7 @@ def gated_scan_cuda(
     if tuple(ld.shape) != (b, s, h) or ld.shape != gi.shape:
         raise ValueError(f"log_decay {tuple(ld.shape)}, in_scale {tuple(gi.shape)} != {(b, s, h)}")
     if n > MAX_STATE:
-        raise ValueError(f"state size N={n} > {MAX_STATE}: the kernel keeps N x 32 of the "
+        raise ValueError(f"state size N={n} > {MAX_STATE}: the kernel keeps its slice of the "
                          "state and a chunk of B and C in shared memory")
     chunk = min(int(chunk), s)
     if not 0 < chunk <= MAX_CHUNK:
@@ -84,17 +113,23 @@ def gated_scan_cuda(
     if not all(t.is_contiguous() and t.device == x.device for t in ts):
         raise ValueError("the scan kernel takes contiguous tensors on one device")
     dtype = library.dtype_code(x.dtype)
+    plan = scan_plan(b, s, h, p, g, n, chunk, x.dtype)
+    if max(plan["grid"][1:]) > 65535:
+        raise ValueError(f"grid {plan['grid']} over the launch limit")
     y = torch.empty_like(x)
     hout = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y, hout.zero_()
+    # the mma route moves x, B, C and y 16 bytes at a time where it can
+    vec = p % 8 == 0 and n % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, Bm, Cm, y))
     fn = library.entry("ssm_scan")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     library.LAUNCHES["ssm_scan"] += 1
     library.check("ssm_scan", fn(
         x.data_ptr(), ld.data_ptr(), gi.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         None if D is None else D.data_ptr(), None if h0 is None else h0.data_ptr(),
-        y.data_ptr(), hout.data_ptr(), b, s, h, p, g, n, chunk, dtype, stream,
+        y.data_ptr(), hout.data_ptr(), b, s, h, p, g, n, chunk, dtype,
+        ROUTE_CODES[plan["route"]], plan["warps"], plan["smem"], int(vec), stream,
     ))
     return y, hout
 
@@ -157,6 +192,7 @@ gated_step = gated_step_ref
 ssm_step = ssm_step_ref
 
 __all__ = [
-    "gated_scan", "gated_scan_cuda", "gated_scan_padded", "gated_step", "ssm_scan",
-    "ssm_step", "gated_scan_ref", "gated_step_ref", "ssm_scan_ref", "ssm_step_ref",
+    "gated_scan", "gated_scan_cuda", "gated_scan_padded", "gated_step", "scan_plan",
+    "ssm_scan", "ssm_step", "gated_scan_mma_ref", "gated_scan_ref", "gated_step_ref",
+    "ssm_scan_ref", "ssm_step_ref",
 ]

@@ -94,6 +94,72 @@ def gated_scan_ref(
     return y.reshape(b, s, h, p).to(x.dtype), h_prev
 
 
+def bf16_terms(t: torch.Tensor) -> torch.Tensor:
+    """An f32 tensor as the bf16 route's two bf16 terms carry it: hi + lo,
+    with hi = bf16(t) and lo = bf16(t - hi)."""
+    hi = t.to(torch.bfloat16).to(torch.float32)
+    return hi + (t - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def gated_scan_mma_ref(
+    x: torch.Tensor,
+    log_decay: torch.Tensor,
+    in_scale: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    D: Optional[torch.Tensor] = None,
+    *,
+    chunk: int = 128,
+    h0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``gated_scan_ref`` with the bf16 tensor-core route's roundings: the
+    three f32 intermediates that enter a bf16 product (the decay-masked
+    scores S before S.X, B*w before the state update, the entering state h
+    before C.h) pass through ``bf16_terms``, as the kernel carries them in
+    two bf16 terms and runs each product on both.  Every product accumulates
+    in f32 and the state is carried in f32.  The kernel's mirror up to the
+    order of its f32 sums and its fast exponent.  S must be a multiple of
+    ``min(chunk, S)``."""
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    rep = h // g
+    chunk = min(chunk, s)
+    if h % g or s % chunk:
+        raise ValueError(f"heads {h} / groups {g}, seq {s} / chunk {chunk}")
+    nc = s // chunk
+    f32 = torch.float32
+
+    xf = x.to(f32).reshape(b, nc, chunk, h, p)
+    cs = torch.cumsum(log_decay.to(f32).reshape(b, nc, chunk, h), dim=2)
+    gif = in_scale.to(f32).reshape(b, nc, chunk, h)
+    Bf = _expand_groups(Bm.to(f32).reshape(b, nc, chunk, g, n), rep)
+    Cf = _expand_groups(Cm.to(f32).reshape(b, nc, chunk, g, n), rep)
+
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    diff = cs[:, :, :, None, :] - cs[:, :, None, :, :]
+    decay = torch.exp(diff.masked_fill(~causal[None, None, :, :, None], float("-inf")))
+    scores = torch.einsum("bcihn,bcjhn->bcijh", Cf, Bf) * decay * gif[:, :, None, :, :]
+    y_diag = torch.einsum("bcijh,bcjhp->bcihp", bf16_terms(scores), xf)
+    bw = bf16_terms(Bf * (torch.exp(cs[:, :, -1:, :] - cs) * gif)[..., None])
+    chunk_states = torch.einsum("bcjhn,bcjhp->bchnp", bw, xf)
+    chunk_decay = torch.exp(cs[:, :, -1, :])
+
+    h_prev = (
+        h0.to(f32) if h0 is not None
+        else torch.zeros((b, h, n, p), dtype=f32, device=x.device)
+    )
+    ys = []
+    for c in range(nc):
+        y_off = torch.exp(cs[:, c])[..., None] * torch.einsum(
+            "bihn,bhnp->bihp", Cf[:, c], bf16_terms(h_prev))
+        ys.append(y_off + y_diag[:, c])
+        h_prev = h_prev * chunk_decay[:, c, :, None, None] + chunk_states[:, c]
+    y = torch.stack(ys, dim=1)
+    if D is not None:
+        y = y + xf * D.to(f32)[None, None, None, :, None]
+    return y.reshape(b, s, h, p).to(x.dtype), h_prev
+
+
 def ssm_scan_ref(x, dt, A, Bm, Cm, D, *, chunk: int = 128, h0=None):
     """Mamba2 wrapper: log-decay = dt*A, input scale = dt."""
     ld = dt.to(torch.float32) * A.to(torch.float32)[None, None, :]

@@ -30,7 +30,12 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     packed_row,
     tile_plan,
 )
-from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_cuda, rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm import (  # noqa: E402
+    rmsnorm,
+    rmsnorm_cuda,
+    rmsnorm_plan,
+    rmsnorm_ref,
+)
 
 TOL = dict(rtol=2e-4, atol=2e-4)       # tests/test_kernels.py, f32
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)  # tests/test_kernels.py, bf16
@@ -83,6 +88,49 @@ class TestRMSNorm:
         x = _t(rng.normal(0, 1, (3, 5, 64)))
         s = _t(rng.normal(0, 0.1, (64,)))
         assert torch.equal(rmsnorm(x, s, offset=1.0), rmsnorm_ref(x, s, 1e-6, 1.0))
+
+
+class TestRMSNormPlan:
+    """The launch of each served shape (qwen3: d_model 1024 and the qk-norm
+    rows of 128; zamba2: d_model 2048 and the gated norm's d_inner 4096; one
+    decode row, the 32-token prefill and the stateless bucket's 64 rows) and
+    of the odd ones."""
+
+    @pytest.mark.parametrize(
+        "rows,d,plan",
+        [
+            (1, 1024, ("warp", 32, 1, 1)),      # qwen3's norms at decode
+            (16, 128, ("warp", 128, 4, 4)),     # q-norm: 16 heads
+            (8, 128, ("warp", 128, 4, 2)),      # k-norm: 8 KV heads
+            (32, 1024, ("warp", 128, 4, 8)),    # qwen3's prefill
+            (1, 2048, ("block", 128, 1, 1)),    # zamba2's norms at decode: 2 vectors a thread
+            (1, 4096, ("block", 256, 1, 1)),    # zamba2's gated norm
+            (64, 2048, ("block", 128, 1, 64)),  # the stateless bucket
+            (64, 4096, ("block", 256, 1, 64)),
+            (21, 96, ("warp", 128, 4, 6)),      # (3, 7, 96): 12 vectors on 32 lanes
+            (65, 130, ("scalar", 160, 1, 65)),  # no multiple of the vector
+        ],
+    )
+    def test_bf16(self, rows, d, plan):
+        got = rmsnorm_plan(rows, d, torch.bfloat16)
+        assert (got["route"], got["threads"], got["rows_per_block"], got["grid"]) == plan
+
+    def test_f32_takes_four_per_vector(self):
+        # a 16-byte vector holds 4 f32 against 8 bf16: twice the threads per row
+        assert rmsnorm_plan(1, 2048, torch.float32)["threads"] == 256
+        assert rmsnorm_plan(1, 4096, torch.float32)["threads"] == 512
+        assert rmsnorm_plan(1, 1024, torch.float32)["route"] == "warp"
+        # 130 and 98 are no multiple of 4 (f32) or 8 (bf16); 100 is one of 4 only
+        assert rmsnorm_plan(3, 100, torch.float32)["route"] == "warp"
+        assert rmsnorm_plan(3, 100, torch.bfloat16)["route"] == "scalar"
+        with pytest.raises(TypeError):
+            rmsnorm_plan(1, 1024, torch.float16)
+
+    def test_unaligned_and_long_rows_take_the_scalar_route(self):
+        assert rmsnorm_plan(1, 1024, torch.bfloat16, aligned=False)["route"] == "scalar"
+        # more than 4 vectors a thread at 512 threads
+        assert rmsnorm_plan(1, 4 * 512 * 8, torch.bfloat16)["route"] == "block"
+        assert rmsnorm_plan(1, 4 * 512 * 8 + 8, torch.bfloat16)["route"] == "scalar"
 
 
 class TestDecodeAttention:
@@ -349,6 +397,14 @@ def test_kernels_match_plain_on_card(rng, dtype):
         return _t(rng.normal(0, 1, shape), dt).cuda()
 
     x, w = r(3, 7, 96), r(96)
+    torch.testing.assert_close(rmsnorm(x, w), rmsnorm_ref(x, w), rtol=tol, atol=tol)
+    # each route: warp (served 1024 and 128), block (2048, 4096, many rows),
+    # scalar (130; an unaligned view of a row of 1024)
+    for shape in [(1, 1024), (16, 128), (1, 2048), (64, 4096), (5, 130)]:
+        x, w = r(*shape), r(shape[-1])
+        torch.testing.assert_close(rmsnorm(x, w, offset=1.0), rmsnorm_ref(x, w, 1e-6, 1.0),
+                                   rtol=tol, atol=tol)
+    x, w = r(2 * 1024 + 1)[1:].view(2, 1024), r(1024)
     torch.testing.assert_close(rmsnorm(x, w), rmsnorm_ref(x, w), rtol=tol, atol=tol)
     q, kc, vc = r(1, 16, 128), r(1, 512, 8, 128), r(1, 512, 8, 128)
     kv_len = torch.tensor([63], dtype=torch.int32, device="cuda")
