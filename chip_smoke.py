@@ -16,11 +16,17 @@ random weights from a seed:
   2048, bf16): the same, with the conv and SSM states carried beside the KV
   caches;
 * zamba2-1.2b stateless: ``RRTOServedLM(stateful=False)``, a full forward of
-  the bucket per token, so the gated-scan kernel runs inside the replay.
+  the bucket per token, so the gated-scan kernel runs inside the replay;
+* KAPAO at full width (640-pixel frames, f32, cuDNN convolutions, TF32 off)
+  through all five offloading systems, held bitwise against ``device_only``
+  and within 2e-4 of the same run on the CPU, with the paper's RPC counts;
+  then every other CNN of the zoo through rrto and ``device_only`` at the
+  reference's benchmark sizes.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; each path's replayed step is also timed as one CUDA graph,
-and the zamba2 steps' device time is read by kernel with ``torch.profiler``.
+and the zamba2 and KAPAO steps' device time is read by kernel with
+``torch.profiler``.
 Any failed check exits non-zero.  The last two lines of standard output are
 the kernel table and the device, as JSON.
 """
@@ -58,6 +64,19 @@ HYBRID_LOGIT_REL_TOL = 0.10
 PROMPT_LEN, NEW_TOKENS, BUCKET = 32, 32, 512       # qwen3-0.6b
 Z_PROMPT, Z_NEW, Z_BUCKET, Z_STATELESS_BUCKET = 16, 16, 128, 64   # zamba2-1.2b
 LONG_KV = 16384     # the long decode row: K/V of 67 MB, more than the 50 MB L2
+KAPAO_SIZE, KAPAO_INFERS = 640, 7
+# the other CNNs at the reference's benchmark sizes: Fig. 12's torchvision
+# set, VGG16 for Fig. 1, and the sensor models of the partitioning runs
+ZOO_SIZES = {
+    "resnet50": 224, "convnext_tiny": 224, "fcn_resnet50": 384, "deeplabv3_resnet50": 384,
+    "fasterrcnn_resnet50": 384, "retinanet_resnet50": 384, "vgg16": 224,
+    "sensor_encoder": 96, "recurrent_sensor_decoder": 96,
+}
+ZOO_INFERS = 6
+# Tab. III, loop column (benchmarks/tab3_rpc_composition.py)
+TAB3_LOOP = {"cudaGetDevice": 4735, "cudaGetLastError": 607, "cudaLaunchKernel": 522,
+             "cudaMalloc": 0, "cudaStreamSynchronize": 11, "cudaMemcpyHtoD": 3,
+             "cudaMemcpyDtoH": 8, "cudaMemcpyDtoD": 9}
 # rmsnorm's served shapes (rows, d): qwen3's d_model at decode, its q- and
 # k-norm rows, zamba2's d_model and gated-norm width at decode, qwen3's
 # 32-token prefill and the stateless bucket's 64 rows of d_inner
@@ -725,14 +744,14 @@ def measure_replay_step(m, dev, *, profile: bool = False) -> dict:
           f"{wall_ms - eager_ms:.1f} ms; weight-read bound "
           f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms ({weight_bytes / 1e9:.3f} GB)")
     if profile:
-        profile_step(m, step)
+        profile_step(f"{m['name']} {'stateful' if m['stateful'] else 'stateless'}", step)
     return dict(wall_ms=wall_ms, eager_ms=eager_ms, device_ms=device_ms)
 
 
-def profile_step(m, step, reps: int = 3) -> None:
+def profile_step(label, step, reps: int = 3) -> None:
     """Device time of one graph-replayed step by kernel name, from
     ``torch.profiler`` over ``reps`` replays: the top 10 kernels, and the
-    shares of rmsnorm and the scan (printed only)."""
+    shares of rmsnorm and the scan where they ran (printed only)."""
     from torch.profiler import ProfilerActivity, profile
 
     g = capture(step, 1)
@@ -742,21 +761,21 @@ def profile_step(m, step, reps: int = 3) -> None:
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
-    kind = "stateful" if m["stateful"] else "stateless"
     if not kernels:
-        print(f"{m['name']} {kind} step profile: no device time in the trace (not measured)")
+        print(f"{label} step profile: no device time in the trace (not measured)")
         return
     total = sum(e.device_time_total for e in kernels) / reps
-    print(f"{m['name']} {kind} step profile (graph replay, {reps} steps): device time "
+    print(f"{label} step profile (graph replay, {reps} steps): device time "
           f"{total / 1e3:.3f} ms a step; {sum(e.count for e in kernels)} kernel records")
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:10]:
         t = e.device_time_total / reps
         print(f"  {t:9.1f} us {100 * t / total:5.1f}%  {e.count:5d} records  {e.key[:90]}")
-    for label, keys in (("rmsnorm", ("rmsnorm_",)), ("gated scan", ("ssd_kernel", "ssd_mma_"))):
-        t = sum(e.device_time_total for e in kernels if any(k in e.key for k in keys)) / reps
+    for name, keys in (("rmsnorm", ("rmsnorm_",)), ("gated scan", ("ssd_kernel", "ssd_mma_"))):
         n = sum(e.count for e in kernels if any(k in e.key for k in keys))
-        print(f"  share of {label}: {t:.1f} us a step ({n} records in {reps} steps), "
-              f"{100 * t / total:.1f}% of the step")
+        if n:
+            t = sum(e.device_time_total for e in kernels if any(k in e.key for k in keys)) / reps
+            print(f"  share of {name}: {t:.1f} us a step ({n} records in {reps} steps), "
+                  f"{100 * t / total:.1f}% of the step")
 
 
 def prefill_and_decode_logits(m, dev, params, cfg) -> tuple:
@@ -801,6 +820,215 @@ def check_prefill_vs_decode(m, dev, bf16_tol: float) -> None:
     check(gap32 <= TOL[torch.float32], f"{name}: f32 prefill and decode-loop logits disagree")
     check(max(gap, err_pre, err_dec) <= bf16_tol,
           f"{name}: bf16 prefill, decode-loop and f32 logits disagree")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: KAPAO and the CNN zoo
+# ---------------------------------------------------------------------------
+
+def top_k_run(model, dev):
+    """One eager inference of ``model`` on ``dev`` (setup graph included),
+    with the operand and indices of every ``topk`` captured: the host
+    outputs and a list of (scores, indices) on the host."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Capture(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is torch.ops.aten.topk.default:
+                self.seen.append((args[0].cpu(), out[1].cpu()))
+            return out
+
+    inputs = [torch.from_numpy(np.asarray(x).copy()).to(dev) for x in model.example_inputs]
+    with torch.no_grad(), Capture() as cap:
+        aux = model.setup(model.params, *inputs)
+        outs = model.apply(model.params, aux, *inputs)
+    return [o.cpu() for o in outs], cap.seen
+
+
+def near_tie_compare(outs, cap, ref_outs, ref_cap, tol) -> tuple:
+    """KAPAO's outputs against a reference run: each top-k's scores within
+    ``tol``; its indices equal except where the reference's two candidates
+    lie within ``tol`` of each other (a near tie); the rows gathered at equal
+    indices (outputs 2i and 2i+1 for top-k i) within ``tol``.  Returns
+    (max |d|, near-tie positions skipped)."""
+    worst, skipped = 0.0, 0
+    for i, ((scores, idx), (r_scores, r_idx)) in enumerate(zip(cap, ref_cap)):
+        bound = tol + tol * r_scores.abs()
+        err = (scores - r_scores).abs()
+        check(bool((err <= bound).all()), f"top-k {i} scores differ by {err.max().item():.3g}")
+        worst = max(worst, err.max().item())
+        differ = idx != r_idx
+        picked, wanted = r_scores.gather(-1, idx), r_scores.gather(-1, r_idx)
+        tie = (picked - wanted).abs() <= tol + tol * wanted.abs()
+        check(not bool((differ & ~tie).any()), f"top-k {i} picks other candidates")
+        skipped += int(differ.sum())
+        for o in (2 * i, 2 * i + 1):
+            a, b = outs[o][~differ], ref_outs[o][~differ]
+            err = (a - b).abs()
+            check(bool((err <= tol + tol * b.abs()).all()),
+                  f"output {o} differs by {err.max().item():.3g}")
+            worst = max(worst, err.max().item())
+    return worst, skipped
+
+
+def phase_kapao(dev) -> dict:
+    """KAPAO at full width through the five systems, ``KAPAO_INFERS``
+    inferences each on one set of weights, every output held against
+    ``device_only``'s."""
+    from repro_torch.core.offload import SYSTEMS, OffloadSession
+    from repro_torch.models.cnn_zoo import make_kapao_calibrated
+
+    t0 = time.perf_counter()
+    model = make_kapao_calibrated(1.0, KAPAO_SIZE, 0, device=dev)
+    leaves = torch.utils._pytree.tree_leaves(model.params)
+    print(f"kapao: {len(leaves)} parameter leaves, "
+          f"{sum(t.numel() * t.element_size() for t in leaves) / 1e6:.1f} MB, input "
+          f"{KAPAO_SIZE}, built and calibrated in {time.perf_counter() - t0:.1f} s")
+    runs = {}
+    for system in SYSTEMS:
+        t0 = time.perf_counter()
+        sess = OffloadSession(model, system, device=dev)
+        timer = StepTimer(sess)
+        sess.load()
+        for _ in range(KAPAO_INFERS):
+            sess.infer(*model.example_inputs)
+        runs[system] = (sess, timer)
+        print(f"kapao {system}: {KAPAO_INFERS} inferences in {time.perf_counter() - t0:.1f} s; "
+              f"modes {[h.mode for h in sess.history]}; rpcs {[h.rpcs for h in sess.history]}")
+    return dict(model=model, runs=runs)
+
+
+def check_kapao(k, dev) -> None:
+    from collections import Counter
+
+    from repro_torch.models.cnn_zoo import make_kapao_calibrated
+
+    runs = k["runs"]
+    ref = runs["device_only"][0].history
+    for system in ("rrto", "cricket", "semi_rrto"):
+        hist = runs[system][0].history
+        same = [all(torch.equal(a, b) for a, b in zip(h.outputs, r.outputs))
+                for h, r in zip(hist, ref)]
+        check(all(same), f"kapao {system} != device_only at inferences {same}")
+    nnto_err = max((a - b).abs().max().item()
+                   for h, r in zip(runs["nnto"][0].history, ref)
+                   for a, b in zip(h.outputs, r.outputs))
+    check(nnto_err <= TOL[torch.float32], f"kapao nnto differs from device_only by {nnto_err}")
+    print(f"kapao: rrto, cricket, semi_rrto == device_only bitwise at all {KAPAO_INFERS} "
+          f"inferences; nnto max|d| {nnto_err:.3g}")
+    rrto, cricket = runs["rrto"][0].history, runs["cricket"][0]
+    check([h.mode for h in rrto] == ["recording"] * 3 + ["replaying"] * (KAPAO_INFERS - 3),
+          f"kapao rrto modes {[h.mode for h in rrto]}")
+    check(all(h.rpcs == 11 for h in rrto[3:]), f"kapao rrto rpcs {[h.rpcs for h in rrto]}")
+    check(all(h.rpcs == 5895 for h in cricket.history[1:]),
+          f"kapao cricket rpcs {[h.rpcs for h in cricket.history]}")
+    start = cricket.stage_marks["after_first_inference"]
+    loop = cricket.client.logs[start:start + cricket.history[1].rpcs]
+    comp = Counter("cudaLaunchKernel" if r.func.startswith("kernel:") else r.func for r in loop)
+    check({n: comp.get(n, 0) for n in TAB3_LOOP} == TAB3_LOOP, f"kapao Tab. III loop {comp}")
+    print(f"kapao: rrto replaying from inference 4 at 11 RPCs; cricket 5895 RPCs per loop "
+          f"inference; Tab. III loop composition exact: {dict(comp)}")
+
+    t0 = time.perf_counter()
+    card_outs, card_cap = top_k_run(k["model"], dev)
+    check(all(torch.equal(a, b) for a, b in zip(card_outs, ref[-1].outputs)),
+          "kapao eager run != device_only session")
+    cpu_model = make_kapao_calibrated(1.0, KAPAO_SIZE, 0, device="cpu")
+    cpu_outs, cpu_cap = top_k_run(cpu_model, torch.device("cpu"))
+    err, skipped = near_tie_compare(card_outs, card_cap, cpu_outs, cpu_cap, TOL[torch.float32])
+    check(all(torch.isfinite(o).all() for o in card_outs), "kapao: non-finite outputs")
+    print(f"kapao card vs cpu: max|d| {err:.3g} (tol {TOL[torch.float32]}), {skipped} near-tie "
+          f"top-k positions skipped ({time.perf_counter() - t0:.1f} s)")
+
+
+def measure_cnn_step(label, sess, timer, inputs, dev, *, profile=False) -> dict:
+    """A CNN's replayed inference split as ``measure_replay_step`` splits the
+    LM steps: the replay program dispatched eagerly and as one CUDA graph,
+    the rest of the wall time host interception; the graph step's bound from
+    the cost model's flops and bytes (f32 outside the tensor cores: TF32 is
+    off).  A stateful program (the recurrent decoder) steps its resident
+    state.  With ``profile``, the graph step's device time by kernel."""
+    from repro_torch.core.flatten import graph_cost
+
+    bound = sess.server.ctx.replay
+    program = bound.program
+    params_flat = [sess.server.ctx.env[a] for a in bound.param_addrs]
+    wire = [torch.from_numpy(np.asarray(x).copy()).to(dev) for x in inputs]
+    if program.is_stateful:
+        wire = [wire[i] for i in program.wire_in]
+        state = list(bound.carried_state)
+
+        def step():
+            program.step_fn(params_flat, wire, state)
+    else:
+        def step():
+            program.fn(params_flat, wire)
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / 5 * 1e3
+    device_ms = graph_ms(step, reps=5)
+    wall_ms = timer.mean_ms("replaying", skip=1)
+    flops, nbytes = graph_cost(sess._graph)
+    b_ms, b_by = bound_ms(nbytes, flops, torch.float32)
+    print(f"{label} replayed inference: wall {wall_ms:.1f} ms = replay program {eager_ms:.1f} ms "
+          f"(eager dispatch of {program.n_kernels} calls; {device_ms:.3f} ms of it as one "
+          f"CUDA graph) + interception {wall_ms - eager_ms:.1f} ms; bound {b_ms:.3f} ms by "
+          f"{b_by} ({flops / 1e9:.2f} GFLOP at {PEAK_FLOPS[torch.float32] / 1e12:.0f} TFLOP/s "
+          f"f32, {nbytes / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
+          f"{100 * b_ms / device_ms:.1f}% of the graph step")
+    if profile:
+        profile_step(label, step)
+    return dict(wall_ms=wall_ms, eager_ms=eager_ms, device_ms=device_ms, bound_ms=b_ms)
+
+
+def phase_zoo(dev) -> None:
+    """Every other CNN of the zoo at full width through rrto and
+    ``device_only``: rrto reaches replaying and equals ``device_only``
+    bitwise at every inference.  The recurrent decoder threads its state ``h``
+    back in; rrto carries it on the server, so its steady replay takes 2 RPCs
+    (the frame up, ``y`` down) and its ``h`` download is a stable handle, not
+    compared once replaying."""
+    from repro_torch.core.offload import OffloadSession
+    from repro_torch.models.cnn_zoo import ZOO
+
+    for key, size in ZOO_SIZES.items():
+        t0 = time.perf_counter()
+        model = ZOO[key](1.0, size, 0, device=dev)
+        rrto = OffloadSession(model, "rrto", device=dev)
+        only = OffloadSession(model, "device_only", device=dev)
+        timer = StepTimer(rrto)
+        ins_r = ins_d = list(model.example_inputs)
+        for _ in range(ZOO_INFERS):
+            r, d = rrto.infer(*ins_r), only.infer(*ins_d)
+            n = 1 if (key == "recurrent_sensor_decoder" and r.mode == "replaying") else None
+            check(all(torch.equal(a, b) for a, b in zip(r.outputs[:n], d.outputs[:n])),
+                  f"{key}: rrto != device_only in {r.mode}")
+            if key == "recurrent_sensor_decoder":
+                ins_r, ins_d = [ins_r[0], r.outputs[1]], [ins_d[0], d.outputs[1]]
+        hist = rrto.history
+        check(rrto.client.mode == "replaying", f"{key}: never reached replaying")
+        pairs = rrto.client.ios.carried_pairs
+        if key == "recurrent_sensor_decoder":
+            check(len(pairs) == 1 and hist[-1].rpcs == 2,
+                  f"{key}: carried pairs {pairs}, steady rpcs {hist[-1].rpcs}")
+        else:
+            check(not pairs, f"{key}: carries {pairs}")
+        print(f"{key} @ {size}: {len(rrto._graph.nodes)} aten calls; modes "
+              f"{[h.mode[:3] for h in hist]}; rpcs {[h.rpcs for h in hist]}; carried {pairs}; "
+              f"rrto == device_only bitwise ({time.perf_counter() - t0:.1f} s)")
+        measure_cnn_step(f"{key} @ {size}", rrto, timer, ins_r, dev)
+        del model, rrto, only
+        torch.cuda.empty_cache()
 
 
 def run_path(library, label, kernels, fn):
@@ -879,6 +1107,24 @@ def main() -> None:
     check_main_path(m)
     measure_replay_step(m, dev, profile=True)
     del m, params
+    torch.cuda.empty_cache()
+
+    # phase 6 runs cuDNN convolutions: deterministic algorithms, no TF32, no
+    # autotuning, so rrto's replay and device_only make the same calls
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    print(f"cudnn: allow_tf32 {torch.backends.cudnn.allow_tf32}, deterministic "
+          f"{torch.backends.cudnn.deterministic}, benchmark {torch.backends.cudnn.benchmark}; "
+          f"matmul allow_tf32 {torch.backends.cuda.matmul.allow_tf32}")
+    k, by_path["kapao"] = run_path(library, "phase 6 kapao", (), lambda: phase_kapao(dev))
+    check_kapao(k, dev)
+    rrto, timer = k["runs"]["rrto"]
+    measure_cnn_step("kapao", rrto, timer, k["model"].example_inputs, dev, profile=True)
+    del k
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_zoo(dev)
+    print(f"[phase 6 zoo] ({time.perf_counter() - t0:.1f} s)")
     print(f"launches by path: {by_path}")
 
     kernels = []

@@ -1,5 +1,6 @@
 """Parameters of the JAX package (as numpy, ``jax.tree.map(np.asarray, p)``)
-to the port's: the layouts are the same, so conversion is a dtype move."""
+to the port's.  The LM layouts are the same, so their conversion is a dtype
+move; the CNN zoo's convolution kernels go from HWIO to torch's OIHW."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -38,3 +39,18 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig, device: Any = "cuda
         return t.to(dev)
 
     return conv(tree)
+
+
+def cnn_params_from_numpy(params: Dict[str, Any], device: Any = "cuda") -> Dict[str, torch.Tensor]:
+    """Convert a CNN zoo model's flat dict of numpy arrays.  Every 4-dim leaf
+    is a convolution kernel in the reference's HWIO layout (the depthwise
+    ``*_dw`` kernels ``(7, 7, 1, dim)`` included) and becomes torch's OIHW
+    through ``permute(3, 2, 0, 1)``; every other leaf is carried as is."""
+    dev = resolve_device(device)
+    out = {}
+    for name, arr in params.items():
+        t = tensor_from_numpy(np.asarray(arr))
+        if t.dim() == 4:
+            t = t.permute(3, 2, 0, 1).contiguous()
+        out[name] = t.to(dev)
+    return out

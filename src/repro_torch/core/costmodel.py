@@ -21,7 +21,10 @@ _TRANSCENDENTAL = {
     "exp", "log", "tanh", "sigmoid", "silu", "rsqrt", "sqrt", "sin", "cos",
     "pow", "reciprocal", "erf",
 }
-_REDUCTIONS = {"sum", "mean", "amax", "amin", "max", "min", "argmax", "argmin", "prod"}
+_REDUCTIONS = {
+    "sum", "mean", "amax", "amin", "max", "min", "argmax", "argmin", "prod",
+    "max_pool2d_with_indices",   # a windowed max, like the reference's reduce_window_max
+}
 
 
 def _size(shape) -> int:
@@ -36,8 +39,9 @@ def aval_nbytes(aval: Aval) -> int:
 def node_flops(
     op_name: str, in_avals: Sequence[Aval], out_avals: Sequence[Aval], is_view: bool
 ) -> float:
-    """FLOPs estimate for one aten node (products and the attention kernels
-    get exact counts, everything else ~1 flop per output element)."""
+    """FLOPs estimate for one aten node (products, convolutions and the
+    attention kernels get exact counts, everything else ~1 flop per output
+    element)."""
     if is_view:
         return 0.0
     base = op_name.split(".")[-2] if "." in op_name else op_name
@@ -47,6 +51,13 @@ def node_flops(
         return 2.0 * out_elems * a_shape[-1]
     if base == "addmm":
         return 2.0 * out_elems * in_avals[1][0][-1]
+    if base == "convolution":
+        # OIHW weight: kh*kw*(cin/groups) MACs per output element, which
+        # covers grouped (depthwise) and dilated convolutions alike; the
+        # output is the first tensor (a bias add is not counted, as in the
+        # reference's conv_general_dilated)
+        (w_shape, _), (o_shape, _) = in_avals[1], out_avals[0]
+        return 2.0 * _size(o_shape) * _size(w_shape[1:])
     if base == "decode_attention":
         (b, hq, d), s = in_avals[0][0], in_avals[1][0][1]
         return 4.0 * b * hq * s * d

@@ -290,11 +290,15 @@ class OffloadServer:
     """GPU-server side of one client: executes RPCs in recording mode, builds
     + replays the IOS in replaying mode.  ``device`` is where the server
     really computes; ``device_spec`` is the simulated server its clock
-    accounts for."""
+    accounts for.  With ``execute=False`` the server only accounts time and
+    bytes: it computes nothing, and every download is zeros of its aval."""
 
-    def __init__(self, device_spec: DeviceSpec, *, device: torch.device):
+    def __init__(
+        self, device_spec: DeviceSpec, *, device: torch.device, execute: bool = True
+    ):
         self.device_spec = device_spec
         self.device = device
+        self.execute = execute
         self.ctx = ClientContext()
         self.busy_until = 0.0          # async kernel-queue completion time
         self.busy_seconds = 0.0        # accumulated compute (GPU-util proxy)
@@ -308,14 +312,21 @@ class OffloadServer:
         rec = call.record
         ret: Any = "cudaSuccess"
         if rec.func == FUNC_H2D:
-            env[call.out_addrs[0]] = self.to_device(call.h2d_value)
+            if self.execute:
+                env[call.out_addrs[0]] = self.to_device(call.h2d_value)
         elif rec.func == FUNC_D2H:
             # DtoH must drain the kernel queue first
             self.busy_until = max(self.busy_until, arrival_t)
-            ret = host_copy(env[call.in_operands[0][1]])
+            if self.execute:
+                ret = host_copy(env[call.in_operands[0][1]])
+            else:
+                shape, dtype = call.out_avals[0]
+                ret = torch.zeros(shape, dtype=dtype)
         elif call.op is not None:
-            with torch.no_grad():
-                execute_call(call, env)
+            # a kernel or a DtoD copy
+            if self.execute:
+                with torch.no_grad():
+                    execute_call(call, env)
             op_t = self.device_spec.op_time(rec.flops, rec.mem_bytes)
             op_t += self.device_spec.kernel_launch_s
             self.busy_until = max(self.busy_until, arrival_t) + op_t
@@ -354,6 +365,11 @@ class OffloadServer:
         ctx = self.ctx
         bound = ctx.replay
         program = bound.program
+        if not self.execute:
+            avals = program.d2h_avals
+            if program.is_stateful:
+                avals = [avals[j] for j in program.wire_out]
+            return [torch.zeros(shape, dtype=dtype) for shape, dtype in avals]
         params_flat = [ctx.env[a] for a in bound.param_addrs]
         ins = [self.to_device(x) for x in inputs]
         if program.is_stateful:

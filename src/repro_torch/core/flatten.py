@@ -30,12 +30,15 @@ _counter = itertools.count()
 
 
 class FlatVar:
-    """A fresh SSA variable in the flattened program (identity-hashed)."""
+    """A fresh SSA variable in the flattened program (identity-hashed).
+    ``contiguous`` is the traced tensor's layout: the interceptor tells a
+    device-to-device copy from a copy kernel by it."""
 
-    __slots__ = ("aval", "uid")
+    __slots__ = ("aval", "contiguous", "uid")
 
-    def __init__(self, aval: Aval):
+    def __init__(self, aval: Aval, contiguous: bool):
         self.aval = aval
+        self.contiguous = contiguous
         self.uid = next(_counter)
 
     def __repr__(self):
@@ -63,6 +66,18 @@ class FlatNode:
     def is_view(self) -> bool:
         return bool(getattr(self.op, "is_view", False))
 
+    @property
+    def is_d2d(self) -> bool:
+        """A clone of a contiguous tensor into the same layout: CUDA runs it
+        as one ``cudaMemcpyAsync`` device to device.  Cloning a strided
+        tensor (``.contiguous()``, a reshape of a permuted view) gathers
+        through a copy kernel instead."""
+        return (
+            self.op is torch.ops.aten.clone.default
+            and self.invars[0].contiguous
+            and self.outvars[0].contiguous
+        )
+
 
 @dataclasses.dataclass
 class FlatGraph:
@@ -75,6 +90,10 @@ class FlatGraph:
 
 def aval_of(t: torch.Tensor) -> Aval:
     return (tuple(int(s) for s in t.shape), t.dtype)
+
+
+def _var(t: torch.Tensor) -> FlatVar:
+    return FlatVar(aval_of(t), t.is_contiguous())
 
 
 def _walk(x, fn):
@@ -119,16 +138,16 @@ def trace_app(
             idx = n_placeholders
             n_placeholders += 1
             if idx < n_params:
-                var = FlatVar(aval_of(param_leaves[idx]))
+                var = _var(param_leaves[idx])
                 constvars.append(var)
                 consts.append(param_leaves[idx])
             else:
-                var = FlatVar(aval_of(example_inputs[idx - n_params]))
+                var = _var(example_inputs[idx - n_params])
                 invars.append(var)
             env[node] = var
         elif node.op == "get_attr":
             value = getattr(gm, node.target)
-            var = FlatVar(aval_of(value))
+            var = _var(value)
             constvars.append(var)
             consts.append(value)
             env[node] = var
@@ -150,12 +169,12 @@ def trace_app(
             kwargs = _walk(dict(node.kwargs), read)
             val = node.meta["val"]
             if isinstance(val, torch.Tensor):
-                outs = [FlatVar(aval_of(val))]
+                outs = [_var(val)]
                 env[node] = outs[0]
             elif isinstance(val, (list, tuple)) and all(
                 isinstance(v, torch.Tensor) for v in val
             ):
-                outs = [FlatVar(aval_of(v)) for v in val]
+                outs = [_var(v) for v in val]
                 env[node] = outs
             else:
                 raise TypeError(

@@ -21,6 +21,11 @@ Alg. 3).  It walks the graph exactly as the reference's
 * **Boundary markers.**  Inference inputs/outputs are emitted as
   ``cudaMemcpyHtoD`` / ``cudaMemcpyDtoH`` records, each followed by a
   ``cudaStreamSynchronize`` — the sync-grouped markers of observation ②.
+
+* **Device-to-device copies.**  A clone of a contiguous tensor into the same
+  layout is a ``cudaMemcpyDtoD`` record (KAPAO's 9 staging copies of
+  Tab. III): no framework noise precedes it and it takes no kernel index,
+  but the server still executes it.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import torch
 from repro_torch.core.costmodel import Aval, aval_nbytes, node_bytes, node_flops
 from repro_torch.core.flatten import FlatGraph, FlatNode, FlatVar
 from repro_torch.core.records import (
+    FUNC_D2D,
     FUNC_D2H,
     FUNC_GET_DEVICE,
     FUNC_GET_LAST_ERROR,
@@ -169,10 +175,14 @@ class GraphInterceptor:
         self,
         sink: CallSink,
         noise: Optional[FrameworkNoiseModel] = None,
+        input_wire_divisor: float = 1.0,
     ):
         self.sink = sink
         self.noise = noise if noise is not None else FrameworkNoiseModel()
         self.arena = BufferArena()
+        # wire-format divisor of inference inputs (a JPEG camera frame);
+        # parameters always travel raw
+        self.input_wire_divisor = input_wire_divisor
         self._sigs: Dict[FlatNode, tuple] = {}   # per-node static record parts
 
     # -- persistent (parameter) uploads ------------------------------------
@@ -206,13 +216,17 @@ class GraphInterceptor:
         return addrs
 
     def _static_sig(self, node: FlatNode) -> tuple:
-        """(name, frozen args, out avals, flops, bytes) of a node — the parts
-        of its record that do not depend on addresses, computed once."""
+        """(func, name, frozen args, out avals, flops, bytes) of a node — the
+        parts of its record that do not depend on addresses, computed once.
+        A clone of a contiguous tensor into the same layout is a
+        ``cudaMemcpyDtoD`` (:attr:`FlatNode.is_d2d`); every other node is a
+        ``kernel:<op>``."""
         sig = self._sigs.get(node)
         if sig is None:
             ins = [v.aval for v in node.invars]
             outs = tuple(v.aval for v in node.outvars)
             sig = (
+                FUNC_D2D if node.is_d2d else f"kernel:{node.name}",
                 node.name,
                 (_freeze(node.args), _freeze(node.kwargs)),
                 outs,
@@ -228,11 +242,22 @@ class GraphInterceptor:
         graph: FlatGraph,
         param_addrs: Sequence[int],
         inputs: Sequence[torch.Tensor],
-    ) -> List[Any]:
+        *,
+        resident_inputs: Optional[Dict[int, int]] = None,
+        resident_outputs: bool = False,
+    ) -> Any:
         """Walk the graph: HtoD the inputs, launch each node as a kernel RPC
-        (preceded by framework noise), DtoH every output.  Returns the values
-        the application receives (whatever the sink returned for the DtoH
-        calls)."""
+        (preceded by framework noise) or a DtoD copy (no noise), DtoH every
+        output.  Returns the values the application receives (whatever the
+        sink returned for the DtoH calls).
+
+        ``resident_inputs`` maps invar index -> device address for operands
+        already resident on the server (the outputs of an initialization
+        graph): no HtoD is emitted for them and they are never freed.
+        ``resident_outputs=True`` is for such a graph: no DtoH is emitted,
+        the output buffers stay allocated, and their addresses are returned
+        in place of the results."""
+        resident_inputs = resident_inputs or {}
         if len(param_addrs) != len(graph.constvars):
             raise ValueError(
                 f"{len(param_addrs)} param addrs for {len(graph.constvars)} constvars"
@@ -242,7 +267,7 @@ class GraphInterceptor:
         # deterministic function of the op position within the model
         addr_of: Dict[FlatVar, int] = dict(zip(graph.constvars, param_addrs))
         freed: Set[int] = set()
-        persistent_addrs = set(param_addrs)
+        persistent_addrs = set(param_addrs) | set(resident_inputs.values())
 
         def alloc(nbytes: int) -> int:
             addr = self.arena.alloc(nbytes)
@@ -262,10 +287,14 @@ class GraphInterceptor:
         outvar_set = set(graph.outvars)
 
         # ---- inference start: upload inputs (observation ② start marker)
-        for var, value in zip(graph.invars, inputs):
+        for idx, (var, value) in enumerate(zip(graph.invars, inputs)):
+            if idx in resident_inputs:
+                addr_of[var] = resident_inputs[idx]
+                continue
             nbytes = _host_nbytes(value)
             addr = alloc(nbytes)
             addr_of[var] = addr
+            wire = int(nbytes / self.input_wire_divisor)
             self.sink(
                 InterceptedCall(
                     OperatorRecord(
@@ -273,7 +302,7 @@ class GraphInterceptor:
                         (addr, nbytes),
                         in_buffers=(),
                         out_buffers=(addr,),
-                        payload_bytes=nbytes + 64,
+                        payload_bytes=wire + 64,
                     ),
                     out_addrs=(addr,),
                     h2d_value=value,
@@ -283,20 +312,22 @@ class GraphInterceptor:
 
         # ---- the operator stream
         for i, node in enumerate(graph.nodes):
-            name, arg_sig, out_avals, flops, mem_bytes = self._static_sig(node)
+            func, name, arg_sig, out_avals, flops, mem_bytes = self._static_sig(node)
             in_addrs = tuple(addr_of[v] for v in node.invars)
             out_addrs = tuple(alloc(aval_nbytes(a)) for a in out_avals)
             for v, addr in zip(node.outvars, out_addrs):
                 addr_of[v] = addr
 
-            for q in self.noise.queries_for(kernel_index):
-                self.sink(InterceptedCall(OperatorRecord(q, ())))
-            kernel_index += 1
+            if func != FUNC_D2D:
+                for q in self.noise.queries_for(kernel_index):
+                    self.sink(InterceptedCall(OperatorRecord(q, ())))
+                kernel_index += 1
 
+            # a DtoD keeps its op and arguments: the server still executes it
             self.sink(
                 InterceptedCall(
                     OperatorRecord(
-                        f"kernel:{name}",
+                        func,
                         (name, arg_sig, in_addrs, out_addrs, out_avals),
                         in_buffers=in_addrs,
                         out_buffers=out_addrs,
@@ -323,7 +354,7 @@ class GraphInterceptor:
 
         # ---- inference end: download outputs (observation ② end marker)
         results: List[Any] = []
-        for var in graph.outvars:
+        for var in () if resident_outputs else graph.outvars:
             addr = addr_of[var]
             nbytes = aval_nbytes(var.aval)
             ret = self.sink(
@@ -344,6 +375,10 @@ class GraphInterceptor:
             results.append(ret)
 
         # free everything inference-local so the next run reuses addresses
-        for var in (*graph.outvars, *graph.invars):
+        out_addrs = [addr_of[var] for var in graph.outvars]
+        if not resident_outputs:
+            for addr in out_addrs:
+                maybe_free(addr)
+        for var in graph.invars:
             maybe_free(addr_of[var])
-        return results
+        return out_addrs if resident_outputs else results

@@ -17,7 +17,7 @@ and must agree across systems.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -38,7 +38,7 @@ from repro_torch.core.engine import (
     SimClock,
     host_copy,
 )
-from repro_torch.core.flatten import graph_cost, trace_app
+from repro_torch.core.flatten import FlatGraph, graph_cost, trace_app
 from repro_torch.core.intercept import FrameworkNoiseModel, GraphInterceptor
 from repro_torch.core.netsim import get_network
 from repro_torch.device import resolve_device, to_host
@@ -52,13 +52,71 @@ CLIENT_CONTROL_S = 0.5e-3
 @dataclasses.dataclass
 class OffloadableModel:
     """A model as the offloading layer sees it: an apply function, its
-    parameters (a nested dict of tensors on the session's device) and
-    example inputs (host values: CPU tensors or numpy arrays)."""
+    parameters (a nested dict of tensors on the session's device), example
+    inputs (host values: CPU tensors or numpy arrays), and an optional
+    one-time setup graph (initialization inference variability, e.g. KAPAO's
+    mesh-grid generation) whose outputs every later inference reads."""
 
     name: str
-    apply: Callable[..., Sequence[torch.Tensor]]   # apply(params, *inputs)
+    apply: Callable[..., Sequence[torch.Tensor]]   # apply(params, [aux,] *inputs)
     params: Any
     example_inputs: Tuple[Any, ...]
+    setup: Optional[Callable[..., Any]] = None      # setup(params, *inputs) -> aux
+    # wire-format divisor for inference inputs (e.g. ~10x JPEG for camera
+    # frames); parameters always travel raw
+    input_wire_divisor: float = 1.0
+
+
+@dataclasses.dataclass
+class TracedModel:
+    """A model traced the way a session runs it.  With a setup graph, the
+    steady graph's invars are the setup outputs' leaves (``aux_leaves``,
+    computed eagerly once from the example inputs) followed by the inputs;
+    ``flat_apply(param_leaves, *aux_leaves, *inputs)`` runs it eagerly."""
+
+    param_leaves: List[torch.Tensor]
+    flat_apply: Callable[..., Sequence[torch.Tensor]]
+    aux_leaves: List[torch.Tensor]
+    setup_graph: Optional[FlatGraph]
+    graph: FlatGraph
+
+    @property
+    def n_kernel_records(self) -> int:
+        """Kernel launches one steady inference records (DtoD copies are
+        not kernels)."""
+        return sum(1 for n in self.graph.nodes if not n.is_d2d)
+
+
+def trace_model(model: OffloadableModel, device: torch.device) -> TracedModel:
+    """Trace ``model`` (fake tensors: shapes only) on ``device``."""
+    leaves, spec = torch.utils._pytree.tree_flatten(model.params)
+    example = [to_host(x).to(device) for x in model.example_inputs]
+
+    def unflatten(ls):
+        return torch.utils._pytree.tree_unflatten(list(ls), spec)
+
+    if model.setup is None:
+        aux_leaves, setup_graph = [], None
+
+        def flat_apply(ls, *inputs):
+            return model.apply(unflatten(ls), *inputs)
+    else:
+        def flat_setup(ls, *inputs):
+            return torch.utils._pytree.tree_leaves(model.setup(unflatten(ls), *inputs))
+
+        with torch.no_grad():
+            aux_leaves, aux_spec = torch.utils._pytree.tree_flatten(
+                model.setup(model.params, *example)
+            )
+        n_aux = len(aux_leaves)
+
+        def flat_apply(ls, *args):
+            aux = torch.utils._pytree.tree_unflatten(list(args[:n_aux]), aux_spec)
+            return model.apply(unflatten(ls), aux, *args[n_aux:])
+
+        setup_graph = trace_app(flat_setup, leaves, example)
+    graph = trace_app(flat_apply, leaves, [*aux_leaves, *example])
+    return TracedModel(leaves, flat_apply, aux_leaves, setup_graph, graph)
 
 
 @dataclasses.dataclass
@@ -81,14 +139,20 @@ class OffloadSession:
         system: str,
         *,
         environment: str = "indoor",
+        noise: Optional[FrameworkNoiseModel] = None,
         min_repeats: int = 3,
         seed: int = 0,
+        execute: bool = True,
         device: Any = "cuda",
     ):
+        """``execute=False`` makes an account-only session: the clock,
+        network, energy and record streams run as usual, nothing is
+        computed, and every output is zeros of its shape and dtype."""
         if system not in SYSTEMS:
             raise ValueError(f"unknown system {system!r}; pick from {SYSTEMS}")
         self.model = model
         self.system = system
+        self.execute = execute
         self.device = resolve_device(device)
         # the paper's testbed, simulated: Jetson Xavier NX client, GTX 2080 Ti
         # server, indoor or outdoor Wi-Fi trace, Tab. II power draw
@@ -97,22 +161,19 @@ class OffloadSession:
         self.server_device = GTX_2080TI
         self.clock = SimClock()
         self.meter = EnergyMeter(PowerModel())
-        self.server = OffloadServer(GTX_2080TI, device=self.device)
+        self.server = OffloadServer(GTX_2080TI, device=self.device, execute=execute)
         self.history: List[InferenceResult] = []
+        self.stage_marks: Dict[str, int] = {}
         self._loaded = False
 
-        # ---- trace the model once (fake tensors: shapes only)
-        self._param_leaves, self._param_spec = torch.utils._pytree.tree_flatten(
-            model.params
-        )
-        spec = self._param_spec
-
-        def flat_apply(leaves, *inputs):
-            return model.apply(torch.utils._pytree.tree_unflatten(leaves, spec), *inputs)
-
-        self._flat_apply = flat_apply
-        example = [to_host(x).to(self.device) for x in model.example_inputs]
-        self._graph = trace_app(flat_apply, self._param_leaves, example)
+        # ---- trace the model once (fake tensors: shapes only); the setup
+        # outputs are computed eagerly here, once
+        traced = trace_model(model, self.device)
+        self._param_leaves = traced.param_leaves
+        self._flat_apply = traced.flat_apply
+        self._aux_leaves = traced.aux_leaves
+        self._setup_graph = traced.setup_graph
+        self._graph = traced.graph
         self._steady_flops, self._steady_bytes = graph_cost(self._graph)
         self._n_kernels = len(self._graph.nodes)
 
@@ -126,13 +187,22 @@ class OffloadSession:
                 variant=variant,
                 min_repeats=min_repeats,
             )
-            self.interceptor = GraphInterceptor(self.client, FrameworkNoiseModel())
+            self.interceptor = GraphInterceptor(
+                self.client,
+                noise or FrameworkNoiseModel(),
+                input_wire_divisor=model.input_wire_divisor,
+            )
         else:
             self.client = None
             self.interceptor = None
-        self._param_addrs: List[int] = []
+        self._const_addrs: Dict[int, int] = {}   # id(traced constant) -> addr
+        # setup-output leaf index -> device address, after the first inference
+        self._aux_addrs: Optional[Dict[int, int]] = None
 
     # ------------------------------------------------------------------
+    def _logs_so_far(self) -> int:
+        return len(self.client.logs) if self.client else 0
+
     def load(self) -> None:
         """Model-load phase: parameters travel to where they execute."""
         if self._loaded:
@@ -146,21 +216,41 @@ class OffloadSession:
             self.meter.add(STATE_CONTROL, 0.05)
             self.clock.advance(0.05)
         else:
-            # upload every traced constant (the parameters and any tensor the
-            # app builds from Python data), deduplicated by identity (a tied
-            # weight is one tensor)
-            unique: Dict[int, int] = {}
+            # upload every traced constant of the setup and steady graphs
+            # (the parameters and any tensor the app builds from Python
+            # data), deduplicated by identity (a tied weight is one tensor)
+            index: Dict[int, int] = {}
             leaves: List[torch.Tensor] = []
-            for c in self._graph.consts:
-                if id(c) not in unique:
-                    unique[id(c)] = len(leaves)
-                    leaves.append(c)
+            for graph in (self._setup_graph, self._graph):
+                for c in graph.consts if graph is not None else ():
+                    if id(c) not in index:
+                        index[id(c)] = len(leaves)
+                        leaves.append(c)
             addrs = self.interceptor.upload_params(leaves)
-            self._param_addrs = [addrs[unique[id(c)]] for c in self._graph.consts]
+            self._const_addrs = {k: addrs[i] for k, i in index.items()}
+        self.stage_marks["after_load"] = self._logs_so_far()
         self._loaded = True
 
+    def _param_addrs_for(self, graph: FlatGraph) -> List[int]:
+        return [self._const_addrs[id(c)] for c in graph.consts]
+
     def _run_intercepted(self, inputs: Sequence[torch.Tensor]) -> List[Any]:
-        return self.interceptor.run(self._graph, self._param_addrs, inputs)
+        if self._setup_graph is not None and self._aux_addrs is None:
+            # initialization inference: the setup graph runs first and its
+            # outputs stay on the device for every later inference
+            aux_addrs = self.interceptor.run(
+                self._setup_graph,
+                self._param_addrs_for(self._setup_graph),
+                inputs,
+                resident_outputs=True,
+            )
+            self._aux_addrs = dict(enumerate(aux_addrs))
+        return self.interceptor.run(
+            self._graph,
+            self._param_addrs_for(self._graph),
+            [*self._aux_leaves, *inputs],
+            resident_inputs=self._aux_addrs,
+        )
 
     def infer(self, *inputs) -> InferenceResult:
         """One inference.  Inputs are host values (CPU tensors or numpy); a
@@ -185,6 +275,8 @@ class OffloadSession:
             self.clock.advance(CLIENT_CONTROL_S)
             mode = self.client.mode
             outputs = self._run_intercepted(inputs)
+        if len(self.history) == 0:
+            self.stage_marks["after_first_inference"] = self._logs_so_far()
 
         res = InferenceResult(
             outputs=outputs,
@@ -203,10 +295,16 @@ class OffloadSession:
     # ------------------------------------------------------------------
     def _direct(self, inputs) -> List[torch.Tensor]:
         """Eager execution of the app on the device: the same aten calls the
-        interceptor records, one at a time."""
+        interceptor records, one at a time (zeros of the outputs' avals in an
+        account-only session)."""
+        if not self.execute:
+            return [torch.zeros(shape, dtype=dtype) for shape, dtype in
+                    (v.aval for v in self._graph.outvars)]
         with torch.no_grad():
             outs = self._flat_apply(
-                self._param_leaves, *[x.to(self.device) for x in inputs]
+                self._param_leaves,
+                *self._aux_leaves,
+                *[x.to(self.device) for x in inputs],
             )
         return [host_copy(o) for o in outs]
 
@@ -224,7 +322,10 @@ class OffloadSession:
 
     def _nnto(self, inputs) -> List[torch.Tensor]:
         outs = self._direct(inputs)
-        in_bytes = float(sum(x.numel() * x.element_size() for x in inputs))
+        in_bytes = float(
+            sum(x.numel() * x.element_size() for x in inputs)
+            / self.model.input_wire_divisor
+        )
         out_bytes = float(sum(o.numel() * o.element_size() for o in outs))
         # app-level send -> server compute -> receive
         up = self.network._rtt_at(self.clock.t) + self.network.transfer_time(

@@ -21,6 +21,11 @@ import sys
 import numpy as np
 import repro_torch.configs, repro_torch.convert, repro_torch.core.offload
 import repro_torch.kernels.library
+from repro_torch.core.offload import OffloadSession
+from repro_torch.models.cnn_zoo import make_kapao_calibrated
+kapao = make_kapao_calibrated(0.125, 256, device="cpu")
+sess = OffloadSession(kapao, "rrto", device="cpu")
+assert [sess.infer(*kapao.example_inputs).rpcs for _ in range(5)][-1] == 11
 from repro_torch.configs import get_reduced_config
 from repro_torch.serving.engine import LocalServing, RRTOServedLM
 cfg = get_reduced_config("qwen3-0.6b")
