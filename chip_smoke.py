@@ -21,19 +21,25 @@ random weights from a seed:
   through all five offloading systems, held bitwise against ``device_only``
   and within 2e-4 of the same run on the CPU, with the paper's RPC counts;
   then every other CNN of the zoo through rrto and ``device_only`` at the
-  reference's benchmark sizes.
+  reference's benchmark sizes;
+* multi-tenant serving (phase 7): each kernel's vmap rule at 4 lanes held
+  bitwise against the loop of the same kernel and timed at batch 4, then
+  ``MultiClientServedLM`` with 4 qwen3-0.6b clients and 2 zamba2-1.2b
+  stateless clients, each run vmap-batched and looped (equal tokens), and
+  the batched width-4 qwen3 step against 4 solo steps in turns.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
-read just after; each path's replayed step is also timed as one CUDA graph,
-and the zamba2 and KAPAO steps' device time is read by kernel with
-``torch.profiler``.
-Any failed check exits non-zero.  The last two lines of standard output are
+read just after (every batched call under ``no_vmap_fallback``, so an op
+without a batching rule fails the run); each path's replayed step is also
+timed as one CUDA graph, and the zamba2 and KAPAO steps' device time is read
+by kernel with ``torch.profiler``.  Any failed check exits non-zero.  The last two lines of standard output are
 the kernel table and the device, as JSON.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+from collections import Counter
 import os
 import subprocess
 import sys
@@ -709,8 +715,8 @@ def measure_replay_step(m, dev, *, profile: bool = False) -> dict:
     ``profile``, ``torch.profiler`` reads the graph-replayed step's device
     time by kernel."""
     sess = m["sess"]
-    bound = sess.server.ctx.replay
-    env = sess.server.ctx.env
+    bound = sess.server.context().replay
+    env = sess.server.context().env
     params_flat = [env[a] for a in bound.param_addrs]
     cur = m["prompt"].shape[1] + m["new_tokens"] - 1
     if m["stateful"]:
@@ -751,31 +757,51 @@ def measure_replay_step(m, dev, *, profile: bool = False) -> dict:
 def profile_step(label, step, reps: int = 3) -> None:
     """Device time of one graph-replayed step by kernel name, from
     ``torch.profiler`` over ``reps`` replays: the top 10 kernels, and the
-    shares of rmsnorm and the scan where they ran (printed only)."""
+    shares of rmsnorm and the scan where they ran (printed only).  One
+    warm-up replay runs inside the profiler first and is left out: the
+    replays are 5 ms apart, so their kernel records fall into separate
+    clusters in time, and the first cluster is dropped."""
+    from collections import defaultdict
+
     from torch.profiler import ProfilerActivity, profile
 
     g = capture(step, 1)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+        for _ in range(1 + reps):
             g.replay()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
-    if not kernels:
+            torch.cuda.synchronize()
+            time.sleep(0.005)
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    if not events:
         print(f"{label} step profile: no device time in the trace (not measured)")
         return
-    total = sum(e.device_time_total for e in kernels) / reps
-    print(f"{label} step profile (graph replay, {reps} steps): device time "
-          f"{total / 1e3:.3f} ms a step; {sum(e.count for e in kernels)} kernel records")
-    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:10]:
-        t = e.device_time_total / reps
-        print(f"  {t:9.1f} us {100 * t / total:5.1f}%  {e.count:5d} records  {e.key[:90]}")
+    clusters = [[events[0]]]
+    for prev, e in zip(events, events[1:]):
+        if e.time_range.start - prev.time_range.end > 1000:    # µs: a gap between replays
+            clusters.append([])
+        clusters[-1].append(e)
+    rms = [sum(1 for e in c if "rmsnorm_" in e.name) for c in clusters]
+    print(f"{label} step profile: kernel records per replay {[len(c) for c in clusters]}, "
+          f"rmsnorm records per replay {rms} (the first is the warm-up, left out)")
+    by_name = defaultdict(lambda: [0, 0.0])
+    for c in clusters[1:]:
+        for e in c:
+            by_name[e.name][0] += 1
+            by_name[e.name][1] += e.time_range.elapsed_us()
+    n = len(clusters) - 1
+    total = sum(t for _, t in by_name.values()) / n
+    print(f"{label} step profile (graph replay, {n} steps): device time "
+          f"{total / 1e3:.3f} ms a step; {sum(c for c, _ in by_name.values())} kernel records")
+    for name, (count, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
+        print(f"  {t / n:9.1f} us {100 * t / n / total:5.1f}%  {count:5d} records  {name[:90]}")
     for name, keys in (("rmsnorm", ("rmsnorm_",)), ("gated scan", ("ssd_kernel", "ssd_mma_"))):
-        n = sum(e.count for e in kernels if any(k in e.key for k in keys))
-        if n:
-            t = sum(e.device_time_total for e in kernels if any(k in e.key for k in keys)) / reps
-            print(f"  share of {name}: {t:.1f} us a step ({n} records in {reps} steps), "
-                  f"{100 * t / total:.1f}% of the step")
+        hits = [(c, t) for k, (c, t) in by_name.items() if any(x in k for x in keys)]
+        if hits:
+            t = sum(t for _, t in hits) / n
+            print(f"  share of {name}: {t:.1f} us a step ({sum(c for c, _ in hits)} records in "
+                  f"{n} steps), {100 * t / total:.1f}% of the step")
 
 
 def prefill_and_decode_logits(m, dev, params, cfg) -> tuple:
@@ -904,8 +930,6 @@ def phase_kapao(dev) -> dict:
 
 
 def check_kapao(k, dev) -> None:
-    from collections import Counter
-
     from repro_torch.models.cnn_zoo import make_kapao_calibrated
 
     runs = k["runs"]
@@ -955,9 +979,9 @@ def measure_cnn_step(label, sess, timer, inputs, dev, *, profile=False) -> dict:
     state.  With ``profile``, the graph step's device time by kernel."""
     from repro_torch.core.flatten import graph_cost
 
-    bound = sess.server.ctx.replay
+    bound = sess.server.context().replay
     program = bound.program
-    params_flat = [sess.server.ctx.env[a] for a in bound.param_addrs]
+    params_flat = [sess.server.context().env[a] for a in bound.param_addrs]
     wire = [torch.from_numpy(np.asarray(x).copy()).to(dev) for x in inputs]
     if program.is_stateful:
         wire = [wire[i] for i in program.wire_in]
@@ -1031,6 +1055,360 @@ def phase_zoo(dev) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 7: multi-tenant serving (co-tenant replays batched with vmap)
+# ---------------------------------------------------------------------------
+
+MT_CLIENTS, MT_PROMPTS, MT_NEW = 4, (8, 9, 10, 11), 8        # qwen3-0.6b, bucket 512
+MT_Z_CLIENTS, MT_Z_PROMPT, MT_Z_NEW = 2, Z_PROMPT, 8            # zamba2 stateless, bucket 64
+# the products of the served steps: qwen3's q / k-v / o / gate-up / down /
+# head projections and zamba2's in- and out-projections and MLP
+GEMM_SHAPES = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 1024),
+               (1024, 151936), (2048, 8512), (4096, 2048), (2048, 8192), (8192, 2048)]
+
+
+def vmap_vs_loop(fn, args, in_dims=0):
+    """``fn`` under vmap (fallback disabled) and as a loop over lanes."""
+    from repro_torch.core.engine import no_vmap_fallback
+
+    dims = in_dims if isinstance(in_dims, tuple) else (in_dims,) * len(args)
+    with no_vmap_fallback():
+        v = torch.func.vmap(fn, in_dims=in_dims)(*args)
+    lanes = next(a.shape[d] for a, d in zip(args, dims) if d is not None)
+    outs = [fn(*(a if d is None else a.select(d, i) for a, d in zip(args, dims)))
+            for i in range(lanes)]
+    loop = tuple(torch.stack(o) for o in zip(*outs)) if isinstance(outs[0], tuple) \
+        else torch.stack(outs)
+    return v, loop
+
+
+def bitwise(a, b) -> bool:
+    pairs = zip(a, b) if isinstance(a, tuple) else [(a, b)]
+    return all(x.shape == y.shape and torch.equal(x, y) for x, y in pairs)
+
+
+def phase_mt_kernels(dev) -> dict:
+    """Each kernel's batching rule at the served shapes with 4 lanes
+    (decode attention with a kv_len per lane), bitwise against the loop of
+    the same kernel, one launch against four; then each kernel timed at
+    batch 4 (the rule's one launch) beside its plain version, the library
+    call and the bound.  Then the products of the served steps, lane against
+    loop: bf16 and f32 GEMMs at M = 4 against four at M = 1, zamba2's
+    depthwise conv at N = 2 against two at N = 1 (printed; the batched
+    replay probes its own products and runs the batch-variant ones per
+    lane)."""
+    from repro_torch.kernels import library
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+    from repro_torch.kernels.flash_attention import attention_dense, flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
+    from repro_torch.kernels.ssm_scan import gated_scan, gated_scan_padded
+
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    bf = torch.bfloat16
+    w1k, w4k = randn(1024), randn(4096)
+    kv_len = torch.tensor([[n + 7] for n in MT_PROMPTS], dtype=torch.int32, device=dev)
+    dt_ = F.softplus(randn(4, 1, 64, 64, dtype=torch.float32) - 2.0)
+    a_ = -torch.linspace(1.0, 16.0, 64, device=dev)
+    d_ = torch.ones(64, device=dev)
+    cases = [
+        ("rmsnorm", "x (4,1,1,1024)", lambda x: rmsnorm(x, w1k), (randn(4, 1, 1, 1024),)),
+        ("rmsnorm", "x (4,1,64,4096)", lambda x: rmsnorm(x, w4k), (randn(4, 1, 64, 4096),)),
+        ("decode_attention", "q (4,1,16,128), K/V (4,1,512,8,128), kv_len 15-18",
+         decode_attention, (randn(4, 1, 16, 128), randn(4, 1, 512, 8, 128),
+                            randn(4, 1, 512, 8, 128), kv_len)),
+        ("flash_attention", "q/k/v (4,1,64,32,64)", lambda q, k, v: flash_attention(q, k, v),
+         (randn(4, 1, 64, 32, 64), randn(4, 1, 64, 32, 64), randn(4, 1, 64, 32, 64))),
+        ("ssm_scan", "x (4,1,64,64,64), B/C (4,1,64,1,64)",
+         lambda x, ld, gi, b, c: gated_scan(x, ld, gi, b, c, d_),
+         (randn(4, 1, 64, 64, 64), dt_ * a_, dt_, randn(4, 1, 64, 1, 64),
+          randn(4, 1, 64, 1, 64))),
+    ]
+    for name, shape, fn, args in cases:
+        library.reset_launches()
+        v, loop = vmap_vs_loop(fn, args)
+        torch.cuda.synchronize()
+        n = library.LAUNCHES[name]
+        same = bitwise(v, loop)
+        print(f"vmap rule {name} {shape} bf16: vmap == lane loop bitwise {same}; launches "
+              f"{n} (1 for the rule, 4 for the loop)")
+        check(same and n == 5, f"{name}: the vmap rule at {shape} is not the lane loop")
+
+    rows = {}
+    # the rule's launch at batch 4, timed as the kernel at the folded shape
+    x = randn(4, 1024)
+    b_ms, b_by = bound_ms(2 * x.numel() * 2 + 1024 * 2, 4 * x.numel(), bf)
+    rows["rmsnorm"] = dict(
+        shape="x (4,1024) bf16 (warp)", max_abs_err=close(rmsnorm(x, w1k), rmsnorm_ref(x, w1k),
+                                                          RMSNORM_TOL[bf]),
+        ms=graph_ms(lambda: rmsnorm(x, w1k)), plain_ms=graph_ms(lambda: rmsnorm_ref(x, w1k)),
+        library_ms=graph_ms(lambda: F.rms_norm(x, (1024,), w1k, 1e-6)), bound_ms=b_ms,
+        bound_by=b_by)
+    q, k, v = randn(4, 16, 128), randn(4, 512, 8, 128), randn(4, 512, 8, 128)
+    lens = kv_len.reshape(4)
+    keys = int(lens.sum())
+    b_ms, b_by = bound_ms(2 * q.numel() * 2 + 2 * keys * 8 * 128 * 2 + 16,
+                          4 * 16 * keys * 128, bf)
+    n = int(lens.max())
+    mask = torch.arange(n, device=dev)[None, :] < lens[:, None]
+    kt, vt = k[:, :n].transpose(1, 2), v[:, :n].transpose(1, 2)
+    rows["decode_attention"] = dict(
+        shape="q (4,16,128), K/V (4,512,8,128) bf16, kv_len 15-18",
+        max_abs_err=close(decode_attention(q, k, v, lens), decode_attention_ref(q, k, v, lens),
+                          TOL[bf]),
+        ms=graph_ms(lambda: decode_attention(q, k, v, lens)),
+        plain_ms=graph_ms(lambda: decode_attention_ref(q, k, v, lens)),
+        library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kt, vt, attn_mask=mask[:, None, None, :], enable_gqa=True)),
+        bound_ms=b_ms, bound_by=b_by)
+    q, k, v = randn(4, 64, 32, 64), randn(4, 64, 32, 64), randn(4, 64, 32, 64)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    b_ms, b_by = bound_ms(2 * 4 * q.numel(), 4 * 4 * 32 * 64 * 65 / 2 * 64, bf)
+    rows["flash_attention"] = dict(
+        shape="q/k/v (4,64,32,64) bf16, causal",
+        max_abs_err=close(flash_attention(q, k, v), attention_dense(q, k, v), TOL[bf]),
+        ms=graph_ms(lambda: flash_attention(q, k, v)),
+        plain_ms=graph_ms(lambda: attention_dense(q, k, v)),
+        library_ms=graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)),
+        bound_ms=b_ms, bound_by=b_by)
+    sargs = scan_inputs(randn, 4, 64, 64, 64, 1, 64, bf)
+    y, h = gated_scan(*sargs)
+    y_r, h_r = gated_scan_padded(*sargs, None, 128)
+    b_ms, b_by = bound_ms(*scan_cost(4, 64, 64, 64, 1, 64, 64, bf), bf)
+    rows["ssm_scan"] = dict(
+        shape="x (4,64,64,64), B/C (4,64,1,64) bf16, chunk 64",
+        max_abs_err=max(close(y, y_r, TOL[bf]), close(h, h_r, TOL[bf])),
+        ms=graph_ms(lambda: gated_scan(*sargs)),
+        plain_ms=graph_ms(lambda: gated_scan_padded(*sargs, None, 128)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    for name, r in rows.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
+        print(f"time batched {name} [{r['shape']}]: kernel {r['ms'] * 1e3:.2f} us, plain "
+              f"{r['plain_ms'] * 1e3:.2f} us, library {lib}, bound {r['bound_ms'] * 1e3:.3f} us "
+              f"({r['bound_by']})")
+
+    # the products of the served steps: lanes folded into M against the loop
+    for dtype in (bf, torch.float32):
+        worst, unequal = 0.0, []
+        for kdim, ndim in GEMM_SHAPES:
+            w = randn(kdim, ndim, dtype=dtype) * 0.05
+            v, loop = vmap_vs_loop(lambda xi: torch.ops.aten.mm.default(xi, w),
+                                   (randn(4, 1, kdim, dtype=dtype),))
+            if not torch.equal(v, loop):
+                unequal.append((kdim, ndim))
+                worst = max(worst, (v.float() - loop.float()).abs().max().item())
+        print(f"gemm lanes vs loop {dtype}, M = 4 against 4 x M = 1 at {len(GEMM_SHAPES)} "
+              f"shapes: unequal at {unequal}, max|d| {worst:.3g}")
+    for dtype in (bf, torch.float32):
+        c = 4096 + 2 * 64
+        w = randn(c, 1, 4, dtype=dtype)
+        v, loop = vmap_vs_loop(lambda xi: F.conv1d(xi, w, groups=c),
+                               (randn(2, 1, c, Z_STATELESS_BUCKET + 3, dtype=dtype),))
+        print(f"depthwise conv1d lanes vs loop {dtype} (2, 1, {c}, "
+              f"{Z_STATELESS_BUCKET + 3}): bitwise {torch.equal(v, loop)}, max|d| "
+              f"{(v.float() - loop.float()).abs().max().item():.3g}")
+    return rows
+
+
+class RoundTimer:
+    """Wall time of each ``edge.run_round`` (its outputs are host copies, so
+    the round has waited for the card when it returns)."""
+
+    def __init__(self, edge):
+        self.walls = []
+        inner = edge.run_round
+
+        def run_round(inputs):
+            t0 = time.perf_counter()
+            res = inner(inputs)
+            self.walls.append((all(r.mode == "replaying" for r in res.values()),
+                               time.perf_counter() - t0))
+            return res
+
+        edge.run_round = run_round
+
+    def replay_ms(self, skip: int = 1) -> float:
+        ts = [t for replaying, t in self.walls if replaying][skip:]
+        return 1e3 * sum(ts) / max(1, len(ts))
+
+
+def phase_multitenant(dev, name, params, *, stateful, clients, prompt_lens, new_tokens,
+                      bucket, enable_vmap):
+    """``MultiClientServedLM`` at full width, every round under
+    ``no_vmap_fallback``: ``clients`` co-tenants, one prompt length each."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import no_vmap_fallback
+    from repro_torch.serving.engine import MultiClientServedLM
+
+    cfg = get_config(name)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, (1, n)).astype(np.int32) for n in prompt_lens]
+    t0 = time.perf_counter()
+    m = MultiClientServedLM(cfg, clients, bucket_len=bucket, params=params, device=dev,
+                            stateful=stateful)
+    m.edge.batcher.enable_vmap = enable_vmap
+    timer = RoundTimer(m.edge)
+    with no_vmap_fallback():
+        res = m.generate(prompts, new_tokens)
+    torch.cuda.synchronize()
+    kind = "stateful" if stateful else "stateless"
+    print(f"{name} {kind} x{clients} {'vmap' if enable_vmap else 'loop'}: {len(timer.walls)} "
+          f"rounds in {time.perf_counter() - t0:.1f} s; wall per steady replay round "
+          f"{timer.replay_ms():.1f} ms")
+    return dict(m=m, tokens=[r.tokens for r in res], timer=timer, prompts=prompts, cfg=cfg,
+                stateful=stateful)
+
+
+def check_multitenant(label, v, lp) -> None:
+    """The batched run against the loop run: equal tokens per client, every
+    client replaying, one program built, vmap batches only in the batched
+    run, 3 RPCs per steady replayed token; prints the product calls each
+    batched program measured as batch-variant (they run per lane)."""
+    for i, (a, b) in enumerate(zip(v["tokens"], lp["tokens"])):
+        check(np.array_equal(a, b), f"{label}: client {i} tokens {a} (vmap) != {b} (loop)")
+    for run, kind in ((v, "vmap"), (lp, "loop")):
+        m = run["m"]
+        edge = m.edge
+        check(all(c.session.client.mode == "replaying" for c in m.clients),
+              f"{label} {kind}: a client never reached replaying")
+        check(edge.compile_count == 1, f"{label} {kind}: {edge.compile_count} programs built")
+        for c in m.clients:
+            replayed = [h.rpcs for h in c.session.history if h.mode == "replaying"][1:]
+            check(bool(replayed) and all(n == 3 for n in replayed),
+                  f"{label} {kind} {c.session.client_id}: replay rpcs {replayed}")
+    cache = v["m"].edge.cache
+    for key in cache.fingerprints:
+        if "#vmap" in key:
+            b = cache.peek(key)
+            kinds = Counter(f"{c.op}->{tuple(c.out_avals[0][0])} {c.out_avals[0][1]}"
+                            for c in b.lane_ordered)
+            print(f"{label} {key[-6:]}: {b.n_probed} distinct product calls probed, "
+                  f"{len(b.lane_ordered)} calls run per lane: {dict(kinds)}")
+    s_v, s_l = v["m"].edge.summary(), lp["m"].edge.summary()
+    check(s_v["vmap_batches"] >= 1, f"{label}: no vmap batch")
+    check(s_l["vmap_batches"] == 0, f"{label}: the loop run made {s_l['vmap_batches']} batches")
+    hist = v["m"].clients[-1].session.history
+    print(f"{label}: tokens equal vmap vs loop for all {len(v['tokens'])} clients; modes of the "
+          f"last client {[h.mode[:3] for h in hist]}; rpcs {[h.rpcs for h in hist]}; vmap run "
+          f"{s_v['vmap_batches']} vmap batches, {s_v['vmap_compiles']} batched programs "
+          f"built, {s_v['vmap_padded_lanes']} padded lanes, {s_v['batched_replays']} batched / "
+          f"{s_v['solo_replays']} solo replays, cache {s_v['cache']}; loop run "
+          f"{s_l['vmap_batches']} vmap batches")
+
+
+def batch_variant_calls(edge, dev) -> list:
+    """Every recorded call of the edge's first client's program, run call by
+    call on the round's real data both ways — vmapped over the clients and
+    as the lane loop — from the same inputs: the calls whose batched form
+    changes their bits (the probe lane-orders the products among them)."""
+    from repro_torch.core.engine import _per_lane, _run_call
+
+    ctxs = [edge.server.context(c) for c in edge.sessions]
+    program = ctxs[0].replay.program
+    plan = program.plan
+    envs = []
+    for ctx in ctxs:    # each client's parameters and last inputs, at the plan's addresses
+        b = ctx.replay
+        env = {a: ctx.env[x] for a, x in zip(plan["param_addrs"], b.param_addrs)}
+        env.update({a: ctx.env[x] for a, x in zip(plan["h2d_addrs"], b.h2d_addrs)})
+        envs.append(env)
+    params = set(plan["param_addrs"])
+    variant = []
+    with torch.no_grad():
+        for c in program.kernel_calls:
+            ops = [[env[a] for _, a in c.in_operands] for env in envs]
+            dims = [None if a in params else 0 for _, a in c.in_operands]
+            stacked = [o[0] if d is None else torch.stack([op[k] for op in ops])
+                       for k, (o, d) in enumerate(zip(zip(*ops), dims))]
+            loop = _per_lane(c, stacked, dims, len(envs))
+            if any(d is not None for d in dims):
+                batched = torch.func.vmap(lambda *xs: tuple(_run_call(c, list(xs))),
+                                          in_dims=tuple(dims))(*stacked)
+                if not all(torch.equal(a, b) for a, b in zip(batched, loop)):
+                    variant.append(c)
+            for lane, env in enumerate(envs):
+                env.update(zip(c.out_addrs, (t[lane] for t in loop)))
+    return variant
+
+
+def time_multitenant_step(v, lp, dev) -> dict:
+    """The qwen3 step at width 4: the batched program (one vmap call over
+    the four clients' stacked caches) against the four clients' solo steps,
+    captured as CUDA graphs and eagerly, in turns (batched, solo, solo,
+    batched); then replay rounds of both edges in turns (vmap, loop, loop,
+    vmap) from fresh generations, the wall of each round."""
+    from repro_torch.core.engine import no_vmap_fallback
+
+    edge = v["m"].edge
+    ids = [c.session.client_id for c in v["m"].clients]
+    bounds = [edge.server.context(c).replay for c in ids]
+    program = bounds[0].program
+    env = edge.server.context(ids[0]).env
+    params_flat = [env[a] for a in bounds[0].param_addrs]
+    batched = program.build_batched(len(ids))
+    wires = [[torch.zeros((1, 1), dtype=torch.int32, device=dev),
+              torch.tensor(20 + i, dtype=torch.int32, device=dev)] for i in range(len(ids))]
+    states = [list(b.carried_state) for b in bounds]
+    stacked_wire = [torch.stack(ws) for ws in zip(*wires)]
+    stacked_state = [torch.stack(ss) for ss in zip(*states)]
+
+    def batched_step():
+        with no_vmap_fallback():
+            batched.fn(params_flat, stacked_wire, stacked_state)
+
+    def solo_steps():
+        for w, st in zip(wires, states):
+            program.step_fn(params_flat, w, st)
+
+    def eager_ms(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    graph = [graph_ms(batched_step, reps=3), graph_ms(solo_steps, reps=3),
+             graph_ms(solo_steps, reps=3), graph_ms(batched_step, reps=3)]
+    eager = [eager_ms(batched_step), eager_ms(solo_steps), eager_ms(solo_steps),
+             eager_ms(batched_step)]
+    print(f"qwen3-0.6b step at width 4, in turns (batched / 4 solo / 4 solo / batched): CUDA "
+          f"graph {' / '.join(f'{t:.3f}' for t in graph)} ms; eager "
+          f"{' / '.join(f'{t:.1f}' for t in eager)} ms")
+
+    walls = {True: [], False: []}
+    gens = {}
+    for run in (v, lp):
+        m = run["m"]
+        gens[id(m)] = [c.start_generation(p, 4) for c, p in zip(m.clients, run["prompts"])]
+
+    def one_round(run):
+        m = run["m"]
+        gs = gens[id(m)]
+        inputs = {c.session.client_id: c.step_inputs(g) for c, g in zip(m.clients, gs)}
+        with no_vmap_fallback():
+            res = m.edge.run_round(inputs)
+        for c, g in zip(m.clients, gs):
+            c.absorb_step(g, res[c.session.client_id].outputs)
+
+    for run in (v, lp):             # the first round of a generation uploads its state
+        one_round(run)
+    for run in (v, lp, lp, v, v, lp):
+        n0 = len(run["timer"].walls)
+        one_round(run)
+        walls[run is v].append(run["timer"].walls[n0][1] * 1e3)
+    print(f"qwen3-0.6b x4 replay round wall in turns (vmap, loop, loop, vmap, vmap, loop): "
+          f"vmap {' / '.join(f'{t:.1f}' for t in walls[True])} ms, loop "
+          f"{' / '.join(f'{t:.1f}' for t in walls[False])} ms")
+    return dict(graph_batched_ms=(graph[0] + graph[3]) / 2, graph_solo_ms=(graph[1] + graph[2]) / 2,
+                eager_batched_ms=(eager[0] + eager[3]) / 2, eager_solo_ms=(eager[1] + eager[2]) / 2,
+                round_vmap_ms=sum(walls[True]) / 3, round_loop_ms=sum(walls[False]) / 3)
+
+
 def run_path(library, label, kernels, fn):
     """Drive one path with every launch count set to 0 just before it and
     read just after; fail if a kernel of the path never launched."""
@@ -1088,6 +1466,7 @@ def main() -> None:
     check_main_path(m)
     measure_replay_step(m, dev)
     check_prefill_vs_decode(m, dev, LOGIT_REL_TOL)
+    q_params = m["params"]
     del m
     torch.cuda.empty_cache()
 
@@ -1106,7 +1485,7 @@ def main() -> None:
                                 stateful=False, params=params))
     check_main_path(m)
     measure_replay_step(m, dev, profile=True)
-    del m, params
+    del m
     torch.cuda.empty_cache()
 
     # phase 6 runs cuDNN convolutions: deterministic algorithms, no TF32, no
@@ -1125,6 +1504,40 @@ def main() -> None:
     t0 = time.perf_counter()
     phase_zoo(dev)
     print(f"[phase 6 zoo] ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    batched_rows = phase_mt_kernels(dev)
+    check(not MISMATCHES, f"{len(MISMATCHES)} batched kernel checks disagreed")
+    print(f"[phase 7 kernels] vmap rules == lane loops ({time.perf_counter() - t0:.1f} s)")
+    runs = {}
+    for vm in (True, False):
+        label = f"phase 7 qwen3-0.6b x{MT_CLIENTS} {'vmap' if vm else 'loop'}"
+        runs[vm], by_path[label] = run_path(
+            library, label, ("rmsnorm", "decode_attention"),
+            lambda: phase_multitenant(dev, "qwen3-0.6b", q_params, stateful=True,
+                                      clients=MT_CLIENTS, prompt_lens=MT_PROMPTS,
+                                      new_tokens=MT_NEW, bucket=BUCKET, enable_vmap=vm))
+    check_multitenant(f"qwen3-0.6b x{MT_CLIENTS}", runs[True], runs[False])
+    step_times = time_multitenant_step(runs[True], runs[False], dev)
+    del runs, q_params
+    torch.cuda.empty_cache()
+    runs = {}
+    for vm in (True, False):
+        label = f"phase 7 zamba2-1.2b stateless x{MT_Z_CLIENTS} {'vmap' if vm else 'loop'}"
+        runs[vm], by_path[label] = run_path(
+            library, label, ("rmsnorm", "flash_attention", "ssm_scan"),
+            lambda: phase_multitenant(dev, "zamba2-1.2b", params, stateful=False,
+                                      clients=MT_Z_CLIENTS,
+                                      prompt_lens=(MT_Z_PROMPT,) * MT_Z_CLIENTS,
+                                      new_tokens=MT_Z_NEW, bucket=Z_STATELESS_BUCKET,
+                                      enable_vmap=vm))
+    variant = batch_variant_calls(runs[True]["m"].edge, dev)
+    print(f"zamba2-1.2b stateless x{MT_Z_CLIENTS}: calls whose batched form changes their bits "
+          f"on the last round's data: {Counter(str(c.op) for c in variant)}")
+    check_multitenant(f"zamba2-1.2b stateless x{MT_Z_CLIENTS}", runs[True], runs[False])
+    del runs, params
+    torch.cuda.empty_cache()
+    print(f"[phase 7] ({time.perf_counter() - t0:.1f} s); batched step {step_times}")
     print(f"launches by path: {by_path}")
 
     kernels = []
@@ -1139,6 +1552,7 @@ def main() -> None:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=r["shape"],
             launches_by_path={path: counts[name] for path, counts in by_path.items()},
+            batched=batched_rows[name],
         ))
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)

@@ -1,8 +1,8 @@
 """RRTO client/server engines — Alg. 3 (RRTO_on_Client) + Alg. 4
 (RRTO_on_Server), driven by a simulated clock, network and energy meter.
 
-The single-client, full-server part of ``repro.core.engine``.  The client is
-a call sink for :class:`GraphInterceptor`.  In the recording phase it behaves
+The full-server part of ``repro.core.engine``.  The client is a call sink
+for :class:`GraphInterceptor`.  In the recording phase it behaves
 exactly like a traditional transparent offloader (one RPC per intercepted
 call) while logging records and running the Operator Sequence Search after
 every DtoH.  Once the inference operator sequence (IOS) is identified, it
@@ -20,13 +20,23 @@ detected record-by-record; the client ships the locally-answered prefix to the
 server for catch-up execution and falls back to the recording phase
 (Sec. III-B1 fallback).
 
+Multi-tenant: one :class:`OffloadServer` holds a :class:`ClientContext` per
+client id (device-memory namespace + bound replay) and shares the simulated
+GPU queue and an optional content-addressed replay cache across them; a
+client whose single recorded inference matches a cached IOS adopts it (the
+cache probe), and co-tenant replays of one program run as one
+``torch.func.vmap``-batched call (:class:`BatchedReplayProgram`).
+
 Values on the server are tensors on its device; values on the client (the
 application's uploads and downloads) are CPU tensors.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+import itertools
+import weakref
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -37,10 +47,15 @@ from repro_torch.core.energy import (
     STATE_STANDBY,
     EnergyMeter,
 )
-from repro_torch.core.flatten import fill_args
+from repro_torch.core.flatten import fill_args, template_vars
 from repro_torch.core.intercept import InterceptedCall
 from repro_torch.core.netsim import NetworkModel
-from repro_torch.core.opseq import detect_loop_carried, operator_sequence_search
+from repro_torch.core.opseq import (
+    candidate_sequences,
+    detect_loop_carried,
+    ios_fingerprint,
+    operator_sequence_search,
+)
 from repro_torch.core.records import (
     CAT_D2H,
     CAT_H2D,
@@ -53,10 +68,15 @@ from repro_torch.core.records import (
 MODE_RECORDING = "recording"
 MODE_REPLAYING = "replaying"
 
+DEFAULT_CLIENT = "c0"
+
 # fused-executable advantage of the replayed sequence over per-op dispatch
 # (simulated-clock constants, as in the reference)
 REPLAY_FUSION_FACTOR = 0.6
 REPLAY_KERNELS_PER_FUSION = 6
+# marginal cost of each extra client in a cross-client batched replay, as a
+# fraction of the solo sequence time (sub-linear batching on the shared GPU)
+BATCH_MARGINAL_COST = 0.25
 PER_LOCAL_OP_S = 2e-7  # answering an intercepted call from the local cache
 # live H2D/D2H payloads are kept on this many trailing recorded calls (the
 # loop-carried detection needs ~3 repeats of the IOS); older payloads are
@@ -82,6 +102,33 @@ def _is_handle(value: Any, handle: Optional[torch.Tensor]) -> bool:
         value is handle
         or (isinstance(value, torch.Tensor) and value._base is handle)
     )
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _avals_nbytes(avals) -> int:
+    total = 0
+    for shape, dtype in avals:
+        n = dtype.itemsize
+        for d in shape:
+            n *= int(d)
+        total += n
+    return total
+
+
+@contextlib.contextmanager
+def no_vmap_fallback() -> Iterator[None]:
+    """Make an operator without a batching rule raise under
+    ``torch.func.vmap`` instead of warning and running once per lane (the
+    fallback would turn one batched launch into N quiet ones)."""
+    was = torch._C._functorch._is_vmap_fallback_enabled()
+    torch._C._functorch._set_vmap_fallback_enabled(False)
+    try:
+        yield
+    finally:
+        torch._C._functorch._set_vmap_fallback_enabled(was)
 
 
 class SimClock:
@@ -170,9 +217,6 @@ class ReplayProgram:
         carried_pairs: Tuple[Tuple[int, int], ...] = (),
     ):
         plan = replay_address_plan(calls)
-        param_addrs = plan["param_addrs"]
-        h2d_addrs = plan["h2d_addrs"]
-        d2h_addrs = plan["d2h_addrs"]
         kernel_calls = plan["kernel_calls"]
 
         self.carried_pairs = tuple(
@@ -182,50 +226,93 @@ class ReplayProgram:
         carried_out = {j for _, j in self.carried_pairs}
         # h2d/d2h ordinals that still travel over the wire, in wire order
         self.wire_in = [
-            i for i in range(len(h2d_addrs)) if i not in carried_in
+            i for i in range(len(plan["h2d_addrs"])) if i not in carried_in
         ]
         self.wire_out = [
-            j for j in range(len(d2h_addrs)) if j not in carried_out
+            j for j in range(len(plan["d2h_addrs"])) if j not in carried_out
         ]
 
         def run_kernels(env: Dict[int, Any]) -> None:
-            with torch.no_grad():
-                for c in kernel_calls:
-                    execute_call(c, env)
+            for c in kernel_calls:
+                execute_call(c, env)
+
+        # the building client's own address plan, so its binding needn't
+        # re-walk the calls it was just built from
+        self.plan = plan
+        self.fn, step = self.functions(run_kernels)
+        self.step_fn = step if self.carried_pairs else None
+        self.kernel_calls = kernel_calls
+        self.d2h_avals = [
+            c.out_avals[0] for c in calls if c.record.func == FUNC_D2H
+        ]
+        # H2D records carry no avals: an upload's structural signature comes
+        # from the recorded live payload (None once it was trimmed)
+        self.h2d_avals = [
+            (tuple(c.h2d_value.shape), c.h2d_value.dtype)
+            if isinstance(c.h2d_value, torch.Tensor) else None
+            for c in calls if c.record.func == FUNC_H2D
+        ]
+        self.n_records = len(calls)
+        self.n_kernels = len(kernel_calls)
+        self.total_flops = plan["total_flops"]
+        self.total_bytes = plan["total_bytes"]
+        # size for byte-aware cache eviction: the tensors the program holds
+        # itself (constants inside the recorded arguments) plus its output
+        # staging buffers; there is no compiled code to count
+        consts = 0
+        for c in kernel_calls:
+            for leaf in torch.utils._pytree.tree_leaves((c.args, c.kwargs or {})):
+                if isinstance(leaf, torch.Tensor):
+                    consts += _nbytes(leaf)
+        self.nbytes_estimate = consts + _avals_nbytes(self.d2h_avals)
+
+    def functions(self, run_kernels):
+        """``(replay, step)`` around a kernel runner that executes the
+        recorded kernel calls against an env: ``replay(params_flat,
+        inputs_flat)`` -> every D2H value, and ``step(params_flat,
+        wire_inputs, carried_inputs)`` -> (wire outputs, new carried
+        state)."""
+        param_addrs, h2d_addrs, d2h_addrs = (
+            self.plan["param_addrs"], self.plan["h2d_addrs"], self.plan["d2h_addrs"]
+        )
 
         def replay(params_flat, inputs_flat):
             env: Dict[int, Any] = dict(zip(param_addrs, params_flat))
             env.update(zip(h2d_addrs, inputs_flat))
-            run_kernels(env)
+            with torch.no_grad():
+                run_kernels(env)
             return [env[a] for a in d2h_addrs]
 
-        def replay_step(params_flat, wire_inputs, carried_inputs):
+        def step(params_flat, wire_inputs, carried_inputs):
             env: Dict[int, Any] = dict(zip(param_addrs, params_flat))
             for ordinal, v in zip(self.wire_in, wire_inputs):
                 env[h2d_addrs[ordinal]] = v
             for (ordinal, _), v in zip(self.carried_pairs, carried_inputs):
                 env[h2d_addrs[ordinal]] = v
-            run_kernels(env)
+            with torch.no_grad():
+                run_kernels(env)
             return (
                 [env[d2h_addrs[j]] for j in self.wire_out],
                 [env[d2h_addrs[j]] for _, j in self.carried_pairs],
             )
 
-        self.fn = replay
-        self.step_fn = replay_step if self.carried_pairs else None
-        self.d2h_avals = [
-            c.out_avals[0] for c in calls if c.record.func == FUNC_D2H
-        ]
-        self.n_kernels = len(kernel_calls)
-        self.total_flops = plan["total_flops"]
-        self.total_bytes = plan["total_bytes"]
-        # the building client's own address plan, so its binding needn't
-        # re-walk the calls it was just built from
-        self.plan = plan
+        return replay, step
 
     @property
     def is_stateful(self) -> bool:
         return bool(self.carried_pairs)
+
+    @property
+    def wire_in_avals(self):
+        """(shape, dtype) of each H2D payload that still crosses the wire,
+        in wire order — the structural signature of one replay submission
+        (the multi-tenant batcher caches its digest per bound replay)."""
+        return [self.h2d_avals[i] for i in self.wire_in]
+
+    def build_batched(self, width: int) -> "BatchedReplayProgram":
+        """A ``torch.func.vmap``-batched program over ``width`` co-tenant
+        replays of this one (shared parameter values)."""
+        return BatchedReplayProgram(self, width)
 
     def compute_seconds(self, device: DeviceSpec) -> float:
         """Modeled one-shot execution time of the fused sequence."""
@@ -235,6 +322,165 @@ class ReplayProgram:
             num_kernels=max(1, self.n_kernels // REPLAY_KERNELS_PER_FUSION),
             fusion_factor=REPLAY_FUSION_FACTOR,
         )
+
+    def batched_compute_seconds(self, device: DeviceSpec, batch: int) -> float:
+        """Modeled time for one cross-client batched execution of ``batch``
+        same-fingerprint replays (sub-linear in batch size)."""
+        solo = self.compute_seconds(device)
+        return solo * (1.0 + BATCH_MARGINAL_COST * (max(1, batch) - 1))
+
+
+# Products whose batched form may sum in another order than the lane loop: a
+# GEMM at M = lanes·m can take another kernel (tile, split) than at M = m, on
+# the card's cuBLAS and the CPU's alike (chip_smoke.py phase 7 prints where).
+# A batched program measures each such call before its first execution, on
+# noise operands of its shapes (the vmapped call against the lane loop), and
+# runs the ones that differ once per lane, in lane order, which keeps vmap ==
+# loop bit for bit; the rest, the hand kernels and every other aten op batch.
+LANE_PROBED_OPS = frozenset({
+    torch.ops.aten.mm.default,
+    torch.ops.aten.addmm.default,
+    torch.ops.aten.bmm.default,
+    torch.ops.aten.baddbmm.default,
+    torch.ops.aten.convolution.default,
+})
+_LANE_CALLS: Dict[int, InterceptedCall] = {}
+_lane_ids = itertools.count()
+
+
+def _run_call(call: InterceptedCall, operands: List[torch.Tensor]) -> List[torch.Tensor]:
+    args, kwargs = fill_args((call.args, call.kwargs or {}), operands)
+    out = call.op(*args, **kwargs)
+    return [out] if isinstance(out, torch.Tensor) else list(out)
+
+
+def _per_lane(call, operands, dims, lanes: int) -> List[torch.Tensor]:
+    outs = [_run_call(call, [t if d is None else t.select(d, i) for t, d in zip(operands, dims)])
+            for i in range(lanes)]
+    return [torch.stack(list(o)) for o in zip(*outs)]
+
+
+def _probe_values(t: torch.Tensor) -> torch.Tensor:
+    """Hash noise in [-0.5, 0.5) of ``t``'s shape, dtype and device."""
+    i = torch.arange(t.numel(), dtype=torch.float64, device=t.device)
+    return (torch.frac(torch.sin(i * 12.9898) * 43758.5453) - 0.5).to(t.dtype).reshape(t.shape)
+
+
+def batches_bitwise(call: InterceptedCall, operands, dims, lanes: int) -> bool:
+    """Whether ``call`` under vmap gives the lane loop's bits, measured on
+    noise operands of the given ones' shapes, dtypes and devices (batched
+    at ``dims``)."""
+    probe = [_probe_values(t) if t.is_floating_point() else t for t in operands]
+    with torch.no_grad():
+        batched = torch.func.vmap(lambda *ops: tuple(_run_call(call, list(ops))),
+                                  in_dims=tuple(dims))(*probe)
+        return all(torch.equal(a, b) for a, b in zip(batched, _per_lane(call, probe, dims, lanes)))
+
+
+@torch.library.custom_op("repro_torch::lane_call", mutates_args=())
+def lane_call(call_id: int, operands: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Run the recorded call ``call_id`` on its operands (one lane)."""
+    return _run_call(_LANE_CALLS[call_id], operands)
+
+
+def _lane_call_vmap(info, in_dims, call_id, operands):
+    """One lane at a time, in lane order: the same products, at the same M,
+    as the loop of solo replays."""
+    outs = _per_lane(_LANE_CALLS[call_id], operands, in_dims[1], info.batch_size)
+    return outs, [0] * len(outs)
+
+
+torch.library.register_vmap(lane_call, _lane_call_vmap)
+
+
+class BatchedReplayProgram:
+    """A ``torch.func.vmap``-batched cross-client replay program.
+
+    One per (fingerprint, padded batch width), derived from the solo
+    :class:`ReplayProgram` and cached in the replay cache under
+    ``<fingerprint>#vmap<width>`` so co-tenant rounds of the same width
+    reuse it.  Parameters are shared (``in_dims=None``); wire inputs — and,
+    for a stateful program, the per-client carried states — are stacked on
+    a new leading axis.  Each hand kernel's batching rule folds the lanes
+    into its batch axis (one launch for the group); a call of
+    :data:`LANE_PROBED_OPS` is measured before the first execution and runs
+    per lane where batching would change its bits.  The result is
+    bitwise the solo program run once per client.  There is nothing to
+    compile: building it wraps the replay in ``vmap``."""
+
+    def __init__(self, program: ReplayProgram, width: int):
+        if width < 2:
+            raise ValueError(f"batched replay needs width >= 2, got {width}")
+        self.base = program
+        self.width = int(width)
+        self.stateful = program.is_stateful
+        self.n_kernels = program.n_kernels
+        self.nbytes_estimate = program.nbytes_estimate * self.width
+        # which operands of each call carry the lanes: the uploads (wire and
+        # carried) do, the parameters do not, and an output does iff an input
+        # of its call does (vmap's own rule)
+        plan = program.plan
+        lanes = set(plan["h2d_addrs"])
+        self._dims: List[List[Optional[int]]] = []
+        for c in program.kernel_calls:
+            dims = [0 if a in lanes else None for _, a in c.in_operands]
+            self._dims.append(dims)
+            (lanes.update if any(d is not None for d in dims) else lanes.difference_update)(
+                c.out_addrs)
+        # kernel-call index -> lane_call id, filled by the probe
+        self._lane_order: Optional[Dict[int, int]] = None
+        self.n_probed = 0
+
+        def run_kernels(env: Dict[int, Any]) -> None:
+            for i, c in enumerate(program.kernel_calls):
+                call_id = self._lane_order.get(i)
+                if call_id is None:
+                    execute_call(c, env)
+                else:
+                    env.update(zip(c.out_addrs, lane_call(call_id, [env[a] for _, a in c.in_operands])))
+
+        replay, replay_step = program.functions(run_kernels)
+        vmapped = torch.func.vmap(
+            replay_step if self.stateful else replay,
+            in_dims=(None, 0, 0) if self.stateful else (None, 0),
+        )
+
+        def fn(params_flat, *stacked):
+            if self._lane_order is None:
+                self._probe(next(t for ts in stacked for t in ts).device)
+            return vmapped(params_flat, *stacked)
+
+        self.fn = fn
+
+    def _probe(self, device: torch.device) -> None:
+        """Measure every call of :data:`LANE_PROBED_OPS` once per distinct
+        (op, arguments, operand shapes, batched operands) and register the
+        batch-variant ones to run per lane."""
+        self._lane_order = {}
+        verdicts: Dict[tuple, bool] = {}
+        for i, (c, dims) in enumerate(zip(self.base.kernel_calls, self._dims)):
+            if c.op not in LANE_PROBED_OPS or all(d is None for d in dims):
+                continue
+            avals = [v.aval for v in template_vars((c.args, c.kwargs or {}))]
+            key = (c.record.args_sig[:2], tuple(avals), tuple(dims))
+            if key not in verdicts:
+                operands = [
+                    torch.empty(shape if d is None else (self.width, *shape), dtype=dtype,
+                                device=device)
+                    for (shape, dtype), d in zip(avals, dims)
+                ]
+                verdicts[key] = batches_bitwise(c, operands, dims, self.width)
+            if not verdicts[key]:
+                call_id = next(_lane_ids)
+                _LANE_CALLS[call_id] = c
+                weakref.finalize(self, _LANE_CALLS.pop, call_id, None)
+                self._lane_order[i] = call_id
+        self.n_probed = len(verdicts)
+
+    @property
+    def lane_ordered(self) -> List[InterceptedCall]:
+        """The calls measured to need lane order (they run once per lane)."""
+        return [self.base.kernel_calls[i] for i in (self._lane_order or {})]
 
 
 @dataclasses.dataclass
@@ -263,6 +509,12 @@ class BoundReplay:
             d2h_addrs=plan["d2h_addrs"],
         )
 
+    @classmethod
+    def bind(cls, program: ReplayProgram, calls: List[InterceptedCall]) -> "BoundReplay":
+        """Bind a shared program to another client's isomorphic calls: the
+        same walk yields that client's addresses in the same order."""
+        return cls.from_plan(program, replay_address_plan(calls))
+
     def seed_carried(self, env: Dict[int, Any]) -> None:
         """Adopt the carried state left in this client's device memory by its
         last recorded inference: the replay phase starts exactly where the
@@ -279,36 +531,62 @@ class BoundReplay:
 
 @dataclasses.dataclass
 class ClientContext:
-    """The client's server-side state: device memory namespace + bound
-    replay."""
+    """One client's server-side state: device memory namespace + bound
+    replay.  The GPU occupancy and the replay cache stay on the
+    :class:`OffloadServer`: they are shared across tenants."""
 
     env: Dict[int, Any] = dataclasses.field(default_factory=dict)
     replay: Optional[BoundReplay] = None
 
 
 class OffloadServer:
-    """GPU-server side of one client: executes RPCs in recording mode, builds
-    + replays the IOS in replaying mode.  ``device`` is where the server
-    really computes; ``device_spec`` is the simulated server its clock
-    accounts for.  With ``execute=False`` the server only accounts time and
-    bytes: it computes nothing, and every download is zeros of its aval."""
+    """GPU-server side: executes RPCs in recording mode, builds + replays the
+    IOS in replaying mode.  ``device`` is where the server really computes;
+    ``device_spec`` is the simulated server its clock accounts for.  With
+    ``execute=False`` the server only accounts time and bytes: it computes
+    nothing, and every download is zeros of its aval.
+
+    Multi-tenant: each client id owns a :class:`ClientContext`; the kernel
+    queue (``busy_until``), the accumulated compute (``busy_seconds``), the
+    optional content-addressed ``replay_cache`` (fingerprint ->
+    :class:`ReplayProgram`) and ``compile_count`` are shared.  With the
+    default single client and no cache it behaves as a single-tenant
+    server."""
 
     def __init__(
-        self, device_spec: DeviceSpec, *, device: torch.device, execute: bool = True
+        self,
+        device_spec: DeviceSpec,
+        *,
+        device: torch.device,
+        execute: bool = True,
+        replay_cache: Optional[Any] = None,
     ):
         self.device_spec = device_spec
         self.device = device
         self.execute = execute
-        self.ctx = ClientContext()
+        self.contexts: Dict[str, ClientContext] = {}
         self.busy_until = 0.0          # async kernel-queue completion time
         self.busy_seconds = 0.0        # accumulated compute (GPU-util proxy)
+        self.replay_cache = replay_cache
+        self.compile_count = 0         # programs built (not cache hits)
+
+    def context(self, client_id: str = DEFAULT_CLIENT) -> ClientContext:
+        ctx = self.contexts.get(client_id)
+        if ctx is None:
+            ctx = self.contexts[client_id] = ClientContext()
+        return ctx
 
     def to_device(self, x: torch.Tensor) -> torch.Tensor:
         return x.to(self.device)
 
     # -- recording-phase execution (one call at a time) ---------------------
-    def exec_call(self, call: InterceptedCall, arrival_t: float) -> Any:
-        env = self.ctx.env
+    def exec_call(
+        self,
+        call: InterceptedCall,
+        arrival_t: float,
+        client_id: str = DEFAULT_CLIENT,
+    ) -> Any:
+        env = self.context(client_id).env
         rec = call.record
         ret: Any = "cudaSuccess"
         if rec.func == FUNC_H2D:
@@ -337,18 +615,56 @@ class OffloadServer:
     def prepare_replay(
         self,
         calls: List[InterceptedCall],
+        client_id: str = DEFAULT_CLIENT,
+        fingerprint: Optional[str] = None,
         carried_pairs: Tuple[Tuple[int, int], ...] = (),
-    ) -> None:
-        """Install a replay program; ``carried_pairs`` is the recording
-        client's loop-carried-tensor detection."""
-        program = ReplayProgram(calls, carried_pairs=carried_pairs)
-        bound = BoundReplay.from_plan(program, program.plan)
-        bound.seed_carried(self.ctx.env)
-        self.ctx.replay = bound
+    ) -> bool:
+        """Install a replay program for ``client_id``.
+
+        With a ``replay_cache`` attached and a fingerprint given, the program
+        is looked up first: a hit binds the cached program to this client's
+        address space without building it again.  ``carried_pairs`` is the
+        recording client's loop-carried-tensor detection; a cache hit uses
+        the cached program's pairs instead (an adopting client recorded a
+        single round and could not detect them itself), and a fingerprint
+        persisted by an earlier server recovers the pairs from the cache
+        metadata, so the rebuilt program is stateful again.  Returns True
+        iff the program came from the cache."""
+        cache = self.replay_cache
+        program: Optional[ReplayProgram] = None
+        if cache is not None and fingerprint is not None:
+            program = cache.get(fingerprint)
+        from_cache = program is not None
+        if program is None:
+            pairs = tuple(carried_pairs)
+            if not pairs and cache is not None and fingerprint is not None:
+                meta = cache.known_metadata(fingerprint) or {}
+                pairs = tuple((int(i), int(j)) for i, j in meta.get("carried_pairs", ()))
+                n_in = sum(1 for c in calls if c.record.func == FUNC_H2D)
+                n_out = sum(1 for c in calls if c.record.func == FUNC_D2H)
+                if not all(0 <= i < n_in and 0 <= j < n_out for i, j in pairs):
+                    # metadata that does not fit these calls is stale: build
+                    # the program stateless and forget the entry
+                    cache.forget_known(fingerprint)
+                    pairs = ()
+            program = ReplayProgram(calls, carried_pairs=pairs)
+            self.compile_count += 1
+            if cache is not None and fingerprint is not None:
+                cache.put(fingerprint, program)
+            # the fresh program was built from this client's calls: its plan
+            # is this client's binding
+            bound = BoundReplay.from_plan(program, program.plan)
+        else:
+            bound = BoundReplay.bind(program, calls)
+        ctx = self.context(client_id)
+        bound.seed_carried(ctx.env)
+        ctx.replay = bound
+        return from_cache
 
     def replay_values(
         self,
         inputs: List[torch.Tensor],
+        client_id: str = DEFAULT_CLIENT,
         *,
         fresh_carried: Optional[Dict[int, torch.Tensor]] = None,
     ) -> List[torch.Tensor]:
@@ -362,7 +678,7 @@ class OffloadServer:
         resident state first — the path a client takes when its application
         supplies genuinely new state instead of threading the resident
         handle."""
-        ctx = self.ctx
+        ctx = self.context(client_id)
         bound = ctx.replay
         program = bound.program
         if not self.execute:
@@ -374,7 +690,9 @@ class OffloadServer:
         ins = [self.to_device(x) for x in inputs]
         if program.is_stateful:
             if bound.carried_state is None:
-                raise RuntimeError("stateful replay has no seeded carried state")
+                raise RuntimeError(
+                    f"stateful replay for {client_id!r} has no seeded carried state"
+                )
             if fresh_carried:
                 for idx, v in fresh_carried.items():
                     bound.carried_state[idx] = self.to_device(v)
@@ -412,23 +730,55 @@ class OffloadServer:
             ctx.env[bound.h2d_addrs[i]] = state
             ctx.env[bound.d2h_addrs[j]] = state
 
+    def adopt_replay_results(
+        self,
+        client_id: str,
+        inputs: List[torch.Tensor],
+        outs: List[torch.Tensor],
+        new_carried: Optional[List[torch.Tensor]] = None,
+    ) -> None:
+        """Install one member's slice of a cross-client *batched* execution
+        as if it had executed solo: refresh its device-memory env and, for a
+        stateful program, advance its resident carried state to the
+        batch-computed value (keeping the state the round started from, as a
+        solo step does).  Called at claim time only, so a member that never
+        submits (a DAM fallback mid-walk) keeps its state untouched.
+        ``outs`` are device tensors."""
+        if not self.execute:
+            return
+        ctx = self.context(client_id)
+        bound = ctx.replay
+        ins = [self.to_device(x) for x in inputs]
+        if bound.program.is_stateful:
+            if new_carried is not None:
+                bound.state_before_step = list(bound.carried_state)
+                bound.carried_state = list(new_carried)
+            self._refresh_env(ctx, bound, ins, list(outs))
+            return
+        ctx.env.update(zip(bound.h2d_addrs, ins))
+        ctx.env.update(zip(bound.d2h_addrs, outs))
+
     def occupy(self, compute_seconds: float, start_t: float) -> float:
-        """Reserve the simulated GPU queue; returns the completion time."""
+        """Reserve the shared simulated GPU queue; returns the completion
+        time."""
         begin = max(self.busy_until, start_t)
         self.busy_until = begin + compute_seconds
         self.busy_seconds += compute_seconds
         return self.busy_until
 
+    def replay_compute_seconds(self, client_id: str = DEFAULT_CLIENT) -> float:
+        return self.context(client_id).replay.program.compute_seconds(self.device_spec)
+
     def run_replay(
         self,
         inputs: List[torch.Tensor],
         start_t: float,
+        client_id: str = DEFAULT_CLIENT,
         fresh_carried: Optional[Dict[int, torch.Tensor]] = None,
     ) -> Tuple[List[torch.Tensor], float]:
-        """Execute the IOS; returns (outputs, completion time)."""
-        outs = self.replay_values(inputs, fresh_carried=fresh_carried)
-        compute = self.ctx.replay.program.compute_seconds(self.device_spec)
-        return outs, self.occupy(compute, start_t)
+        """Execute the IOS solo; returns (outputs, completion time)."""
+        outs = self.replay_values(inputs, client_id, fresh_carried=fresh_carried)
+        return outs, self.occupy(self.replay_compute_seconds(client_id), start_t)
 
 
 # ---------------------------------------------------------------------------
@@ -441,6 +791,7 @@ class InferenceStats:
 
     rpcs: int = 0
     network_bytes: float = 0.0
+    cache_adoptions: int = 0
 
 
 class RRTOClient:
@@ -460,6 +811,7 @@ class RRTOClient:
         *,
         variant: str = "rrto",
         min_repeats: int = 3,
+        client_id: str = DEFAULT_CLIENT,
     ):
         if variant not in ("rrto", "semi_rrto", "transparent"):
             raise ValueError(variant)
@@ -469,6 +821,14 @@ class RRTOClient:
         self.meter = meter
         self.variant = variant
         self.min_repeats = min_repeats
+        self.client_id = client_id
+        # multi-tenant hooks: the IOS fingerprint once identified (with a
+        # replay cache on the server), whether the IOS was adopted from the
+        # shared cache (skipping the min_repeats wait), and an optional
+        # replay-execution backend (the edge server's cross-client batcher)
+        self.ios_fp: Optional[str] = None
+        self.cache_adopted = False
+        self.replay_submit: Optional[Any] = None
 
         self.mode = MODE_RECORDING
         self.logs: List[OperatorRecord] = []
@@ -501,6 +861,18 @@ class RRTOClient:
         self.stats = InferenceStats()
 
     # -- helpers -------------------------------------------------------------
+    @property
+    def replay_key(self) -> Optional[str]:
+        """Cache and batch identity of this client's replay program: the IOS
+        fingerprint."""
+        return self.ios_fp
+
+    @property
+    def carried_input_ordinals(self) -> frozenset:
+        """H2D ordinals (position among one round's uploads) answered locally
+        because the tensor is loop-carried server-resident state."""
+        return frozenset(self._carried_in_map)
+
     @property
     def stateful_replay(self) -> bool:
         return bool(self._carried_in_map)
@@ -539,7 +911,7 @@ class RRTOClient:
             if rec.category == CAT_D2H:
                 # drain the server kernel queue before download completes
                 self._wait_until(self.server.busy_until)
-            ret = self.server.exec_call(call, self.clock.t)
+            ret = self.server.exec_call(call, self.clock.t, self.client_id)
             if rec.category == CAT_D2H and isinstance(ret, torch.Tensor):
                 # Alg. 3 logs the full (func, args, ret) triple; the download
                 # payload feeds the loop-carried-tensor detection.  A copy,
@@ -578,7 +950,11 @@ class RRTOClient:
                 and any(r.category == CAT_D2H for r in self.logs[-3:-1])
             )
             if tail_is_boundary:
-                self._try_identify_sequence()
+                # The cache-adoption probe is an extra search, so it runs
+                # only on the searches a sync triggers (they close the DtoH
+                # sync group): a cached IOS ends at the group-closing sync, so
+                # a window cut at the bare DtoH could never match it.
+                self._try_identify_sequence(probe_cache=rec.category != CAT_D2H)
         return ret
 
     def _seen_query(self, rec: OperatorRecord) -> bool:
@@ -588,16 +964,39 @@ class RRTOClient:
         self._query_cache.add(key)
         return False
 
-    def _try_identify_sequence(self) -> None:
+    def _try_identify_sequence(self, probe_cache: bool = True) -> None:
         ios = operator_sequence_search(self.logs, self.min_repeats)
+        fp: Optional[str] = None
+        cache = self.server.replay_cache
+        if ios is None and probe_cache and cache is not None and len(cache) > 0:
+            # Shared-cache shortcut: a single boundary-aligned, dependency-
+            # closed window is not yet *proof* of the IOS, but if its
+            # fingerprint matches a sequence another client already validated
+            # and the server already built, adopting it skips the remaining
+            # recording iterations.  A one-repetition log of a multi-input app
+            # admits several shifted windows, so every alignment is probed —
+            # cache membership disambiguates.  A wrong adoption is caught by
+            # the record-level comparison in the replay phase and falls back
+            # (the same safety net as a DAM deviation).
+            for candidate in candidate_sequences(self.logs, lengths=cache.ios_lengths()):
+                cand_fp = ios_fingerprint(candidate.records)
+                if cand_fp in cache:
+                    ios, fp = candidate, cand_fp
+                    self.cache_adopted = True
+                    self.stats.cache_adoptions += 1
+                    break
         if ios is None:
             return
         self.ios = ios
         self._ios_calls = list(
             self.calls[ios.start_index : ios.start_index + len(ios)]
         )
+        if cache is not None and fp is None:
+            fp = ios_fingerprint(ios.records)
+        self.ios_fp = fp
         # loop-carried tensors across the recorded repeats (KV caches and
-        # the like)
+        # the like); a cache-adopting client recorded a single round, so
+        # detection yields () and the cached program's pairs apply instead
         pairs = detect_loop_carried(self.calls, ios)
         ios.carried_pairs = pairs
         # recorded live payloads are only needed inside the detection horizon
@@ -607,8 +1006,13 @@ class RRTOClient:
         for c in self.calls[: max(0, horizon)]:
             c.h2d_value = None
             c.d2h_value = None
-        self.server.prepare_replay(self._ios_calls, carried_pairs=pairs)
-        self._configure_carried(self.server.ctx.replay.program)
+        self.server.prepare_replay(
+            self._ios_calls,
+            client_id=self.client_id,
+            fingerprint=fp,
+            carried_pairs=pairs,
+        )
+        self._configure_carried(self.server.context(self.client_id).replay.program)
         self.mode = MODE_REPLAYING
         self._replay_pos = 0
 
@@ -629,8 +1033,10 @@ class RRTOClient:
         self._fresh_carried = {}
         if not program.carried_pairs:
             return
-        bound = self.server.ctx.replay
-        env = self.server.ctx.env
+        if self.ios is not None and not self.ios.carried_pairs:
+            self.ios.carried_pairs = program.carried_pairs
+        ctx = self.server.context(self.client_id)
+        bound, env = ctx.replay, ctx.env
         for idx, (_, j) in enumerate(program.carried_pairs):
             v = env.get(bound.d2h_addrs[j])
             if v is not None:
@@ -684,9 +1090,17 @@ class RRTOClient:
             if self._h2d_seen == len(self.ios.h2d_positions):
                 fresh = self._fresh_carried or None
                 self._fresh_carried = {}
-                outs, done_at = self.server.run_replay(
-                    self._replay_inputs, self.clock.t, fresh_carried=fresh
-                )
+                # the edge server's cross-client batcher when one is
+                # installed (multi-tenant serving), a solo replay otherwise
+                if self.replay_submit is not None:
+                    outs, done_at = self.replay_submit(
+                        self._replay_inputs, self.clock.t, fresh_carried=fresh
+                    )
+                else:
+                    outs, done_at = self.server.run_replay(
+                        self._replay_inputs, self.clock.t, self.client_id,
+                        fresh_carried=fresh,
+                    )
                 self._replay_outputs = outs
                 self._replay_done_at = done_at
             return "cudaSuccess"
@@ -743,7 +1157,7 @@ class RRTOClient:
             self._rpc(sum(c.record.payload_bytes for c in shipped), 32)
         catch_up = [c for c in done if c.record.category != CAT_D2H]
         for c in catch_up:
-            self.server.exec_call(c, self.clock.t)
+            self.server.exec_call(c, self.clock.t, self.client_id)
         self.logs.extend(c.record for c in catch_up)
         self.calls.extend(catch_up)
         self._replay_prefix = []
@@ -756,7 +1170,7 @@ class RRTOClient:
         placeholder uploads in the prefix into the real server-resident
         values (the app only ever held handles).  The download is a real RPC
         — this is the price of deviating from a stateful IOS."""
-        bound = self.server.ctx.replay
+        bound = self.server.context(self.client_id).replay
         # mid-round after this round's step already ran, the round's input is
         # the state that step started from; otherwise the current state
         step_ran = 0 < self._replay_pos and self._h2d_seen == len(self.ios.h2d_positions)

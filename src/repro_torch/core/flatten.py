@@ -112,6 +112,13 @@ def fill_args(template, values: Sequence[Any]):
     return _walk(template, lambda x: next(it) if isinstance(x, FlatVar) else x)
 
 
+def template_vars(template) -> List[FlatVar]:
+    """The FlatVar slots of an argument template, in traversal order."""
+    found: List[FlatVar] = []
+    _walk(template, lambda x: found.append(x) if isinstance(x, FlatVar) else None)
+    return found
+
+
 def trace_app(
     fn: Callable[..., Sequence[torch.Tensor]],
     param_leaves: Sequence[torch.Tensor],

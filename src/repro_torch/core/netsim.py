@@ -1,9 +1,10 @@
 """MEC network simulation — trace-driven wireless bandwidth + RTT model.
 
-The single-client subset of ``repro.core.netsim``: the paper's measured
+The link subset of ``repro.core.netsim``: the paper's measured
 environments (Fig. 3), indoor lab (93 Mbps mean, mild fluctuation) and outdoor
 garden (73 Mbps mean, heavy fluctuation with occasional near-zero drops from
-obstruction), as deterministic (seeded) 0.1 s-interval traces over 5 minutes.
+obstruction), as deterministic (seeded) 0.1 s-interval traces over 5 minutes,
+and the shared edge-server ingress that co-tenant clients contend for.
 
 The link is simulated; every latency/energy number derived from it is a model
 output, not a measurement.
@@ -65,6 +66,31 @@ def synth_bandwidth_trace(
 
 
 @dataclasses.dataclass
+class ServerIngress:
+    """Shared edge-server ingress capacity (AP backhaul / server NIC).
+
+    In a multi-tenant deployment every client's wireless link terminates at
+    the same server; once enough clients transfer concurrently, the shared
+    ingress — not the per-client radio — becomes the bottleneck.  The model
+    is a fair-share pipe: each of ``active_clients`` concurrently-served
+    links gets ``capacity_bytes_per_s / active_clients``, and a client's
+    effective bandwidth is the min of its own link and that share.  The
+    multi-tenant harness updates ``active_clients`` as sessions join/leave."""
+
+    capacity_bytes_per_s: float = 1e9 / 8.0     # gigabit backhaul
+    active_clients: int = 1
+    # aggregate traffic through the shared link, BOTH directions (every
+    # transfer_time call on an attached client link accumulates here)
+    bytes_total: float = 0.0
+
+    def share(self) -> float:
+        return self.capacity_bytes_per_s / max(1, self.active_clients)
+
+    def account(self, nbytes: float) -> None:
+        self.bytes_total += nbytes
+
+
+@dataclasses.dataclass
 class NetworkModel:
     """RPC/link timing: per-call latency = RTT + payload/bw(t) + resp/bw(t).
 
@@ -78,6 +104,7 @@ class NetworkModel:
     rtt_jitter_s: float = 5e-5
     per_rpc_cpu_s: float = 30e-6      # serialization / libtirpc stack cost
     interval_s: float = TRACE_INTERVAL_S
+    ingress: Optional[ServerIngress] = None
 
     def bandwidth_at(self, t: float) -> float:
         idx = int(t / self.interval_s) % len(self.trace_bytes_per_s)
@@ -93,9 +120,14 @@ class NetworkModel:
         """Pure payload serialization over the link at time t."""
         if nbytes <= 0:
             return 0.0
-        # a zero-bandwidth interval stalls the transfer for a long-but-finite
-        # interval instead of dividing by zero
-        return nbytes / max(self.bandwidth_at(t), 1e-6)
+        bw = self.bandwidth_at(t)
+        if self.ingress is not None:
+            bw = min(bw, self.ingress.share())
+            self.ingress.account(nbytes)
+        # a zero-bandwidth interval (obstructed radio, saturated ingress)
+        # stalls the transfer for a long-but-finite interval instead of
+        # dividing by zero
+        return nbytes / max(bw, 1e-6)
 
     def rpc_time(self, payload_bytes: float, response_bytes: float, t: float) -> float:
         """Blocking RPC: request out, response back, plus stack overheads."""

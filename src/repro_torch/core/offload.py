@@ -31,6 +31,7 @@ from repro_torch.core.energy import (
     PowerModel,
 )
 from repro_torch.core.engine import (
+    DEFAULT_CLIENT,
     REPLAY_FUSION_FACTOR,
     REPLAY_KERNELS_PER_FUSION,
     OffloadServer,
@@ -40,7 +41,7 @@ from repro_torch.core.engine import (
 )
 from repro_torch.core.flatten import FlatGraph, graph_cost, trace_app
 from repro_torch.core.intercept import FrameworkNoiseModel, GraphInterceptor
-from repro_torch.core.netsim import get_network
+from repro_torch.core.netsim import NetworkModel, get_network
 from repro_torch.device import resolve_device, to_host
 
 SYSTEMS = ("device_only", "nnto", "cricket", "semi_rrto", "rrto")
@@ -131,7 +132,14 @@ class InferenceResult:
 
 
 class OffloadSession:
-    """One application process using one offloading system."""
+    """One application process using one offloading system.
+
+    By default the session is single-tenant: it owns its clock and its
+    server.  Pass a shared ``server`` (and usually a shared ``clock``) and a
+    unique ``client_id`` to multiplex several sessions over one edge server:
+    per-client state (mode, log, energy meter, device-memory namespace)
+    stays separate while the kernel queue, replay cache and GPU occupancy
+    are shared (see ``repro_torch.serving.multitenant``)."""
 
     def __init__(
         self,
@@ -139,29 +147,48 @@ class OffloadSession:
         system: str,
         *,
         environment: str = "indoor",
+        network: Optional[NetworkModel] = None,
         noise: Optional[FrameworkNoiseModel] = None,
         min_repeats: int = 3,
         seed: int = 0,
-        execute: bool = True,
+        execute: Optional[bool] = None,
+        server: Optional[OffloadServer] = None,
+        clock: Optional[SimClock] = None,
+        client_id: str = DEFAULT_CLIENT,
         device: Any = "cuda",
     ):
         """``execute=False`` makes an account-only session: the clock,
         network, energy and record streams run as usual, nothing is
-        computed, and every output is zeros of its shape and dtype."""
+        computed, and every output is zeros of its shape and dtype.  A
+        shared ``server`` decides both ``execute`` and the device."""
         if system not in SYSTEMS:
             raise ValueError(f"unknown system {system!r}; pick from {SYSTEMS}")
+        if server is not None:
+            # the realism level is a server property; a conflicting per-client
+            # request would silently produce placeholder outputs
+            if execute is not None and execute != server.execute:
+                raise ValueError(
+                    f"execute={execute} conflicts with the shared server's "
+                    f"execute={server.execute}"
+                )
+            execute = server.execute
+            self.device = server.device
+        else:
+            self.device = resolve_device(device)
         self.model = model
         self.system = system
-        self.execute = execute
-        self.device = resolve_device(device)
+        self.execute = True if execute is None else execute
+        self.client_id = client_id
         # the paper's testbed, simulated: Jetson Xavier NX client, GTX 2080 Ti
         # server, indoor or outdoor Wi-Fi trace, Tab. II power draw
-        self.network = get_network(environment, seed)
+        self.network = network or get_network(environment, seed)
         self.client_device = JETSON_XAVIER_NX
         self.server_device = GTX_2080TI
-        self.clock = SimClock()
+        self.clock = clock or SimClock()
         self.meter = EnergyMeter(PowerModel())
-        self.server = OffloadServer(GTX_2080TI, device=self.device, execute=execute)
+        self.server = server or OffloadServer(
+            GTX_2080TI, device=self.device, execute=self.execute
+        )
         self.history: List[InferenceResult] = []
         self.stage_marks: Dict[str, int] = {}
         self._loaded = False
@@ -186,6 +213,7 @@ class OffloadSession:
                 self.meter,
                 variant=variant,
                 min_repeats=min_repeats,
+                client_id=client_id,
             )
             self.interceptor = GraphInterceptor(
                 self.client,
@@ -233,6 +261,18 @@ class OffloadSession:
 
     def _param_addrs_for(self, graph: FlatGraph) -> List[int]:
         return [self._const_addrs[id(c)] for c in graph.consts]
+
+    def replay_wire_inputs(self, inputs: Sequence[Any]) -> List[torch.Tensor]:
+        """The HtoD payloads one replay-phase inference of ``inputs`` ships,
+        in wire order: the steady graph's invars that are not resident (the
+        setup outputs are), without the loop-carried ones (server-resident
+        state).  The multi-tenant batcher preloads a round with them before
+        the clients submit."""
+        values = [*self._aux_leaves, *(to_host(x) for x in inputs)]
+        resident = self._aux_addrs or {}
+        uploads = [v for i, v in enumerate(values) if i not in resident]
+        carried = self.client.carried_input_ordinals if self.client else frozenset()
+        return [v for i, v in enumerate(uploads) if i not in carried]
 
     def _run_intercepted(self, inputs: Sequence[torch.Tensor]) -> List[Any]:
         if self._setup_graph is not None and self._aux_addrs is None:

@@ -310,3 +310,64 @@ def operator_sequence_search(
                     start_index=k,
                 )
     return None
+
+
+def candidate_sequences(
+    logs: Sequence[OperatorRecord],
+    max_candidates: int = 8,
+    lengths: Optional[Set[int]] = None,
+):
+    """Yield boundary-aligned, dependency-closed candidate windows
+    (shortest/latest first) *without* requiring repetition — the shared-cache
+    adoption probe fingerprints each against the already-validated IOSes.
+
+    A single-repetition log of a multi-input app admits several shifted
+    windows that all pass the dependency closure (an input uploaded before
+    the window start looks parameter-like), so the probe must consider every
+    alignment, not just the first survivor — the cache membership test picks
+    the right one, and a wrong adoption is still caught record-by-record in
+    the replay phase.  ``lengths`` (when known) are the lengths of the IOSes
+    the probe can match: a window of any other length has another category
+    string, hence another fingerprint, and is skipped before its checks."""
+    if not logs:
+        return
+    tags = category_trace(logs)
+    h2d_starts = [i for i, t in enumerate(tags) if t == CAT_H2D]
+    d2h_marks = [i for i, t in enumerate(tags) if t == CAT_D2H]
+    if not h2d_starts or not d2h_marks:
+        return
+    d2h_set = set(d2h_marks)
+    seq_end = _sync_group_end(tags, d2h_marks[-1])
+    sync_group_ends = {_sync_group_end(tags, i) for i in d2h_marks}
+    starts = sorted(
+        set(h2d_starts)
+        | {
+            _sync_group_end(tags, i) + 1
+            for i in d2h_marks
+            if _sync_group_end(tags, i) + 1 < len(tags)
+        }
+    )
+    h2d_set = set(h2d_starts)
+    yielded = 0
+    for j in reversed(starts):
+        length = seq_end - j + 1
+        if length <= 0 or j > seq_end or length > len(logs):
+            continue
+        if lengths is not None and length not in lengths:
+            continue
+        if not fast_check(tags, j, length, 1):
+            continue
+        for k in sorted(
+            (k for k in h2d_set if j - length <= k <= j), reverse=True
+        ):
+            if full_check(
+                logs, k, length, 1, d2h_set,
+                sync_group_ends=sync_group_ends,
+            ):
+                yield InferenceSequence(
+                    records=tuple(logs[k : k + length]), start_index=k
+                )
+                yielded += 1
+                if yielded >= max_candidates:
+                    return
+                break  # next start: one alignment per candidate length

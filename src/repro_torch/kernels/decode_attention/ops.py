@@ -101,6 +101,20 @@ def _(q, k_cache, v_cache, kv_len, window):
     return torch.empty_like(q)
 
 
+def _decode_attention_vmap(info, in_dims, q, k_cache, v_cache, kv_len, window):
+    """Batching rule: every (KV head, batch row) is its own block, so the
+    lanes fold into the batch axis of one launch — B becomes lanes·B, and
+    ``kv_len`` a (lanes·B,) vector (an unbatched one is expanded)."""
+    ops = [library.lanes_first(t, d, info.batch_size)
+           for t, d in zip((q, k_cache, v_cache, kv_len), in_dims)]
+    lanes, b = ops[0].shape[:2]
+    out = decode_attention_op(*(library.fold_lanes(t) for t in ops), window)
+    return out.reshape(lanes, b, *out.shape[1:]), 0
+
+
+torch.library.register_vmap(decode_attention_op, _decode_attention_vmap)
+
+
 def decode_attention(
     q: torch.Tensor,
     k_cache: torch.Tensor,

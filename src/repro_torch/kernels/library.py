@@ -188,6 +188,23 @@ def check(name: str, rc: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
+def lanes_first(t, dim, lanes: int):
+    """A batching rule's view of operand ``t`` with its vmapped axis first:
+    moved there when batched at ``dim``, expanded (no copy) when unbatched;
+    None stays None."""
+    if t is None:
+        return None
+    return t.movedim(dim, 0) if dim is not None else t.expand(lanes, *t.shape)
+
+
+def fold_lanes(t):
+    """(lanes, B, ...) -> contiguous (lanes·B, ...): the lanes folded into a
+    kernel's batch axis (None stays None)."""
+    if t is None:
+        return None
+    return t.reshape(t.shape[0] * t.shape[1], *t.shape[2:]).contiguous()
+
+
 def dtype_code(dtype) -> int:
     """The C entry points' dtype argument: 0 = float32, 1 = bfloat16."""
     import torch

@@ -158,6 +158,30 @@ def _(x, log_decay, in_scale, Bm, Cm, D, h0, chunk):
     return torch.empty_like(x), x.new_empty((b, h, Bm.shape[-1], p), dtype=torch.float32)
 
 
+def _gated_scan_vmap(info, in_dims, x, log_decay, in_scale, Bm, Cm, D, h0, chunk):
+    """Batching rule: one block per (columns of P, head, batch row), so the
+    lanes fold into the batch axis of one launch, and both outputs, y and h,
+    come back batched.  An unbatched operand is expanded; a batched D
+    (per-lane head skips, which co-tenants sharing one model never have)
+    takes one launch per lane."""
+    lanes = info.batch_size
+    ops = [library.lanes_first(t, d, lanes)
+           for t, d in zip((x, log_decay, in_scale, Bm, Cm, D, h0), in_dims)]
+    if in_dims[5] is not None:
+        ys, hs = zip(*(
+            gated_scan_op(*(None if t is None else t[i].contiguous() for t in ops), chunk)
+            for i in range(lanes)
+        ))
+        return (torch.stack(ys), torch.stack(hs)), (0, 0)
+    b = ops[0].shape[1]
+    folded = [D if i == 5 else library.fold_lanes(t) for i, t in enumerate(ops)]
+    y, h = gated_scan_op(*folded, chunk)
+    return (y.reshape(lanes, b, *y.shape[1:]), h.reshape(lanes, b, *h.shape[1:])), (0, 0)
+
+
+torch.library.register_vmap(gated_scan_op, _gated_scan_vmap)
+
+
 def gated_scan(
     x: torch.Tensor,
     log_decay: torch.Tensor,

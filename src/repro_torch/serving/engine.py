@@ -1,5 +1,5 @@
 """Serving engine: prefill + decode, plus RRTO record/replay serving at the
-edge (the single-client part of ``repro.serving.engine``).
+edge (``repro.serving.engine``).
 
 * ``LocalServing`` — the plain engine: prefill (flash attention) then a
   KV-cached greedy decode loop.
@@ -14,12 +14,17 @@ edge (the single-client part of ``repro.serving.engine``).
   RPCs (token and position up, next token down).  ``stateful=False`` is the
   seed formulation: the app is ``next_token(padded_tokens, cur_len)``, a
   full forward over a fixed bucket per token (the prefix-recompute
-  baseline), with nothing carried.
+  baseline), with nothing carried.  With ``edge=`` the client is one tenant
+  of a shared :class:`~repro_torch.serving.multitenant.RRTOEdgeServer`.
+
+* ``MultiClientServedLM`` — N clients generating with the same LM over one
+  edge server: one IOS fingerprint, one replay program, same-round replays
+  batched into one ``vmap`` call.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -28,6 +33,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.offload import OffloadableModel, OffloadSession
 from repro_torch.device import resolve_device
 from repro_torch.models.registry import get_model
+from repro_torch.serving.multitenant import RRTOEdgeServer
 
 
 @dataclasses.dataclass
@@ -75,12 +81,14 @@ class LocalServing:
 
 
 class RRTOServedLM:
-    """LLM generation through the RRTO transparent-offloading stack (single
-    client).  With ``stateful`` (the default) the cached decode step is the
-    offloaded app; once the IOS locks, the engine detects the cache as
-    loop-carried and each token replays as an O(1) step with the cache
-    server-resident.  Without it the app recomputes the whole bucket per
-    token (``next_token``) and every replayed token uploads the bucket."""
+    """LLM generation through the RRTO transparent-offloading stack.  With
+    ``stateful`` (the default) the cached decode step is the offloaded app;
+    once the IOS locks, the engine detects the cache as loop-carried and
+    each token replays as an O(1) step with the cache server-resident.
+    Without it the app recomputes the whole bucket per token
+    (``next_token``) and every replayed token uploads the bucket.  With
+    ``edge`` the session is client ``client_id`` of that edge server (the
+    rrto system only), on the edge server's device."""
 
     def __init__(
         self,
@@ -94,11 +102,13 @@ class RRTOServedLM:
         stateful: bool = True,
         params=None,
         device: Any = "cuda",
+        edge: Optional[RRTOEdgeServer] = None,
+        client_id: Optional[str] = None,
     ):
         self.cfg = cfg
         self.bucket_len = bucket_len
         self.stateful = stateful
-        dev = resolve_device(device)
+        dev = edge.server.device if edge is not None else resolve_device(device)
         model = get_model(cfg)
         params = params if params is not None else model.init_params(cfg, seed, dev)
         if stateful:
@@ -141,43 +151,72 @@ class RRTOServedLM:
                     torch.zeros((), dtype=torch.int32),
                 ),
             )
-        self.session = OffloadSession(
-            offloadable, system, min_repeats=min_repeats, device=dev
+        if edge is not None:
+            if system != "rrto":
+                raise ValueError("multi-tenant mode serves the rrto system only")
+            self.session = edge.connect(offloadable, client_id=client_id, min_repeats=min_repeats)
+        else:
+            self.session = OffloadSession(
+                offloadable, system, min_repeats=min_repeats, device=dev
+            )
+
+    # -- generation ---------------------------------------------------------
+    def start_generation(self, prompt: np.ndarray, max_new_tokens: int) -> Dict[str, Any]:
+        """Per-generation state of the stateful app; returns the cursor.
+
+        The prompt is fed token by token through the offloaded decode step
+        (prefill-via-decode: the cache warms up through the IOS every later
+        token replays), then each sampled token is fed back.  The cache
+        tensors the app threads are opaque handles once replay turns
+        stateful — the server advances the real state."""
+        b, s = prompt.shape
+        self._check_bucket(s, max_new_tokens)
+        prompt = torch.as_tensor(np.asarray(prompt, dtype=np.int32))
+        return dict(
+            prompt=prompt, s=s, state=list(self._cache_leaves),
+            tok=prompt[:, 0:1].clone(), pos=0, out=[], max_new=max_new_tokens,
         )
 
-    def generate(self, prompt: np.ndarray, max_new_tokens: int) -> GenerationResult:
-        """Greedy generation; every call goes through the offloading stack.
-        Stateful: the prompt is fed token by token through the same decode
-        step (prefill-via-decode: the cache warms up through the IOS every
-        later token replays), then each sampled token is fed back.  The cache
-        tensors the app threads are opaque handles once replay turns
-        stateful — the server advances the real state.  Stateless: each call
-        sends the whole bucket (prompt and tokens so far, zero-padded) and
-        its length."""
-        b, s = prompt.shape
+    def step_inputs(self, g: Dict[str, Any]) -> tuple:
+        """The session inputs of the next decode call."""
+        return (g["tok"], torch.tensor(g["pos"], dtype=torch.int32), *g["state"])
+
+    def absorb_step(self, g: Dict[str, Any], outputs: List[torch.Tensor]) -> None:
+        """Take one decode call's outputs and advance the cursor."""
+        nxt, g["state"] = outputs[0], list(outputs[1:])
+        pos = g["pos"]
+        if pos + 1 < g["s"]:
+            g["tok"] = g["prompt"][:, pos + 1 : pos + 2].clone()
+        else:
+            g["out"].append(nxt[:, None].numpy())
+            g["tok"] = nxt[:, None].clone()
+        g["pos"] = pos + 1
+
+    def steps_total(self, g: Dict[str, Any]) -> int:
+        return g["s"] + g["max_new"] - 1
+
+    def _check_bucket(self, s: int, max_new_tokens: int) -> None:
         if s + max_new_tokens > self.bucket_len:
             raise ValueError(
                 f"prompt {s} + {max_new_tokens} new tokens overflow the "
                 f"bucket of {self.bucket_len}"
             )
+
+    def generate(self, prompt: np.ndarray, max_new_tokens: int) -> GenerationResult:
+        """Greedy generation; every call goes through the offloading stack.
+        Stateful: see :meth:`start_generation`.  Stateless: each call sends
+        the whole bucket (prompt and tokens so far, zero-padded) and its
+        length."""
         if not self.stateful:
             return self._generate_stateless(prompt, max_new_tokens)
-        prompt = torch.as_tensor(np.asarray(prompt, dtype=np.int32))
-        state = list(self._cache_leaves)
-        tok = prompt[:, 0:1].clone()
-        out: List[np.ndarray] = []
-        for pos in range(s + max_new_tokens - 1):
-            res = self.session.infer(tok, torch.tensor(pos, dtype=torch.int32), *state)
-            nxt, state = res.outputs[0], list(res.outputs[1:])
-            if pos + 1 < s:
-                tok = prompt[:, pos + 1 : pos + 2].clone()
-            else:
-                out.append(nxt[:, None].numpy())
-                tok = nxt[:, None].clone()
-        return GenerationResult(tokens=np.concatenate(out, axis=1), steps=max_new_tokens)
+        g = self.start_generation(prompt, max_new_tokens)
+        for _ in range(self.steps_total(g)):
+            self.absorb_step(g, self.session.infer(*self.step_inputs(g)).outputs)
+        return GenerationResult(tokens=np.concatenate(g["out"], axis=1), steps=max_new_tokens)
 
     def _generate_stateless(self, prompt: np.ndarray, max_new_tokens: int) -> GenerationResult:
         b, s = prompt.shape
+        self._check_bucket(s, max_new_tokens)
         buf = np.zeros((b, self.bucket_len), np.int32)
         buf[:, :s] = prompt
         out: List[np.ndarray] = []
@@ -190,3 +229,117 @@ class RRTOServedLM:
             out.append(nxt[:, None])
             buf[:, cur] = nxt
         return GenerationResult(tokens=np.concatenate(out, axis=1), steps=max_new_tokens)
+
+
+class MultiClientServedLM:
+    """N mobile clients generating with the same LM over one edge server.
+
+    Every client runs the identical app (same model, same parameters, its
+    own prompt), so all of them produce the same IOS fingerprint: the first
+    client to finish the Operator Sequence Search populates the shared
+    replay cache, every later client binds the cached program, and same-step
+    replay submissions run as one ``vmap``-batched call on the edge server's
+    device.  ``params`` (on the edge's device) default to the model's
+    initialization from ``seed``."""
+
+    def __init__(
+        self,
+        cfg: ArchConfig,
+        num_clients: int,
+        *,
+        bucket_len: int = 64,
+        seed: int = 0,
+        min_repeats: int = 3,
+        execute: bool = True,
+        environment: str = "indoor",
+        cache_capacity: int = 8,
+        batch_window_s: float = 2e-3,
+        edge: Optional[RRTOEdgeServer] = None,
+        stateful: bool = True,
+        params=None,
+        device: Any = "cuda",
+    ):
+        if num_clients < 1:
+            raise ValueError(f"need at least one client, got {num_clients}")
+        self.cfg = cfg
+        self.bucket_len = bucket_len
+        self.stateful = stateful
+        self.edge = edge or RRTOEdgeServer(
+            execute=execute, cache_capacity=cache_capacity,
+            batch_window_s=batch_window_s, environment=environment, device=device,
+        )
+        # one app binary on every device: identical parameters, so the replay
+        # program (not just the IOS) is shareable verbatim, and same-round
+        # submissions run as one vmap-batched call over the stacked states
+        if params is None:
+            params = get_model(cfg).init_params(cfg, seed, self.edge.server.device)
+        self.clients = [
+            RRTOServedLM(
+                cfg, bucket_len=bucket_len, batch=1, min_repeats=min_repeats,
+                params=params, edge=self.edge, client_id=f"c{i}", stateful=stateful,
+            )
+            for i in range(num_clients)
+        ]
+
+    def generate(
+        self, prompts: Sequence[np.ndarray], max_new_tokens: int
+    ) -> List[GenerationResult]:
+        """Lockstep greedy generation: one token per client per round, with
+        replay-phase clients batched on the shared GPU."""
+        if len(prompts) != len(self.clients):
+            raise ValueError(f"{len(prompts)} prompts for {len(self.clients)} clients")
+        if self.stateful:
+            return self._generate_stateful(prompts, max_new_tokens)
+        bufs: List[np.ndarray] = []
+        curs: List[int] = []
+        for client, prompt in zip(self.clients, prompts):
+            b, s = prompt.shape
+            client._check_bucket(s, max_new_tokens)
+            buf = np.zeros((b, self.bucket_len), np.int32)
+            buf[:, :s] = prompt
+            bufs.append(buf)
+            curs.append(s)
+        outs: List[List[np.ndarray]] = [[] for _ in self.clients]
+        for _ in range(max_new_tokens):
+            results = self.edge.run_round({
+                client.session.client_id: (
+                    torch.from_numpy(bufs[i].copy()), torch.tensor(curs[i], dtype=torch.int32)
+                )
+                for i, client in enumerate(self.clients)
+            })
+            for i, client in enumerate(self.clients):
+                nxt = results[client.session.client_id].outputs[0].numpy()
+                outs[i].append(nxt[:, None])
+                bufs[i][:, curs[i]] = nxt
+                curs[i] += 1
+        return [
+            GenerationResult(tokens=np.concatenate(o, axis=1), steps=max_new_tokens)
+            for o in outs
+        ]
+
+    def _generate_stateful(
+        self, prompts: Sequence[np.ndarray], max_new_tokens: int
+    ) -> List[GenerationResult]:
+        """Stateful lockstep: every client advances its decode step once per
+        round (prompts may differ in length, so positions diverge — the
+        batched step maps over per-client positions and cache slices);
+        clients whose generation completed drop out of the round."""
+        gens = [
+            client.start_generation(np.asarray(prompt), max_new_tokens)
+            for client, prompt in zip(self.clients, prompts)
+        ]
+        remaining = {
+            client.session.client_id: (client, g) for client, g in zip(self.clients, gens)
+        }
+        while remaining:
+            results = self.edge.run_round(
+                {cid: client.step_inputs(g) for cid, (client, g) in remaining.items()}
+            )
+            for cid, (client, g) in list(remaining.items()):
+                client.absorb_step(g, results[cid].outputs)
+                if g["pos"] >= client.steps_total(g):
+                    del remaining[cid]
+        return [
+            GenerationResult(tokens=np.concatenate(g["out"], axis=1), steps=max_new_tokens)
+            for g in gens
+        ]

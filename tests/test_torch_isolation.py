@@ -33,6 +33,14 @@ prompt = np.arange(4, dtype=np.int32)[None]
 a = RRTOServedLM(cfg, bucket_len=12, seed=1, device="cpu").generate(prompt, 5).tokens
 b = LocalServing(cfg, seed=1, device="cpu").generate({"tokens": prompt}, 5).tokens
 assert (a == b).all(), (a, b)
+import repro_torch.serving.multitenant, repro_torch.serving.replay_cache
+from repro_torch.core.engine import no_vmap_fallback
+from repro_torch.serving.engine import MultiClientServedLM
+two = MultiClientServedLM(cfg, 2, bucket_len=12, seed=1, device="cpu")
+with no_vmap_fallback():
+    c = two.generate([prompt, prompt[:, :3]], 5)
+assert (c[0].tokens == a).all(), (c[0].tokens, a)
+assert two.edge.compile_count == 1 and two.edge.batcher.vmap_batches >= 1
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro")
 print("LOADED", bad)
 """

@@ -219,7 +219,7 @@ def test_loop_carried_state_is_detected_and_stays_resident():
     h2d = [c for c in sess.client._ios_calls if c.record.func == FUNC_H2D]
     assert len(h2d) == 2
     assert sess.history[-1].rpcs == 2
-    resident = sess.server.ctx.replay.carried_state[0]
+    resident = sess.server.context().replay.carried_state[0]
     assert torch.equal(resident, ref_state)
 
 

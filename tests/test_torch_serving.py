@@ -80,7 +80,7 @@ def test_kv_cache_is_carried(runs):
     s, _ = runs["served"]["rrto"]
     client = s.session.client
     assert client.stateful_replay and len(client.ios.carried_pairs) >= 1
-    program = s.session.server.ctx.replay.program
+    program = s.session.server.context().replay.program
     assert program.is_stateful and program.step_fn is not None
     cache_bytes = sum(t.numel() * t.element_size() for t in s._cache_leaves)
     steady = [h for h in s.session.history if h.mode == "replaying"][1:]
@@ -177,8 +177,8 @@ def test_hybrid_state_is_carried_off_the_wire(hybrid_runs):
     pairs = client.ios.carried_pairs
     assert pairs == hybrid_runs["j_served"].session.client.ios.carried_pairs
     assert len(pairs) == len(s._cache_leaves) == 6
-    assert s.session.server.ctx.replay.program.is_stateful
-    state = s.session.server.ctx.replay.carried_state
+    assert s.session.server.context().replay.program.is_stateful
+    state = s.session.server.context().replay.carried_state
     # tail conv, tail ssm + group conv + K + V, group ssm
     assert sorted(t.dim() for t in state) == [4, 5, 5, 5, 5, 6]
     smallest = min(t.numel() * t.element_size() for t in state)
