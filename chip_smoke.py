@@ -1215,13 +1215,21 @@ def phase_mt_kernels(dev) -> dict:
 
 class RoundTimer:
     """Wall time of each ``edge.run_round`` (its outputs are host copies, so
-    the round has waited for the card when it returns)."""
+    the round has waited for the card when it returns), and the data of the
+    last round that every client replayed."""
 
     def __init__(self, edge):
         self.walls = []
         inner = edge.run_round
 
         def run_round(inputs):
+            sessions = edge.sessions
+            if len(inputs) == len(sessions) and all(
+                    s.client.mode == "replaying" for s in sessions.values()):
+                # a round that every client replays: its inputs and the
+                # state it starts from are real data for check_lane_order
+                self.full_round = (inputs, {
+                    c: edge.server.context(c).replay.carried_state for c in inputs})
             t0 = time.perf_counter()
             res = inner(inputs)
             self.walls.append((all(r.mode == "replaying" for r in res.values()),
@@ -1299,39 +1307,60 @@ def check_multitenant(label, v, lp) -> None:
           f"{s_l['vmap_batches']} vmap batches")
 
 
-def batch_variant_calls(edge, dev) -> list:
-    """Every recorded call of the edge's first client's program, run call by
-    call on the round's real data both ways — vmapped over the clients and
-    as the lane loop — from the same inputs: the calls whose batched form
-    changes their bits (the probe lane-orders the products among them)."""
-    from repro_torch.core.engine import _per_lane, _run_call
+def check_lane_order(label, run) -> None:
+    """Every recorded call of the edge's program, run call by call on the
+    real data of the last round that every client replayed, both ways —
+    vmapped over the clients and as the lane loop — from the same inputs.
+    Fails unless the calls whose batched form changes their bits are exactly
+    the ones the batched program's probe (on hash noise) runs per lane."""
+    from repro_torch.core.engine import _per_lane, _run_call, no_vmap_fallback
 
+    edge = run["m"].edge
+    first = next(iter(edge.sessions.values())).client
     ctxs = [edge.server.context(c) for c in edge.sessions]
     program = ctxs[0].replay.program
+    batched = edge.cache.peek(f"{first.ios_fp}#vmap{len(ctxs)}")
+    check(batched is not None and batched.base is program,
+          f"{label}: no batched program of width {len(ctxs)} over the clients' program")
     plan = program.plan
-    envs = []
-    for ctx in ctxs:    # each client's parameters and last inputs, at the plan's addresses
-        b = ctx.replay
-        env = {a: ctx.env[x] for a, x in zip(plan["param_addrs"], b.param_addrs)}
-        env.update({a: ctx.env[x] for a, x in zip(plan["h2d_addrs"], b.h2d_addrs)})
-        envs.append(env)
-    params = set(plan["param_addrs"])
+    h2d = plan["h2d_addrs"]
+    inputs, states = run["timer"].full_round
+    lanes = []
+    for cid in edge.sessions:   # each client's uploads in that round
+        wire = [edge.server.to_device(x)
+                for x in edge.sessions[cid].replay_wire_inputs(inputs[cid])]
+        if program.is_stateful:
+            ins = dict(zip(program.wire_in, wire))
+            ins.update((i, x) for (i, _), x in zip(program.carried_pairs, states[cid]))
+            wire = [ins[i] for i in range(len(h2d))]
+        lanes.append(wire)
+    # the shared parameters once, the uploads stacked over the clients; a
+    # call's outputs carry the lanes iff an input does, as under vmap
+    env = {a: ctxs[0].env[x] for a, x in zip(plan["param_addrs"], ctxs[0].replay.param_addrs)}
+    env.update((a, torch.stack(xs)) for a, xs in zip(h2d, zip(*lanes)))
+    batched_addrs = set(h2d)
     variant = []
-    with torch.no_grad():
+    with torch.no_grad(), no_vmap_fallback():
         for c in program.kernel_calls:
-            ops = [[env[a] for _, a in c.in_operands] for env in envs]
-            dims = [None if a in params else 0 for _, a in c.in_operands]
-            stacked = [o[0] if d is None else torch.stack([op[k] for op in ops])
-                       for k, (o, d) in enumerate(zip(zip(*ops), dims))]
-            loop = _per_lane(c, stacked, dims, len(envs))
-            if any(d is not None for d in dims):
-                batched = torch.func.vmap(lambda *xs: tuple(_run_call(c, list(xs))),
-                                          in_dims=tuple(dims))(*stacked)
-                if not all(torch.equal(a, b) for a, b in zip(batched, loop)):
-                    variant.append(c)
-            for lane, env in enumerate(envs):
-                env.update(zip(c.out_addrs, (t[lane] for t in loop)))
-    return variant
+            operands = [env[a] for _, a in c.in_operands]
+            dims = [0 if a in batched_addrs else None for _, a in c.in_operands]
+            if all(d is None for d in dims):
+                env.update(zip(c.out_addrs, _run_call(c, operands)))
+                batched_addrs.difference_update(c.out_addrs)
+                continue
+            loop = _per_lane(c, operands, dims, len(ctxs))
+            vm = torch.func.vmap(lambda *xs: tuple(_run_call(c, list(xs))),
+                                 in_dims=tuple(dims))(*operands)
+            if not all(torch.equal(a, b) for a, b in zip(vm, loop)):
+                variant.append(c)
+            env.update(zip(c.out_addrs, loop))
+            batched_addrs.update(c.out_addrs)
+    found, probed = {id(c) for c in variant}, {id(c) for c in batched.lane_ordered}
+    print(f"{label}: of {program.n_kernels} calls, {len(variant)} change their bits batched on "
+          f"that round's data {dict(Counter(str(c.op) for c in variant))}; the probe runs "
+          f"{len(probed)} per lane; {len(found - probed)} missed, {len(probed - found)} extra")
+    check(found == probed, f"{label}: the batch-variant calls on real data are not the ones "
+          f"the probe lane-orders ({len(found - probed)} missed, {len(probed - found)} extra)")
 
 
 def time_multitenant_step(v, lp, dev) -> dict:
@@ -1518,6 +1547,7 @@ def main() -> None:
                                       clients=MT_CLIENTS, prompt_lens=MT_PROMPTS,
                                       new_tokens=MT_NEW, bucket=BUCKET, enable_vmap=vm))
     check_multitenant(f"qwen3-0.6b x{MT_CLIENTS}", runs[True], runs[False])
+    check_lane_order(f"qwen3-0.6b x{MT_CLIENTS}", runs[True])
     step_times = time_multitenant_step(runs[True], runs[False], dev)
     del runs, q_params
     torch.cuda.empty_cache()
@@ -1531,10 +1561,8 @@ def main() -> None:
                                       prompt_lens=(MT_Z_PROMPT,) * MT_Z_CLIENTS,
                                       new_tokens=MT_Z_NEW, bucket=Z_STATELESS_BUCKET,
                                       enable_vmap=vm))
-    variant = batch_variant_calls(runs[True]["m"].edge, dev)
-    print(f"zamba2-1.2b stateless x{MT_Z_CLIENTS}: calls whose batched form changes their bits "
-          f"on the last round's data: {Counter(str(c.op) for c in variant)}")
     check_multitenant(f"zamba2-1.2b stateless x{MT_Z_CLIENTS}", runs[True], runs[False])
+    check_lane_order(f"zamba2-1.2b stateless x{MT_Z_CLIENTS}", runs[True])
     del runs, params
     torch.cuda.empty_cache()
     print(f"[phase 7] ({time.perf_counter() - t0:.1f} s); batched step {step_times}")

@@ -259,12 +259,13 @@ class ReplayProgram:
         # size for byte-aware cache eviction: the tensors the program holds
         # itself (constants inside the recorded arguments) plus its output
         # staging buffers; there is no compiled code to count
-        consts = 0
+        self.consts_nbytes = 0
         for c in kernel_calls:
             for leaf in torch.utils._pytree.tree_leaves((c.args, c.kwargs or {})):
                 if isinstance(leaf, torch.Tensor):
-                    consts += _nbytes(leaf)
-        self.nbytes_estimate = consts + _avals_nbytes(self.d2h_avals)
+                    self.consts_nbytes += _nbytes(leaf)
+        self.staging_nbytes = _avals_nbytes(self.d2h_avals)
+        self.nbytes_estimate = self.consts_nbytes + self.staging_nbytes
 
     def functions(self, run_kernels):
         """``(replay, step)`` around a kernel runner that executes the
@@ -415,7 +416,8 @@ class BatchedReplayProgram:
         self.width = int(width)
         self.stateful = program.is_stateful
         self.n_kernels = program.n_kernels
-        self.nbytes_estimate = program.nbytes_estimate * self.width
+        # the constants are shared; each lane stages its own outputs
+        self.nbytes_estimate = program.consts_nbytes + self.width * program.staging_nbytes
         # which operands of each call carry the lanes: the uploads (wire and
         # carried) do, the parameters do not, and an output does iff an input
         # of its call does (vmap's own rule)
@@ -861,12 +863,6 @@ class RRTOClient:
         self.stats = InferenceStats()
 
     # -- helpers -------------------------------------------------------------
-    @property
-    def replay_key(self) -> Optional[str]:
-        """Cache and batch identity of this client's replay program: the IOS
-        fingerprint."""
-        return self.ios_fp
-
     @property
     def carried_input_ordinals(self) -> frozenset:
         """H2D ordinals (position among one round's uploads) answered locally

@@ -104,7 +104,8 @@ def _(q, k_cache, v_cache, kv_len, window):
 def _decode_attention_vmap(info, in_dims, q, k_cache, v_cache, kv_len, window):
     """Batching rule: every (KV head, batch row) is its own block, so the
     lanes fold into the batch axis of one launch — B becomes lanes·B, and
-    ``kv_len`` a (lanes·B,) vector (an unbatched one is expanded)."""
+    ``kv_len`` a (lanes·B,) vector.  An unbatched operand is expanded and
+    then written out once per lane (``library.fold_lanes``)."""
     ops = [library.lanes_first(t, d, info.batch_size)
            for t, d in zip((q, k_cache, v_cache, kv_len), in_dims)]
     lanes, b = ops[0].shape[:2]

@@ -115,7 +115,8 @@ def _(q, k, v, causal, window, logit_cap, q_offset):
 
 def _flash_attention_vmap(info, in_dims, q, k, v, causal, window, logit_cap, q_offset):
     """Batching rule: the grid is per batch row, so the lanes fold into the
-    batch axis of one launch (an unbatched operand is expanded)."""
+    batch axis of one launch (an unbatched operand is expanded and then
+    written out once per lane, ``library.fold_lanes``)."""
     ops = [library.lanes_first(t, d, info.batch_size) for t, d in zip((q, k, v), in_dims)]
     lanes, b = ops[0].shape[:2]
     out = flash_attention_op(*(library.fold_lanes(t) for t in ops), causal, window, logit_cap,

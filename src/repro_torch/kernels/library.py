@@ -199,7 +199,11 @@ def lanes_first(t, dim, lanes: int):
 
 def fold_lanes(t):
     """(lanes, B, ...) -> contiguous (lanes·B, ...): the lanes folded into a
-    kernel's batch axis (None stays None)."""
+    kernel's batch axis (None stays None).  The kernels read contiguous
+    operands with no batch stride of their own, so an operand that
+    :func:`lanes_first` expanded is written out here once per lane: lanes
+    times its size (a cache shared by every lane, say).  The served batched
+    replays batch every operand a kernel reads, so none of them pays it."""
     if t is None:
         return None
     return t.reshape(t.shape[0] * t.shape[1], *t.shape[2:]).contiguous()

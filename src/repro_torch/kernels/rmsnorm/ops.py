@@ -97,13 +97,15 @@ def _(x, scale, eps, offset):
 def _rmsnorm_vmap(info, in_dims, x, scale, eps, offset):
     """Batching rule: rows are independent, so the lanes fold into the rows
     of one launch.  A batched scale (per-lane weights, which co-tenants
-    sharing one model never have) takes one launch per lane."""
-    x = library.lanes_first(x, in_dims[0], info.batch_size).contiguous()
-    if in_dims[1] is None:
-        return rmsnorm_op(x, scale, eps, offset), 0
+    sharing one model never have) takes one launch per lane, each on the
+    one x when x is unbatched."""
+    lanes = info.batch_size
+    if in_dims[1] is None:      # then x is the batched one
+        return rmsnorm_op(x.movedim(in_dims[0], 0).contiguous(), scale, eps, offset), 0
     scale = scale.movedim(in_dims[1], 0)
-    return torch.stack([rmsnorm_op(x[i], scale[i].contiguous(), eps, offset)
-                        for i in range(info.batch_size)]), 0
+    xs = [x] * lanes if in_dims[0] is None else x.movedim(in_dims[0], 0).contiguous()
+    return torch.stack([rmsnorm_op(xs[i], scale[i].contiguous(), eps, offset)
+                        for i in range(lanes)]), 0
 
 
 torch.library.register_vmap(rmsnorm_op, _rmsnorm_vmap)

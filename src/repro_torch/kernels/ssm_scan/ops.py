@@ -161,7 +161,8 @@ def _(x, log_decay, in_scale, Bm, Cm, D, h0, chunk):
 def _gated_scan_vmap(info, in_dims, x, log_decay, in_scale, Bm, Cm, D, h0, chunk):
     """Batching rule: one block per (columns of P, head, batch row), so the
     lanes fold into the batch axis of one launch, and both outputs, y and h,
-    come back batched.  An unbatched operand is expanded; a batched D
+    come back batched.  An unbatched operand is expanded and then written
+    out once per lane (``library.fold_lanes``); a batched D
     (per-lane head skips, which co-tenants sharing one model never have)
     takes one launch per lane."""
     lanes = info.batch_size

@@ -217,7 +217,7 @@ class ReplayBatcher:
             # batch ran without the override, so this round executes solo
             self.solo_replays += 1
             return self.server.run_replay(inputs, t, cid, fresh_carried=fresh_carried)
-        fp = client.replay_key
+        fp = client.ios_fp
         group = self._groups.get(fp) if fp is not None else None
         if group is None:
             group = self._execute_group(fp, t)
@@ -357,20 +357,18 @@ class RRTOEdgeServer:
         server_device: DeviceSpec = GTX_2080TI,
         execute: bool = True,
         cache_capacity: int = 8,
-        cache_capacity_bytes: Optional[float] = None,
         batch_window_s: float = 2e-3,
         environment: str = "indoor",
-        ingress: Optional[ServerIngress] = None,
         clock: Optional[SimClock] = None,
         device: Any = "cuda",
     ):
         self.clock = clock or SimClock()
-        self.cache = ReplayCache(cache_capacity, cache_capacity_bytes)
+        self.cache = ReplayCache(cache_capacity)
         self.server = OffloadServer(
             server_device, device=resolve_device(device), execute=execute,
             replay_cache=self.cache,
         )
-        self.ingress = ingress or ServerIngress()
+        self.ingress = ServerIngress()
         self.batcher = ReplayBatcher(self.server, window_s=batch_window_s)
         self.environment = environment
         self.sessions: Dict[str, OffloadSession] = {}
@@ -430,9 +428,9 @@ class RRTOEdgeServer:
         for cid, inputs in inputs_by_client.items():
             sess = self.sessions[cid]
             cl = sess.client
-            if cl.mode != MODE_REPLAYING or cl.replay_key is None:
+            if cl.mode != MODE_REPLAYING or cl.ios_fp is None:
                 continue
-            entries.setdefault(cl.replay_key, []).append((cl, sess.replay_wire_inputs(inputs)))
+            entries.setdefault(cl.ios_fp, []).append((cl, sess.replay_wire_inputs(inputs)))
         self.batcher.begin_round(entries)
         try:
             return {

@@ -304,7 +304,7 @@ class TestPaddedVmapWidths:
         bound = edge.server.context(ids[-1]).replay
         saved, bound.carried_state = bound.carried_state, None
         try:
-            key = edge.sessions[ids[0]].client.replay_key
+            key = edge.sessions[ids[0]].client.ios_fp
             edge.batcher.begin_round({key: [
                 (edge.sessions[c].client, edge.sessions[c].replay_wire_inputs((x, states[c])))
                 for c in ids
@@ -346,7 +346,7 @@ class TestDigestCache:
         assert sess.client.mode == "replaying"
         cl = sess.client
         wire = sess.replay_wire_inputs((x,))
-        edge.batcher.begin_round({cl.replay_key: [(cl, wire)]})
+        edge.batcher.begin_round({cl.ios_fp: [(cl, wire)]})
         wrong = [w + 1.0 for w in wire]
         solo0 = edge.batcher.solo_replays
         outs, _ = edge.batcher.submit(cl, wrong, edge.clock.t)
@@ -496,7 +496,7 @@ class TestSizeAwareCache:
         ids = list(edge.sessions)
         for _ in range(4):
             run_round(edge, {c: (x,) for c in ids})
-        fp = edge.sessions["c0"].client.replay_key
+        fp = edge.sessions["c0"].client.ios_fp
         edge.cache.capacity_bytes = edge.cache.bytes_total
         edge.batcher.begin_round({fp: [
             (edge.sessions[c].client, edge.sessions[c].replay_wire_inputs((x,))) for c in ids
@@ -513,14 +513,18 @@ class TestSizeAwareCache:
 
     def test_program_nbytes_counts_output_staging(self):
         """A real program's size: its output staging buffers (it holds no
-        tensor of its own)."""
+        tensor of its own); a batched one holds its base's constants once
+        and the staging buffers once per lane."""
         model, x = make_mlp()
         sess = OffloadSession(model, "rrto", device="cpu")
         for _ in range(4):
             sess.infer(x)
         program = sess.server.context().replay.program
-        assert program.nbytes_estimate == 2 * 8 * 4
-        assert program.build_batched(4).nbytes_estimate == 4 * program.nbytes_estimate
+        assert program.consts_nbytes == 0
+        assert program.nbytes_estimate == program.staging_nbytes == 2 * 8 * 4
+        assert program.build_batched(4).nbytes_estimate == 4 * program.staging_nbytes
+        program.consts_nbytes = 1000
+        assert program.build_batched(4).nbytes_estimate == 1000 + 4 * 2 * 8 * 4
 
 
 class TestBatcherInputDigest:
@@ -755,7 +759,7 @@ class TestDeviationDuringFormedRound:
         for _ in range(4):
             run_round(edge, {cid: (x,) for cid in self.CIDS})
         assert all(edge.sessions[c].client.mode == "replaying" for c in self.CIDS)
-        assert len({edge.sessions[c].client.replay_key for c in self.CIDS}) == 1
+        assert len({edge.sessions[c].client.ios_fp for c in self.CIDS}) == 1
         return edge, x
 
     def test_deviant_exits_round_cleanly_cotenants_bitwise(self):
@@ -766,7 +770,7 @@ class TestDeviationDuringFormedRound:
         entries = {}
         for cid in self.CIDS:
             sess = edge.sessions[cid]
-            entries.setdefault(sess.client.replay_key, []).append(
+            entries.setdefault(sess.client.ios_fp, []).append(
                 (sess.client, sess.replay_wire_inputs((x,)))
             )
         edge.batcher.begin_round(entries)

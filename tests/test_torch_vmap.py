@@ -82,6 +82,9 @@ def test_rmsnorm_rule_equals_lane_loop(rng, dtype, shape):
     assert_bitwise(vmapped(f, x.movedim(0, 1).contiguous(), in_dims=1), loop(f, x))
     ws = _r(rng, LANES, shape[-1], dtype=dt)
     assert_bitwise(vmapped(rmsnorm, x, ws), loop(rmsnorm, x, ws))
+    dims = (None, 0)        # one x under per-lane scales
+    assert_bitwise(vmapped(rmsnorm, x[0], ws, in_dims=dims),
+                   loop(rmsnorm, x[0], ws, in_dims=dims))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
