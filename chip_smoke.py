@@ -26,7 +26,13 @@ random weights from a seed:
   bitwise against the loop of the same kernel and timed at batch 4, then
   ``MultiClientServedLM`` with 4 qwen3-0.6b clients and 2 zamba2-1.2b
   stateless clients, each run vmap-batched and looped (equal tokens), and
-  the batched width-4 qwen3 step against 4 solo steps in turns.
+  the batched width-4 qwen3 step against 4 solo steps in turns;
+* minicpm3-4b (phase 8: 62 layers of MLA attention, d_model 2560, bf16):
+  stateful (the absorbed latent decode, the latent cache carried) and
+  stateless (flash attention at head dim 96 in every replayed token);
+* xlstm-1.3b (phase 9: 42 mLSTM and 6 sLSTM blocks, d_model 2048, bf16):
+  stateful (705 MB of recurrent state carried on the server) and stateless
+  (the gated scan at a state of 1024 x 1025 in every replayed token).
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after (every batched call under ``no_vmap_fallback``, so an op
@@ -69,6 +75,14 @@ LOGIT_REL_TOL = 0.05
 HYBRID_LOGIT_REL_TOL = 0.10
 PROMPT_LEN, NEW_TOKENS, BUCKET = 32, 32, 512       # qwen3-0.6b
 Z_PROMPT, Z_NEW, Z_BUCKET, Z_STATELESS_BUCKET = 16, 16, 128, 64   # zamba2-1.2b
+M_PROMPT, M_NEW, M_BUCKET = 16, 8, 64           # minicpm3-4b, stateful and stateless
+X_PROMPT, X_NEW, X_BUCKET = 8, 8, 64            # xlstm-1.3b stateful (no bucket: recurrent state)
+X_STATELESS_PROMPT = 16                         # xlstm-1.3b stateless, bucket 64
+# MLA's flash call (minicpm3-4b: 40 heads of nope 64 + rope 32) and the
+# mLSTM scan (xlstm-1.3b: 4 heads, N = 1024 keys, P = 1025 values with the
+# normalizer column)
+MLA_HEADS, MLA_D = 40, 96
+MLSTM_HEADS, MLSTM_N = 4, 1024
 LONG_KV = 16384     # the long decode row: K/V of 67 MB, more than the 50 MB L2
 KAPAO_SIZE, KAPAO_INFERS = 640, 7
 # the other CNNs at the reference's benchmark sizes: Fig. 12's torchvision
@@ -85,8 +99,11 @@ TAB3_LOOP = {"cudaGetDevice": 4735, "cudaGetLastError": 607, "cudaLaunchKernel":
              "cudaMemcpyDtoH": 8, "cudaMemcpyDtoD": 9}
 # rmsnorm's served shapes (rows, d): qwen3's d_model at decode, its q- and
 # k-norm rows, zamba2's d_model and gated-norm width at decode, qwen3's
-# 32-token prefill and the stateless bucket's 64 rows of d_inner
-RMSNORM_SHAPES = [(1, 1024), (16, 128), (8, 128), (1, 2048), (1, 4096), (32, 1024), (64, 4096)]
+# 32-token prefill and the stateless bucket's 64 rows of d_inner; then
+# minicpm3's d_model, q latent and kv latent at decode, its stateless
+# bucket's 64 rows of d_model, and xLSTM's 64 rows of d_model
+RMSNORM_SHAPES = [(1, 1024), (16, 128), (8, 128), (1, 2048), (1, 4096), (32, 1024), (64, 4096),
+                  (1, 2560), (1, 768), (1, 256), (64, 2560), (64, 2048)]
 REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:26",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:94",
@@ -171,7 +188,8 @@ def phase_kernels(dev):
                           ((1, 1, 8, 128), 0.0), ((1, 32, 1024), 0.0),
                           ((3, 7, 96), 0.0), ((2, 64, 512), 1.0), ((1, 1, 2048), 0.0),
                           ((1, 1, 4096), 1.0), ((1, 64, 4096), 0.0), ((1, 64, 2048), 0.0),
-                          ((5, 13, 130), 0.0), ((2, 3, 20000), 0.0)]:
+                          ((5, 13, 130), 0.0), ((2, 3, 20000), 0.0), ((1, 1, 2560), 0.0),
+                          ((1, 1, 768), 0.0), ((1, 1, 256), 0.0), ((1, 64, 2560), 0.0)]:
         for dtype in (torch.float32, torch.bfloat16):
             x = randn(*shape, dtype=dtype)
             w = (randn(shape[-1], dtype=torch.float32) * 0.1 + 1.0).to(dtype)
@@ -289,7 +307,13 @@ def phase_kernels(dev):
                       ((1, 30, 94, 16, 2, 128), dict(causal=True, q_offset=64)),
                       ((1, 70, 70, 4, 2, 256), dict(causal=True, logit_cap=20.0)),
                       ((1, 33, 40, 8, 1, 32), dict(causal=False)),
-                      ((1, 200, 200, 8, 2, 32), dict(causal=True, window=50))]:
+                      ((1, 200, 200, 8, 2, 32), dict(causal=True, window=50)),
+                      # MLA's head dim 96: the stateless bucket, the prefill,
+                      # a ragged sequence and a non-causal one
+                      ((1, M_BUCKET, M_BUCKET, MLA_HEADS, MLA_HEADS, MLA_D), dict(causal=True)),
+                      ((1, M_PROMPT, M_PROMPT, MLA_HEADS, MLA_HEADS, MLA_D), dict(causal=True)),
+                      ((2, 77, 77, 8, 8, MLA_D), dict(causal=True)),
+                      ((1, 50, 70, 8, 4, MLA_D), dict(causal=False))]:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = fl_case(*shape, dtype)
             out = flash_attention(q, k, v, **kw)
@@ -325,6 +349,21 @@ def phase_kernels(dev):
             bound_ms=b_ms, bound_by=b_by,
         ))
 
+    # MLA at minicpm3-4b's stateless bucket: 40 heads of 96 (the wgmma route's
+    # rows padded to two 64-column atoms), beside SDPA on the same q/k/v
+    q, k, v = fl_case(1, M_BUCKET, M_BUCKET, MLA_HEADS, MLA_HEADS, MLA_D, torch.bfloat16)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    b_ms, b_by = bound_ms(2 * 4 * q.numel(), 4 * MLA_HEADS * M_BUCKET * (M_BUCKET + 1) / 2 * MLA_D,
+                          torch.bfloat16)
+    extra.append(dict(
+        name="flash_attention", shape=f"q/k/v (1,{M_BUCKET},{MLA_HEADS},{MLA_D}) bf16, causal",
+        max_abs_err=close(flash_attention(q, k, v), attention_dense(q, k, v), TOL[torch.bfloat16]),
+        ms=graph_ms(lambda: flash_attention(q, k, v)),
+        plain_ms=graph_ms(lambda: attention_dense(q, k, v)),
+        library_ms=graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)),
+        bound_ms=b_ms, bound_by=b_by,
+    ))
+
     # a long prefill with qwen3's heads: 16 tiles of 64 packed rows per KV head (128
     # blocks), up to 8 K/V tiles each
     q, k, v = fl_case(1, 512, 512, 16, 8, 128, torch.bfloat16)
@@ -349,7 +388,7 @@ def phase_kernels(dev):
         print(f"time {r['name']} [{r['shape']}]: kernel {r['ms'] * 1e3:.2f} us, plain "
               f"{r['plain_ms'] * 1e3:.2f} us, library {lib}, "
               f"bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
-    return rows
+    return rows, extra
 
 
 def rmsnorm_row(randn, shape) -> dict:
@@ -462,13 +501,15 @@ def sass_count(path: str, opcode: str) -> int:
     return sum(1 for line in sass.splitlines() if opcode in line)
 
 
-def scan_inputs(randn, b, s, h, p, g, n, dtype, *, mlstm=False):
+def scan_inputs(randn, b, s, h, p, g, n, dtype, *, mlstm=False, key_scale=1.0):
     """x, ld, gi, B, C, D as the served paths give them: Mamba2 (ld = dt*A
     with zamba2's A and dt_bias, gi = dt, D) or mLSTM (ld = log sigmoid(f),
-    gi = exp(i), no D)."""
+    gi = exp(i), no D).  ``key_scale`` scales B: the mLSTM's keys are
+    W_k x / sqrt(d_head), so at its N = 1024 a score C.B is of order 1."""
     dev = "cuda"
     x = randn(b, s, h, p, dtype=dtype)
-    bm, cm = randn(b, s, g, n, dtype=dtype), randn(b, s, g, n, dtype=dtype)
+    bm, cm = (randn(b, s, g, n, dtype=torch.float32) * key_scale).to(dtype), \
+        randn(b, s, g, n, dtype=dtype)
     if mlstm:
         ld = F.logsigmoid(randn(b, s, h, dtype=torch.float32) + 3.0)
         gi = torch.exp(0.3 * randn(b, s, h, dtype=torch.float32) - 1.0)
@@ -525,6 +566,7 @@ def phase_scan(dev, randn):
         y_r, h_r = gated_scan_padded(x, ld, gi, bm, cm, d, h0, 32)
         print(f"gated_scan h0 (1, 70, 8, 64, 2, 64) chunk 32 {dtype}: max|d| "
               f"y {close(y, y_r, TOL[dtype]):.3g}, h {close(h, h_r, TOL[dtype]):.3g}")
+    wide = wide_scan_checks(randn)
     timed = []
     for s, dtype in [(Z_STATELESS_BUCKET, torch.bfloat16), (Z_PROMPT, torch.bfloat16),
                      (300, torch.bfloat16), (Z_STATELESS_BUCKET, torch.float32)]:
@@ -547,21 +589,74 @@ def phase_scan(dev, randn):
         ))
     row = timed[0]
     del row["name"]
-    return row, timed[1:]
+    return row, timed[1:] + [wide]
+
+
+def wide_scan_checks(randn) -> dict:
+    """The wide-state routes (N > 128) against the plain version in f32 and
+    bf16: xlstm-1.3b's mLSTM scan at the stateless bucket (S = 64, chunk 64)
+    and the stateful prompt's prefill (S = 16), and a ragged N = 160, P = 161
+    over three chunks of 64 from a given state (a ragged last slab of B and
+    C), the keys B at the mLSTM's scale; two runs of the bf16 kernel give the same bits (each block sums over
+    N in a fixed order); then the served shape timed in bf16 beside the
+    plain version and ``scan_cost``'s bound."""
+    from repro_torch.kernels.ssm_scan import gated_scan, gated_scan_padded, scan_plan
+
+    full = (1, M_BUCKET, MLSTM_HEADS, MLSTM_N + 1, MLSTM_HEADS, MLSTM_N)
+    cases = [(full, 64, False), ((1, M_PROMPT, MLSTM_HEADS, MLSTM_N + 1, MLSTM_HEADS, MLSTM_N),
+                                 128, False), ((1, 150, 4, 161, 4, 160), 64, True)]
+    for shape, chunk, with_h0 in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, ld, gi, bm, cm, d = scan_inputs(randn, *shape, dtype, mlstm=True,
+                                               key_scale=shape[5] ** -0.5)
+            h0 = randn(shape[0], shape[2], shape[5], shape[3], dtype=torch.float32) \
+                if with_h0 else None
+            y, h = gated_scan(x, ld, gi, bm, cm, d, chunk=chunk, h0=h0)
+            torch.cuda.synchronize()
+            y_r, h_r = gated_scan_padded(x, ld, gi, bm, cm, d, h0, chunk)
+            plan = scan_plan(*shape, min(chunk, shape[1]), dtype)
+            print(f"gated_scan wide {shape} chunk {chunk}{' h0' if with_h0 else ''} {dtype} "
+                  f"({plan['route']}, grid {plan['grid']}, {plan['smem']} B shared): max|d| "
+                  f"y {close(y, y_r, TOL[dtype]):.3g}, h {close(h, h_r, TOL[dtype]):.3g} "
+                  f"(tol {TOL[dtype]})")
+    bf = torch.bfloat16
+    args = scan_inputs(randn, *full, bf, mlstm=True, key_scale=MLSTM_N ** -0.5)
+    y, h = gated_scan(*args, chunk=64)
+    y2, h2 = gated_scan(*args, chunk=64)
+    check(torch.equal(y, y2) and torch.equal(h, h2), "wide gated_scan: two runs differ")
+    y_r, h_r = gated_scan_padded(*args, None, 64)
+    err = max(close(y, y_r, TOL[bf]), close(h, h_r, TOL[bf]))
+    b_ms, b_by = bound_ms(*scan_cost(*full, 64, bf), bf)
+    print("gated_scan wide: two runs bitwise equal")
+    return dict(
+        name="ssm_scan", shape=f"x (1,{M_BUCKET},{MLSTM_HEADS},{MLSTM_N + 1}), B/C "
+                               f"(1,{M_BUCKET},{MLSTM_HEADS},{MLSTM_N}) bf16, chunk 64 (mma_wide)",
+        max_abs_err=err, ms=graph_ms(lambda: gated_scan(*args, chunk=64), reps=10),
+        plain_ms=graph_ms(lambda: gated_scan_padded(*args, None, 64), reps=10),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+    )
 
 
 def phase_small_reference(dev):
-    """The reduced qwen3-0.6b and zamba2-1.2b in f32 (head dims 32: the
-    kernels take 32, 64, 128 and 256), the card (kernels) against the CPU
-    (plain versions) on the same weights and tokens.  The zamba2 variant has
-    2 groups with the shared block and a 1-layer tail, and its 20-token
-    prompt leaves a ragged last scan chunk of 4."""
+    """The reduced qwen3-0.6b, zamba2-1.2b, minicpm3-4b and xlstm-1.3b in f32
+    (head dims the kernels take: 32, 64, 96, 128 and 256), the card
+    (kernels) against the CPU (plain versions) on the same weights and
+    tokens.  The zamba2 variant has 2 groups with the shared block and a
+    1-layer tail, and its 20-token prompt leaves a ragged last scan chunk of
+    4."""
     from repro_torch.configs import get_reduced_config
     from repro_torch.models.registry import get_model
 
     for cfg, s in ((get_reduced_config("qwen3-0.6b", d_head=32), 12),
                    (get_reduced_config("zamba2-1.2b", n_layers=5, attn_every=2, d_head=32,
-                                       ssm_head_dim=32), 20)):
+                                       ssm_head_dim=32), 20),
+                   # the reduced MLA's qk head dim is 16, which the kernels do
+                   # not take: minicpm3's own 64 + 32 (flash at d = 96), v 64
+                   (get_reduced_config("minicpm3-4b", nope_head_dim=64, rope_head_dim=32,
+                                       v_head_dim=64, d_head=96), 12),
+                   # two groups of one mLSTM and one sLSTM, a one-block tail;
+                   # the mLSTM state is 32 x 33 (the narrow route)
+                   (get_reduced_config("xlstm-1.3b", n_layers=5, slstm_every=2), 20)):
         model = get_model(cfg)
         p_cpu = model.init_params(cfg, 1, "cpu")
         p_dev = torch.utils._pytree.tree_map(lambda t: t.to(dev), p_cpu)
@@ -666,7 +761,11 @@ def phase_main_path(dev, name, prompt_len, new_tokens, bucket, *, stateful=True,
     )
 
 
-def check_main_path(m) -> None:
+def check_main_path(m, per_step=None) -> None:
+    """The served path's checks.  ``per_step`` (stateless paths): the
+    launches of each kernel that every replayed step must make, the whole
+    bucket's forward (one scan per Mamba2 or mLSTM layer, one flash call per
+    MLA layer)."""
     sess, steady, name = m["sess"], m["steady"], m["name"]
     check(np.array_equal(m["r_srv"].tokens, m["r_dev"].tokens),
           f"{name}: rrto tokens {m['r_srv'].tokens} != device_only {m['r_dev'].tokens}")
@@ -692,16 +791,18 @@ def check_main_path(m) -> None:
               f"carried pairs {pairs}; IOS {len(sess.client.ios)} records")
         match = int((m["local"].tokens == m["r_srv"].tokens).sum())
         print(f"{name} LocalServing vs served tokens matching: {match}/{m['new_tokens']}")
+        locked = sum(dt for mode, dt, _ in t.steps if mode == "recording")
+        print(f"{name}: the IOS locked after {m['n_rec']} recorded steps, {locked:.1f} s")
     else:
         check(not sess.client.ios.carried_pairs, f"{name}: stateless app carries state")
-        scans = t.launches("replaying", "ssm_scan")
-        n_layers = m["cfg"].n_layers
-        check(bool(scans) and all(n == n_layers for n in scans),
-              f"{name}: gated_scan launches per replayed step {scans}, want {n_layers}")
+        for kernel, want in per_step.items():
+            got = t.launches("replaying", kernel)
+            check(bool(got) and all(n == want for n in got),
+                  f"{name}: {kernel} launches per replayed step {got}, want {want}")
         print(f"{name} stateless modes: {m['n_rec']} recording then replaying; steady "
               f"rpcs/token {max(h.rpcs for h in steady)}; wire bytes/token "
               f"{max(h.network_bytes for h in steady):.0f}; IOS {len(sess.client.ios)} records; "
-              f"gated_scan launches in each of {len(scans)} replayed steps: {scans[0]}")
+              f"launches in each replayed step: {per_step}")
     print(f"{name} wall per recorded step {t.mean_ms('recording'):.1f} ms, per replayed step "
           f"{t.mean_ms('replaying', skip=1):.1f} ms (steady, first replay excluded)")
 
@@ -757,10 +858,11 @@ def measure_replay_step(m, dev, *, profile: bool = False) -> dict:
 def profile_step(label, step, reps: int = 3) -> None:
     """Device time of one graph-replayed step by kernel name, from
     ``torch.profiler`` over ``reps`` replays: the top 10 kernels, and the
-    shares of rmsnorm and the scan where they ran (printed only).  One
-    warm-up replay runs inside the profiler first and is left out: the
-    replays are 5 ms apart, so their kernel records fall into separate
-    clusters in time, and the first cluster is dropped."""
+    shares of rmsnorm, the scan, flash attention and copies where they ran
+    (printed only).  One warm-up replay runs inside the profiler first and
+    is left out: the replays are 20 ms apart, so the ``reps`` widest gaps
+    between kernel records split the records into the replays (a step's own
+    gaps can pass a millisecond), and the first replay is dropped."""
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
@@ -770,18 +872,17 @@ def profile_step(label, step, reps: int = 3) -> None:
         for _ in range(1 + reps):
             g.replay()
             torch.cuda.synchronize()
-            time.sleep(0.005)
+            time.sleep(0.02)
     events = sorted((e for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
     if not events:
         print(f"{label} step profile: no device time in the trace (not measured)")
         return
-    clusters = [[events[0]]]
-    for prev, e in zip(events, events[1:]):
-        if e.time_range.start - prev.time_range.end > 1000:    # µs: a gap between replays
-            clusters.append([])
-        clusters[-1].append(e)
+    gaps = sorted(range(1, len(events)), key=lambda i: events[i - 1].time_range.end
+                  - events[i].time_range.start)[:reps]
+    cuts = [0, *sorted(gaps), len(events)]
+    clusters = [events[a:b] for a, b in zip(cuts, cuts[1:])]
     rms = [sum(1 for e in c if "rmsnorm_" in e.name) for c in clusters]
     print(f"{label} step profile: kernel records per replay {[len(c) for c in clusters]}, "
           f"rmsnorm records per replay {rms} (the first is the warm-up, left out)")
@@ -796,7 +897,10 @@ def profile_step(label, step, reps: int = 3) -> None:
           f"{total / 1e3:.3f} ms a step; {sum(c for c, _ in by_name.values())} kernel records")
     for name, (count, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
         print(f"  {t / n:9.1f} us {100 * t / n / total:5.1f}%  {count:5d} records  {name[:90]}")
-    for name, keys in (("rmsnorm", ("rmsnorm_",)), ("gated scan", ("ssd_kernel", "ssd_mma_"))):
+    for name, keys in (("rmsnorm", ("rmsnorm_",)), ("gated scan", ("ssd_kernel", "ssd_mma_",
+                                                                    "ssd_wide_")),
+                       ("flash attention", ("wgmma_kernel", "core_kernel")),
+                       ("copies and stacks", ("copy_kernel", "CatArray", "index_copy"))):
         hits = [(c, t) for k, (c, t) in by_name.items() if any(x in k for x in keys)]
         if hits:
             t = sum(t for _, t in hits) / n
@@ -823,13 +927,13 @@ def prefill_and_decode_logits(m, dev, params, cfg) -> tuple:
     return a, b
 
 
-def check_prefill_vs_decode(m, dev, bf16_tol: float) -> None:
-    """The served weights in bf16 and the same weights in f32: in f32 the two
-    paths agree to TOL; in bf16 they agree with each other, and each with the
-    f32 logits, to ``bf16_tol`` of the largest f32 logit."""
-    cfg, name = m["cfg"], m["name"]
-    a, b = prefill_and_decode_logits(m, dev, m["params"], cfg)
-    params32 = torch.utils._pytree.tree_map(lambda t: t.float(), m["params"])
+def prefill_vs_decode_gaps(m, dev, params, cfg, label) -> tuple:
+    """The model's weights in bf16 and the same weights in f32, last logits
+    from prefill and from a decode loop: (f32 gap, bf16 gap, bf16 prefill vs
+    f32, bf16 decode loop vs f32), each over the largest f32 logit
+    (printed)."""
+    a, b = prefill_and_decode_logits(m, dev, params, cfg)
+    params32 = torch.utils._pytree.tree_map(lambda t: t.float(), params)
     a32, b32 = prefill_and_decode_logits(m, dev, params32,
                                          dataclasses.replace(cfg, dtype="float32"))
     del params32
@@ -838,14 +942,53 @@ def check_prefill_vs_decode(m, dev, bf16_tol: float) -> None:
     def rel(x, y):
         return (x - y).abs().max().item() / scale
 
-    gap, gap32, err_pre, err_dec = rel(a, b), rel(a32, b32), rel(a, a32), rel(b, b32)
-    print(f"{name} prefill vs decode-loop last logits (max|d| / max|f32 logit| {scale:.4g}): "
-          f"f32 {gap32:.3g} (tol {TOL[torch.float32]}); bf16 {gap:.4g}, argmax equal: "
-          f"{int(a.argmax()) == int(b.argmax())}; bf16 vs f32: prefill {err_pre:.4g}, "
-          f"decode loop {err_dec:.4g} (tol {bf16_tol})")
+    gaps = rel(a32, b32), rel(a, b), rel(a, a32), rel(b, b32)
+    print(f"{label} prefill vs decode-loop last logits (max|d| / max|f32 logit| {scale:.4g}): "
+          f"f32 {gaps[0]:.3g}; bf16 {gaps[1]:.4g}, argmax equal: "
+          f"{int(a.argmax()) == int(b.argmax())}; bf16 vs f32: prefill {gaps[2]:.4g}, "
+          f"decode loop {gaps[3]:.4g}")
+    return gaps
+
+
+def check_prefill_vs_decode(m, dev, bf16_tol: float) -> None:
+    """In f32 the two paths agree to TOL; in bf16 they agree with each
+    other, and each with the f32 logits, to ``bf16_tol`` of the largest f32
+    logit."""
+    name = m["name"]
+    gap32, gap, err_pre, err_dec = prefill_vs_decode_gaps(m, dev, m["params"], m["cfg"], name)
+    print(f"{name}: tolerance f32 {TOL[torch.float32]}, bf16 {bf16_tol}")
     check(gap32 <= TOL[torch.float32], f"{name}: f32 prefill and decode-loop logits disagree")
     check(max(gap, err_pre, err_dec) <= bf16_tol,
           f"{name}: bf16 prefill, decode-loop and f32 logits disagree")
+
+
+def xlstm_first_group(params, cfg):
+    """The xLSTM's first group alone (its 7 mLSTM blocks and its sLSTM
+    block, full width), the served weights' own leaves, no copy."""
+    cut = {k: v for k, v in params.items() if k not in ("m_groups", "s_blocks", "m_tail")}
+    cut["m_groups"] = torch.utils._pytree.tree_map(lambda t: t[:1], params["m_groups"])
+    cut["s_blocks"] = torch.utils._pytree.tree_map(lambda t: t[:1], params["s_blocks"])
+    return cut, dataclasses.replace(cfg, n_layers=cfg.slstm_every)
+
+
+def check_xlstm_prefill_vs_decode(m, dev) -> None:
+    """The random-weight xLSTM amplifies any rounding difference through its
+    blocks: at all 48 the reference's own bf16 logits stray from its f32
+    ones by more than half of the largest
+    (tests/test_torch_xlstm.py::test_bf16_drift_matches_the_reference holds
+    the port's drift to the reference's).  So the two paths are held in f32
+    at TOL over the first group (7 mLSTM blocks through the scan kernel, one
+    sLSTM block); at full depth, and in bf16, the gaps are measured and
+    printed."""
+    name = m["name"]
+    prefill_vs_decode_gaps(m, dev, m["params"], m["cfg"],
+                           f"{name} ({m['cfg'].n_layers} blocks, printed)")
+    params, cfg = xlstm_first_group(m["params"], m["cfg"])
+    gap32 = prefill_vs_decode_gaps(m, dev, params, cfg,
+                                   f"{name} first group ({cfg.n_layers} blocks)")[0]
+    print(f"{name} first group: f32 tolerance {TOL[torch.float32]}")
+    check(gap32 <= TOL[torch.float32],
+          f"{name}: f32 prefill and decode-loop logits of the first group disagree")
 
 
 # ---------------------------------------------------------------------------
@@ -1438,6 +1581,17 @@ def time_multitenant_step(v, lp, dev) -> dict:
                 round_vmap_ms=sum(walls[True]) / 3, round_loop_ms=sum(walls[False]) / 3)
 
 
+def rss() -> str:
+    """This process's resident host memory now (``/proc``, where the kernel
+    reports it) and at its peak (``getrusage``)."""
+    import resource
+
+    with open("/proc/self/status") as f:
+        now = next((line.split(":", 1)[1].strip() for line in f if line.startswith("VmRSS:")),
+                   "not reported")
+    return f"{now} (peak {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss} kB)"
+
+
 def run_path(library, label, kernels, fn):
     """Drive one path with every launch count set to 0 just before it and
     read just after; fail if a kernel of the path never launched."""
@@ -1479,7 +1633,7 @@ def main() -> None:
     print(f"[phase 1] kernels built in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    rows = phase_kernels(dev)
+    rows, extra_rows = phase_kernels(dev)
     phase_small_reference(dev)
     check(not MISMATCHES, f"{len(MISMATCHES)} kernel checks disagreed with the plain versions")
     print(f"[phase 2] kernels vs plain versions: ok ({time.perf_counter() - t0:.1f} s)")
@@ -1512,7 +1666,7 @@ def main() -> None:
         library, "phase 5 zamba2-1.2b stateless", ("rmsnorm", "flash_attention", "ssm_scan"),
         lambda: phase_main_path(dev, "zamba2-1.2b", Z_PROMPT, Z_NEW, Z_STATELESS_BUCKET,
                                 stateful=False, params=params))
-    check_main_path(m)
+    check_main_path(m, {"ssm_scan": m["cfg"].n_layers})
     measure_replay_step(m, dev, profile=True)
     del m
     torch.cuda.empty_cache()
@@ -1566,6 +1720,51 @@ def main() -> None:
     del runs, params
     torch.cuda.empty_cache()
     print(f"[phase 7] ({time.perf_counter() - t0:.1f} s); batched step {step_times}")
+
+    t0 = time.perf_counter()
+    mla = ("rmsnorm", "flash_attention")
+    m, by_path["minicpm3-4b"] = run_path(
+        library, "phase 8 minicpm3-4b stateful", mla,
+        lambda: phase_main_path(dev, "minicpm3-4b", M_PROMPT, M_NEW, M_BUCKET))
+    check_main_path(m)
+    measure_replay_step(m, dev, profile=True)
+    check_prefill_vs_decode(m, dev, LOGIT_REL_TOL)
+    params = m["params"]
+    del m
+    torch.cuda.empty_cache()
+    m, by_path["minicpm3-4b stateless"] = run_path(
+        library, "phase 8 minicpm3-4b stateless", mla,
+        lambda: phase_main_path(dev, "minicpm3-4b", M_PROMPT, M_NEW, M_BUCKET, stateful=False,
+                                params=params))
+    n = m["cfg"].n_layers
+    check_main_path(m, {"flash_attention": n, "rmsnorm": 4 * n + 1})
+    measure_replay_step(m, dev, profile=True)
+    del m, params
+    torch.cuda.empty_cache()
+    print(f"[phase 8] ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    print(f"host RSS before xlstm-1.3b stateful: {rss()}")
+    m, by_path["xlstm-1.3b"] = run_path(
+        library, "phase 9 xlstm-1.3b stateful", ("rmsnorm", "ssm_scan"),
+        lambda: phase_main_path(dev, "xlstm-1.3b", X_PROMPT, X_NEW, X_BUCKET))
+    print(f"host RSS after xlstm-1.3b stateful: {rss()}")
+    check_main_path(m)
+    measure_replay_step(m, dev, profile=True)
+    check_xlstm_prefill_vs_decode(m, dev)
+    params = m["params"]
+    del m
+    torch.cuda.empty_cache()
+    m, by_path["xlstm-1.3b stateless"] = run_path(
+        library, "phase 9 xlstm-1.3b stateless", ("rmsnorm", "ssm_scan"),
+        lambda: phase_main_path(dev, "xlstm-1.3b", X_STATELESS_PROMPT, X_NEW, X_BUCKET,
+                                stateful=False, params=params))
+    n_m = m["cfg"].n_layers - m["cfg"].n_layers // m["cfg"].slstm_every
+    check_main_path(m, {"ssm_scan": n_m, "rmsnorm": 2 * m["cfg"].n_layers + 1})
+    measure_replay_step(m, dev, profile=True)
+    del m, params
+    torch.cuda.empty_cache()
+    print(f"[phase 9] ({time.perf_counter() - t0:.1f} s)")
     print(f"launches by path: {by_path}")
 
     kernels = []
@@ -1581,6 +1780,8 @@ def main() -> None:
             shape=r["shape"],
             launches_by_path={path: counts[name] for path, counts in by_path.items()},
             batched=batched_rows[name],
+            more=[{k: v for k, v in r.items() if k != "name"} for r in extra_rows
+                  if r["name"] == name],
         ))
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)

@@ -1,6 +1,7 @@
 """Architecture config schema of the ported families, and the reduced variant
 the CPU tests run.  An own copy of ``repro.configs.base``: the fields the
-dense GQA decoder and the Mamba2 hybrid read, with the same names and
+dense decoder (GQA or MLA attention), the Mamba2 hybrid and the xLSTM LM
+read, with the same names and
 defaults, so a config built here describes the same model as its JAX
 counterpart."""
 from __future__ import annotations
@@ -18,7 +19,7 @@ def pad_to_multiple(n: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                     # dense | hybrid (the families ported so far)
+    family: str                     # dense | hybrid | ssm (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -28,17 +29,27 @@ class ArchConfig:
     vocab: int = 32000
 
     # attention
+    attn_kind: str = "gqa"          # gqa | mla
     qk_norm: bool = False
     window: Optional[int] = None    # sliding-window attention
     rope_theta: float = 1e6
 
-    # SSM / hybrid
+    # MLA
+    q_lora: int = 0
+    kv_lora: int = 0
+    rope_head_dim: int = 0
+    nope_head_dim: int = 0
+    v_head_dim: int = 0
+
+    # SSM / hybrid / xLSTM
     ssm_state: int = 0
     ssm_head_dim: int = 64
     ssm_groups: int = 1
     ssm_expand: int = 2
     ssm_chunk: int = 128
     attn_every: int = 0             # zamba2: shared attn after every k blocks
+    slstm_every: int = 0            # xlstm: sLSTM every k blocks
+    slstm_ff: int = 0
 
     # numerics
     dtype: str = "bfloat16"
@@ -52,7 +63,7 @@ class ArchConfig:
 
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
     """Small same-family variant for CPU tests (the reference's rule for the
-    dense and SSM families)."""
+    dense, MLA, SSM and xLSTM families)."""
     base = dict(
         n_layers=2,
         d_model=64,
@@ -63,8 +74,13 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
         vocab=256,
         dtype="float32",
     )
+    if cfg.q_lora:
+        base.update(q_lora=32, kv_lora=16, rope_head_dim=8, nope_head_dim=8,
+                    v_head_dim=16, d_head=16)
     if cfg.ssm_state:
         base.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16)
+    if cfg.slstm_ff:
+        base.update(slstm_ff=128)
     if cfg.window:
         base.update(window=32)
     base.update(overrides)

@@ -30,10 +30,13 @@
 //   second wgmma, O += P V, with V's tile as the transposed (MN-major) B
 //   operand.  Every operand tile is stored in wgmma's 128-byte swizzle: rows
 //   of 64 bf16 (128 bytes) in 1024-byte atoms of 8 rows, the 16-byte chunk c
-//   of row r at chunk c ^ (r % 8).  D = 32 pads its rows to 64 (only the
-//   first D columns are multiplied into S; the padded columns of P V are
-//   never stored); D = 256 keeps four 64-column atoms of Q, K and V and 128
-//   f32 accumulators of O a thread.
+//   of row r at chunk c ^ (r % 8).  D = 32 pads its rows to 64 and D = 96
+//   (MLA's nope 64 + rope 32) to 128: two atoms, the second half-filled.
+//   Only the first D columns are multiplied into S (D / 16 k-steps); P V
+//   runs over whole atoms (n = 64 each), V's padded columns are zeroed once
+//   at the start, and the padded columns of O are never stored.  D = 256
+//   keeps four 64-column atoms of Q, K and V and 128 f32 accumulators of O a
+//   thread.
 //
 // * f32: the CUDA cores (core_kernel).  wgmma computes an f32 product only in
 //   TF32, which cannot meet the f32 tolerance of 2e-4, so f32 keeps the
@@ -147,7 +150,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint
 // 64-column atoms of a row.
 template <int D>
 struct WgmmaSmem {
-  static constexpr int NB = D < 64 ? 1 : D / 64;
+  static constexpr int NB = (D + 63) / 64;
   static constexpr int Q = 0;
   static constexpr int K = Q + NB * kAtom;
   static constexpr int V = K + 2 * NB * kAtom;
@@ -244,6 +247,19 @@ wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
   }
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
+
+  if constexpr (D % 64 != 0) {
+    // the padded columns [D, 64 NB) of both V stages: the copies never
+    // write them, and P V reads them (their output columns are not stored)
+    constexpr int PADC = (64 * NB - D) / 8;   // 16-byte chunks of padding a row
+    for (int i = tid; i < 2 * kTileKeys * PADC; i += 128) {
+      const int stage = i / (kTileKeys * PADC);
+      const int j = i / PADC % kTileKeys;
+      const int c = D / 8 + i % PADC;
+      *reinterpret_cast<uint4*>(smem + L::V + (stage * NB + (c >> 3)) * kAtom +
+                                swz(j, (c & 7) * 8)) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
 
   if (n_tiles > 0) load_kv(0, 0);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -557,6 +573,10 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
         err = launch_wgmma<64>(q, k, v, out, b, sq, sk, hq, hkv, causal, window, logit_cap,
                                q_offset, st);
         break;
+      case 96:
+        err = launch_wgmma<96>(q, k, v, out, b, sq, sk, hq, hkv, causal, window, logit_cap,
+                               q_offset, st);
+        break;
       case 128:
         err = launch_wgmma<128>(q, k, v, out, b, sq, sk, hq, hkv, causal, window, logit_cap,
                                 q_offset, st);
@@ -576,6 +596,10 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
         break;
       case 64:
         err = launch_core<2>(q, k, v, out, b, sq, sk, hq, hkv, causal, window, logit_cap,
+                             q_offset, st);
+        break;
+      case 96:
+        err = launch_core<3>(q, k, v, out, b, sq, sk, hq, hkv, causal, window, logit_cap,
                              q_offset, st);
         break;
       case 128:

@@ -10,7 +10,7 @@ import torch
 from repro_torch.kernels import library
 from repro_torch.kernels.flash_attention.ref import attention_chunked, attention_dense
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 96, 128, 256)
 TILE_ROWS = 64   # packed (query, head) rows per block of the wgmma route
 TILE_KEYS = 64   # keys per K/V tile of the wgmma route
 
@@ -21,20 +21,35 @@ def packed_row(p: int, n_rep: int) -> Tuple[int, int]:
     return divmod(p, n_rep)
 
 
-def tile_plan(b: int, sq: int, hq: int, hkv: int, dtype: torch.dtype) -> Dict[str, object]:
+def tile_plan(b: int, sq: int, hq: int, hkv: int, dtype: torch.dtype,
+              d: Optional[int] = None) -> Dict[str, object]:
     """The grid the kernel launches for these shapes, as its C entry point
     computes it.  bf16 takes the tensor cores (wgmma): one block per 64
     packed rows of one (KV head, batch row), grid (ceil(Sq n_rep / 64),
     Hkv, B).  f32 takes the CUDA cores (wgmma multiplies f32 only as TF32,
     short of the f32 tolerance): one block per 16 queries of one (batch row,
-    query head), grid (ceil(Sq / 16), B Hq)."""
+    query head), grid (ceil(Sq / 16), B Hq).  With the head dim ``d`` the
+    plan also gives the tile rows' width in shared memory and the dynamic
+    shared memory in bytes: the wgmma route pads a row to whole 64-column
+    atoms of the 128-byte swizzle (32 -> 64, 96 -> 128) and keeps Q, two
+    stages of K and V and one P atom (+ 1 KB to align the base); the CUDA
+    cores stage 32 keys of K and V in f32."""
     n_rep = hq // hkv
     if dtype == torch.bfloat16:
         rows = sq * n_rep
-        return dict(route="wgmma", rows=rows, grid=(-(-rows // TILE_ROWS), hkv, b))
-    if dtype == torch.float32:
-        return dict(route="cuda_cores", rows=sq, grid=(-(-sq // 16), b * hq))
-    raise TypeError(f"kernels take float32 or bfloat16, not {dtype}")
+        plan = dict(route="wgmma", rows=rows, grid=(-(-rows // TILE_ROWS), hkv, b))
+    elif dtype == torch.float32:
+        plan = dict(route="cuda_cores", rows=sq, grid=(-(-sq // 16), b * hq))
+    else:
+        raise TypeError(f"kernels take float32 or bfloat16, not {dtype}")
+    if d is None:
+        return plan
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if plan["route"] == "wgmma":
+        atoms = -(-d // 64)
+        return dict(plan, width=64 * atoms, smem=(5 * atoms + 1) * 64 * 128 + 1024)
+    return dict(plan, width=d, smem=2 * 32 * d * 4)
 
 
 def flash_attention_cuda(
@@ -53,8 +68,6 @@ def flash_attention_cuda(
     bk, sk, hkv, dk = k.shape
     if bk != b or dk != d:
         raise ValueError(f"q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if hq % hkv:
         raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
     if not (k.dtype == v.dtype == q.dtype):
@@ -64,7 +77,7 @@ def flash_attention_cuda(
     if q_offset < 0:
         raise ValueError(f"q_offset {q_offset} < 0")
     dtype = library.dtype_code(q.dtype)
-    plan = tile_plan(b, sq, hq, hkv, q.dtype)
+    plan = tile_plan(b, sq, hq, hkv, q.dtype, d)
     if plan["route"] == "wgmma":
         if any(t.data_ptr() % 16 for t in (q, k, v)):
             raise ValueError("the wgmma route copies 16-byte vectors: q, k, v must be "

@@ -78,6 +78,29 @@
 // Exponents are ex2.approx.ftz (denormal results flushed): the accurate
 // expf's branch for denormal results costs more than a microsecond a
 // launch (tools/scan_variants.py).
+//
+// A state wider than 128 rows (mLSTM: N = 1024 key rows, P = 1025 value
+// columns with the normalizer, xlstm-1.3b) takes the wide routes.  A block
+// still owns 32 columns of P and keeps its N x 32 slice of the f32 state in
+// shared memory for the whole sequence (1024 x 36 floats, 144 KB), but B and
+// C no longer fit beside it, so each chunk streams them through shared
+// memory in slabs along N.  Per slab the rows accumulate the causal scores
+// C.B^T and C.h_prev over the slab's columns in registers (bf16) or shared
+// memory (f32); after a barrier the slab's rows of the state are updated
+// from the B slab still resident, so B and C are read once per chunk.  After
+// the last slab the scores are decayed and multiplied into X as on the
+// narrow routes.  Each block sums over N in a fixed order with no atomics
+// and no split of N across blocks: two runs give the same bits.
+//   bf16 (ssd_mma_wide_kernel): slabs of 64 columns, the same mma.sync
+//     products and two-term splits as ssd_mma_kernel (gated_scan_mma_ref
+//     mirrors both routes).
+//   f32 (ssd_wide_kernel): slabs of 16 columns on the CUDA cores, the
+//     scores in a Q x Q shared array; served paths never take it (it runs in
+//     the f32 reference checks).
+// At xlstm-1.3b's stateless bucket (S = 64, B = 1) the grid is 33 x 4 = 132
+// blocks, one per SM; the 16.8 MB f32 state written once dominates the
+// bytes (a bound of ~5.6 us), and the slabs' loads, not pipelined, are
+// exposed latency (a simple kernel first: ROADMAP queue B).
 // Precision: S, B o w and h are f32 intermediates that enter bf16 products.
 // Rounded once to bf16 they miss the 2e-2 tolerance (max |d| / tol 1.65 at
 // zamba2's head shape; tests/test_torch_ssm_scan.py), so each is carried as
@@ -90,8 +113,9 @@
 
 namespace {
 
-constexpr int kMaxChunk = 128;  // Q
-constexpr int kMaxState = 128;  // N
+constexpr int kMaxChunk = 128;      // Q
+constexpr int kMaxState = 128;      // N of the narrow routes
+constexpr int kMaxWideState = 1024; // N of the wide routes
 
 constexpr int kPer = kMaxChunk / 32;  // steps per lane of the chunk's scan
 
@@ -382,6 +406,284 @@ __device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&ah)[4]
   mma_bf16(d, al, b0, b1);
 }
 
+// The pieces both mma kernels are built from.  Each block owns 32 columns
+// of P (pw of them live, in npair 16-column pairs) of one (head, batch row);
+// nt is the block's thread count.
+
+// the state: h0 or zeros (rows past N and columns past P stay zero)
+__device__ __forceinline__ void mma_init_state(float* hs, const float* __restrict__ h0,
+                                               long long hbase, int n, int np, int p, int pw,
+                                               int tid, int nt) {
+  if (h0 != nullptr) {
+    for (int idx = tid; idx < np * kMmaTileP; idx += nt) {
+      const int nn = idx / kMmaTileP;
+      const int c = idx % kMmaTileP;
+      hs[nn * kLdh + c] =
+          (nn < n && c < pw) ? h0[hbase + static_cast<long long>(nn) * p + c] : 0.f;
+    }
+  } else {
+    for (int idx = tid; idx < np * (kMmaTileP / 4); idx += nt) {
+      *reinterpret_cast<float4*>(hs + idx / (kMmaTileP / 4) * kLdh + idx % (kMmaTileP / 4) * 4) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+// x (Qp x 32) as bf16, 16 bytes at a time where `vec`; rows past the chunk
+// and columns past P are zeros
+__device__ __forceinline__ void mma_stage_x(bf16* xs, const bf16* __restrict__ xg,
+                                            long long xstep, int qp, int valid, int pw, bool vec,
+                                            int tid, int nt) {
+  if (vec) {
+    for (int idx = tid; idx < qp * (kMmaTileP / 8); idx += nt) {
+      const int j = idx / (kMmaTileP / 8);
+      const int c = idx % (kMmaTileP / 8) * 8;
+      bf16* dst = xs + j * kLdx + c;
+      if (j < valid && c < pw) cp_async16(dst, xg + j * xstep + c);
+      else *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else {
+    const bf16 zero = __float2bfloat16(0.f);
+    for (int idx = tid; idx < qp * kMmaTileP; idx += nt) {
+      const int j = idx / kMmaTileP;
+      const int c = idx % kMmaTileP;
+      xs[j * kLdx + c] = (j < valid && c < pw) ? xg[j * xstep + c] : zero;
+    }
+  }
+}
+
+// Columns [0, kw) of B and C (rows of `ld` bf16 in shared memory) into the
+// warp's 16 rows from i0: S = C.B^T on the column blocks on or below the
+// strip's diagonal, and C.h from the state's rows `hr` (read straight into
+// B fragments: rows 2 t4, 2 t4 + 1, + 8, + 9 of the step, column g8;
+// split) while h is not zero.  One k16 step at a time: the strip of C as
+// the A fragment, all blocks' products issued together so their
+// accumulation chains overlap.
+template <int kWarpsT>
+__device__ __forceinline__ void mma_scores(float (&acc)[kMmaTileP / 8][4],
+                                           float (&sc)[kWarpsT][2][4], const bf16* cm,
+                                           const bf16* bs, int ld, int kw, const float* hr,
+                                           bool has_h, int nkt, int npair, int i0, int lane) {
+  const int g8 = lane >> 2;
+  const int t4 = lane & 3;
+  for (int k0 = 0; k0 < kw; k0 += 16) {
+    uint32_t ca[4];
+    ldsm_x4(ca, cm + (i0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
+    if (has_h) {
+      const float* hk = hr + (k0 + 2 * t4) * kLdh + g8;
+#pragma unroll
+      for (int t = 0; t < kMmaTileP / 8; ++t) {
+        if (t < 2 * npair) {
+          const float* h = hk + t * 8;
+          uint32_t b0h, b0l, b1h, b1l;
+          split2(h[0], h[kLdh], b0h, b0l);
+          split2(h[8 * kLdh], h[9 * kLdh], b1h, b1l);
+          mma_bf16(acc[t], ca, b0h, b1h);
+          mma_bf16(acc[t], ca, b0l, b1l);
+        }
+      }
+    }
+#pragma unroll
+    for (int kt = 0; kt < kWarpsT; ++kt) {
+      if (kt < nkt) {
+        uint32_t bf[4];
+        ldsm_x4(bf, bs + (kt * 16 + (lane & 7) + (lane >> 4) * 8) * ld + k0 +
+                        ((lane >> 3) & 1) * 8);
+        mma_bf16(sc[kt][0], ca, bf[0], bf[1]);
+        mma_bf16(sc[kt][1], ca, bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+// The warp's y rows ra and rb = ra + 8 from its accumulators: C.h scaled by
+// exp(cs_i); the scores' decay and input scale (j > i zeroed before the
+// exponent), split into two bf16 terms, then Y += S.X; + D x_i, to shared
+// memory as bf16
+template <int kWarpsT>
+__device__ __forceinline__ void mma_y_rows(float (&acc)[kMmaTileP / 8][4],
+                                           float (&sc)[kWarpsT][2][4], const float* cs,
+                                           const float* gis, const bf16* xs, bf16* ys, int ra,
+                                           int nkt, int npair, bool has_h, float dh, int lane) {
+  const int t4 = lane & 3;
+  const int rb = ra + 8;
+  const float csa = cs[ra], csb = cs[rb];
+  if (has_h) {
+    const float ea = exp_ftz(csa), eb = exp_ftz(csb);
+#pragma unroll
+    for (int t = 0; t < kMmaTileP / 8; ++t) {
+      acc[t][0] *= ea;
+      acc[t][1] *= ea;
+      acc[t][2] *= eb;
+      acc[t][3] *= eb;
+    }
+  }
+#pragma unroll
+  for (int kt = 0; kt < kWarpsT; ++kt) {
+    if (kt < nkt) {
+      const int j0 = kt * 16;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e < 2 ? ra : rb;
+          const int j = j0 + u * 8 + 2 * t4 + (e & 1);
+          const float csi = e < 2 ? csa : csb;
+          sc[kt][u][e] = j <= i ? sc[kt][u][e] * exp_ftz(csi - cs[j]) * gis[j] : 0.f;
+        }
+      }
+      uint32_t ah[4], al[4];
+      split2(sc[kt][0][0], sc[kt][0][1], ah[0], al[0]);
+      split2(sc[kt][0][2], sc[kt][0][3], ah[1], al[1]);
+      split2(sc[kt][1][0], sc[kt][1][1], ah[2], al[2]);
+      split2(sc[kt][1][2], sc[kt][1][3], ah[3], al[3]);
+#pragma unroll
+      for (int pr = 0; pr < kMmaTileP / 16; ++pr) {
+        if (pr < npair) {
+          uint32_t xf[4];
+          ldsm_x4_t(xf, xs + (j0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdx + pr * 16 +
+                            (lane >> 4) * 8);
+          mma_split(acc[2 * pr], ah, al, xf[0], xf[1]);
+          mma_split(acc[2 * pr + 1], ah, al, xf[2], xf[3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < kMmaTileP / 8; ++t) {
+    if (t < 2 * npair) {
+      const int c = t * 8 + 2 * t4;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = hf ? rb : ra;
+        const float2 xv =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xs + r * kLdx + c));
+        *reinterpret_cast<__nv_bfloat162*>(ys + r * kLdx + c) = __floats2bfloat162_rn(
+            acc[t][2 * hf] + dh * xv.x, acc[t][2 * hf + 1] + dh * xv.y);
+      }
+    }
+  }
+}
+
+// The state's rows hr[0, 16 mtiles), from B's columns [0, 16 mtiles) (rows
+// of `ld` bf16): h <- exp(cs_end) h + (B o w)^T X with w_j = exp(cs_end -
+// cs_j) gi_j.  A unit is one 16-row tile of the state (m0) and every
+// `groups`-th 16-column pair of it; per k16 step the warp builds B^T's A
+// fragment, scaled by w and split, once and uses it for all its column
+// pairs
+template <int kWarpsT>
+__device__ __forceinline__ void mma_update_state(float* hr, const bf16* bs, int ld, int mtiles,
+                                                 int valid, const float* cs, const float* gis,
+                                                 int qp, const bf16* xs, int npair, int warp,
+                                                 int lane) {
+  const int g8 = lane >> 2;
+  const int t4 = lane & 3;
+  const float cs_end = cs[qp - 1];   // identity steps past the end keep it
+  const float dec_end = exp_ftz(cs_end);
+  const int groups = max(1, kWarpsT / mtiles);
+  for (int u = warp; u < mtiles * groups; u += kWarpsT) {
+    const int m0 = u % mtiles * 16;
+    const int pr0 = u / mtiles;
+    float ha[kMmaTileP / 16][2][4];
+#pragma unroll
+    for (int k = 0; k < kMmaTileP / 16; ++k) {
+#pragma unroll
+      for (int v8 = 0; v8 < 2; ++v8) ha[k][v8][0] = ha[k][v8][1] = ha[k][v8][2] = ha[k][v8][3] = 0.f;
+    }
+    for (int k0 = 0; k0 < valid; k0 += 16) {
+      // a0/a1 hold steps k0 + 2 t4 (+1), a2/a3 steps k0 + 8 + 2 t4 (+1)
+      uint32_t a[4];
+      ldsm_x4_t(a, bs + (k0 + (lane & 7) + (lane >> 4) * 8) * ld + m0 + ((lane >> 3) & 1) * 8);
+      const int j = k0 + 2 * t4;
+      const float w0 = exp_ftz(cs_end - cs[j]) * gis[j];
+      const float w1 = exp_ftz(cs_end - cs[j + 1]) * gis[j + 1];
+      const float w2 = exp_ftz(cs_end - cs[j + 8]) * gis[j + 8];
+      const float w3 = exp_ftz(cs_end - cs[j + 9]) * gis[j + 9];
+      uint32_t ah[4], al[4];
+      float2 v = unpack_bf16(a[0]);
+      split2(v.x * w0, v.y * w1, ah[0], al[0]);
+      v = unpack_bf16(a[1]);
+      split2(v.x * w0, v.y * w1, ah[1], al[1]);
+      v = unpack_bf16(a[2]);
+      split2(v.x * w2, v.y * w3, ah[2], al[2]);
+      v = unpack_bf16(a[3]);
+      split2(v.x * w2, v.y * w3, ah[3], al[3]);
+#pragma unroll
+      for (int k = 0; k < kMmaTileP / 16; ++k) {
+        const int pr = pr0 + k * groups;
+        if (k * groups < kMmaTileP / 16 && pr < npair) {
+          uint32_t xf[4];
+          ldsm_x4_t(xf, xs + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdx + pr * 16 +
+                            (lane >> 4) * 8);
+          mma_split(ha[k][0], ah, al, xf[0], xf[1]);
+          mma_split(ha[k][1], ah, al, xf[2], xf[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kMmaTileP / 16; ++k) {
+      const int pr = pr0 + k * groups;
+      if (k * groups < kMmaTileP / 16 && pr < npair) {
+#pragma unroll
+        for (int v8 = 0; v8 < 2; ++v8) {
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            float2* hp = reinterpret_cast<float2*>(hr + (m0 + g8 + hf * 8) * kLdh + pr * 16 +
+                                                   v8 * 8 + 2 * t4);
+            const float2 old = *hp;
+            *hp = make_float2(dec_end * old.x + ha[k][v8][2 * hf],
+                              dec_end * old.y + ha[k][v8][2 * hf + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// the chunk's staged y rows to device memory
+__device__ __forceinline__ void mma_store_y(bf16* __restrict__ yg, const bf16* ys, long long xstep,
+                                            int qp, int valid, int pw, bool vec, int tid,
+                                            int nt) {
+  if (vec) {
+    for (int idx = tid; idx < qp * (kMmaTileP / 8); idx += nt) {
+      const int j = idx / (kMmaTileP / 8);
+      const int c = idx % (kMmaTileP / 8) * 8;
+      if (j < valid && c < pw) {
+        *reinterpret_cast<uint4*>(yg + j * xstep + c) =
+            *reinterpret_cast<const uint4*>(ys + j * kLdx + c);
+      }
+    }
+  } else {
+    for (int idx = tid; idx < qp * kMmaTileP; idx += nt) {
+      const int j = idx / kMmaTileP;
+      const int c = idx % kMmaTileP;
+      if (j < valid && c < pw) yg[j * xstep + c] = ys[j * kLdx + c];
+    }
+  }
+}
+
+// the final state to device memory
+__device__ __forceinline__ void mma_store_state(float* __restrict__ hout, const float* hs,
+                                                long long hbase, int n, int p, int pw, bool vec,
+                                                int tid, int nt) {
+  if (vec) {
+    for (int idx = tid; idx < n * (kMmaTileP / 4); idx += nt) {
+      const int nn = idx / (kMmaTileP / 4);
+      const int c = idx % (kMmaTileP / 4) * 4;
+      if (c < pw) {
+        *reinterpret_cast<float4*>(hout + hbase + static_cast<long long>(nn) * p + c) =
+            *reinterpret_cast<const float4*>(hs + nn * kLdh + c);
+      }
+    }
+  } else {
+    for (int idx = tid; idx < n * kMmaTileP; idx += nt) {
+      const int nn = idx / kMmaTileP;
+      const int c = idx % kMmaTileP;
+      if (c < pw) hout[hbase + static_cast<long long>(nn) * p + c] = hs[nn * kLdh + c];
+    }
+  }
+}
+
 template <int kWarpsT>
 __global__ void __launch_bounds__(kWarpsT * 32)
 ssd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ ld,
@@ -408,9 +710,6 @@ ssd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ ld,
   constexpr int nthreads = kWarpsT * 32;
   const int lane = tid & 31;
   const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);  // uniform in the warp
-  constexpr int nwarps = kWarpsT;
-  const int g8 = lane >> 2;         // fragment row (and B column) of this lane
-  const int t4 = lane & 3;          // fragment column pair
   const int pw = min(kMmaTileP, p - p0);   // live state columns of this block
   const int npair = (pw + 15) / 16;        // 16-column pairs of n8 tiles that hold them
   const float dh = dvec != nullptr ? dvec[head] : 0.f;
@@ -419,25 +718,12 @@ ssd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ ld,
   const long long hbase = (static_cast<long long>(b) * nh + head) * n * p + p0;
   const bf16 zero = __float2bfloat16(0.f);
 
-  // state: h0 or zeros (rows past N and columns past P stay zero)
-  if (h0 != nullptr) {
-    for (int idx = tid; idx < np * kMmaTileP; idx += nthreads) {
-      const int nn = idx / kMmaTileP;
-      const int c = idx % kMmaTileP;
-      hs[nn * kLdh + c] = (nn < n && c < pw) ? h0[hbase + nn * p + c] : 0.f;
-    }
-  } else {
-    for (int idx = tid; idx < np * (kMmaTileP / 4); idx += nthreads) {
-      *reinterpret_cast<float4*>(hs + idx / (kMmaTileP / 4) * kLdh + idx % (kMmaTileP / 4) * 4) =
-          make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
+  mma_init_state(hs, h0, hbase, n, np, p, pw, tid, nthreads);
   bool has_h = h0 != nullptr;
 
   for (int t0 = 0; t0 < s; t0 += q) {
     const int valid = min(q, s - t0);
     const long long row0 = static_cast<long long>(b) * s + t0;
-    const bf16* xg = x + (row0 * nh + head) * p + p0;
     const bf16* bg = bmat + (row0 * ng + grp) * n;
     const bf16* cg = cmat + (row0 * ng + grp) * n;
     __syncthreads();  // the previous chunk is consumed: y stored, hs updated (or initialised)
@@ -446,14 +732,8 @@ ssd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ ld,
 
     // ---- stage x (Qp x 32), B and C (Qp x Np) as bf16; rows past the end of
     // the chunk and columns past P or N are zeros
+    mma_stage_x(xs, x + (row0 * nh + head) * p + p0, xstep, qp, valid, pw, vec, tid, nthreads);
     if (vec) {
-      for (int idx = tid; idx < qp * (kMmaTileP / 8); idx += nthreads) {
-        const int j = idx / (kMmaTileP / 8);
-        const int c = idx % (kMmaTileP / 8) * 8;
-        bf16* dst = xs + j * kLdx + c;
-        if (j < valid && c < pw) cp_async16(dst, xg + j * xstep + c);
-        else *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-      }
       const int nv = np / 8;
       for (int idx = tid; idx < qp * nv; idx += nthreads) {
         const int j = idx / nv;
@@ -469,11 +749,6 @@ ssd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ ld,
         }
       }
     } else {
-      for (int idx = tid; idx < qp * kMmaTileP; idx += nthreads) {
-        const int j = idx / kMmaTileP;
-        const int c = idx % kMmaTileP;
-        xs[j * kLdx + c] = (j < valid && c < pw) ? xg[j * xstep + c] : zero;
-      }
       for (int idx = tid; idx < qp * np; idx += nthreads) {
         const int j = idx / np;
         const int c = idx % np;
@@ -485,228 +760,353 @@ ssd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ ld,
     if (warp == 0) chunk_scan(ldv, giv, qp, cs, gis, lane);
     cp_async_wait_all();
     __syncthreads();
-    const float cs_end = cs[qp - 1];   // identity steps past the end keep it
 
     // ---- y: warp w owns rows [16w, 16w + 16) of the chunk
     const int i0 = warp * 16;
     if (i0 < valid) {
-      const int ra = i0 + g8;          // this lane's two fragment rows
-      const int rb = ra + 8;
-      const float csa = cs[ra], csb = cs[rb];
+      const int nkt = min(warp + 1, (valid + 15) / 16);
       float acc[kMmaTileP / 8][4];
 #pragma unroll
       for (int t = 0; t < kMmaTileP / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-      const int nkt = min(warp + 1, (valid + 15) / 16);
       float sc[kWarpsT][2][4];
 #pragma unroll
       for (int kt = 0; kt < kWarpsT; ++kt) {
 #pragma unroll
         for (int u = 0; u < 2; ++u) sc[kt][u][0] = sc[kt][u][1] = sc[kt][u][2] = sc[kt][u][3] = 0.f;
       }
-      // one k16 step of N at a time: the strip of C as the A fragment, then
-      // C.h (the f32 state read straight into B fragments: rows 2 t4, 2 t4 + 1,
-      // + 8, + 9 of the step, column g8; split) while h is not zero, and
-      // S = C.B^T on the column blocks on or below the diagonal, all blocks'
-      // products issued together so their accumulation chains overlap
-      for (int k0 = 0; k0 < np; k0 += 16) {
-        uint32_t ca[4];
-        ldsm_x4(ca, cm + (i0 + (lane & 15)) * ldn + k0 + (lane >> 4) * 8);
-        if (has_h) {
-          const float* hr = hs + (k0 + 2 * t4) * kLdh + g8;
-#pragma unroll
-          for (int t = 0; t < kMmaTileP / 8; ++t) {
-            if (t < 2 * npair) {
-              const float* h = hr + t * 8;
-              uint32_t b0h, b0l, b1h, b1l;
-              split2(h[0], h[kLdh], b0h, b0l);
-              split2(h[8 * kLdh], h[9 * kLdh], b1h, b1l);
-              mma_bf16(acc[t], ca, b0h, b1h);
-              mma_bf16(acc[t], ca, b0l, b1l);
-            }
-          }
-        }
-#pragma unroll
-        for (int kt = 0; kt < kWarpsT; ++kt) {
-          if (kt < nkt) {
-            uint32_t bf[4];
-            ldsm_x4(bf, bs + (kt * 16 + (lane & 7) + (lane >> 4) * 8) * ldn + k0 +
-                            ((lane >> 3) & 1) * 8);
-            mma_bf16(sc[kt][0], ca, bf[0], bf[1]);
-            mma_bf16(sc[kt][1], ca, bf[2], bf[3]);
-          }
-        }
-      }
-      if (has_h) {
-        const float ea = exp_ftz(csa), eb = exp_ftz(csb);
-#pragma unroll
-        for (int t = 0; t < kMmaTileP / 8; ++t) {
-          acc[t][0] *= ea;
-          acc[t][1] *= ea;
-          acc[t][2] *= eb;
-          acc[t][3] *= eb;
-        }
-      }
-      // decay and input scale on the accumulators (j > i zeroed before the
-      // exponent), split into two bf16 terms, then Y += S.X
-#pragma unroll
-      for (int kt = 0; kt < kWarpsT; ++kt) {
-        if (kt < nkt) {
-          const int j0 = kt * 16;
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int i = e < 2 ? ra : rb;
-              const int j = j0 + u * 8 + 2 * t4 + (e & 1);
-              const float csi = e < 2 ? csa : csb;
-              sc[kt][u][e] = j <= i ? sc[kt][u][e] * exp_ftz(csi - cs[j]) * gis[j] : 0.f;
-            }
-          }
-          uint32_t ah[4], al[4];
-          split2(sc[kt][0][0], sc[kt][0][1], ah[0], al[0]);
-          split2(sc[kt][0][2], sc[kt][0][3], ah[1], al[1]);
-          split2(sc[kt][1][0], sc[kt][1][1], ah[2], al[2]);
-          split2(sc[kt][1][2], sc[kt][1][3], ah[3], al[3]);
-#pragma unroll
-          for (int pr = 0; pr < kMmaTileP / 16; ++pr) {
-            if (pr < npair) {
-              uint32_t xf[4];
-              ldsm_x4_t(xf, xs + (j0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdx + pr * 16 +
-                                (lane >> 4) * 8);
-              mma_split(acc[2 * pr], ah, al, xf[0], xf[1]);
-              mma_split(acc[2 * pr + 1], ah, al, xf[2], xf[3]);
-            }
-          }
-        }
-      }
-
-      // + D x_i, to shared memory as bf16
-#pragma unroll
-      for (int t = 0; t < kMmaTileP / 8; ++t) {
-        if (t < 2 * npair) {
-          const int c = t * 8 + 2 * t4;
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int r = hf ? rb : ra;
-            const float2 xv =
-                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xs + r * kLdx + c));
-            *reinterpret_cast<__nv_bfloat162*>(ys + r * kLdx + c) = __floats2bfloat162_rn(
-                acc[t][2 * hf] + dh * xv.x, acc[t][2 * hf + 1] + dh * xv.y);
-          }
-        }
-      }
+      mma_scores<kWarpsT>(acc, sc, cm, bs, ldn, np, hs, has_h, nkt, npair, i0, lane);
+      mma_y_rows<kWarpsT>(acc, sc, cs, gis, xs, ys, i0 + (lane >> 2), nkt, npair, has_h, dh,
+                          lane);
     }
     // C.h has read the entering state before the update overwrites it; while
     // h is zero no warp reads it, and warps done with their rows go on
     if (has_h) __syncthreads();
 
-    // ---- state update: h <- exp(cs_end) h + (B o w)^T X.  A unit is one
-    // 16-row tile of the state (m0) and every `groups`-th 16-column pair of
-    // it; per k16 step the warp builds B^T's A fragment, scaled by w and
-    // split, once and uses it for all its column pairs
-    const float dec_end = exp_ftz(cs_end);
-    const int mtiles = np / 16;
-    const int groups = max(1, nwarps / mtiles);
-    for (int u = warp; u < mtiles * groups; u += nwarps) {
-      const int m0 = u % mtiles * 16;
-      const int pr0 = u / mtiles;
-      float ha[kMmaTileP / 16][2][4];
-#pragma unroll
-      for (int k = 0; k < kMmaTileP / 16; ++k) {
-#pragma unroll
-        for (int v8 = 0; v8 < 2; ++v8) ha[k][v8][0] = ha[k][v8][1] = ha[k][v8][2] = ha[k][v8][3] = 0.f;
-      }
-      for (int k0 = 0; k0 < valid; k0 += 16) {
-        // a0/a1 hold steps k0 + 2 t4 (+1), a2/a3 steps k0 + 8 + 2 t4 (+1)
-        uint32_t a[4];
-        ldsm_x4_t(a, bs + (k0 + (lane & 7) + (lane >> 4) * 8) * ldn + m0 + ((lane >> 3) & 1) * 8);
-        const int j = k0 + 2 * t4;
-        const float w0 = exp_ftz(cs_end - cs[j]) * gis[j];
-        const float w1 = exp_ftz(cs_end - cs[j + 1]) * gis[j + 1];
-        const float w2 = exp_ftz(cs_end - cs[j + 8]) * gis[j + 8];
-        const float w3 = exp_ftz(cs_end - cs[j + 9]) * gis[j + 9];
-        uint32_t ah[4], al[4];
-        float2 v = unpack_bf16(a[0]);
-        split2(v.x * w0, v.y * w1, ah[0], al[0]);
-        v = unpack_bf16(a[1]);
-        split2(v.x * w0, v.y * w1, ah[1], al[1]);
-        v = unpack_bf16(a[2]);
-        split2(v.x * w2, v.y * w3, ah[2], al[2]);
-        v = unpack_bf16(a[3]);
-        split2(v.x * w2, v.y * w3, ah[3], al[3]);
-#pragma unroll
-        for (int k = 0; k < kMmaTileP / 16; ++k) {
-          const int pr = pr0 + k * groups;
-          if (k * groups < kMmaTileP / 16 && pr < npair) {
-            uint32_t xf[4];
-            ldsm_x4_t(xf, xs + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdx + pr * 16 +
-                              (lane >> 4) * 8);
-            mma_split(ha[k][0], ah, al, xf[0], xf[1]);
-            mma_split(ha[k][1], ah, al, xf[2], xf[3]);
-          }
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kMmaTileP / 16; ++k) {
-        const int pr = pr0 + k * groups;
-        if (k * groups < kMmaTileP / 16 && pr < npair) {
-#pragma unroll
-          for (int v8 = 0; v8 < 2; ++v8) {
-#pragma unroll
-            for (int hf = 0; hf < 2; ++hf) {
-              float2* hp = reinterpret_cast<float2*>(hs + (m0 + g8 + hf * 8) * kLdh + pr * 16 +
-                                                     v8 * 8 + 2 * t4);
-              const float2 old = *hp;
-              *hp = make_float2(dec_end * old.x + ha[k][v8][2 * hf],
-                                dec_end * old.y + ha[k][v8][2 * hf + 1]);
-            }
-          }
-        }
-      }
-    }
+    // ---- state update
+    mma_update_state<kWarpsT>(hs, bs, ldn, np / 16, valid, cs, gis, qp, xs, npair, warp, lane);
     __syncthreads();  // y is staged
 
-    // ---- store y
-    bf16* yg = y + (row0 * nh + head) * p + p0;
-    if (vec) {
-      for (int idx = tid; idx < qp * (kMmaTileP / 8); idx += nthreads) {
-        const int j = idx / (kMmaTileP / 8);
-        const int c = idx % (kMmaTileP / 8) * 8;
-        if (j < valid && c < pw) {
-          *reinterpret_cast<uint4*>(yg + j * xstep + c) =
-              *reinterpret_cast<const uint4*>(ys + j * kLdx + c);
+    mma_store_y(y + (row0 * nh + head) * p + p0, ys, xstep, qp, valid, pw, vec, tid, nthreads);
+    has_h = true;
+  }
+  __syncthreads();
+  mma_store_state(hout, hs, hbase, n, p, pw, vec, tid, nthreads);
+}
+
+// ------------------------------------------------------------------------
+// bf16, the tensor cores, a wide state (128 < N <= 1024)
+// ------------------------------------------------------------------------
+constexpr int kSlab = 64;           // columns of B and C (rows of the state) per slab
+constexpr int kLdk = kSlab + 8;     // bf16 per shared row of a B or C slab
+
+// The wide mma route's dynamic shared memory, as byte offsets
+// (ops.py:scan_plan computes the same total).
+struct WideSmem {
+  int qp, np;
+  int xs, ys, bs, cm, hs, cs, gis;
+  int bytes;
+};
+
+__host__ __device__ inline WideSmem wide_smem(int q, int n) {
+  WideSmem m{};
+  m.qp = round16(q);
+  m.np = round16(n);
+  int o = 0;
+  m.xs = o; o += m.qp * kLdx * 2;   // x chunk (Qp, 32) bf16
+  m.ys = o; o += m.qp * kLdx * 2;   // y chunk (Qp, 32) bf16
+  m.bs = o; o += m.qp * kLdk * 2;   // B slab (Qp, 64) bf16
+  m.cm = o; o += m.qp * kLdk * 2;   // C slab (Qp, 64) bf16
+  m.hs = o; o += m.np * kLdh * 4;   // state (Np, 32) f32
+  m.cs = o; o += m.qp * 4;          // cumulative log-decay
+  m.gis = o; o += m.qp * 4;         // input scales
+  m.bytes = o;
+  return m;
+}
+
+// ssd_mma_kernel with B and C streamed through shared memory in slabs of
+// kSlab columns: per slab the warps' scores and C.h accumulate in
+// registers, then (after a barrier where h is read) the slab's rows of the
+// state are updated from the B slab still resident.  vec: bit 0 = x, y and
+// the state's rows move 16 bytes at a time (P a multiple of 8, x and y
+// 16-byte aligned), bit 1 = B and C do (N a multiple of 8, both aligned).
+template <int kWarpsT>
+__global__ void __launch_bounds__(kWarpsT * 32)
+ssd_mma_wide_kernel(const bf16* __restrict__ x, const float* __restrict__ ld,
+                    const float* __restrict__ gi, const bf16* __restrict__ bmat,
+                    const bf16* __restrict__ cmat, const float* __restrict__ dvec,
+                    const float* __restrict__ h0, bf16* __restrict__ y,
+                    float* __restrict__ hout, int s, int nh, int p, int ng, int n, int q,
+                    int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const WideSmem m = wide_smem(q, n);
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw + m.xs);
+  bf16* ys = reinterpret_cast<bf16*>(smem_raw + m.ys);
+  bf16* bs = reinterpret_cast<bf16*>(smem_raw + m.bs);
+  bf16* cm = reinterpret_cast<bf16*>(smem_raw + m.cm);
+  float* hs = reinterpret_cast<float*>(smem_raw + m.hs);
+  float* cs = reinterpret_cast<float*>(smem_raw + m.cs);
+  float* gis = reinterpret_cast<float*>(smem_raw + m.gis);
+  const int qp = m.qp, np = m.np;
+  const bool vec_x = (vec & 1) != 0;
+  const bool vec_bc = (vec & 2) != 0;
+
+  const int p0 = blockIdx.x * kMmaTileP;
+  const int head = blockIdx.y;
+  const int b = blockIdx.z;
+  const int grp = head / (nh / ng);
+  const int tid = threadIdx.x;
+  constexpr int nthreads = kWarpsT * 32;
+  const int lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);  // uniform in the warp
+  const int pw = min(kMmaTileP, p - p0);
+  const int npair = (pw + 15) / 16;
+  const float dh = dvec != nullptr ? dvec[head] : 0.f;
+  const long long xstep = static_cast<long long>(nh) * p;
+  const long long bstep = static_cast<long long>(ng) * n;
+  const long long hbase = (static_cast<long long>(b) * nh + head) * n * p + p0;
+  const bf16 zero = __float2bfloat16(0.f);
+
+  mma_init_state(hs, h0, hbase, n, np, p, pw, tid, nthreads);
+  bool has_h = h0 != nullptr;
+
+  for (int t0 = 0; t0 < s; t0 += q) {
+    const int valid = min(q, s - t0);
+    const long long row0 = static_cast<long long>(b) * s + t0;
+    const bf16* bg = bmat + (row0 * ng + grp) * n;
+    const bf16* cg = cmat + (row0 * ng + grp) * n;
+    __syncthreads();  // the previous chunk is consumed: y stored, hs updated (or initialised)
+    float ldv[kPer], giv[kPer];
+    if (warp == 0) chunk_load(ld, gi, row0 * nh + head, nh, valid, lane, ldv, giv);
+    mma_stage_x(xs, x + (row0 * nh + head) * p + p0, xstep, qp, valid, pw, vec_x, tid, nthreads);
+    if (warp == 0) chunk_scan(ldv, giv, qp, cs, gis, lane);
+
+    // warp w owns rows [16w, 16w + 16) of the chunk
+    const int i0 = warp * 16;
+    const bool rows_live = i0 < valid;
+    const int nkt = min(warp + 1, (valid + 15) / 16);
+    float acc[kMmaTileP / 8][4];
+#pragma unroll
+    for (int t = 0; t < kMmaTileP / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+    float sc[kWarpsT][2][4];
+#pragma unroll
+    for (int kt = 0; kt < kWarpsT; ++kt) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) sc[kt][u][0] = sc[kt][u][1] = sc[kt][u][2] = sc[kt][u][3] = 0.f;
+    }
+
+    for (int n0 = 0; n0 < np; n0 += kSlab) {
+      const int kw = min(kSlab, np - n0);   // a multiple of 16
+      // ---- stage the slab: columns [n0, n0 + kw) of B and C; rows past
+      // the chunk and columns past N zero
+      if (vec_bc) {
+        const int nv = kw / 8;
+        for (int idx = tid; idx < qp * nv; idx += nthreads) {
+          const int j = idx / nv;
+          const int c = idx % nv * 8;
+          bf16* db = bs + j * kLdk + c;
+          bf16* dc = cm + j * kLdk + c;
+          if (j < valid && n0 + c < n) {
+            cp_async16(db, bg + j * bstep + n0 + c);
+            cp_async16(dc, cg + j * bstep + n0 + c);
+          } else {
+            *reinterpret_cast<uint4*>(db) = make_uint4(0u, 0u, 0u, 0u);
+            *reinterpret_cast<uint4*>(dc) = make_uint4(0u, 0u, 0u, 0u);
+          }
+        }
+      } else {
+        for (int idx = tid; idx < qp * kw; idx += nthreads) {
+          const int j = idx / kw;
+          const int c = idx % kw;
+          const bool ok = j < valid && n0 + c < n;
+          bs[j * kLdk + c] = ok ? bg[j * bstep + n0 + c] : zero;
+          cm[j * kLdk + c] = ok ? cg[j * bstep + n0 + c] : zero;
         }
       }
-    } else {
-      for (int idx = tid; idx < qp * kMmaTileP; idx += nthreads) {
-        const int j = idx / kMmaTileP;
-        const int c = idx % kMmaTileP;
-        if (j < valid && c < pw) yg[j * xstep + c] = ys[j * kLdx + c];
+      cp_async_wait_all();
+      __syncthreads();   // the slab (and, on the first, x, cs and gis) is staged
+
+      if (rows_live) {
+        mma_scores<kWarpsT>(acc, sc, cm, bs, kLdk, kw, hs + n0 * kLdh, has_h, nkt, npair, i0,
+                            lane);
+      }
+      // C.h has read the slab's rows of the entering state before their update
+      if (has_h) __syncthreads();
+      mma_update_state<kWarpsT>(hs + n0 * kLdh, bs, kLdk, kw / 16, valid, cs, gis, qp, xs,
+                                npair, warp, lane);
+      __syncthreads();   // the slab is consumed
+    }
+
+    if (rows_live) {
+      mma_y_rows<kWarpsT>(acc, sc, cs, gis, xs, ys, i0 + (lane >> 2), nkt, npair, has_h, dh,
+                          lane);
+    }
+    __syncthreads();  // y is staged
+    mma_store_y(y + (row0 * nh + head) * p + p0, ys, xstep, qp, valid, pw, vec_x, tid, nthreads);
+    has_h = true;
+  }
+  __syncthreads();
+  mma_store_state(hout, hs, hbase, n, p, pw, vec_x, tid, nthreads);
+}
+
+// ------------------------------------------------------------------------
+// f32, the CUDA cores, a wide state (128 < N <= 1024)
+// ------------------------------------------------------------------------
+constexpr int kSlabF = 16;   // columns of B and C per slab
+
+// floats of dynamic shared memory for a chunk of q steps and state size n
+__host__ __device__ constexpr int wide_smem_floats(int q, int n) {
+  return n * kTileP            // hs: state slice (N, 32)
+       + q * q                 // sm: the chunk's scores (Q, Q)
+       + q * kTileP            // xs: x chunk (Q, 32)
+       + q * (kSlabF + 1)      // bsl: B slab (Q, 16 + 1)
+       + q * kSlabF            // csl: C slab (Q, 16)
+       + 4 * q;                // cs, ecs, gis, wend
+}
+
+__global__ void __launch_bounds__(kThreads)
+ssd_wide_kernel(const float* __restrict__ x, const float* __restrict__ ld,
+                const float* __restrict__ gi, const float* __restrict__ bmat,
+                const float* __restrict__ cmat, const float* __restrict__ dvec,
+                const float* __restrict__ h0, float* __restrict__ y, float* __restrict__ hout,
+                int s, int nh, int p, int ng, int n, int q) {
+  extern __shared__ float smem[];
+  float* hs = smem;
+  float* sm = hs + n * kTileP;
+  float* xs = sm + q * q;
+  float* bsl = xs + q * kTileP;
+  float* csl = bsl + q * (kSlabF + 1);
+  float* cs = csl + q * kSlabF;
+  float* ecs = cs + q;
+  float* gis = ecs + q;
+  float* wend = gis + q;
+  constexpr int kRowsPerThread = kMaxChunk / kWarps;
+
+  const int p0 = blockIdx.x * kTileP;
+  const int head = blockIdx.y;
+  const int b = blockIdx.z;
+  const int grp = head / (nh / ng);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int col = p0 + lane;
+  const bool col_ok = col < p;
+  const float dh = dvec != nullptr ? dvec[head] : 0.f;
+  const long long hbase = (static_cast<long long>(b) * nh + head) * n * p;
+
+  for (int idx = tid; idx < n * kTileP; idx += kThreads) {
+    const int pp = p0 + idx % kTileP;
+    hs[idx] = (h0 != nullptr && pp < p) ? h0[hbase + static_cast<long long>(idx / kTileP) * p + pp]
+                                        : 0.f;
+  }
+  bool has_h = h0 != nullptr;
+
+  for (int t0 = 0; t0 < s; t0 += q) {
+    const int valid = min(q, s - t0);
+    __syncthreads();  // the previous chunk is consumed (and hs initialised)
+    for (int idx = tid; idx < q * kTileP; idx += kThreads) {
+      const int j = idx / kTileP;
+      const int pp = p0 + idx % kTileP;
+      xs[idx] = (j < valid && pp < p)
+          ? x[((static_cast<long long>(b) * s + t0 + j) * nh + head) * p + pp]
+          : 0.f;
+    }
+    for (int idx = tid; idx < q * q; idx += kThreads) sm[idx] = 0.f;
+    if (warp == 0) {
+      float ldv[kPer], giv[kPer];
+      chunk_load(ld, gi, (static_cast<long long>(b) * s + t0) * nh + head, nh, valid, lane, ldv,
+                 giv);
+      chunk_scan(ldv, giv, q, cs, gis, lane);
+    }
+    __syncthreads();
+    const float cs_end = cs[q - 1];
+    const float dec_end = expf(cs_end);
+    for (int j = tid; j < q; j += kThreads) {
+      ecs[j] = expf(cs[j]);
+      wend[j] = expf(cs_end - cs[j]) * gis[j];
+    }
+    float acc[kRowsPerThread];
+#pragma unroll
+    for (int r = 0; r < kRowsPerThread; ++r) acc[r] = 0.f;
+
+    for (int n0 = 0; n0 < n; n0 += kSlabF) {
+      const int kw = min(kSlabF, n - n0);
+      __syncthreads();  // the previous slab is consumed (and ecs, wend written)
+      for (int idx = tid; idx < q * kSlabF; idx += kThreads) {
+        const int j = idx / kSlabF;
+        const int k = idx % kSlabF;
+        float bv = 0.f, cv = 0.f;
+        if (j < valid && k < kw) {
+          const long long off =
+              ((static_cast<long long>(b) * s + t0 + j) * ng + grp) * n + n0 + k;
+          bv = bmat[off];
+          cv = cmat[off];
+        }
+        bsl[j * (kSlabF + 1) + k] = bv;
+        csl[idx] = cv;
+      }
+      __syncthreads();
+      // the causal scores over the slab's columns, S[i][j] for j <= i
+      for (int idx = tid; idx < valid * valid; idx += kThreads) {
+        const int i = idx / valid;
+        const int j = idx % valid;
+        if (j <= i) {
+          float dot = 0.f;
+#pragma unroll
+          for (int k = 0; k < kSlabF; ++k) dot += csl[i * kSlabF + k] * bsl[j * (kSlabF + 1) + k];
+          sm[i * q + j] += dot;
+        }
+      }
+      // C.h_prev over the slab: lane = the column, rows warp + 8 r
+      if (has_h) {
+#pragma unroll
+        for (int r = 0; r < kRowsPerThread; ++r) {
+          const int i = warp + r * kWarps;
+          if (i < valid) {
+            float a = 0.f;
+            for (int k = 0; k < kw; ++k) a += csl[i * kSlabF + k] * hs[(n0 + k) * kTileP + lane];
+            acc[r] += a;
+          }
+        }
+        __syncthreads();  // every row has read the slab's rows of the entering state
+      }
+      // the slab's rows of the state
+      for (int idx = tid; idx < kw * kTileP; idx += kThreads) {
+        const int k = idx / kTileP;
+        const int c = idx % kTileP;
+        float a = 0.f;
+        for (int j = 0; j < valid; ++j) a += bsl[j * (kSlabF + 1) + k] * wend[j] * xs[j * kTileP + c];
+        float* hp = hs + (n0 + k) * kTileP + c;
+        *hp = dec_end * *hp + a;
+      }
+    }
+    __syncthreads();  // every slab's scores are summed
+    for (int idx = tid; idx < valid * valid; idx += kThreads) {
+      const int i = idx / valid;
+      const int j = idx % valid;
+      if (j <= i) sm[i * q + j] *= expf(cs[i] - cs[j]) * gis[j];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kRowsPerThread; ++r) {
+      const int i = warp + r * kWarps;
+      if (i < valid) {
+        float a = 0.f;
+        for (int j = 0; j <= i; ++j) a += sm[i * q + j] * xs[j * kTileP + lane];
+        a += ecs[i] * acc[r] + dh * xs[i * kTileP + lane];
+        if (col_ok) y[((static_cast<long long>(b) * s + t0 + i) * nh + head) * p + col] = a;
       }
     }
     has_h = true;
   }
   __syncthreads();
-  if (vec) {
-    for (int idx = tid; idx < n * (kMmaTileP / 4); idx += nthreads) {
-      const int nn = idx / (kMmaTileP / 4);
-      const int c = idx % (kMmaTileP / 4) * 4;
-      if (c < pw) {
-        *reinterpret_cast<float4*>(hout + hbase + nn * p + c) =
-            *reinterpret_cast<const float4*>(hs + nn * kLdh + c);
-      }
-    }
-  } else {
-    for (int idx = tid; idx < n * kMmaTileP; idx += nthreads) {
-      const int nn = idx / kMmaTileP;
-      const int c = idx % kMmaTileP;
-      if (c < pw) hout[hbase + nn * p + c] = hs[nn * kLdh + c];
-    }
+  for (int idx = tid; idx < n * kTileP; idx += kThreads) {
+    const int pp = p0 + idx % kTileP;
+    if (pp < p) hout[hbase + static_cast<long long>(idx / kTileP) * p + pp] = hs[idx];
   }
 }
 
 // ------------------------------------------------------------------------
-enum Route { kCudaCores = 0, kMma = 1 };
+enum Route { kCudaCores = 0, kMma = 1, kMmaWide = 2, kCudaCoresWide = 3 };
 
 template <typename K>
 cudaError_t allow_smem(K kernel, int bytes) {
@@ -733,22 +1133,27 @@ cudaError_t launch_cuda_cores(const float* x, const float* ld, const float* gi, 
 }  // namespace
 
 // d and h0 may be null (no skip term; a zero initial state).  chunk: the
-// chunk length Q (1..128; the caller passes min(chunk, S)).  n: 1..128.
+// chunk length Q (1..128; the caller passes min(chunk, S)).  n: 1..1024.
 // dtype of x, B, C and y: 0 = float32, 1 = bfloat16.  route (0 the CUDA
-// cores: f32 only; 1 the tensor cores: bf16 only), warps and smem (dynamic shared
-// memory in bytes) come from ops.py:scan_plan; vec: P and N are multiples
-// of 8 and x, B, C and y 16-byte aligned, so the mma route moves them 16
-// bytes at a time.  A plan that does not match the shapes returns
-// cudaErrorInvalidValue and launches nothing.  Returns cudaGetLastError()
-// after the launch.
+// cores: f32, N <= 128; 1 the tensor cores: bf16, N <= 128; 2 the tensor
+// cores, wide: bf16, 128 < N <= 1024; 3 the CUDA cores, wide: f32,
+// 128 < N <= 1024), warps and smem (dynamic shared memory in bytes) come
+// from ops.py:scan_plan.  vec, on route 1: P and N are multiples of 8 and x,
+// B, C and y 16-byte aligned, so x, B, C and y move 16 bytes at a time; on
+// route 2 a bit mask: bit 0 for x, y and the state's rows (P a multiple of
+// 8, x and y aligned), bit 1 for B and C (N a multiple of 8, both aligned).
+// A plan that does not match the shapes returns cudaErrorInvalidValue and
+// launches nothing.  Returns cudaGetLastError() after the launch.
 extern "C" int repro_ssm_scan(const void* x, const void* ld, const void* gi, const void* bmat,
                               const void* cmat, const void* d, const void* h0, void* y,
                               void* hout, int b, int s, int nh, int p, int ng, int n, int chunk,
                               int dtype, int route, int warps, int smem, int vec, void* stream) {
   if (b <= 0 || s <= 0 || nh <= 0 || p <= 0 || ng <= 0 || nh % ng != 0 || n <= 0 ||
-      n > kMaxState || chunk <= 0 || chunk > kMaxChunk || b > 65535 || nh > 65535) {
+      n > kMaxWideState || chunk <= 0 || chunk > kMaxChunk || b > 65535 || nh > 65535) {
     return cudaErrorInvalidValue;
   }
+  const bool wide = route == kMmaWide || route == kCudaCoresWide;
+  if (wide != (n > kMaxState)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* ldf = static_cast<const float*>(ld);
   const float* gif = static_cast<const float*>(gi);
@@ -775,6 +1180,48 @@ extern "C" int repro_ssm_scan(const void* x, const void* ld, const void* gi, con
         static_cast<const bf16*>(x), ldf, gif, static_cast<const bf16*>(bmat),
         static_cast<const bf16*>(cmat), df, h0f, static_cast<bf16*>(y), ho, s, nh, p, ng, n, chunk,
         vec);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (route == kMmaWide) {
+    if (dtype != 1 || (warps != 4 && warps != 8) || warps * 16 < round16(chunk) ||
+        smem != wide_smem(chunk, n).bytes || (vec & ~3) != 0 || ((vec & 1) && p % 8 != 0) ||
+        ((vec & 2) && n % 8 != 0)) {
+      return cudaErrorInvalidValue;
+    }
+    static bool attr_set = false;
+    if (!attr_set) {
+      const int most = wide_smem(kMaxChunk, kMaxWideState).bytes;
+      cudaError_t err = allow_smem(ssd_mma_wide_kernel<4>, most);
+      if (err == cudaSuccess) err = allow_smem(ssd_mma_wide_kernel<8>, most);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      attr_set = true;
+    }
+    const dim3 grid((p + kMmaTileP - 1) / kMmaTileP, nh, b);
+    auto kernel = warps == 4 ? ssd_mma_wide_kernel<4> : ssd_mma_wide_kernel<8>;
+    kernel<<<grid, warps * 32, smem, st>>>(
+        static_cast<const bf16*>(x), ldf, gif, static_cast<const bf16*>(bmat),
+        static_cast<const bf16*>(cmat), df, h0f, static_cast<bf16*>(y), ho, s, nh, p, ng, n, chunk,
+        vec);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (route == kCudaCoresWide) {
+    if (dtype != 0 || warps != kWarps ||
+        smem != static_cast<int>(wide_smem_floats(chunk, n) * sizeof(float))) {
+      return cudaErrorInvalidValue;
+    }
+    static bool attr_set = false;
+    if (!attr_set) {
+      cudaError_t err = allow_smem(
+          ssd_wide_kernel,
+          static_cast<int>(wide_smem_floats(kMaxChunk, kMaxWideState) * sizeof(float)));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      attr_set = true;
+    }
+    const dim3 grid((p + kTileP - 1) / kTileP, nh, b);
+    ssd_wide_kernel<<<grid, kThreads, smem, st>>>(
+        static_cast<const float*>(x), ldf, gif, static_cast<const float*>(bmat),
+        static_cast<const float*>(cmat), df, h0f, static_cast<float*>(y), ho, s, nh, p, ng, n,
+        chunk);
     return static_cast<int>(cudaGetLastError());
   }
   if (route != kCudaCores || dtype != 0 || warps != kWarps ||

@@ -24,9 +24,11 @@ from repro_torch.kernels.ssm_scan.ref import (
     ssm_step_ref,
 )
 
-MAX_CHUNK = 128   # the kernel stages one chunk of up to 128 steps
-MAX_STATE = 128   # and a state of up to 128 rows (N) in shared memory
-ROUTE_CODES = {"cuda_cores": 0, "mma": 1}
+MAX_CHUNK = 128     # the kernel stages one chunk of up to 128 steps
+NARROW_STATE = 128  # up to 128 state rows (N), a whole chunk of B and C fits beside the state
+MAX_STATE = 1024    # the wide routes stream B and C in slabs along N up to 1024 rows
+WIDE_SLAB = {"mma_wide": 64, "cuda_cores_wide": 16}   # columns of B and C per slab
+ROUTE_CODES = {"cuda_cores": 0, "mma": 1, "mma_wide": 2, "cuda_cores_wide": 3}
 
 
 def _round16(v: int) -> int:
@@ -44,16 +46,54 @@ def scan_plan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
     padded to 16, rows of 32 + 8 bf16), B and C (rows of N padded to 16,
     + 8 bf16), the f32 state (N padded to 16, rows of 32 + 4 floats) and the
     chunk's cumulative log-decay and input scales.  f32 takes the CUDA cores:
-    8 warps per (32 columns of P, head, batch row)."""
+    8 warps per (32 columns of P, head, batch row).
+
+    A state of more than ``NARROW_STATE`` rows (mLSTM's N = 1024) takes the
+    wide routes, same grid and warps: the state slice stays resident, and B
+    and C stream through shared memory in slabs of ``WIDE_SLAB`` columns
+    (bf16: two slabs of (chunk rows padded to 16, 64 + 8) bf16 in place of
+    whole rows of B and C; f32: a (chunk, 16 + 1) and a (chunk, 16) slab
+    beside the chunk's (chunk, chunk) scores)."""
+    if n > MAX_STATE:
+        raise ValueError(f"state size N={n} > {MAX_STATE}")
+    grid = (-(-p // 32), h, b)
     if dtype == torch.bfloat16:
         qp, np_ = _round16(chunk), _round16(n)
-        smem = 2 * qp * (32 + 8) * 2 + 2 * qp * (np_ + 8) * 2 + np_ * (32 + 4) * 4 + 2 * qp * 4
-        return dict(route="mma", warps=4 if chunk <= 64 else 8, grid=(-(-p // 32), h, b),
-                    smem=smem)
+        warps = 4 if chunk <= 64 else 8
+        xy = 2 * qp * (32 + 8) * 2
+        state = np_ * (32 + 4) * 4 + 2 * qp * 4
+        if n <= NARROW_STATE:
+            return dict(route="mma", warps=warps, grid=grid,
+                        smem=xy + 2 * qp * (np_ + 8) * 2 + state)
+        slab = WIDE_SLAB["mma_wide"]
+        return dict(route="mma_wide", warps=warps, grid=grid,
+                    smem=xy + 2 * qp * (slab + 8) * 2 + state)
     if dtype == torch.float32:
-        floats = n * 32 + chunk * 32 + chunk * (n + 1) + chunk * n + 4 * chunk + 8 * chunk
-        return dict(route="cuda_cores", warps=8, grid=(-(-p // 32), h, b), smem=4 * floats)
+        if n <= NARROW_STATE:
+            floats = n * 32 + chunk * 32 + chunk * (n + 1) + chunk * n + 4 * chunk + 8 * chunk
+            return dict(route="cuda_cores", warps=8, grid=grid, smem=4 * floats)
+        slab = WIDE_SLAB["cuda_cores_wide"]
+        floats = (n * 32 + chunk * chunk + chunk * 32 + chunk * (slab + 1) + chunk * slab
+                  + 4 * chunk)
+        return dict(route="cuda_cores_wide", warps=8, grid=grid, smem=4 * floats)
     raise TypeError(f"kernels take float32 or bfloat16, not {dtype}")
+
+
+def vector_flags(route: str, p: int, n: int, x, bm, cm, y) -> int:
+    """Which operands the kernel moves 16 bytes at a time.  The narrow mma
+    route takes one flag for all of x, B, C and y (P and N multiples of 8,
+    every pointer 16-byte aligned); the wide mma route a bit mask, bit 0 for
+    x, y and the state's rows (P a multiple of 8: mLSTM's P = 1025 is not)
+    and bit 1 for B and C (N a multiple of 8), each with its pointers
+    aligned.  The CUDA-core routes take none."""
+    def aligned(*ts):
+        return all(t.data_ptr() % 16 == 0 for t in ts)
+
+    if route == "mma":
+        return int(p % 8 == 0 and n % 8 == 0 and aligned(x, bm, cm, y))
+    if route == "mma_wide":
+        return int(p % 8 == 0 and aligned(x, y)) | 2 * int(n % 8 == 0 and aligned(bm, cm))
+    return 0
 
 
 def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
@@ -95,8 +135,8 @@ def gated_scan_cuda(
     if tuple(ld.shape) != (b, s, h) or ld.shape != gi.shape:
         raise ValueError(f"log_decay {tuple(ld.shape)}, in_scale {tuple(gi.shape)} != {(b, s, h)}")
     if n > MAX_STATE:
-        raise ValueError(f"state size N={n} > {MAX_STATE}: the kernel keeps its slice of the "
-                         "state and a chunk of B and C in shared memory")
+        raise ValueError(f"state size N={n} > {MAX_STATE}: the kernel keeps its block's slice "
+                         "of the state in shared memory")
     chunk = min(int(chunk), s)
     if not 0 < chunk <= MAX_CHUNK:
         raise ValueError(f"chunk {chunk} not in 1..{MAX_CHUNK}")
@@ -120,8 +160,7 @@ def gated_scan_cuda(
     hout = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y, hout.zero_()
-    # the mma route moves x, B, C and y 16 bytes at a time where it can
-    vec = p % 8 == 0 and n % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, Bm, Cm, y))
+    vec = vector_flags(plan["route"], p, n, x, Bm, Cm, y)
     fn = library.entry("ssm_scan")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     library.LAUNCHES["ssm_scan"] += 1
@@ -129,7 +168,7 @@ def gated_scan_cuda(
         x.data_ptr(), ld.data_ptr(), gi.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         None if D is None else D.data_ptr(), None if h0 is None else h0.data_ptr(),
         y.data_ptr(), hout.data_ptr(), b, s, h, p, g, n, chunk, dtype,
-        ROUTE_CODES[plan["route"]], plan["warps"], plan["smem"], int(vec), stream,
+        ROUTE_CODES[plan["route"]], plan["warps"], plan["smem"], vec, stream,
     ))
     return y, hout
 

@@ -45,6 +45,9 @@ from repro_torch.layers.mamba2 import (
 )
 from repro_torch.layers.mlp import mlp_apply, mlp_init
 
+# the shared block's KV caches hold a row per position of the bucket
+CACHE_PER_POSITION = True
+
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)

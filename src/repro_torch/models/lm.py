@@ -1,9 +1,11 @@
-"""Decoder-only dense LM (the qwen3 family): the dense, single-device part of
-``repro.models.lm``.
+"""Decoder-only dense LM (the qwen3 family, and minicpm3's MLA attention):
+the dense, single-device part of ``repro.models.lm``.
 
 Parameters keep the reference's layout so conversion is a dtype move: dense
 weights are (in, out); the layer stack is ``blocks/sub0/...`` with a leading
-layer axis; the KV cache is ``{"sub0": {"k": (L,B,S,Hkv,D), "v": ...}}``.
+layer axis; the KV cache is ``{"sub0": {"k": (L,B,S,Hkv,D), "v": ...}}``,
+and with ``attn_kind == "mla"`` the latent cache
+``{"sub0": {"c_kv": (L,B,S,kv_lora), "k_rope": (L,B,S,rope)}}``.
 The reference runs the stack as one ``lax.scan``; here it is a Python loop
 over the layer axis, so a traced step holds every layer's operators.
 
@@ -31,18 +33,33 @@ from repro_torch.layers.attention import (
     init_kv_cache,
 )
 from repro_torch.layers.common import dense, dense_init, layer_slice
+from repro_torch.layers.mla import init_mla_cache, mla_decode_step, mla_forward, mla_init
 from repro_torch.layers.mlp import mlp_apply, mlp_init
+
+# the decode cache holds a row per position of the bucket (the serving engine
+# checks a generation against it)
+CACHE_PER_POSITION = True
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+def _mla(cfg: ArchConfig) -> bool:
+    return cfg.attn_kind == "mla"
+
+
 def _layer_forward(lp, x, cfg: ArchConfig, positions):
     h = rmsnorm(x, lp["attn_norm"], eps=cfg.norm_eps)
-    x = x + attn_forward(lp["attn"], h, cfg, positions=positions)
+    attend = mla_forward if _mla(cfg) else attn_forward
+    x = x + attend(lp["attn"], h, cfg, positions=positions)
     h = rmsnorm(x, lp["mlp_norm"], eps=cfg.norm_eps)
     return x + mlp_apply(lp["ffn"], h)
+
+
+def _stack(caches) -> Dict[str, torch.Tensor]:
+    """Per-layer cache dicts -> one dict of (L, ...) leaves, in key order."""
+    return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device: Any = "cuda") -> Dict[str, Any]:
@@ -63,7 +80,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, device: Any = "cuda") -> Dict[st
             "sub0": {
                 "attn_norm": torch.ones((n, cfg.d_model), dtype=dtype, device=dev),
                 "mlp_norm": torch.ones((n, cfg.d_model), dtype=dtype, device=dev),
-                "attn": attn_init(gen, cfg, dtype, n),
+                "attn": (mla_init if _mla(cfg) else attn_init)(gen, cfg, dtype, n),
                 "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, n),
             }
         },
@@ -99,7 +116,8 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig) -> torch.Te
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device: Any = "cuda"):
-    one = init_kv_cache(cfg, batch, max_seq, _dtype(cfg), resolve_device(device))
+    init = init_mla_cache if _mla(cfg) else init_kv_cache
+    one = init(cfg, batch, max_seq, _dtype(cfg), resolve_device(device))
     return {
         "sub0": {
             name: leaf[None].expand(cfg.n_layers, *leaf.shape).contiguous()
@@ -115,35 +133,42 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, max_seq: in
     x = params["embed"][tokens]
     positions = _positions(b, s, x.device)
     pad = max_seq - s
-    ks, vs = [], []
+    caches = []
     for i in range(cfg.n_layers):
         lp = layer_slice(params["blocks"]["sub0"], i)
         hn = rmsnorm(x, lp["attn_norm"], eps=cfg.norm_eps)
-        a, (k, v) = attn_forward(lp["attn"], hn, cfg, positions=positions, return_kv=True)
-        ks.append(F.pad(k, (0, 0, 0, 0, 0, pad)))
-        vs.append(F.pad(v, (0, 0, 0, 0, 0, pad)))
+        if _mla(cfg):
+            a, (c_kv, k_rope) = mla_forward(lp["attn"], hn, cfg, positions=positions,
+                                            return_kv=True)
+            caches.append({"c_kv": F.pad(c_kv, (0, 0, 0, pad)),
+                           "k_rope": F.pad(k_rope, (0, 0, 0, pad))})
+        else:
+            a, (k, v) = attn_forward(lp["attn"], hn, cfg, positions=positions,
+                                     return_kv=True)
+            caches.append({"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
+                           "v": F.pad(v, (0, 0, 0, 0, 0, pad))})
         x = x + a
         hn = rmsnorm(x, lp["mlp_norm"], eps=cfg.norm_eps)
         x = x + mlp_apply(lp["ffn"], hn)
     logits = _logits(params, x[:, -1:].contiguous(), cfg)
-    return logits, {"sub0": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    return logits, {"sub0": _stack(caches)}
 
 
 def decode_step(params, token: torch.Tensor, cache, pos: torch.Tensor, cfg: ArchConfig):
     """One decode step.  token (B, 1) int32; pos 0-d int32 (current length).
-    Each layer writes its own (B,S,Hkv,D) cache slice; the stacked cache is
+    Each layer writes its own cache slice; the stacked cache is
     built once at the end, not rewritten inside every layer."""
     x = params["embed"][token]
-    ks, vs = [], []
+    step = mla_decode_step if _mla(cfg) else attn_decode_step
+    caches = []
     for i in range(cfg.n_layers):
         lp = layer_slice(params["blocks"]["sub0"], i)
         lc = layer_slice(cache["sub0"], i)
         hn = rmsnorm(x, lp["attn_norm"], eps=cfg.norm_eps)
-        a, c_new = attn_decode_step(lp["attn"], hn, lc, pos, cfg)
-        ks.append(c_new["k"])
-        vs.append(c_new["v"])
+        a, c_new = step(lp["attn"], hn, lc, pos, cfg)
+        caches.append(c_new)
         x = x + a
         hn = rmsnorm(x, lp["mlp_norm"], eps=cfg.norm_eps)
         x = x + mlp_apply(lp["ffn"], hn)
     logits = _logits(params, x, cfg)
-    return logits, {"sub0": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    return logits, {"sub0": _stack(caches)}

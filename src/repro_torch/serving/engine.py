@@ -9,8 +9,8 @@ edge (``repro.serving.engine``).
   the transparent offloading stack.  Every call executes the identical
   operator sequence, the Operator Sequence Search locks it after a few
   recorded calls, and the loop-carried state (the KV cache; a hybrid's
-  conv and SSM states too) is detected across repeats and kept on the
-  server: each replayed token costs the model's O(1) step compute plus 3
+  conv and SSM states too; MLA's latent cache; an xLSTM's recurrent state)
+  is detected across repeats and kept on the server: each replayed token costs the model's O(1) step compute plus 3
   RPCs (token and position up, next token down).  ``stateful=False`` is the
   seed formulation: the app is ``next_token(padded_tokens, cur_len)``, a
   full forward over a fixed bucket per token (the prefix-recompute
@@ -110,6 +110,9 @@ class RRTOServedLM:
         self.stateful = stateful
         dev = edge.server.device if edge is not None else resolve_device(device)
         model = get_model(cfg)
+        # a stateful generation overflows the bucket only where the cache
+        # holds a row per position (not an xLSTM's recurrent state)
+        self._bounded = not stateful or model.CACHE_PER_POSITION
         params = params if params is not None else model.init_params(cfg, seed, dev)
         if stateful:
             cache0 = model.init_cache(cfg, batch, bucket_len, "cpu")
@@ -170,7 +173,8 @@ class RRTOServedLM:
         tensors the app threads are opaque handles once replay turns
         stateful — the server advances the real state."""
         b, s = prompt.shape
-        self._check_bucket(s, max_new_tokens)
+        if self._bounded:
+            self._check_bucket(s, max_new_tokens)
         prompt = torch.as_tensor(np.asarray(prompt, dtype=np.int32))
         return dict(
             prompt=prompt, s=s, state=list(self._cache_leaves),

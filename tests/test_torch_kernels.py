@@ -425,3 +425,23 @@ def test_kernels_match_plain_on_card(rng, dtype):
     q, k, v = r(1, 45, 16, 128), r(1, 45, 4, 128), r(1, 45, 4, 128)
     torch.testing.assert_close(flash_attention(q, k, v), attention_dense(q, k, v),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,sk,h,hkv,causal",
+                         [(1, 64, 64, 40, 40, True), (1, 16, 16, 40, 40, True),
+                          (2, 77, 77, 8, 8, True), (1, 50, 70, 8, 4, False)])
+def test_flash_d96_matches_plain_on_card(rng, dtype, b, sq, sk, h, hkv, causal):
+    """MLA's head dim 96 (wgmma with rows padded to two 64-column atoms, the
+    CUDA cores) against the plain version: minicpm3-4b's bucket and prefill,
+    a ragged sequence, a non-causal one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: python -m pytest -m requires_cuda tests/")
+    dt = getattr(torch, dtype)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-4
+    q = _t(rng.normal(0, 1, (b, sq, h, 96)), dt).cuda()
+    k, v = (_t(rng.normal(0, 1, (b, sk, hkv, 96)), dt).cuda() for _ in range(2))
+    out = flash_attention(q, k, v, causal=causal)
+    ref = attention_dense(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)

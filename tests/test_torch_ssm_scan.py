@@ -300,8 +300,8 @@ class TestCudaWrapperRaises:
         return [x, ld, ld, bc, bc, None, None, chunk]
 
     def test_state_too_large(self):
-        with pytest.raises(ValueError, match="N=256"):
-            gated_scan_cuda(*self._args(n=256))
+        with pytest.raises(ValueError, match="N=2048"):
+            gated_scan_cuda(*self._args(n=2048))
 
     def test_dtype(self):
         with pytest.raises(TypeError):
@@ -374,6 +374,44 @@ def test_kernel_refuses_large_state_on_card():
         pytest.skip("needs a CUDA device: python -m pytest -m requires_cuda tests/")
     x = torch.zeros(1, 8, 2, 8, device="cuda")
     ld = torch.zeros(1, 8, 2, device="cuda")
-    bc = torch.zeros(1, 8, 1, 512, device="cuda")
-    with pytest.raises(ValueError, match="N=512"):
+    bc = torch.zeros(1, 8, 1, 2048, device="cuda")
+    with pytest.raises(ValueError, match="N=2048"):
         gated_scan(x, ld, ld, bc, bc)
+
+
+def _mlstm_inputs(rng, b, s, h, n):
+    """The mLSTM's scan operands: x = [v, 1] (P = N + 1), ld = log sigmoid(f),
+    gi = exp(min(i, 8)), keys at the mLSTM's scale (W_k x / sqrt(N))."""
+    x = rng.normal(0, 1, (b, s, h, n + 1)).astype(np.float32)
+    x[..., -1] = 1.0
+    ld = np.log(1 / (1 + np.exp(-rng.normal(3, 1, (b, s, h))))).astype(np.float32)
+    gi = np.exp(np.minimum(rng.normal(0, 1, (b, s, h)), 8.0)).astype(np.float32)
+    k = (rng.normal(0, 1, (b, s, h, n)) / np.sqrt(n)).astype(np.float32)
+    q = rng.normal(0, 1, (b, s, h, n)).astype(np.float32)
+    return x, ld, gi, k, q
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,n,chunk,with_h0",
+                         [(1, 64, 1024, 64, False), (1, 16, 1024, 128, False),
+                          (1, 150, 160, 64, True), (2, 40, 200, 32, True)])
+def test_wide_scan_matches_plain_on_card(rng, dtype, b, s, n, chunk, with_h0):
+    """The wide routes (N > 128) against the plain version: xlstm-1.3b's
+    bucket and prefill (N = 1024, P = 1025), a ragged N with an initial state
+    over three chunks, and N no multiple of 8 (scalar B/C staging); two runs
+    of the kernel give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: python -m pytest -m requires_cuda tests/")
+    dt_ = getattr(torch, dtype)
+    x, ld, gi, k, q = _mlstm_inputs(rng, b, s, 4, n)
+    x, k, q = (_t(a).to(dt_).cuda() for a in (x, k, q))
+    ld, gi = _t(ld).cuda(), _t(gi).cuda()
+    h0 = _t(rng.normal(0, 1, (b, 4, n, n + 1)).astype(np.float32)).cuda() if with_h0 else None
+    y, h = gated_scan(x, ld, gi, k, q, None, chunk=chunk, h0=h0)
+    y_r, h_r = gated_scan_padded(x, ld, gi, k, q, None, h0, chunk)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-4
+    torch.testing.assert_close(y.float(), y_r.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(h, h_r, rtol=tol, atol=tol)
+    y2, h2 = gated_scan(x, ld, gi, k, q, None, chunk=chunk, h0=h0)
+    assert torch.equal(y, y2) and torch.equal(h, h2)

@@ -32,11 +32,10 @@ TILE = "constexpr int kMmaTileP = 32;"
 # (start, end) of each phase in the kernel's source, compiled out by a macro
 PHASES = {
     "NO_Y": ("    // ---- y: warp w owns rows", "    // C.h has read the entering state"),
-    "NO_STATE": ("    const float dec_end = exp_ftz(cs_end);\n    const int mtiles",
-                 "    __syncthreads();  // y is staged"),
-    "NO_STAGE": ("    if (vec) {\n      for (int idx = tid; idx < qp * (kMmaTileP / 8)",
+    "NO_STATE": ("    mma_update_state<kWarpsT>(hs, bs, ldn,", "    __syncthreads();  // y is staged"),
+    "NO_STAGE": ("    mma_stage_x(xs, x + (row0 * nh + head) * p + p0, xstep, qp, valid, pw, vec, tid",
                  "    if (warp == 0) chunk_scan("),
-    "NO_HOUT": ("  if (vec) {\n    for (int idx = tid; idx < n * (kMmaTileP / 4)", "\n}\n\n// ----"),
+    "NO_HOUT": ("  mma_store_state(hout, hs, hbase, n, p, pw, vec, tid", "\n}\n\n// ----"),
 }
 
 
