@@ -32,7 +32,23 @@ random weights from a seed:
   stateless (flash attention at head dim 96 in every replayed token);
 * xlstm-1.3b (phase 9: 42 mLSTM and 6 sLSTM blocks, d_model 2048, bf16):
   stateful (705 MB of recurrent state carried on the server) and stateless
-  (the gated scan at a state of 1024 x 1025 in every replayed token).
+  (the gated scan at a state of 1024 x 1025 in every replayed token);
+* split replay (phase 10, the model cut between the mobile device and the
+  edge; both placements run on the card, a device segment's time is the
+  cost model's): (a) phase 3's locked qwen3-0.6b IOS at each
+  carried-feasible device prefix, the segment programs held bitwise
+  against the whole program's step (outputs and carried state); (b)
+  qwen3-0.6b served through ``RRTOServedLM(partition=...)`` with the
+  longest prefix installed once the IOS locks, tokens equal to phase 3's
+  ``device_only``, RPCs and wire bytes per token, the wall split into
+  eager split replay and interception, and the host time of the planner's
+  schedule; (c) phase 5's zamba2-1.2b stateless IOS under random plans of
+  2-5 cuts, bitwise against the whole program, with rmsnorm, flash
+  attention and the scan in device-placed segments; (d) the sensor encoder
+  split by the planner (bitwise plain rrto and ``device_only``), the
+  planner's sweep over the partition benchmark's bandwidths, a pipelined
+  Poisson stream bitwise the sequential split, and the recurrent decoder's
+  stateful split.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after (every batched call under ``no_vmap_fallback``, so an op
@@ -1581,6 +1597,400 @@ def time_multitenant_step(v, lp, dev) -> dict:
                 round_vmap_ms=sum(walls[True]) / 3, round_loop_ms=sum(walls[False]) / 3)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: split and pipelined replay (the model cut between device and edge)
+# ---------------------------------------------------------------------------
+
+SPLIT_STEPS = 3              # segment-program steps per plan (parts a, c)
+SPLIT_NEW = 8                # qwen3 tokens generated through the split (part b)
+SPLIT_PLANS_SEED = 0         # part c's random plans
+SPLIT_MBPS = (0.5, 2.0, 8.0, 32.0, 128.0)   # benchmarks/partition_sweep.py
+SPLIT_STREAM, SPLIT_STREAM_HZ = 16, 200.0   # part d's Poisson stream
+KERNEL_OPS = {"rmsnorm": "repro_torch::rmsnorm", "decode_attention": "repro_torch::decode_attention",
+              "flash_attention": "repro_torch::flash_attention", "ssm_scan": "repro_torch::gated_scan"}
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def feasible_prefixes(graph):
+    """Carried-feasible device-prefix plans at boundaries 1, limit // 2 and
+    the limit (tests/test_stateful_split.py::feasible_plans)."""
+    from repro_torch.partition import PLACE_DEVICE, PLACE_SERVER, SplitPlan
+
+    n = graph.n_ops
+    bmax = min(graph.carried_cut_limit(), n - 1)
+    return [SplitPlan.from_placements([PLACE_DEVICE] * b + [PLACE_SERVER] * (n - b))
+            for b in sorted({1, max(1, bmax // 2), bmax})] if bmax >= 1 else []
+
+
+def plan_kernels(calls, plan) -> dict:
+    """Hand-kernel calls of the IOS per placement: {placement: {kernel: n}}."""
+    ops = [c.op.name() for c in calls if c.op is not None]
+    out = {}
+    for seg in plan.segments:
+        counts = out.setdefault(seg.placement, Counter())
+        for k in range(seg.start, seg.end):
+            counts.update(name for name, op in KERNEL_OPS.items() if ops[k] == op)
+    return {p: dict(c) for p, c in out.items()}
+
+
+def boundary_bytes(graph, plan) -> int:
+    """Bytes that cross the cuts of ``plan`` per inference, the app's final
+    downloads left out (resident and carried tensors never cross)."""
+    from repro_torch.core.costmodel import GTX_2080TI
+    from repro_torch.partition import stage_chain
+
+    chain = stage_chain(graph, plan, GTX_2080TI, GTX_2080TI)
+    return int(sum(s.nbytes for s in chain if s.resource == "link" and s.label != "down@out"))
+
+
+def split_segments_qwen(library, m, dev) -> dict:
+    """Part a: the locked qwen3-0.6b session's IOS cut at each carried-
+    feasible device prefix; each plan's segment programs run ``SPLIT_STEPS``
+    steps, held bitwise (outputs and carried state) against
+    ``ReplayProgram.step_fn`` from the same state.  Only the segment walks
+    run between the launch counts' reset and read."""
+    from repro_torch.core.engine import BoundSegmentedReplay, SegmentedReplayProgram, host_copy
+    from repro_torch.partition import SegmentGraph
+
+    sess = m["sess"]
+    cl = sess.client
+    ctx = sess.server.context()
+    env, ref = ctx.env, ctx.replay
+    pairs = cl.ios.carried_pairs
+    params_flat = [env[a] for a in ref.param_addrs]
+    t0 = time.perf_counter()
+    graph = SegmentGraph(cl._ios_calls, carried_pairs=pairs)
+    limit = graph.carried_cut_limit()
+    print(f"[phase 10a] qwen3-0.6b IOS: {graph.n_ops} ops, {len(graph.tensors)} tensor versions "
+          f"({sum(t.derived for t in graph.tensors)} computed from parameters alone), "
+          f"SegmentGraph {1e3 * (time.perf_counter() - t0):.1f} ms; carried_cut_limit() = {limit}")
+    wire = [torch.zeros((1, 1), dtype=torch.int32),
+            torch.tensor(m["prompt"].shape[1] + m["new_tokens"] - 1, dtype=torch.int32)]
+    state0 = [s.clone() for s in ref.carried_state]
+    ref_state, ref_steps = [s.clone() for s in state0], []
+    for _ in range(SPLIT_STEPS):
+        outs, ref_state = ref.program.step_fn(params_flat, [w.to(dev) for w in wire], ref_state)
+        ref_steps.append(([host_copy(o) for o in outs], [s.clone() for s in ref_state]))
+    plans = feasible_prefixes(graph)
+    check(len(plans) == 3, f"qwen3-0.6b: feasible prefixes {[p.signature() for p in plans]}")
+    library.reset_launches()
+    for plan in plans:
+        bound = BoundSegmentedReplay.from_own(
+            SegmentedReplayProgram(cl._ios_calls, plan, carried_pairs=pairs))
+        bound.carried_state = [s.clone() for s in state0]
+        split_env = dict(env)
+        t0 = time.perf_counter()
+        for step, (want, want_state) in enumerate(ref_steps):
+            got = bound.execute(wire, split_env)
+            check(all(bitwise(a, b) for a, b in zip(got, want)) and len(got) == len(want),
+                  f"qwen3-0.6b {plan.signature()}: outputs differ at step {step}")
+            check(all(bitwise(a, b) for a, b in zip(bound.carried_state, want_state)),
+                  f"qwen3-0.6b {plan.signature()}: carried state differs at step {step}")
+        sync(dev)
+        print(f"qwen3-0.6b {plan.signature()}: {plan.n_device_ops} device ops, boundary "
+              f"{boundary_bytes(graph, plan)} B, hand kernels by placement "
+              f"{plan_kernels(cl._ios_calls, plan)}; {SPLIT_STEPS} steps bitwise == step_fn "
+              f"(outputs and carried state), {1e3 * (time.perf_counter() - t0) / SPLIT_STEPS:.1f} "
+              f"ms per eager split step")
+    return dict(limit=limit, plans=[p.signature() for p in plans])
+
+
+def split_served_qwen(dev, cfg, params, prompt, dev_tokens, bucket) -> dict:
+    """Part b: qwen3-0.6b served end to end through the split:
+    ``RRTOServedLM(partition=PartitionConfig(adaptive=False))`` driven token
+    by token; once the IOS locks, the longest feasible prefix is installed
+    (``client._install_plan``, as the reference's tests do) for the tokens
+    left.  The tokens must equal phase 3's ``device_only`` tokens.  Returns
+    what :func:`time_split_token` times after the path's launches are read."""
+    from repro_torch.partition import PartitionConfig
+    from repro_torch.serving.engine import RRTOServedLM
+
+    served = RRTOServedLM(cfg, bucket_len=bucket, params=params, device=dev,
+                          partition=PartitionConfig(adaptive=False))
+    sess = served.session
+    timer = StepTimer(sess)
+    g = served.start_generation(prompt, SPLIT_NEW)
+    picked = None
+    t0 = time.perf_counter()
+    for _ in range(served.steps_total(g)):
+        res = sess.infer(*served.step_inputs(g))
+        served.absorb_step(g, res.outputs)
+        cl = sess.client
+        if cl.mode == "replaying" and picked is None:
+            picked = cl.replanner.current.plan
+            print(f"[phase 10b] the planner's own pick at {cl.network.bandwidth_at(cl.clock.t) * 8 / 1e6:.1f} "
+                  f"Mbps: {picked.signature()} (full-server: {picked.is_full_server}; an LM "
+                  f"token's input is 4 bytes)")
+            cl._install_plan(feasible_prefixes(cl.replanner.graph)[-1])
+    tokens = np.concatenate(g["out"], axis=1)
+    check(np.array_equal(tokens, dev_tokens[:, :SPLIT_NEW]),
+          f"qwen3-0.6b split tokens {tokens} != device_only {dev_tokens[:, :SPLIT_NEW]}")
+    cl = sess.client
+    plan = cl.split_plan
+    check(plan is not None and cl.mode == "replaying", "qwen3-0.6b: the split plan is not installed")
+    split_steps = [h for h in sess.history if h.mode == "replaying"][1:]
+    steady = split_steps[1:]          # the first split round hands the state over
+    cache_bytes = sum(t.numel() * t.element_size() for t in served._cache_leaves)
+    check(bool(steady) and all(h.network_bytes < cache_bytes for h in steady),
+          "qwen3-0.6b split: carried state on the wire")
+    launched = [n for mode, _, n in timer.steps if mode == "replaying"][1:]
+    for name in ("rmsnorm", "decode_attention"):
+        check(all(n[name] > 0 for n in launched), f"qwen3-0.6b split: {name} not launched in "
+              f"every split step")
+    wall_ms = 1e3 * sum(dt for mode, dt, _ in timer.steps[-len(steady):]) / len(steady)
+    print(f"qwen3-0.6b split {plan.signature()} ({plan.n_device_ops} device ops): "
+          f"{tokens.shape[1]} tokens == device_only; steady "
+          f"rpcs/token {[h.rpcs for h in steady]}; wire bytes/token "
+          f"{[int(h.network_bytes) for h in steady]} (full-server: 332); carried state "
+          f"{cache_bytes} B never billed; wall {wall_ms:.1f} ms/token; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return dict(sess=sess, plan=plan, pos=g["pos"], wall_ms=wall_ms)
+
+
+def time_split_token(r, dev) -> dict:
+    """Host and eager times of one part-b split token on this card: the split
+    walk and the whole program's step in turns (each uploading the wire and
+    copying the outputs back, as a served token does), the host time of
+    ``compute_schedule`` (once per split token) and of ``plan_partition``."""
+    from repro_torch.core.engine import host_copy
+    from repro_torch.partition import plan_partition
+    from repro_torch.partition.segments import NetworkLink, compute_schedule
+
+    sess, plan, wall_ms = r["sess"], r["plan"], r["wall_ms"]
+    cl = sess.client
+    ctx = sess.server.context()
+    bound, env, whole = ctx.split, ctx.env, ctx.replay
+    wire = [torch.zeros((1, 1), dtype=torch.int32),
+            torch.tensor(r["pos"] - 1, dtype=torch.int32)]
+    saved = list(bound.carried_state)
+    params_flat = [env[a] for a in whole.param_addrs]
+
+    def split_step():
+        bound.execute(wire, dict(env))
+        bound.carried_state = list(saved)
+
+    def whole_step():
+        outs, _ = whole.program.step_fn(params_flat, [w.to(dev) for w in wire], saved)
+        return [host_copy(o) for o in outs]
+
+    times = {split_step: [], whole_step: []}
+    for fn in (split_step, whole_step) * 4:
+        t1 = time.perf_counter()
+        fn()
+        sync(dev)
+        times[fn].append(time.perf_counter() - t1)
+    eager_ms, whole_ms = (1e3 * sum(times[f][1:]) / 3 for f in (split_step, whole_step))
+    link = NetworkLink(cl.network, cl.input_wire_divisor)
+    t1 = time.perf_counter()
+    for _ in range(5):
+        compute_schedule(bound.graph, plan, cl.client_device, sess.server.device_spec, link,
+                         t0=cl.clock.t, include_output_downlink=False)
+    sched_ms = (time.perf_counter() - t1) / 5 * 1e3
+    t1 = time.perf_counter()
+    plan_partition(cl.replanner.graph, cl.client_device, sess.server.device_spec,
+                   cl.network.bandwidth_at(cl.clock.t))
+    planner_ms = (time.perf_counter() - t1) * 1e3
+    print(f"qwen3-0.6b split token: wall {wall_ms:.1f} ms = eager split replay {eager_ms:.1f} "
+          f"ms + interception {wall_ms - eager_ms:.1f} ms (the whole program's step in turns: "
+          f"{whole_ms:.1f} ms); compute_schedule {sched_ms:.2f} ms host per token; "
+          f"plan_partition {planner_ms:.1f} ms host")
+    return dict(wall_ms=wall_ms, eager_ms=eager_ms, whole_ms=whole_ms, sched_ms=sched_ms,
+                planner_ms=planner_ms)
+
+
+def random_cut_plans(n_ops, rng, k=3):
+    """``k`` random contiguous plans of 2-5 cuts with alternating
+    placements (tests/test_partition.py::random_plans)."""
+    from repro_torch.partition import PLACE_DEVICE, PLACE_SERVER, SplitPlan
+
+    plans = []
+    for _ in range(k):
+        cuts = sorted(rng.choice(np.arange(1, n_ops), size=int(rng.integers(2, 6)), replace=False))
+        bounds = [0] + [int(c) for c in cuts] + [n_ops]
+        place = PLACE_DEVICE if rng.random() < 0.5 else PLACE_SERVER
+        placements = []
+        for lo, hi in zip(bounds, bounds[1:]):
+            placements += [place] * (hi - lo)
+            place = PLACE_SERVER if place == PLACE_DEVICE else PLACE_DEVICE
+        plans.append(SplitPlan.from_placements(placements))
+    return plans
+
+
+def split_segments_zamba(library, m, dev) -> dict:
+    """Part c: the locked zamba2-1.2b stateless session (nothing carried, so
+    interior cuts are feasible) under 3 seeded random plans of 2-5 cuts, each
+    held bitwise against the whole-program replay; rmsnorm, flash attention
+    and the scan must each sit in a device-placed segment of some plan (a
+    plan around the first flash call is added when none does)."""
+    from repro_torch.core.engine import BoundSegmentedReplay, SegmentedReplayProgram, host_copy
+    from repro_torch.partition import PLACE_DEVICE, PLACE_SERVER, SegmentGraph, SplitPlan
+
+    sess = m["sess"]
+    calls = sess.client._ios_calls
+    ctx = sess.server.context()
+    env, ref = ctx.env, ctx.replay
+    graph = SegmentGraph(calls)
+    n = graph.n_ops
+    cur = m["prompt"].shape[1] + m["new_tokens"] - 1
+    tokens = np.zeros((1, m["bucket"]), np.int32)
+    tokens[:, :cur] = np.concatenate([m["prompt"], m["r_srv"].tokens], axis=1)[:, :cur]
+    wire = [torch.from_numpy(tokens), torch.tensor(cur, dtype=torch.int32)]
+    want = [host_copy(o) for o in ref.program.fn([env[a] for a in ref.param_addrs],
+                                                   [w.to(dev) for w in wire])]
+    plans = random_cut_plans(n, np.random.default_rng(SPLIT_PLANS_SEED))
+    on_device = Counter()
+    for plan in plans:
+        on_device.update(plan_kernels(calls, plan).get(PLACE_DEVICE, {}))
+    if not on_device["flash_attention"]:
+        ops = [c.op.name() for c in calls if c.op is not None]
+        k = ops.index(KERNEL_OPS["flash_attention"])
+        lo, hi = max(1, k - 8), min(n - 1, k + 8)
+        plans.append(SplitPlan.from_placements(
+            [PLACE_SERVER] * lo + [PLACE_DEVICE] * (hi - lo) + [PLACE_SERVER] * (n - hi)))
+        on_device.update(plan_kernels(calls, plans[-1]).get(PLACE_DEVICE, {}))
+    for name in ("rmsnorm", "flash_attention", "ssm_scan"):
+        check(on_device[name] > 0, f"zamba2-1.2b: no plan puts {name} in a device segment")
+    library.reset_launches()
+    for plan in plans:
+        t0 = time.perf_counter()
+        bound = BoundSegmentedReplay.from_own(SegmentedReplayProgram(calls, plan))
+        for step in range(SPLIT_STEPS):
+            got = bound.execute(wire, dict(env))
+            check(len(got) == len(want) and all(bitwise(a, b) for a, b in zip(got, want)),
+                  f"zamba2-1.2b stateless {plan.signature()}: differs at step {step}")
+        sync(dev)
+        print(f"zamba2-1.2b stateless {plan.signature()}: {len(plan.segments)} segments, "
+              f"{plan.n_device_ops} of {n} ops on the device, boundary "
+              f"{boundary_bytes(graph, plan)} B, hand kernels by placement "
+              f"{plan_kernels(calls, plan)}; {SPLIT_STEPS} steps bitwise == the whole-program "
+              f"replay ({1e3 * (time.perf_counter() - t0) / SPLIT_STEPS:.1f} ms per step)")
+    return dict(plans=[p.signature() for p in plans], on_device=dict(on_device))
+
+
+def split_sensor_models(dev) -> dict:
+    """Part d: the sensor models of the reference's partition tests at the
+    benchmark size (scale 1.0, 96 x 96 frames), through ``OffloadSession``:
+    the encoder split by the planner, bitwise against plain rrto and
+    ``device_only``; the planner at each of ``SPLIT_MBPS`` against both
+    endpoints; a pipelined stream of Poisson arrivals bitwise against the
+    sequential split; the recurrent decoder's stateful split bitwise against
+    plain stateful rrto."""
+    from repro_torch.core.netsim import poisson_arrivals
+    from repro_torch.core.offload import OffloadSession
+    from repro_torch.models.cnn_zoo import make_recurrent_sensor_decoder, make_sensor_encoder
+    from repro_torch.partition import (
+        ConstantLink,
+        PartitionConfig,
+        SplitPlan,
+        evaluate_plan,
+        pipeline_schedule,
+        plan_partition,
+    )
+
+    model = make_sensor_encoder(scale=1.0, input_size=96, device=dev)
+    split = OffloadSession(model, "rrto", device=dev, partition=PartitionConfig())
+    plain = OffloadSession(model, "rrto", device=dev)
+    only = OffloadSession(model, "device_only", device=dev)
+    for _ in range(ZOO_INFERS):
+        s, p, d = (x.infer(*model.example_inputs) for x in (split, plain, only))
+        check(bitwise(tuple(s.outputs), tuple(p.outputs)) and bitwise(tuple(s.outputs), tuple(d.outputs)),
+              f"sensor_encoder split != plain rrto / device_only in {s.mode}")
+    cl = split.client
+    check(cl.mode == "replaying", "sensor_encoder split: never reached replaying")
+    print(f"[phase 10d] sensor_encoder @ 96 split {cl.split_plan.signature() if cl.split_plan else 'S (full server)'}: "
+          f"modes {[h.mode[:3] for h in split.history]}; rpcs {[h.rpcs for h in split.history]}; "
+          f"bitwise == plain rrto == device_only")
+    graph = cl.replanner.graph
+    n, div = graph.n_ops, model.input_wire_divisor
+    rows, strictly = [], False
+    for mbps in SPLIT_MBPS:
+        bw = mbps * 1e6 / 8
+        t0 = time.perf_counter()
+        best = plan_partition(graph, split.client_device, split.server_device, bw,
+                              input_wire_divisor=div)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        full, local = (evaluate_plan(graph, q, split.client_device, split.server_device, bw,
+                                     input_wire_divisor=div).seconds
+                       for q in (SplitPlan.full_server(n), SplitPlan.full_device(n)))
+        check(best.seconds <= min(full, local) + 1e-12,
+              f"sensor_encoder @ {mbps} Mbps: planner {best.seconds} worse than {full}/{local}")
+        strictly |= best.seconds < min(full, local) * (1 - 1e-6)
+        rows.append((mbps, best.plan.signature(), best.plan.n_device_ops, best.seconds, full, local))
+        print(f"  {mbps:6.1f} Mbps: plan {best.plan.signature()} ({best.plan.n_device_ops}/{n} "
+              f"device ops) modeled {1e3 * best.seconds:.3f} ms vs full offload "
+              f"{1e3 * full:.3f} ms, device only {1e3 * local:.3f} ms; planner {host_ms:.1f} ms host")
+    check(strictly, "sensor_encoder: the planner beats both endpoints at no operating point")
+
+    # a pipelined stream against the sequential split, on the same plan
+    piped = OffloadSession(model, "rrto", device=dev,
+                           partition=PartitionConfig(objective="throughput", pipelined=True))
+    seq = OffloadSession(model, "rrto", device=dev, partition=PartitionConfig(adaptive=False))
+    for _ in range(4):
+        piped.infer(*model.example_inputs)
+        seq.infer(*model.example_inputs)
+    if piped.client.pipelined_exec is None:
+        # the throughput planner kept the whole model on the server at this
+        # link: stream the sweep's interior plan instead
+        interior = next(sig for _, sig, n_dev, *_ in rows if 0 < n_dev < n)
+        piped.client._install_plan(SplitPlan.parse_signature(interior))
+    plan = piped.client.split_plan
+    seq.client._install_plan(plan)
+    rng = np.random.default_rng(SPLIT_PLANS_SEED)
+    frames = [(model.example_inputs[0] + rng.normal(0, 0.01, model.example_inputs[0].shape)
+               .astype(np.float32),) for _ in range(SPLIT_STREAM)]
+    arrivals = poisson_arrivals(SPLIT_STREAM_HZ, SPLIT_STREAM, seed=SPLIT_PLANS_SEED)
+    arrivals = [a - arrivals[0] for a in arrivals]
+    t0 = time.perf_counter()
+    results = piped.infer_stream(frames, arrivals=arrivals)
+    stream_s = time.perf_counter() - t0
+    for r, f in zip(results, frames):
+        check(bitwise(tuple(r.outputs), tuple(seq.infer(*f).outputs)),
+              "sensor_encoder: pipelined stream != sequential split")
+    check(all(a.done_at <= b.done_at for a, b in zip(results, results[1:])),
+          "sensor_encoder: stream completions out of order")
+    link = ConstantLink(piped.network.bandwidth_at(piped.clock.t), input_wire_divisor=div)
+    pipe = pipeline_schedule(piped.client.replanner.graph, plan, piped.client_device,
+                             piped.server_device, link, input_wire_divisor=div)
+    span = results[-1].done_at - results[0].arrival_t
+    print(f"sensor_encoder stream of {SPLIT_STREAM} at {SPLIT_STREAM_HZ:.0f} Hz Poisson on "
+          f"{plan.signature()}: bitwise == sequential split; modeled period "
+          f"{1e3 * pipe.period_seconds:.3f} ms vs closed loop {1e3 * pipe.latency_seconds:.3f} ms "
+          f"(bottleneck {pipe.bottleneck}); simulated span {1e3 * span:.2f} ms; "
+          f"{stream_s:.2f} s wall")
+
+    # the stateful sibling: the carried state stays in the server suffix
+    dec = make_recurrent_sensor_decoder(scale=1.0, input_size=96, device=dev)
+    ds = OffloadSession(dec, "rrto", device=dev, partition=PartitionConfig(adaptive=False))
+    dp = OffloadSession(dec, "rrto", device=dev)
+    frame, hs = dec.example_inputs
+    hp = hs
+    for _ in range(ZOO_INFERS):
+        hs, hp = ds.infer(frame, hs).outputs[1], dp.infer(frame, hp).outputs[1]
+    check(ds.client.stateful_replay, "recurrent_sensor_decoder: no carried state detected")
+    graph = ds.client.replanner.graph
+    limit = min(graph.carried_cut_limit(), graph.n_ops - 1)
+    check(limit >= 1, "recurrent_sensor_decoder: no feasible device prefix")
+    # the feasible prefix whose cut ships the fewest bytes (after the stem)
+    live = graph.live_bytes()
+    b = min(range(1, limit + 1), key=lambda k: live[k])
+    plan = SplitPlan.from_placements(["device"] * b + ["server"] * (graph.n_ops - b))
+    ds.client._install_plan(plan)
+    for step in range(4):
+        a, b = ds.infer(frame, hs), dp.infer(frame, hp)
+        hs, hp = a.outputs[1], b.outputs[1]
+        check(bitwise(a.outputs[0], b.outputs[0]),
+              f"recurrent_sensor_decoder stateful split != plain rrto at step {step}")
+    print(f"recurrent_sensor_decoder @ 96 stateful split {plan.signature()} (feasible up to "
+          f"{limit}): 4 steps "
+          f"bitwise == plain stateful rrto; rpcs {a.rpcs} vs {b.rpcs}, wire bytes "
+          f"{a.network_bytes:.0f} vs {b.network_bytes:.0f}")
+    return dict(rows=rows, period=pipe.period_seconds, latency=pipe.latency_seconds)
+
+
 def rss() -> str:
     """This process's resident host memory now (``/proc``, where the kernel
     reports it) and at its peak (``getrusage``)."""
@@ -1649,8 +2059,19 @@ def main() -> None:
     check_main_path(m)
     measure_replay_step(m, dev)
     check_prefill_vs_decode(m, dev, LOGIT_REL_TOL)
-    q_params = m["params"]
+    q_cfg, q_params, q_prompt, q_dev_tokens = m["cfg"], m["params"], m["prompt"], m["r_dev"].tokens
+    t10 = time.perf_counter()
+    _, by_path["phase 10a qwen3-0.6b segments"] = run_path(
+        library, "phase 10a qwen3-0.6b segments", ("rmsnorm", "decode_attention"),
+        lambda: split_segments_qwen(library, m, dev))
     del m
+    torch.cuda.empty_cache()
+    split, by_path["phase 10b qwen3-0.6b split served"] = run_path(
+        library, "phase 10b qwen3-0.6b split served", ("rmsnorm", "decode_attention"),
+        lambda: split_served_qwen(dev, q_cfg, q_params, q_prompt, q_dev_tokens, BUCKET))
+    time_split_token(split, dev)
+    del split
+    t10 = time.perf_counter() - t10
     torch.cuda.empty_cache()
 
     m, by_path["zamba2-1.2b"] = run_path(
@@ -1668,6 +2089,11 @@ def main() -> None:
                                 stateful=False, params=params))
     check_main_path(m, {"ssm_scan": m["cfg"].n_layers})
     measure_replay_step(m, dev, profile=True)
+    t0 = time.perf_counter()
+    _, by_path["phase 10c zamba2-1.2b stateless segments"] = run_path(
+        library, "phase 10c zamba2-1.2b stateless segments",
+        ("rmsnorm", "flash_attention", "ssm_scan"), lambda: split_segments_zamba(library, m, dev))
+    t10 += time.perf_counter() - t0
     del m
     torch.cuda.empty_cache()
 
@@ -1687,6 +2113,12 @@ def main() -> None:
     t0 = time.perf_counter()
     phase_zoo(dev)
     print(f"[phase 6 zoo] ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    _, by_path["phase 10d sensor models split"] = run_path(
+        library, "phase 10d sensor models split", (), lambda: split_sensor_models(dev))
+    t10 += time.perf_counter() - t0
+    print(f"[phase 10] split and pipelined replay: {t10:.1f} s over parts a-d")
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     batched_rows = phase_mt_kernels(dev)

@@ -40,10 +40,11 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
-from repro_torch.core.costmodel import DeviceSpec
+from repro_torch.core.costmodel import JETSON_XAVIER_NX, DeviceSpec
 from repro_torch.core.energy import (
     STATE_COMM,
     STATE_CONTROL,
+    STATE_INFERENCE,
     STATE_STANDBY,
     EnergyMeter,
 )
@@ -531,14 +532,359 @@ class BoundReplay:
         self.carried_state = list(vals)
 
 
+class SegmentedReplayProgram:
+    """Per-segment replay programs for one (IOS, split plan) pair.
+
+    Where :class:`ReplayProgram` runs the whole call stream as one server
+    program, this builds one program *per plan segment*, so device-resident
+    segments run on the mobile client and server-resident segments on the
+    GPU, with only the cut-crossing tensors on the wire.  Keyed by ``(IOS
+    fingerprint, plan signature)`` and shareable across clients: a segment
+    takes its parameters and boundary tensors positionally, in the tensor
+    order both endpoints derive from their own recorded calls
+    (:class:`~repro_torch.partition.segments.SegmentGraph`), and threads
+    values by tensor version, not by address.  Each segment first re-runs the
+    ops that compute the parameter-like tensors it reads from outside itself
+    (``SegmentGraph.derived_prologue``).  A segment is an eager walk of its
+    recorded calls under ``torch.no_grad()``, out of place, like
+    :meth:`ReplayProgram.functions`.
+
+    With ``carried_pairs`` the program is *stateful*: the plan must be
+    carried-feasible (every op touching loop-carried state inside the
+    trailing server segment), and that suffix runs as a **step**
+    ``(params, boundary, carried) -> (outputs, new carried)`` exactly like
+    ``ReplayProgram.step_fn``, so the state stays server-resident across the
+    cut and never goes on the wire."""
+
+    def __init__(
+        self,
+        calls: List[InterceptedCall],
+        plan: Any,
+        *,
+        carried_pairs: Tuple[Tuple[int, int], ...] = (),
+    ):
+        from repro_torch.partition.segments import SegmentGraph
+
+        self.carried_pairs = tuple((int(i), int(j)) for i, j in carried_pairs)
+        graph = SegmentGraph(calls, carried_pairs=self.carried_pairs)
+        if plan.n_ops != graph.n_ops:
+            raise ValueError(f"plan covers {plan.n_ops} ops, IOS has {graph.n_ops}")
+        if not graph.plan_carried_feasible(plan):
+            raise ValueError(
+                f"plan {plan.signature()} is not carried-feasible: a stateful IOS "
+                "needs every carried-touching op in the trailing server segment"
+            )
+        self.plan = plan
+        self.graph = graph            # the building client's binding
+        self.kernel_calls = [c for c in calls if c.op is not None]
+        self.d2h_avals = [c.out_avals[0] for c in calls if c.record.func == FUNC_D2H]
+        carried_out = {j for _, j in self.carried_pairs}
+        # d2h ordinals still on the wire, in wire order (as ReplayProgram)
+        self.wire_out = [j for j in range(len(self.d2h_avals)) if j not in carried_out]
+        carried_in_tids = set(graph.carried_in_tids)
+        carried_out_tids = set(graph.carried_out_tids)
+        self.segments: List[dict] = []
+        for si, seg in enumerate(plan.segments):
+            reads = [t for k in range(seg.start, seg.end) for t in graph.ops[k].in_tids]
+            spec = self._spec(graph.derived_prologue(reads, seg.start, seg.end)
+                              + list(range(seg.start, seg.end)))
+            spec.update(
+                segment=seg,
+                in_tids=graph.segment_inputs(seg),
+                out_tids=graph.segment_outputs(seg),
+                # the trailing server segment of a stateful plan is the step:
+                # carried inputs arrive as the state argument, carried
+                # outputs return separately for the binding to keep
+                stateful=bool(self.carried_pairs) and si == len(plan.segments) - 1,
+            )
+            if spec["stateful"]:
+                spec["boundary_tids"] = [t for t in spec["in_tids"] if t not in carried_in_tids]
+                spec["out_tids"] = [t for t in spec["out_tids"] if t not in carried_out_tids]
+            self.segments.append(spec)
+        # outputs computed from parameters alone come from no segment: each
+        # endpoint holds them, and the walk computes them after the segments
+        self.output_spec = self._spec(graph.derived_prologue(graph.output_tids, 0, 0))
+        self.n_records = len(calls)
+        self.n_kernels = len(self.kernel_calls)
+        self.total_flops = sum(op.flops for op in graph.ops)
+        self.total_bytes = sum(op.mem_bytes for op in graph.ops)
+        self.consts_nbytes = sum(
+            _nbytes(leaf)
+            for c in self.kernel_calls
+            for leaf in torch.utils._pytree.tree_leaves((c.args, c.kwargs or {}))
+            if isinstance(leaf, torch.Tensor)
+        )
+        self.nbytes_estimate = self.consts_nbytes + _avals_nbytes(self.d2h_avals)
+
+    def _spec(self, ops: List[int]) -> dict:
+        """The op list of a walk and the parameters it reads, in first-read
+        order."""
+        tensors = self.graph.tensors
+        params = dict.fromkeys(
+            t for k in ops for t in self.graph.ops[k].in_tids if tensors[t].is_param
+        )
+        return dict(ops=ops, param_tids=list(params))
+
+    @property
+    def is_stateful(self) -> bool:
+        return bool(self.carried_pairs)
+
+    def run(self, spec: dict, params_flat, bound_vals: Dict[int, Any]) -> Dict[int, Any]:
+        """Walk one segment's calls: ``params_flat`` in ``spec['param_tids']``
+        order, ``bound_vals`` the tensor versions it receives (tid ->
+        value).  Returns every tensor version the walk held."""
+        ops = self.graph.ops
+        vals: Dict[int, Any] = dict(zip(spec["param_tids"], params_flat))
+        vals.update(bound_vals)
+        with torch.no_grad():
+            for k in spec["ops"]:
+                op = ops[k]
+                outs = _run_call(self.kernel_calls[k], [vals[t] for t in op.in_tids])
+                vals.update(zip(op.out_tids, outs))
+        return vals
+
+
+@dataclasses.dataclass
+class BoundSegmentedReplay:
+    """A :class:`SegmentedReplayProgram` bound to one client's address
+    space: the client's own :class:`SegmentGraph` supplies its parameter
+    addresses; the tensor structure is shared.
+
+    For a stateful program the binding also owns this client's
+    server-resident ``carried_state``, advanced by the step suffix and never
+    revisiting the host, and ``state_before_step``, as :class:`BoundReplay`
+    keeps them."""
+
+    program: SegmentedReplayProgram
+    graph: Any
+    carried_state: Optional[List[torch.Tensor]] = None
+    state_before_step: Optional[List[torch.Tensor]] = None
+
+    @classmethod
+    def from_own(cls, program: SegmentedReplayProgram) -> "BoundSegmentedReplay":
+        return cls(program=program, graph=program.graph)
+
+    @classmethod
+    def bind(cls, program: SegmentedReplayProgram, calls: List[InterceptedCall]
+             ) -> "BoundSegmentedReplay":
+        from repro_torch.partition.segments import SegmentGraph
+
+        return cls(program=program, graph=SegmentGraph(calls, carried_pairs=program.carried_pairs))
+
+    @property
+    def plan(self):
+        return self.program.plan
+
+    def seed_carried(self, env: Dict[int, Any]) -> None:
+        """Adopt the carried state this client's device memory holds (left by
+        the last recorded round, or refreshed by the previously active
+        stateful program): split replay starts where the previous phase
+        stopped, with the state already server-resident."""
+        if not self.program.carried_pairs:
+            return
+        vals = [env.get(self.graph.tensors[t].addr) for t in self.graph.carried_out_tids]
+        if any(v is None for v in vals):
+            return
+        self.carried_state = list(vals)
+
+    def _params(self, spec: dict, env: Dict[int, Any]) -> List[torch.Tensor]:
+        return [env[self.graph.tensors[t].addr] for t in spec["param_tids"]]
+
+    def _wire_in_tids(self) -> List[int]:
+        carried = set(self.graph.carried_in_tids)
+        return [t for t in self.graph.input_tids if t not in carried]
+
+    def execute(
+        self,
+        inputs: List[torch.Tensor],
+        env: Dict[int, Any],
+        *,
+        execute: bool = True,
+        fresh_carried: Optional[Dict[int, torch.Tensor]] = None,
+    ) -> List[torch.Tensor]:
+        """Run every segment (no timing), threading the cut-crossing tensors;
+        parameters come from ``env``, this client's server-side memory
+        namespace (which mirrors its on-device weights).  Returns host copies
+        of the outputs.
+
+        For a stateless program ``inputs`` are all H2D uploads and every D2H
+        output is returned.  For a stateful program ``inputs`` are the *wire*
+        inputs and the wire outputs are returned; the carried state lives in
+        the binding, is advanced by the step suffix, and ``fresh_carried``
+        (pair index -> value) overwrites it first — the contract of
+        ``OffloadServer.replay_values``.  The env is refreshed as a replay
+        refreshes it, so a later catch-up or plan swap sees this round."""
+        program, graph = self.program, self.graph
+        if not execute:
+            avals = program.d2h_avals
+            if program.is_stateful:
+                avals = [avals[j] for j in program.wire_out]
+            return [torch.zeros(shape, dtype=dtype) for shape, dtype in avals]
+        # the server's device: where this client's parameters live
+        dev = next((env[graph.tensors[t].addr].device
+                    for spec in program.segments for t in spec["param_tids"]), None)
+        ins = [x.to(dev) if dev is not None else x for x in inputs]
+        if program.is_stateful:
+            if self.carried_state is None:
+                raise RuntimeError("stateful split replay has no seeded carried state")
+            if fresh_carried:
+                for idx, v in fresh_carried.items():
+                    self.carried_state[idx] = v.to(dev) if dev is not None else v
+            self.state_before_step = list(self.carried_state)
+            in_tids = self._wire_in_tids()
+        else:
+            in_tids = graph.input_tids
+        val: Dict[int, Any] = dict(zip(in_tids, ins))
+        for spec in program.segments:
+            params = self._params(spec, env)
+            if spec["stateful"]:
+                bound_vals = {t: val[t] for t in spec["boundary_tids"]}
+                bound_vals.update(zip(graph.carried_in_tids, self.carried_state))
+                local = program.run(spec, params, bound_vals)
+                self.carried_state = [local[t] for t in graph.carried_out_tids]
+                # a wire D2H may read the same buffer as a carried download
+                val.update(zip(graph.carried_out_tids, self.carried_state))
+            else:
+                local = program.run(spec, params, {t: val[t] for t in spec["in_tids"]})
+            val.update((t, local[t]) for t in spec["out_tids"])
+        out_tids = graph.output_tids
+        if program.is_stateful:
+            out_tids = [out_tids[j] for j in program.wire_out]
+        missing = [t for t in out_tids if t not in val]
+        if missing:
+            # outputs read straight from a parameter buffer or computed from
+            # parameters alone
+            spec = program.output_spec
+            local = program.run(spec, self._params(spec, env), {})
+            for t in missing:
+                val[t] = local[t] if t in local else env[graph.tensors[t].addr]
+        outs = [val[t] for t in out_tids]
+        env.update((graph.tensors[t].addr, v) for t, v in zip(in_tids, ins))
+        env.update((graph.tensors[t].addr, v) for t, v in zip(out_tids, outs))
+        for in_tid, out_tid, state in zip(
+            graph.carried_in_tids, graph.carried_out_tids, self.carried_state or ()
+        ):
+            env[graph.tensors[in_tid].addr] = state
+            env[graph.tensors[out_tid].addr] = state
+        return [host_copy(o) for o in outs]
+
+
+class PipelinedSegmentedReplay:
+    """Streaming executor over a :class:`BoundSegmentedReplay`: double-buffers
+    the device/server cut across *consecutive* inferences.
+
+    While the server executes inference *i*'s server segments, the device
+    computes inference *i+1*'s device segments and streams its cut-crossing
+    tensors.  Timing comes from the event-driven scheduler
+    (:func:`repro_torch.partition.pipeline.simulate_pipeline`): the device
+    and the half-duplex radio are private capacity resources whose busy
+    frontiers persist across flushes, and server segments occupy the
+    *shared* GPU queue through ``OffloadServer.occupy``.  The steady-state
+    per-inference latency is bottleneck-bound instead of sum-bound.
+
+    Functional execution is the sequential path's walk
+    (``BoundSegmentedReplay.execute``) in submission order, so pipelined
+    outputs are bitwise the sequential split replay's.  ``submit()`` queues
+    an arrival and returns its outputs at once; ``flush()`` schedules every
+    queued arrival and returns the in-order completion times."""
+
+    def __init__(
+        self,
+        bound: BoundSegmentedReplay,
+        client_device: DeviceSpec,
+        server: "OffloadServer",
+        network: NetworkModel,
+        *,
+        input_wire_divisor: float = 1.0,
+        t0: float = 0.0,
+    ):
+        from repro_torch.core.netsim import CapacityResource
+        from repro_torch.partition.pipeline import RES_LINK, RES_SERVER, stage_chain
+        from repro_torch.partition.segments import NetworkLink
+
+        self.bound = bound
+        self.server = server
+        self.network = network
+        self.chain = stage_chain(
+            bound.graph, bound.plan, client_device, server.device_spec,
+            input_wire_divisor=input_wire_divisor,
+        )
+        # the live-trace link (ingress bytes accumulate); the chain already
+        # carries wire-divided input bytes, so the adapter divides no more
+        self._link_model = NetworkLink(network, 1.0)
+        # session-lifetime resources on an unbounded stream: running totals
+        self.device = CapacityResource("device", free_at=t0, record_intervals=False)
+        self.link = CapacityResource("link", free_at=t0, record_intervals=False)
+        self._per_inference_server_s = sum(
+            s.seconds for s in self.chain if s.resource == RES_SERVER
+        )
+        self._per_inference_crossings = sum(1 for s in self.chain if s.resource == RES_LINK)
+        self._per_inference_bytes = sum(s.nbytes for s in self.chain if s.resource == RES_LINK)
+        self.submitted = 0
+        self._queued: List[float] = []
+        self._last_done = t0
+        self.crossings = 0
+        self.comm_bytes = 0.0
+        self.server_seconds = 0.0
+
+    def submit(
+        self,
+        inputs: List[torch.Tensor],
+        env: Dict[int, Any],
+        t_arrival: float,
+        fresh_carried: Optional[Dict[int, torch.Tensor]] = None,
+    ) -> List[torch.Tensor]:
+        """Queue one inference at ``t_arrival`` and return its outputs (the
+        walk runs now, in submission order).  Arrivals must be nondecreasing
+        within a flush window.  ``fresh_carried`` overwrites the stateful
+        suffix's resident state before this submission runs."""
+        if self._queued and t_arrival < self._queued[-1]:
+            raise ValueError(
+                f"arrival {t_arrival} precedes queued arrival {self._queued[-1]}"
+            )
+        outs = self.bound.execute(
+            inputs, env, execute=self.server.execute, fresh_carried=fresh_carried
+        )
+        self._queued.append(float(t_arrival))
+        self.submitted += 1
+        self.crossings += self._per_inference_crossings
+        self.comm_bytes += self._per_inference_bytes
+        self.server_seconds += self._per_inference_server_s
+        return outs
+
+    def flush(self) -> List[float]:
+        """Schedule every queued arrival over the persistent resources;
+        returns in-order completion times (one per arrival)."""
+        from repro_torch.partition.pipeline import SharedGPUResource, simulate_pipeline
+
+        if not self._queued:
+            return []
+        sim = simulate_pipeline(
+            self.chain, self._link_model, self._queued,
+            device=self.device, server=SharedGPUResource(self.server), link_resource=self.link,
+        )
+        self._queued = []
+        dones: List[float] = []
+        for s in sim.inferences:
+            self._last_done = max(self._last_done, s.done)
+            dones.append(self._last_done)
+        return dones
+
+    def busy_snapshot(self) -> Tuple[float, float]:
+        """(device busy, link busy) seconds so far — the stream driver diffs
+        these around a window to bill energy phases."""
+        return self.device.busy_total, self.link.busy_total
+
+
 @dataclasses.dataclass
 class ClientContext:
-    """One client's server-side state: device memory namespace + bound
-    replay.  The GPU occupancy and the replay cache stay on the
-    :class:`OffloadServer`: they are shared across tenants."""
+    """One client's server-side state: device memory namespace, bound
+    replay and bound split replay.  The GPU occupancy and the replay cache
+    stay on the :class:`OffloadServer`: they are shared across tenants."""
 
     env: Dict[int, Any] = dataclasses.field(default_factory=dict)
     replay: Optional[BoundReplay] = None
+    split: Optional[BoundSegmentedReplay] = None
 
 
 class OffloadServer:
@@ -640,15 +986,8 @@ class OffloadServer:
         if program is None:
             pairs = tuple(carried_pairs)
             if not pairs and cache is not None and fingerprint is not None:
-                meta = cache.known_metadata(fingerprint) or {}
-                pairs = tuple((int(i), int(j)) for i, j in meta.get("carried_pairs", ()))
-                n_in = sum(1 for c in calls if c.record.func == FUNC_H2D)
-                n_out = sum(1 for c in calls if c.record.func == FUNC_D2H)
-                if not all(0 <= i < n_in and 0 <= j < n_out for i, j in pairs):
-                    # metadata that does not fit these calls is stale: build
-                    # the program stateless and forget the entry
-                    cache.forget_known(fingerprint)
-                    pairs = ()
+                # stale metadata builds the program stateless
+                pairs = self._known_pairs(calls, fingerprint)
             program = ReplayProgram(calls, carried_pairs=pairs)
             self.compile_count += 1
             if cache is not None and fingerprint is not None:
@@ -662,6 +1001,63 @@ class OffloadServer:
         bound.seed_carried(ctx.env)
         ctx.replay = bound
         return from_cache
+
+    def prepare_split(
+        self,
+        calls: List[InterceptedCall],
+        plan: Any,
+        client_id: str = DEFAULT_CLIENT,
+        fingerprint: Optional[str] = None,
+        carried_pairs: Tuple[Tuple[int, int], ...] = (),
+    ) -> bool:
+        """Install per-segment replay programs for ``client_id``.
+
+        Segmented programs are cached under the composite key
+        ``fingerprint|plan signature``: co-tenants on different networks plan
+        different cuts of one shared IOS, and each cut is built once.
+        ``carried_pairs`` makes the program stateful; a cache hit uses the
+        cached program's pairs, and a key persisted by an earlier server (or
+        its base fingerprint) recovers them from the cache metadata, so the
+        rebuilt split is stateful again.  Returns True iff the program came
+        from the cache."""
+        cache = self.replay_cache
+        key = f"{fingerprint}|{plan.signature()}" if fingerprint is not None else None
+        program: Optional[SegmentedReplayProgram] = None
+        if cache is not None and key is not None:
+            program = cache.get(key)
+        from_cache = program is not None
+        if program is None:
+            pairs = tuple(carried_pairs)
+            if not pairs and cache is not None and key is not None:
+                pairs = self._known_pairs(calls, key, fingerprint)
+            program = SegmentedReplayProgram(calls, plan, carried_pairs=pairs)
+            self.compile_count += 1
+            if cache is not None and key is not None:
+                cache.put(key, program)
+            bound = BoundSegmentedReplay.from_own(program)
+        else:
+            bound = BoundSegmentedReplay.bind(program, calls)
+        ctx = self.context(client_id)
+        if self.execute:
+            bound.seed_carried(ctx.env)
+        ctx.split = bound
+        return from_cache
+
+    def _known_pairs(self, calls: List[InterceptedCall], *keys: str) -> Tuple[Tuple[int, int], ...]:
+        """Carried pairs persisted under the first of ``keys`` whose metadata
+        has them; metadata that does not fit these calls is stale, and its
+        entry is forgotten."""
+        n_in = sum(1 for c in calls if c.record.func == FUNC_H2D)
+        n_out = sum(1 for c in calls if c.record.func == FUNC_D2H)
+        for key in keys:
+            meta = self.replay_cache.known_metadata(key) or {}
+            pairs = tuple((int(i), int(j)) for i, j in meta.get("carried_pairs", ()))
+            if not pairs:
+                continue
+            if all(0 <= i < n_in and 0 <= j < n_out for i, j in pairs):
+                return pairs
+            self.replay_cache.forget_known(key)
+        return ()
 
     def replay_values(
         self,
@@ -802,6 +1198,11 @@ class RRTOClient:
     * ``transparent`` (Cricket) — always record-phase behaviour, no search;
     * ``semi_rrto`` — Cricket + client-side caching of device-query RPCs;
     * ``rrto`` — full record/replay with Operator Sequence Search.
+
+    With ``partition`` (a :class:`~repro_torch.partition.PartitionConfig`)
+    the locked IOS is split between the mobile device (``client_device``,
+    simulated) and the server by an adaptive planner; inference inputs travel
+    divided by ``input_wire_divisor`` when a cut ships them.
     """
 
     def __init__(
@@ -814,6 +1215,9 @@ class RRTOClient:
         variant: str = "rrto",
         min_repeats: int = 3,
         client_id: str = DEFAULT_CLIENT,
+        client_device: DeviceSpec = JETSON_XAVIER_NX,
+        partition: Optional[Any] = None,
+        input_wire_divisor: float = 1.0,
     ):
         if variant not in ("rrto", "semi_rrto", "transparent"):
             raise ValueError(variant)
@@ -824,6 +1228,8 @@ class RRTOClient:
         self.variant = variant
         self.min_repeats = min_repeats
         self.client_id = client_id
+        self.client_device = client_device
+        self.input_wire_divisor = input_wire_divisor
         # multi-tenant hooks: the IOS fingerprint once identified (with a
         # replay cache on the server), whether the IOS was adopted from the
         # shared cache (skipping the min_repeats wait), and an optional
@@ -831,6 +1237,19 @@ class RRTOClient:
         self.ios_fp: Optional[str] = None
         self.cache_adopted = False
         self.replay_submit: Optional[Any] = None
+        # split replay (None = classic full-server replay); co-tenant server
+        # segments batch through ``split_submit`` when the edge server sets it
+        self.partition = partition
+        self.replanner: Optional[Any] = None
+        self.split_plan: Optional[Any] = None
+        self._split_output_local: List[bool] = []
+        self.split_submit: Optional[Any] = None
+        # the pipelined stream executor (partition.pipelined), rebuilt on
+        # every plan install and read by OffloadSession.infer_stream; while
+        # installed it holds a cache claim on its fp|plan key, so eviction
+        # cannot purge the base program under a running stream
+        self.pipelined_exec: Optional[PipelinedSegmentedReplay] = None
+        self._stream_claim: Optional[str] = None
 
         self.mode = MODE_RECORDING
         self.logs: List[OperatorRecord] = []
@@ -872,6 +1291,40 @@ class RRTOClient:
     @property
     def stateful_replay(self) -> bool:
         return bool(self._carried_in_map)
+
+    def expand_stream_outputs(self, wire_outs: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The app-visible output list from a stream executor's wire outputs:
+        carried D2H ordinals get the stable placeholder handle, wire ordinals
+        their value — the arity and meaning of a sequential ``infer()``."""
+        if not self._carried_out_map:
+            return list(wire_outs)
+        n_out = len(wire_outs) + len(self._carried_out_map)
+        return [
+            self._carried_placeholders.get(self._carried_out_map[c])
+            if c in self._carried_out_map else wire_outs[self._wire_out_index[c]]
+            for c in range(n_out)
+        ]
+
+    def extract_fresh_carried(
+        self, uploads: List[torch.Tensor]
+    ) -> Tuple[List[torch.Tensor], Optional[Dict[int, torch.Tensor]]]:
+        """Split one arrival's uploads into (wire inputs, fresh-state
+        overrides), as the sequential H2D walk does: a carried position
+        holding the threaded handle costs nothing; any other value is new
+        state that overwrites the resident state before the submission
+        runs."""
+        wire: List[torch.Tensor] = []
+        fresh: Dict[int, torch.Tensor] = {}
+        for ordinal, v in enumerate(uploads):
+            idx = self._carried_in_map.get(ordinal)
+            if idx is None:
+                wire.append(v)
+            elif not _is_handle(v, self._carried_placeholders.get(idx)):
+                fresh[idx] = v
+                # the handle the app threads from now on is a writable copy,
+                # as on the sequential path
+                self._carried_placeholders[idx] = v.clone()
+        return wire, (fresh or None)
 
     def _account_network(self, rpcs: int, nbytes: float) -> None:
         self.stats.rpcs += rpcs
@@ -1008,7 +1461,27 @@ class RRTOClient:
             fingerprint=fp,
             carried_pairs=pairs,
         )
-        self._configure_carried(self.server.context(self.client_id).replay.program)
+        program = self.server.context(self.client_id).replay.program
+        self._configure_carried(program)
+        if self.partition is not None:
+            from repro_torch.partition.adaptive import AdaptiveReplanner
+            from repro_torch.partition.segments import SegmentGraph
+
+            # a stateful IOS partitions too: the graph built with the carried
+            # pairs limits the planner to carried-feasible cuts, so the state
+            # stays server-resident under any plan it returns
+            self.replanner = AdaptiveReplanner(
+                SegmentGraph(self._ios_calls, carried_pairs=program.carried_pairs),
+                self.client_device,
+                self.server.device_spec,
+                rtt_s=self.network.base_rtt_s,
+                power=self.meter.power_model,
+                config=self.partition,
+                input_wire_divisor=self.input_wire_divisor,
+            )
+            self._install_plan(self.replanner.initial_plan(
+                self.network.bandwidth_at(self.clock.t), self.clock.t
+            ))
         self.mode = MODE_REPLAYING
         self._replay_pos = 0
 
@@ -1040,6 +1513,59 @@ class RRTOClient:
                 # refreshes the app-held handle in place
                 self._carried_placeholders[idx] = host_copy(v)
 
+    def _claim_stream_key(self, key: Optional[str]) -> None:
+        """Swap the stream executor's cache claim: release the previous one
+        and claim ``key``, so the base program behind an installed
+        :class:`PipelinedSegmentedReplay` stays pinned for exactly the
+        executor's lifetime."""
+        cache = self.server.replay_cache
+        if cache is None:
+            return
+        if self._stream_claim is not None:
+            cache.release(self._stream_claim)
+            self._stream_claim = None
+        if key is not None:
+            cache.claim(key)
+            self._stream_claim = key
+
+    def _install_plan(self, plan: Any) -> None:
+        """Adopt a split plan; a full-server plan reverts to classic replay.
+
+        Carried state survives every swap: each stateful program refreshes
+        the env's carried buffers after its step, and each install seeds the
+        adopting binding from the env, so the live state moves between the
+        whole-program and the segmented binding without visiting the host."""
+        if plan.is_full_server:
+            if self.split_plan is not None and self.stateful_replay and self.server.execute:
+                # the split suffix held the live state; hand it back to the
+                # whole-program binding before classic replay resumes
+                ctx = self.server.context(self.client_id)
+                ctx.replay.seed_carried(ctx.env)
+            self.split_plan = None
+            self.pipelined_exec = None
+            self._claim_stream_key(None)
+            return
+        self.split_plan = plan
+        self.server.prepare_split(
+            self._ios_calls, plan, client_id=self.client_id, fingerprint=self.ios_fp,
+            carried_pairs=self.ios.carried_pairs if self.ios is not None else (),
+        )
+        if self.partition is not None and self.partition.pipelined:
+            self.pipelined_exec = PipelinedSegmentedReplay(
+                self.server.context(self.client_id).split,
+                self.client_device,
+                self.server,
+                self.network,
+                input_wire_divisor=self.input_wire_divisor,
+                t0=self.clock.t,
+            )
+            self._claim_stream_key(
+                f"{self.ios_fp}|{plan.signature()}" if self.ios_fp is not None else None
+            )
+        else:
+            self.pipelined_exec = None
+            self._claim_stream_key(None)
+
     # -- replaying-phase handling ----------------------------------------------
     def _replay_call(self, call: InterceptedCall) -> Any:
         rec = call.record
@@ -1054,6 +1580,7 @@ class RRTOClient:
             self._replay_outputs = None
             self._out_cursor = 0
             self._h2d_seen = 0
+            self._split_output_local = []
             self._inputs_uploaded = False
 
         self._replay_pos = (self._replay_pos + 1) % len(self.ios)
@@ -1063,9 +1590,10 @@ class RRTOClient:
             ordinal = self._h2d_seen
             self._h2d_seen += 1
             if ordinal in self._carried_in_map:
-                # loop-carried state: the server already holds it.  The app
-                # threading back the handle we gave it costs nothing; any
-                # other value is genuinely new state and ships as override.
+                # loop-carried state: the server already holds it, in the
+                # whole-program step or in the split plan's server suffix.
+                # The app threading back the handle we gave it costs
+                # nothing; any other value is new state and ships as override.
                 idx = self._carried_in_map[ordinal]
                 ph = self._carried_placeholders.get(idx)
                 v = call.h2d_value
@@ -1078,12 +1606,19 @@ class RRTOClient:
                     # by the app from then on) is a writable copy, so a DAM
                     # fallback can refresh it in place
                     self._carried_placeholders[idx] = v.clone()
+            elif self.split_plan is not None:
+                # split replay: wire inputs stay on the device until a
+                # segment schedule needs them on the wire
+                self._local()
+                self._replay_inputs.append(call.h2d_value)
             else:
                 # the only client->server RPC left: ship the raw input
                 self._rpc(rec.payload_bytes, 32)
                 self._inputs_uploaded = True
                 self._replay_inputs.append(call.h2d_value)
-            if self._h2d_seen == len(self.ios.h2d_positions):
+            if self._h2d_seen == len(self.ios.h2d_positions) and self.split_plan is not None:
+                self._run_split_replay()
+            elif self._h2d_seen == len(self.ios.h2d_positions):
                 fresh = self._fresh_carried or None
                 self._fresh_carried = {}
                 # the edge server's cross-client batcher when one is
@@ -1099,6 +1634,9 @@ class RRTOClient:
                     )
                 self._replay_outputs = outs
                 self._replay_done_at = done_at
+                # a full-server plan keeps watching the link, or a bandwidth
+                # collapse could never swap it back to a split
+                self._maybe_replan()
             return "cudaSuccess"
 
         if rec.category == CAT_D2H:
@@ -1116,8 +1654,13 @@ class RRTOClient:
                     ph = torch.zeros(shape, dtype=dtype)
                     self._carried_placeholders[idx] = ph
                 return ph
-            # wait for the one-shot execution to finish
+            # wait for the one-shot (or segmented) execution to finish
             self._wait_until(self._replay_done_at)
+            if cursor < len(self._split_output_local) and self._split_output_local[cursor]:
+                # produced by a device-resident segment: the download is a
+                # local copy, no network round trip
+                self._local()
+                return self._replay_outputs[self._wire_out_index.get(cursor, cursor)]
             dt = (
                 self.network._rtt_at(self.clock.t)
                 + self.network.transfer_time(rec.response_bytes, self.clock.t)
@@ -1131,15 +1674,80 @@ class RRTOClient:
         self._local()
         return expected.ret
 
+    def _run_split_replay(self) -> None:
+        """Execute the split plan: device segments run locally (device-class
+        cost, inference-power accounting), server segments occupy the shared
+        GPU, and boundary tensors ship with uplink overlapped against the
+        device compute that follows their producers.  Then the adaptive
+        re-planner observes the live bandwidth and may swap plans."""
+        from repro_torch.partition.segments import PLACE_SERVER, NetworkLink, compute_schedule
+
+        ctx = self.server.context(self.client_id)
+        bound = ctx.split
+        sched = compute_schedule(
+            bound.graph, self.split_plan, self.client_device, self.server.device_spec,
+            NetworkLink(self.network, self.input_wire_divisor), t0=self.clock.t,
+            # the D2H records pay the real output downlink; modeling it here
+            # would charge the shared ingress twice
+            include_output_downlink=False,
+        )
+        fresh = self._fresh_carried or None
+        self._fresh_carried = {}
+        outs = bound.execute(
+            self._replay_inputs, ctx.env, execute=self.server.execute, fresh_carried=fresh
+        )
+        # server segments occupy the shared GPU — through the co-tenant
+        # segment batcher when the edge server installed one
+        server_segs = [s for s in self.split_plan.segments if s.placement == PLACE_SERVER]
+        completions = [
+            self.split_submit(seg, dur, start) if self.split_submit is not None
+            else self.server.occupy(dur, start)
+            for seg, (start, dur) in zip(server_segs, sched.server_busy)
+        ]
+        # phase-integrated billing covers the body once: overlapped uplink is
+        # inside the inference draw (Schedule.radio_only_seconds)
+        self.meter.add(STATE_INFERENCE, sched.device_seconds)
+        self.meter.add(STATE_COMM, sched.radio_only_seconds)
+        self.meter.add(STATE_STANDBY, sched.wait_seconds)
+        self.clock.advance(sched.body_seconds)
+        if completions:
+            # co-tenant contention extended our server segments: with the
+            # segment batcher the wait is our own groups' completion, without
+            # it the shared queue's frontier
+            self._wait_until(
+                max(completions) if self.split_submit is not None else self.server.busy_until
+            )
+        self._account_network(sched.crossings, sched.comm_bytes)
+        self._split_output_local = list(sched.output_local)
+        self._replay_outputs = outs
+        self._replay_done_at = self.clock.t
+        self._maybe_replan()
+
+    def _maybe_replan(self) -> None:
+        """Feed the live bandwidth to the adaptive re-planner; an adopted
+        swap takes effect from the next inference (this inference's D2H
+        locality is pinned by ``_split_output_local``)."""
+        if self.replanner is None:
+            return
+        new_plan = self.replanner.observe(
+            self.network.bandwidth_at(self.clock.t), self.clock.t
+        )
+        if new_plan is not None:
+            self._install_plan(new_plan)
+
     def _fallback(self, call: InterceptedCall) -> Any:
         """Sequence deviation (DAM): ship the locally-answered prefix to the
         server for catch-up, revert to recording, re-search later."""
         self.fallbacks += 1
         self.mode = MODE_RECORDING
         # download + refresh the app-held carried-state handle from the live
-        # stateful program first
+        # stateful program first, while the binding that holds the state
+        # (split suffix or whole program) is installed; then drop the stream
+        # executor: infer_stream runs closed-loop until a new lock
         if self._carried_in_map:
             self._materialize_carried_prefix()
+        self.pipelined_exec = None
+        self._claim_stream_key(None)
         # a deviation at the first record of an inference leaves no partial
         # round: the previous one was replayed in full
         done = self._replay_prefix if self._replay_pos else []
@@ -1161,12 +1769,21 @@ class RRTOClient:
         self._h2d_seen = 0
         return self._record_call(call)
 
+    def _carried_state_source(self) -> Any:
+        """The binding that advanced the carried state last: the split
+        suffix's when a split plan is active, else the whole program's."""
+        ctx = self.server.context(self.client_id)
+        split = ctx.split
+        if self.split_plan is not None and split is not None and split.carried_state is not None:
+            return split
+        return ctx.replay
+
     def _materialize_carried_prefix(self) -> None:
         """Before a catch-up after a mid-round deviation, turn the carried
         placeholder uploads in the prefix into the real server-resident
         values (the app only ever held handles).  The download is a real RPC
         — this is the price of deviating from a stateful IOS."""
-        bound = self.server.context(self.client_id).replay
+        bound = self._carried_state_source()
         # mid-round after this round's step already ran, the round's input is
         # the state that step started from; otherwise the current state
         step_ran = 0 < self._replay_pos and self._h2d_seen == len(self.ios.h2d_positions)

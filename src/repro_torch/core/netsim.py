@@ -1,10 +1,13 @@
 """MEC network simulation — trace-driven wireless bandwidth + RTT model.
 
-The link subset of ``repro.core.netsim``: the paper's measured
+The link part of ``repro.core.netsim``: the paper's measured
 environments (Fig. 3), indoor lab (93 Mbps mean, mild fluctuation) and outdoor
 garden (73 Mbps mean, heavy fluctuation with occasional near-zero drops from
 obstruction), as deterministic (seeded) 0.1 s-interval traces over 5 minutes,
-and the shared edge-server ingress that co-tenant clients contend for.
+and the shared edge-server ingress that co-tenant clients contend for; and
+the discrete-event timeline that pipelined and open-loop serving run on
+(client clock skew, arrival processes, capacity resources, the event
+scheduler).
 
 The link is simulated; every latency/energy number derived from it is a model
 output, not a measurement.
@@ -12,7 +15,9 @@ output, not a measurement.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import heapq
+import itertools
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
@@ -155,6 +160,142 @@ def outdoor_network(seed: int = 1) -> NetworkModel:
         base_rtt_s=1.8e-4,
         rtt_jitter_s=1.0e-4,
     )
+
+
+# ---------------------------------------------------------------------------
+# discrete-event timeline — the substrate of pipelined / open-loop serving
+# ---------------------------------------------------------------------------
+#
+# The cooperative round driver (serving/multitenant.py) advances one shared
+# clock lockstep, which cannot express two things a sustained stream is made
+# of: clients whose clocks disagree, and work that arrives whether or not the
+# previous inference finished.  The pieces below model exactly that.
+
+
+@dataclasses.dataclass
+class ClientClock:
+    """One client's local clock, related to global (server) time by a fixed
+    offset plus a linear drift: ``global = offset + local * (1 + drift)``.
+    Per-client timestamps must be mapped onto the global timeline before they
+    can be compared or scheduled."""
+
+    offset_s: float = 0.0
+    drift: float = 0.0       # fractional rate error (50e-6 = 50 ppm fast)
+
+    def to_global(self, local_t: float) -> float:
+        return self.offset_s + local_t * (1.0 + self.drift)
+
+    def to_local(self, global_t: float) -> float:
+        return (global_t - self.offset_s) / (1.0 + self.drift)
+
+
+def poisson_arrivals(
+    rate_hz: float, n: int, seed: int = 0, start: float = 0.0
+) -> List[float]:
+    """Open-loop Poisson arrival process: ``n`` arrival times (seconds) with
+    exponential inter-arrival gaps at ``rate_hz``.  The source does not wait
+    for completions, so an overloaded pipeline accumulates queue."""
+    if rate_hz <= 0:
+        raise ValueError(f"arrival rate must be positive, got {rate_hz}")
+    rng = np.random.default_rng(seed)
+    gaps = rng.exponential(1.0 / rate_hz, size=n)
+    return list(start + np.cumsum(gaps))
+
+
+def periodic_arrivals(
+    period_s: float, n: int, start: float = 0.0, jitter_s: float = 0.0,
+    seed: int = 0,
+) -> List[float]:
+    """Fixed-rate arrival process (frame clock) with optional uniform jitter."""
+    if period_s <= 0:
+        raise ValueError(f"period must be positive, got {period_s}")
+    ts = start + period_s * (1.0 + np.arange(n))
+    if jitter_s > 0.0:
+        rng = np.random.default_rng(seed)
+        ts = ts + rng.uniform(0.0, jitter_s, size=n)
+    return list(np.maximum.accumulate(ts))  # jitter never reorders arrivals
+
+
+@dataclasses.dataclass
+class CapacityResource:
+    """A serially shared unit resource (client SoC, half-duplex radio, server
+    GPU) on the discrete-event timeline.  Reservations serialize on a busy
+    frontier (``free_at``) and every busy interval is recorded, the same
+    semantics as ``OffloadServer.busy_until``.  ``record_intervals=False``
+    keeps only the running total (``busy_total``), for session-lifetime
+    resources driven by an unbounded stream."""
+
+    name: str
+    free_at: float = 0.0
+    record_intervals: bool = True
+    busy: List[Tuple[float, float]] = dataclasses.field(default_factory=list)
+    busy_total: float = 0.0
+
+    def earliest(self, t: float) -> float:
+        """Earliest instant a reservation requested at ``t`` can begin."""
+        return max(t, self.free_at)
+
+    def reserve(self, start: float, duration: float) -> Tuple[float, float]:
+        """Reserve ``duration`` seconds no earlier than ``start``; returns the
+        actual ``(begin, end)`` interval."""
+        if duration < 0:
+            raise ValueError(f"negative reservation: {duration}")
+        begin = self.earliest(start)
+        end = begin + duration
+        if duration > 0:
+            self.busy_total += duration
+            if self.record_intervals:
+                self.busy.append((begin, end))
+        self.free_at = end
+        return begin, end
+
+    def busy_seconds(self, t0: float = 0.0, t1: Optional[float] = None) -> float:
+        """Total reserved time intersected with ``[t0, t1]``.  A totals-only
+        resource answers only the whole-lifetime query."""
+        if not self.record_intervals:
+            if t0 == 0.0 and t1 is None:
+                return self.busy_total
+            raise ValueError(f"{self.name}: windowed busy_seconds needs record_intervals=True")
+        hi = t1 if t1 is not None else self.free_at
+        return sum(max(0.0, min(e, hi) - max(b, t0)) for b, e in self.busy)
+
+    def utilization(self, t0: float = 0.0, t1: Optional[float] = None) -> float:
+        hi = t1 if t1 is not None else self.free_at
+        span = hi - t0
+        return self.busy_seconds(t0, t1) / span if span > 0 else 0.0
+
+
+class EventTimeline:
+    """A minimal discrete-event scheduler: ``at(t, fn)`` enqueues, ``run()``
+    fires callbacks in global-time order (FIFO among ties).  Handlers may
+    schedule further events; ``now`` is the time of the firing event."""
+
+    def __init__(self):
+        self._heap: List[Tuple[float, int, Callable[[], None]]] = []
+        self._seq = itertools.count()
+        self.now = 0.0
+        self.fired = 0
+
+    def at(self, t: float, fn: Callable[[], None]) -> None:
+        heapq.heappush(self._heap, (float(t), next(self._seq), fn))
+
+    def __len__(self) -> int:
+        return len(self._heap)
+
+    def run(self, until: Optional[float] = None) -> float:
+        """Fire events until the queue drains (or past ``until``); returns
+        the time of the last fired event."""
+        while self._heap:
+            t, _, fn = self._heap[0]
+            if until is not None and t > until:
+                break
+            heapq.heappop(self._heap)
+            if t < self.now:
+                raise RuntimeError(f"event at {t} scheduled before current time {self.now}")
+            self.now = t
+            self.fired += 1
+            fn()
+        return self.now
 
 
 def get_network(name: str, seed: Optional[int] = None) -> NetworkModel:

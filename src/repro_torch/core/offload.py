@@ -32,6 +32,7 @@ from repro_torch.core.energy import (
 )
 from repro_torch.core.engine import (
     DEFAULT_CLIENT,
+    MODE_REPLAYING,
     REPLAY_FUSION_FACTOR,
     REPLAY_KERNELS_PER_FUSION,
     OffloadServer,
@@ -131,6 +132,19 @@ class InferenceResult:
     mode: str
 
 
+@dataclasses.dataclass
+class StreamResult:
+    """One inference of an open-loop stream (see ``infer_stream``)."""
+
+    outputs: List[torch.Tensor]
+    arrival_t: float          # absolute simulated arrival time
+    done_at: float            # absolute in-order completion time
+
+    @property
+    def latency_seconds(self) -> float:
+        return self.done_at - self.arrival_t
+
+
 class OffloadSession:
     """One application process using one offloading system.
 
@@ -139,7 +153,9 @@ class OffloadSession:
     unique ``client_id`` to multiplex several sessions over one edge server:
     per-client state (mode, log, energy meter, device-memory namespace)
     stays separate while the kernel queue, replay cache and GPU occupancy
-    are shared (see ``repro_torch.serving.multitenant``)."""
+    are shared (see ``repro_torch.serving.multitenant``).  ``partition`` (a
+    :class:`~repro_torch.partition.PartitionConfig`, rrto only) splits the
+    replayed IOS between the device and the server."""
 
     def __init__(
         self,
@@ -156,6 +172,7 @@ class OffloadSession:
         clock: Optional[SimClock] = None,
         client_id: str = DEFAULT_CLIENT,
         device: Any = "cuda",
+        partition: Optional[Any] = None,
     ):
         """``execute=False`` makes an account-only session: the clock,
         network, energy and record streams run as usual, nothing is
@@ -214,6 +231,9 @@ class OffloadSession:
                 variant=variant,
                 min_repeats=min_repeats,
                 client_id=client_id,
+                client_device=self.client_device,
+                partition=partition if system == "rrto" else None,
+                input_wire_divisor=model.input_wire_divisor,
             )
             self.interceptor = GraphInterceptor(
                 self.client,
@@ -262,17 +282,21 @@ class OffloadSession:
     def _param_addrs_for(self, graph: FlatGraph) -> List[int]:
         return [self._const_addrs[id(c)] for c in graph.consts]
 
-    def replay_wire_inputs(self, inputs: Sequence[Any]) -> List[torch.Tensor]:
-        """The HtoD payloads one replay-phase inference of ``inputs`` ships,
-        in wire order: the steady graph's invars that are not resident (the
-        setup outputs are), without the loop-carried ones (server-resident
-        state).  The multi-tenant batcher preloads a round with them before
-        the clients submit."""
+    def _uploads(self, inputs: Sequence[Any]) -> List[torch.Tensor]:
+        """The HtoD payloads one steady inference of ``inputs`` makes, in
+        order: the steady graph's invars that are not resident (the setup
+        outputs are)."""
         values = [*self._aux_leaves, *(to_host(x) for x in inputs)]
         resident = self._aux_addrs or {}
-        uploads = [v for i, v in enumerate(values) if i not in resident]
+        return [v for i, v in enumerate(values) if i not in resident]
+
+    def replay_wire_inputs(self, inputs: Sequence[Any]) -> List[torch.Tensor]:
+        """The HtoD payloads one replay-phase inference of ``inputs`` ships,
+        in wire order: :meth:`_uploads` without the loop-carried ones
+        (server-resident state).  The multi-tenant batcher preloads a round
+        with them before the clients submit."""
         carried = self.client.carried_input_ordinals if self.client else frozenset()
-        return [v for i, v in enumerate(uploads) if i not in carried]
+        return [v for i, v in enumerate(self._uploads(inputs)) if i not in carried]
 
     def _run_intercepted(self, inputs: Sequence[torch.Tensor]) -> List[Any]:
         if self._setup_graph is not None and self._aux_addrs is None:
@@ -331,6 +355,93 @@ class OffloadSession:
         )
         self.history.append(res)
         return res
+
+    def infer_stream(
+        self,
+        inputs_seq: Sequence[Tuple[Any, ...]],
+        *,
+        arrivals: Optional[Any] = None,
+    ) -> List[StreamResult]:
+        """Open-loop streaming inference: submit every element of
+        ``inputs_seq`` at its arrival offset (seconds from now; default 0, a
+        saturated back-to-back stream) without waiting for earlier
+        completions.
+
+        On a replay-locked split session with
+        ``PartitionConfig(pipelined=True)``, submissions double-buffer the
+        device/server cut through the client's
+        :class:`~repro_torch.core.engine.PipelinedSegmentedReplay`: the
+        steady-state per-inference latency is bottleneck-bound instead of
+        sum-bound, and results come in order, bitwise the sequential split
+        replay's.  Any other state (recording, full-server plan, pipelining
+        off) falls back to a closed-loop ``infer()`` per arrival, so a cold
+        session can be streamed from the start and warms itself up."""
+        if self.system != "rrto":
+            raise ValueError("infer_stream requires an rrto session")
+        if not self._loaded:
+            self.load()
+        inputs_seq = list(inputs_seq)
+        n = len(inputs_seq)
+        if n == 0:
+            return []
+        # any iterable of offsets (a poisson_arrivals list, a generator)
+        offs = [0.0] * n if arrivals is None else [float(a) for a in arrivals]
+        if len(offs) != n:
+            raise ValueError(f"{n} inputs but {len(offs)} arrival offsets")
+        for i, a in enumerate(offs):
+            if a < 0:
+                raise ValueError(
+                    f"arrival offset at index {i} is negative ({a!r}); offsets are "
+                    "seconds from now and must be >= 0"
+                )
+            if i > 0 and a < offs[i - 1]:
+                raise ValueError(
+                    f"arrival offsets must be non-decreasing: offset at index {i} "
+                    f"({a!r}) precedes offset at index {i - 1} ({offs[i - 1]!r})"
+                )
+        base = self.clock.t
+        cl = self.client
+        # the executor is valid only while the session is replay-locked (a
+        # DAM fallback reverts to recording and drops it)
+        pipe = cl.pipelined_exec if cl.mode == MODE_REPLAYING else None
+        if pipe is None:
+            results = []
+            for off, ins in zip(offs, inputs_seq):
+                cl._wait_until(base + off)
+                r = self.infer(*ins)
+                results.append(StreamResult(r.outputs, base + off, self.clock.t))
+            return results
+        env = self.server.context(self.client_id).env
+        dev0, link0 = pipe.busy_snapshot()
+        bytes0, cross0 = pipe.comm_bytes, pipe.crossings
+        outputs = []
+        for off, ins in zip(offs, inputs_seq):
+            wire, fresh = cl.extract_fresh_carried(self._uploads(ins))
+            if fresh:
+                # a fresh-state override ships once, as on the sequential
+                # path (its bytes are not in the pipeline chain's steady state)
+                cl._account_network(1, float(sum(a.numel() * a.element_size() for a in fresh.values())))
+            wire_outs = pipe.submit(wire, env, base + off, fresh_carried=fresh)
+            # carried ordinals answer with the stable handle, so the outputs
+            # have the arity of a sequential infer()
+            outputs.append(cl.expand_stream_outputs(wire_outs))
+        dones = pipe.flush()
+        results = [
+            StreamResult(o, base + off, done) for o, off, done in zip(outputs, offs, dones)
+        ]
+        # completions are in order, so the last one closes the window
+        wall = max(0.0, results[-1].done_at - base)
+        dev1, link1 = pipe.busy_snapshot()
+        dev_busy = dev1 - dev0
+        # phase-integrated billing sums to the wall time: radio time that
+        # overlaps device compute sits inside the inference draw
+        comm = min(link1 - link0, max(0.0, wall - dev_busy))
+        self.meter.add(STATE_INFERENCE, dev_busy)
+        self.meter.add(STATE_COMM, comm)
+        self.meter.add(STATE_STANDBY, max(0.0, wall - dev_busy - comm))
+        self.clock.advance(wall)
+        cl._account_network(pipe.crossings - cross0, pipe.comm_bytes - bytes0)
+        return results
 
     # ------------------------------------------------------------------
     def _direct(self, inputs) -> List[torch.Tensor]:

@@ -1,0 +1,130 @@
+"""Adaptive re-planning: track the live bandwidth and swap split plans when
+the modeled optimum moves (``repro.partition.adaptive``).
+
+A mobile client's link is nonstationary (the outdoor trace drops to near
+zero under obstruction), so a plan chosen at 90 Mbps is wrong at 5 Mbps —
+but re-planning on every sample would thrash between plans whose modeled
+costs differ by noise, and every swap builds a new segment program on the
+server.  The re-planner therefore:
+
+* EMA-smooths observed bandwidth samples (``bandwidth_ema``);
+* rate-limits planning itself (``min_replan_interval_s`` of simulated time);
+* applies switching hysteresis: the candidate must beat the *current*
+  plan's modeled cost at the smoothed bandwidth by at least ``hysteresis``
+  (relative) before it is adopted.
+
+It sees bandwidth samples and returns plans; the replay engine owns plan
+installation.  A graph built with ``carried_pairs`` constrains
+``plan_partition`` to carried-feasible cuts, so every plan this class
+returns keeps the loop-carried state server-resident.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.core.costmodel import DeviceSpec
+from repro_torch.core.energy import PowerModel
+from repro_torch.partition.planner import (
+    EvaluatedPlan,
+    PartitionConfig,
+    evaluate_plan,
+    plan_cost,
+    plan_partition,
+)
+from repro_torch.partition.segments import SegmentGraph, SplitPlan
+
+
+class ReplannerStats:
+    """Re-planning counters, under the reference's names."""
+
+    def __init__(self):
+        self.observations = 0
+        self.plans_considered = 0
+        self.replans = 0                  # adopted swaps
+        self.rejected_by_hysteresis = 0
+
+
+class AdaptiveReplanner:
+    """Owns the current :class:`SplitPlan` for one client session."""
+
+    def __init__(
+        self,
+        graph: SegmentGraph,
+        device: DeviceSpec,
+        server: DeviceSpec,
+        *,
+        rtt_s: float = 1.0e-4,
+        power: Optional[PowerModel] = None,
+        config: Optional[PartitionConfig] = None,
+        input_wire_divisor: float = 1.0,
+    ):
+        self.graph = graph
+        self.device = device
+        self.server = server
+        self.rtt_s = rtt_s
+        self.power = power or PowerModel()
+        self.config = config or PartitionConfig()
+        self.input_wire_divisor = input_wire_divisor
+        self.stats = ReplannerStats()
+        self.ema_bandwidth: Optional[float] = None
+        self._last_plan_t: Optional[float] = None
+        self.current: Optional[EvaluatedPlan] = None
+
+    def _plan_at(self, bandwidth: float) -> EvaluatedPlan:
+        self.stats.plans_considered += 1
+        ev = plan_partition(
+            self.graph, self.device, self.server, bandwidth,
+            rtt_s=self.rtt_s, power=self.power, config=self.config,
+            input_wire_divisor=self.input_wire_divisor,
+        )
+        # a stateful graph never yields a cut that would strand the carried
+        # state on the device side
+        assert self.graph.plan_carried_feasible(ev.plan), ev.plan.signature()
+        return ev
+
+    def initial_plan(self, bandwidth: float, now: float = 0.0) -> SplitPlan:
+        self.ema_bandwidth = bandwidth
+        self._last_plan_t = now
+        self.current = self._plan_at(bandwidth)
+        return self.current.plan
+
+    def observe(self, bandwidth: float, now: float) -> Optional[SplitPlan]:
+        """Feed one bandwidth sample; returns a new plan iff the session
+        should swap (hysteresis and rate limit already applied)."""
+        if self.current is None:
+            return self.initial_plan(bandwidth, now)
+        self.stats.observations += 1
+        alpha = self.config.bandwidth_ema
+        self.ema_bandwidth = (
+            bandwidth
+            if self.ema_bandwidth is None
+            else alpha * bandwidth + (1 - alpha) * self.ema_bandwidth
+        )
+        if not self.config.adaptive:
+            return None
+        if (
+            self._last_plan_t is not None
+            and now - self._last_plan_t < self.config.min_replan_interval_s
+        ):
+            return None
+        self._last_plan_t = now
+
+        candidate = self._plan_at(self.ema_bandwidth)
+        if candidate.plan.signature() == self.current.plan.signature():
+            self.current = candidate     # refresh the modeled cost at this bw
+            return None
+        # hysteresis compares both plans at the *same* operating point
+        incumbent = evaluate_plan(
+            self.graph, self.current.plan, self.device, self.server, self.ema_bandwidth,
+            rtt_s=self.rtt_s, power=self.power, input_wire_divisor=self.input_wire_divisor,
+        )
+        objective = self.config.objective
+        if plan_cost(candidate, objective) < plan_cost(incumbent, objective) * (
+            1.0 - self.config.hysteresis
+        ):
+            self.current = candidate
+            self.stats.replans += 1
+            return candidate.plan
+        self.stats.rejected_by_hysteresis += 1
+        self.current = incumbent
+        return None

@@ -88,7 +88,10 @@ class RRTOServedLM:
     Without it the app recomputes the whole bucket per token
     (``next_token``) and every replayed token uploads the bucket.  With
     ``edge`` the session is client ``client_id`` of that edge server (the
-    rrto system only), on the edge server's device."""
+    rrto system only), on the edge server's device.  ``partition`` (a
+    :class:`~repro_torch.partition.PartitionConfig`) splits the replayed
+    step between the device and the server; the carried state stays in the
+    server suffix."""
 
     def __init__(
         self,
@@ -104,6 +107,7 @@ class RRTOServedLM:
         device: Any = "cuda",
         edge: Optional[RRTOEdgeServer] = None,
         client_id: Optional[str] = None,
+        partition: Optional[Any] = None,
     ):
         self.cfg = cfg
         self.bucket_len = bucket_len
@@ -157,10 +161,12 @@ class RRTOServedLM:
         if edge is not None:
             if system != "rrto":
                 raise ValueError("multi-tenant mode serves the rrto system only")
-            self.session = edge.connect(offloadable, client_id=client_id, min_repeats=min_repeats)
+            self.session = edge.connect(
+                offloadable, client_id=client_id, min_repeats=min_repeats, partition=partition
+            )
         else:
             self.session = OffloadSession(
-                offloadable, system, min_repeats=min_repeats, device=dev
+                offloadable, system, min_repeats=min_repeats, device=dev, partition=partition
             )
 
     # -- generation ---------------------------------------------------------

@@ -29,7 +29,13 @@ the shared pieces:
   per-client loop under the same modeled batch timing.  Widths pad to the
   next power of two (padded lanes replay lane 0 and are discarded, and only
   the real lanes are billed), so a fingerprint needs O(log N) batched
-  programs.
+  programs.  Split-mode clients (a ``partition`` config) batch their
+  *server segments* instead: co-tenants whose plans share a (fingerprint,
+  segment bounds) pair occupy the GPU once for the group
+  (:meth:`ReplayBatcher.submit_segment`, wired as
+  ``RRTOClient.split_submit``).  That is scheduling only: each client's
+  segment walk computes its own values, and a split session never goes
+  through the vmapped program.
 
 Simulation contract: sessions share one clock, so ``run_round`` drives them
 cooperatively — recording-phase clients serialize their RPC storms through
@@ -48,6 +54,7 @@ import torch
 
 from repro_torch.core.costmodel import GTX_2080TI, DeviceSpec
 from repro_torch.core.engine import (
+    BATCH_MARGINAL_COST,
     MODE_REPLAYING,
     BatchedReplayProgram,
     OffloadServer,
@@ -59,9 +66,11 @@ from repro_torch.core.netsim import ServerIngress, get_network
 from repro_torch.core.offload import InferenceResult, OffloadableModel, OffloadSession
 from repro_torch.core.opseq import bits_equal
 from repro_torch.device import resolve_device
+from repro_torch.partition.segments import PLACE_SERVER
 from repro_torch.serving.replay_cache import ReplayCache
 
 Members = List[Tuple[RRTOClient, List[torch.Tensor]]]
+SegKey = Tuple[str, int, int]    # (fingerprint, segment start, segment end)
 
 
 def _inputs_digest(ts: Sequence[torch.Tensor]) -> Tuple:
@@ -120,11 +129,21 @@ class _BatchGroup:
         return preloaded is not None and _inputs_equal(preloaded, inputs, digest=self.digest)
 
 
+@dataclasses.dataclass
+class _SegmentGroup:
+    done_at: float                   # the batched occupancy's completion
+    remaining: set                   # members that have not claimed yet
+    width: int
+
+
 class ReplayBatcher:
     """Groups same-fingerprint replay submissions into batched executions.
 
     Counters are plain attributes: ``batches_executed``, ``batched_replays``,
     ``solo_replays``, ``vmap_batches`` (groups executed as one vmap call),
+    ``seg_batches`` (co-tenant server segments run as one occupancy),
+    ``seg_batched`` and ``seg_solo`` (segment submissions served from such a
+    group, or alone),
     ``vmap_compiles`` (batched programs built, not taken from the cache),
     ``vmap_compiles_avoided`` (widths served by a padded program built for
     another width), ``vmap_padded_lanes`` and ``digest_cache_hits``;
@@ -138,6 +157,8 @@ class ReplayBatcher:
         self.enable_vmap = True
         self._pending: Dict[str, Members] = {}
         self._groups: Dict[str, _BatchGroup] = {}
+        self._seg_pending: Dict[SegKey, List[str]] = {}
+        self._seg_groups: Dict[SegKey, _SegmentGroup] = {}
         # client id -> (bound replay, wire-input digest): the signature is a
         # program property, computed once per binding
         self._digest_cache: Dict[str, Tuple[Any, Tuple]] = {}
@@ -154,13 +175,31 @@ class ReplayBatcher:
         self.vmap_padded_lanes = 0
         self.digest_cache_hits = 0
         self.batch_sizes: List[int] = []
+        self.seg_batches = 0
+        self.seg_batched = 0
+        self.seg_solo = 0
 
-    def begin_round(self, entries: Dict[str, Members]) -> None:
+    def begin_round(
+        self,
+        entries: Dict[str, Members],
+        seg_entries: Optional[Dict[SegKey, List[str]]] = None,
+    ) -> None:
         """Preload one driving round: for each fingerprint, the replay-phase
-        clients that will submit this round and their wire inputs."""
+        clients that will submit this round and their wire inputs; for each
+        (fingerprint, server segment), the split-mode clients whose plans run
+        that segment on the GPU this round."""
         self.end_round()
         self._pending = {fp: list(members) for fp, members in entries.items()}
         self._groups = {}
+        self._seg_pending = {k: list(v) for k, v in (seg_entries or {}).items()}
+        self._seg_groups = {}
+        cache = self.server.replay_cache
+        if cache is not None:
+            # pin the bases behind this round's segment groups for its
+            # duration; end_round releases the claims
+            for fp, _, _ in self._seg_pending:
+                cache.claim(f"{fp}|seg")
+                self._round_claims.append(f"{fp}|seg")
 
     def end_round(self) -> None:
         """Release the current round's cache claims: the bases behind its
@@ -174,8 +213,10 @@ class ReplayBatcher:
     @property
     def pending_depth(self) -> int:
         """Preloaded-but-unclaimed submissions in the current round."""
-        return sum(len(m) for m in self._pending.values()) + sum(
-            len(g.pending) for g in self._groups.values()
+        return (
+            sum(len(m) for m in self._pending.values())
+            + sum(len(g.pending) for g in self._groups.values())
+            + sum(len(m) for m in self._seg_pending.values())
         )
 
     def _wire_digest(self, client_id: str) -> Optional[Tuple]:
@@ -202,6 +243,52 @@ class ReplayBatcher:
             return self.submit(client, inputs, t, fresh_carried=fresh_carried)
 
         return submit
+
+    def make_split_submit(self, client: RRTOClient):
+        """A bound server-segment hook for ``RRTOClient.split_submit``."""
+
+        def submit(seg, solo_seconds: float, start: float) -> float:
+            return self.submit_segment(client, seg, solo_seconds, start)
+
+        return submit
+
+    def submit_segment(self, client: RRTOClient, seg, solo_seconds: float, start: float) -> float:
+        """One split-mode client's server segment reaching the GPU; returns
+        its completion time.
+
+        Co-tenants whose plans share this (fingerprint, segment bounds) key —
+        even when their device-side cuts differ — run the segment as one
+        batched GPU occupancy: the first submitter reserves the sub-linear
+        batched slot for the whole preloaded group and every member completes
+        at the group's finish.  The values stay per client (each client's
+        segment walk already computed its own); the batch is a shared-GPU
+        scheduling effect, modeled as ``batched_compute_seconds`` is."""
+        cid = client.client_id
+        key = (client.ios_fp, seg.start, seg.end) if client.ios_fp is not None else None
+        group = self._seg_groups.get(key) if key is not None else None
+        if group is None and key is not None:
+            members = self._seg_pending.pop(key, None)
+            if members and cid in members:
+                width = len(members)
+                compute = solo_seconds * (1.0 + BATCH_MARGINAL_COST * (width - 1))
+                begin = start + (self.window_s if width > 1 else 0.0)
+                group = _SegmentGroup(
+                    done_at=self.server.occupy(compute, begin), remaining=set(members),
+                    width=width,
+                )
+                self._seg_groups[key] = group
+                if width > 1:
+                    self.seg_batches += 1
+        if group is not None and cid in group.remaining:
+            group.remaining.discard(cid)
+            if group.width > 1:
+                self.seg_batched += 1
+            else:
+                self.seg_solo += 1
+            return max(group.done_at, start)
+        # not preloaded (or already claimed): a plain solo occupancy
+        self.seg_solo += 1
+        return self.server.occupy(solo_seconds, start)
 
     def submit(
         self,
@@ -411,6 +498,7 @@ class RRTOEdgeServer:
             **session_kwargs,
         )
         sess.client.replay_submit = self.batcher.make_submit(sess.client)
+        sess.client.split_submit = self.batcher.make_split_submit(sess.client)
         self.sessions[cid] = sess
         self.ingress.active_clients = len(self.sessions)
         return sess
@@ -422,16 +510,24 @@ class RRTOEdgeServer:
         Replay-phase clients' wire inputs are preloaded into the batcher so
         same-fingerprint submissions execute as one batched call;
         recording-phase clients run their per-operator RPC storms serialized
-        through the shared server and ingress."""
+        through the shared server and ingress.  Split-plan clients run their
+        own segment walks, and their server segments batch by (fingerprint,
+        segment bounds)."""
         self.ingress.active_clients = len(inputs_by_client)
         entries: Dict[str, Members] = {}
+        seg_entries: Dict[SegKey, List[str]] = {}
         for cid, inputs in inputs_by_client.items():
             sess = self.sessions[cid]
             cl = sess.client
             if cl.mode != MODE_REPLAYING or cl.ios_fp is None:
                 continue
-            entries.setdefault(cl.ios_fp, []).append((cl, sess.replay_wire_inputs(inputs)))
-        self.batcher.begin_round(entries)
+            if cl.split_plan is None:
+                entries.setdefault(cl.ios_fp, []).append((cl, sess.replay_wire_inputs(inputs)))
+                continue
+            for seg in cl.split_plan.segments:
+                if seg.placement == PLACE_SERVER:
+                    seg_entries.setdefault((cl.ios_fp, seg.start, seg.end), []).append(cid)
+        self.batcher.begin_round(entries, seg_entries)
         try:
             return {
                 cid: self.sessions[cid].infer(*inputs)
@@ -466,6 +562,7 @@ class RRTOEdgeServer:
         sess.client.server = self.server
         sess.network.ingress = self.ingress
         sess.client.replay_submit = self.batcher.make_submit(sess.client)
+        sess.client.split_submit = self.batcher.make_split_submit(sess.client)
         self.sessions[cid] = sess
         self.ingress.active_clients = len(self.sessions)
         self.sessions_adopted += 1
@@ -518,6 +615,9 @@ class RRTOEdgeServer:
             vmap_compiles_avoided=b.vmap_compiles_avoided,
             vmap_padded_lanes=b.vmap_padded_lanes,
             digest_cache_hits=b.digest_cache_hits,
+            seg_batches=b.seg_batches,
+            seg_batched=b.seg_batched,
+            seg_solo=b.seg_solo,
             mean_batch=sum(b.batch_sizes) / len(b.batch_sizes) if b.batch_sizes else 0.0,
             link_bytes=self.ingress.bytes_total,  # both directions
             gpu_busy_seconds=self.server.busy_seconds,

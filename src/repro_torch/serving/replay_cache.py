@@ -14,7 +14,8 @@ fingerprint (:func:`repro_torch.core.opseq.ios_fingerprint`) and shares them:
 * eviction is LRU, bounded by entry count *and* by the programs' byte
   estimate (``capacity_bytes``).  Fingerprints can be **pinned** (residency
   for a paying tenant's model); a pin also covers the entries derived from
-  the fingerprint (``fp#vmap<n>`` batched programs).
+  the fingerprint (``fp|plan`` segmented programs, ``fp#vmap<n>`` batched
+  programs).
 
 The cache stores only *programs* (pure functions of the recorded payloads);
 per-client address bindings live in each client's
@@ -26,7 +27,9 @@ from a client's recorded calls.  A restarted edge server that loads a cache
 file knows every previously validated IOS: a client whose single recorded
 inference matches a persisted fingerprint adopts it at once, and the server
 builds the program on the first replay (stateful again, from the persisted
-carried pairs).
+carried pairs).  Segmented programs live under composite ``fp|plan`` keys,
+whose metadata persists the plan signature and the carried pairs the same
+way.
 """
 from __future__ import annotations
 
@@ -67,9 +70,9 @@ def program_nbytes(program: Any) -> int:
 
 
 def base_fingerprint(key: str) -> str:
-    """Collapse a derived cache key (``fp#vmap<n>``) to the IOS fingerprint
-    that owns it."""
-    return key.split("#", 1)[0]
+    """Collapse a derived cache key (``fp|plan`` segmented program,
+    ``fp#vmap<n>`` batched program) to the IOS fingerprint that owns it."""
+    return key.split("|", 1)[0].split("#", 1)[0]
 
 
 class ReplayCache:
@@ -133,9 +136,10 @@ class ReplayCache:
     def ios_lengths(self) -> Optional[Set[int]]:
         """Record counts of the IOSes a probe can match, or None when one is
         unknown (a persisted entry written without it)."""
-        lengths = [getattr(p, "n_records", None) for fp, p in self._entries.items() if "#" not in fp]
+        lengths = [getattr(p, "n_records", None) for fp, p in self._entries.items()
+                   if base_fingerprint(fp) == fp]
         lengths += [meta.get("n_records") for fp, meta in self._known.items()
-                    if fp not in self._entries]
+                    if fp not in self._entries and base_fingerprint(fp) == fp]
         return None if None in lengths else {int(n) for n in lengths}
 
     def _over_budget(self) -> bool:
@@ -237,6 +241,9 @@ class ReplayCache:
         avals = getattr(program, "d2h_avals", None)
         if avals is not None:
             meta["d2h_avals"] = [[list(shape), str(dtype)] for shape, dtype in avals]
+        plan = getattr(program, "plan", None)
+        if hasattr(plan, "signature"):
+            meta["plan"] = plan.signature()
         carried = getattr(program, "carried_pairs", None)
         if carried:
             # a restarted server rebuilds the program stateful, not as a

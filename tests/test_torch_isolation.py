@@ -41,6 +41,16 @@ with no_vmap_fallback():
     c = two.generate([prompt, prompt[:, :3]], 5)
 assert (c[0].tokens == a).all(), (c[0].tokens, a)
 assert two.edge.compile_count == 1 and two.edge.batcher.vmap_batches >= 1
+import repro_torch.partition
+from repro_torch.models.cnn_zoo import make_sensor_encoder
+from repro_torch.partition import PartitionConfig
+enc = make_sensor_encoder(0.25, 32, n_blocks=2, device="cpu")
+split = OffloadSession(enc, "rrto", min_repeats=2, device="cpu",
+                       partition=PartitionConfig(pipelined=True))
+res = [split.infer(*enc.example_inputs) for _ in range(4)]
+assert res[-1].mode == "replaying" and split.client.split_plan is not None
+streamed = split.infer_stream([tuple(enc.example_inputs)] * 2)
+assert all(bool((s.outputs[0] == res[-1].outputs[0]).all()) for s in streamed)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro")
 print("LOADED", bad)
 """
