@@ -48,7 +48,17 @@ random weights from a seed:
   split by the planner (bitwise plain rrto and ``device_only``), the
   planner's sweep over the partition benchmark's bandwidths, a pipelined
   Poisson stream bitwise the sequential split, and the recurrent decoder's
-  stateful split.
+  stateful split;
+* fault tolerance (phase 11): (a) qwen3-0.6b decoded through
+  ``EdgeFleet(2)`` with the stream held by a ``FleetClient``, clean and then
+  migrated r0 -> r1 after the lock, on a lossy link (at-most-once retries,
+  some step's response lost and answered from the dedup table) and through
+  a crash of r0 (restored on r1 from a checkpoint and the step log), each
+  bitwise the clean stream in tokens and final carried state; (b) zamba2-1.2b
+  stateless through one outage window: the request falls back to the device
+  (flash attention and the scan launch there too) and the stream heals; (c)
+  the split sensor encoder adopts the all-device plan for the outage and
+  re-offloads after it.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after (every batched call under ``no_vmap_fallback``, so an op
@@ -1991,6 +2001,336 @@ def split_sensor_models(dev) -> dict:
     return dict(rows=rows, period=pipe.period_seconds, latency=pipe.latency_seconds)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: fault tolerance (the lossy link, outages, the replica fleet)
+# ---------------------------------------------------------------------------
+
+FAULT_NEW = 8                # qwen3-0.6b tokens of each fleet stream (part a)
+FAULT_MIN_REPEATS = 2
+FAULT_LOSS = 0.08            # benchmarks/chaos_serving.py's lossy link...
+FAULT_SEED0 = 22             # ...and its seed, the first one part a tries
+FAULT_CKPT_EVERY = 4
+FAULT_CRASH_SEQ = 10         # r0 crashes once this many stateful steps ran
+FAULT_MAX_CKPTS = 3          # each checkpoint writes the whole namespace
+OUTAGE_S = 0.005             # benchmarks/chaos_serving.py's outage window
+FAULT_Z_NEW = 8              # zamba2-1.2b stateless tokens (part b)
+SENSOR_OUTAGE_INFERS = 8     # sensor encoder inferences (part c)
+
+
+def same_tensors(a, b) -> bool:
+    return a is not None and b is not None and len(a) == len(b) and bitwise(tuple(a), tuple(b))
+
+
+def timed_method(obj, name, dev, log: dict):
+    """Wrap ``obj.name`` so each call's seconds (to a synchronised card) and
+    result land in ``log[name]``; ``del obj.<name>`` restores the method."""
+    fn = getattr(obj, name)
+
+    def wrapped(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        sync(dev)
+        log.setdefault(name, []).append((time.perf_counter() - t0, out))
+        return out
+
+    setattr(obj, name, wrapped)
+
+
+def fleet_stream(dev, cfg, params, prompt, bucket, *, fault=None, migrate_at=None,
+                 ckpt_dir=None) -> dict:
+    """Part a: one stateful decode of ``FAULT_NEW`` tokens held by a
+    ``FleetClient`` of ``EdgeFleet(2, hedging=False)``, every step through
+    ``FleetClient.dispatch``.  ``migrate_at``: move the session r0 -> r1
+    before that step.  ``ckpt_dir``: checkpoint every ``FAULT_CKPT_EVERY``
+    stateful steps, at most ``FAULT_MAX_CKPTS`` times (each rewrites the
+    parameters), and keep the crashed box's tensors to check that nothing of
+    them survives into the restored session."""
+    from repro_torch.serving import EdgeFleet, FleetClient, RRTOServedLM
+
+    t_all = time.perf_counter()
+    fleet = EdgeFleet(2, hedging=False, fault=fault, checkpoint_dir=ckpt_dir,
+                      checkpoint_every=FAULT_CKPT_EVERY, device=dev)
+    served = RRTOServedLM(cfg, bucket_len=bucket, params=params, edge=fleet.replicas[0].edge,
+                          client_id="u0", min_repeats=FAULT_MIN_REPEATS)
+    sess = served.session
+    fc = fleet.clients["u0"] = FleetClient(fleet, sess.model, "u0", sess, "r0",
+                                           min_repeats=FAULT_MIN_REPEATS, stateful=True)
+    log, crashed = {}, None
+    if ckpt_dir is not None:
+        fleet.checkpointer.attach(sess.client)
+        timed_method(fleet.checkpointer, "maybe_checkpoint", dev, log)
+        timed_method(fleet, "recover", dev, log)
+    g = served.start_generation(prompt, FAULT_NEW)
+    steps = []
+    t0 = time.perf_counter()
+    for step in range(served.steps_total(g)):
+        if step == migrate_at:
+            src, dst = fleet.replica("r0").edge.server, fleet.replica("r1").edge.server
+            timed_method(src, "export_carried_state", dev, log)
+            timed_method(dst, "import_carried_state", dev, log)
+            timed_method(fleet, "migrate", dev, log)
+            check(fleet.migrate("u0", "r1") == "r1", "the migration did not land on r1")
+            del src.export_carried_state, dst.import_carried_state, fleet.migrate
+        if fault is not None and crashed is None and any(
+                tc <= fleet.clock.t for tc in fault.crashes.values()):
+            # the crash fires at this dispatch: hold the box's tensors
+            ctx = fleet.replica("r0").edge.server.contexts["u0"]
+            crashed = [*ctx.env.values(), *ctx.replay.carried_state]
+        res, _, _ = fc.dispatch(*served.step_inputs(g))
+        served.absorb_step(g, res.outputs)
+        steps.append((res.mode, res.rpcs, fleet.clock.t))
+        writes = [n for _, n in log.get("maybe_checkpoint", []) if n]
+        if fleet.checkpointer is not None and len(writes) >= FAULT_MAX_CKPTS:
+            fleet.checkpointer = None
+    sync(dev)
+    loop_s = time.perf_counter() - t0
+    return dict(
+        fleet=fleet, sess=sess, client=fc, steps=steps, log=log, crashed=crashed,
+        tokens=np.concatenate(g["out"], axis=1),
+        state=fleet.locate("u0").edge.server.export_carried_state("u0"),
+        wall=time.perf_counter() - t_all, loop_s=loop_s,
+        load_rpcs=sess.client.stats.rpcs - sum(r for _, r, _ in steps),
+        wire_outs=len(sess.client._wire_out_index),
+    )
+
+
+def predict_losses(seed: int, clean: dict) -> tuple:
+    """(retries, dedup replies) the lossy stream will see with ``seed``,
+    from the clean stream's transmissions in order: the load's uploads,
+    each recorded step's RPCs, and each replayed step's uploads followed by
+    its stateful step (a replayed step's wire downloads draw no fate).  The
+    losses change timing only, never which messages are sent, so the draws
+    line up with the lossy run's one for one."""
+    from repro_torch.core.netsim import FaultInjector
+
+    f = FaultInjector(seed=seed, rpc_loss_prob=FAULT_LOSS)
+    retries = dedup = 0
+
+    def send(n):
+        nonlocal retries
+        for _ in range(n):
+            while f.rpc_fate() != "ok":
+                f.jitter_unit()
+                retries += 1
+
+    send(clean["load_rpcs"])
+    for mode, rpcs, _ in clean["steps"]:
+        if mode != "replaying":
+            send(rpcs)
+            continue
+        send(rpcs - clean["wire_outs"])
+        executed = False
+        while True:            # RRTOClient._reliable_step's attempts
+            fate = f.rpc_fate()
+            if fate != "lost_request":
+                dedup += executed
+                executed = True
+                if fate == "ok":
+                    break
+            f.jitter_unit()
+            retries += 1
+    return retries, dedup
+
+
+def phase_fault_qwen(library, dev, cfg, params, prompt, dev_tokens, bucket, by_path) -> float:
+    """Part a: qwen3-0.6b through ``EdgeFleet(2)``: a clean stream, then a
+    migrated, a lossy and a crashed one, each bitwise the clean stream in
+    tokens and final carried state.  Returns the part's seconds."""
+    import tempfile
+
+    from repro_torch.core.netsim import FaultInjector
+
+    t_part = time.perf_counter()
+    kernels = ("rmsnorm", "decode_attention")
+    streams = {}
+
+    def run(kind, **kw):
+        label = f"phase 11a qwen3-0.6b {kind}"
+        streams[kind], by_path[label] = run_path(
+            library, label, kernels, lambda: fleet_stream(dev, cfg, params, prompt, bucket, **kw))
+        return streams[kind]
+
+    clean = run("clean")
+    check(np.array_equal(clean["tokens"], dev_tokens[:, :FAULT_NEW]),
+          f"fleet clean tokens {clean['tokens']} != device_only {dev_tokens[:, :FAULT_NEW]}")
+    modes = [m for m, *_ in clean["steps"]]
+    check("replaying" in modes and clean["sess"].client.stateful_replay,
+          "fleet clean stream never replayed statefully")
+    n_rec = modes.index("replaying")
+    replayed = [i for i, m in enumerate(modes) if m == "replaying"]
+    check(len(replayed) > FAULT_CRASH_SEQ + 2, f"only {len(replayed)} stateful steps")
+    print(f"[phase 11a] clean: {len(modes)} steps ({n_rec} recorded), tokens == phase 3's "
+          f"device_only; wall {clean['wall']:.1f} s ({1e3 * clean['loop_s'] / len(modes):.1f} "
+          f"ms per step); {clean['load_rpcs']} load RPCs")
+
+    def same_as_clean(kind, r):
+        check(np.array_equal(r["tokens"], clean["tokens"]),
+              f"{kind} tokens {r['tokens']} != clean {clean['tokens']}")
+        check(same_tensors(r["state"], clean["state"]), f"{kind} final carried state != clean")
+        fleet, cl = r["fleet"], r["sess"].client
+        hits = sum(rep.edge.server.dedup_hits for rep in fleet.replicas)
+        check(hits == cl.stats.dedup_replies,
+              f"{kind}: server dedup hits {hits} != client dedup replies {cl.stats.dedup_replies}")
+
+    mig = run("migrated", migrate_at=n_rec + 4)
+    same_as_clean("migrated", mig)
+    check(mig["fleet"].stats.migrations == 1 and mig["fleet"].locate("u0").name == "r1",
+          f"migrations {mig['fleet'].stats.migrations}")
+    (ex_s, state), = mig["log"]["export_carried_state"]
+    (im_s, _), = mig["log"]["import_carried_state"]
+    (mig_s, _), = mig["log"]["migrate"]
+    state_bytes = sum(t.numel() * t.element_size() for t in state)
+    print(f"migrated before step {n_rec + 4}: tokens and carried state bitwise == clean; "
+          f"migrate {mig_s:.3f} s (export {ex_s:.4f} s + import {im_s:.4f} s of {state_bytes} B "
+          f"carried state; the env's {mig['fleet'].stats.migration_bytes:.0f} B billed to the "
+          f"backhaul, moved by reference); wall {mig['wall']:.1f} s")
+
+    seed = FAULT_SEED0
+    while True:
+        want_retries, want_dedup = predict_losses(seed, clean)
+        if want_dedup:
+            break
+        seed += 1
+    lossy = run("lossy", fault=FaultInjector(seed=seed, rpc_loss_prob=FAULT_LOSS))
+    same_as_clean("lossy", lossy)
+    st = lossy["sess"].client.stats
+    check(st.dedup_replies >= 1 and st.retries >= 1,
+          f"lossy: {st.retries} retries, {st.dedup_replies} dedup replies")
+    check((st.retries, st.dedup_replies) == (want_retries, want_dedup),
+          f"lossy: ({st.retries}, {st.dedup_replies}) retries and dedup replies, predicted "
+          f"({want_retries}, {want_dedup})")
+    print(f"lossy link ({FAULT_LOSS} per message, seed {seed}, the first from {FAULT_SEED0} whose "
+          f"draws lose a stateful step's response): {st.retries} retries, {st.dedup_replies} "
+          f"dedup replies (as predicted), server dedup hits == dedup replies; tokens and carried "
+          f"state bitwise == clean; simulated clock {lossy['steps'][-1][-1]:.3f} s vs clean "
+          f"{clean['steps'][-1][-1]:.3f} s; wall {lossy['wall']:.1f} s")
+
+    # the crash lands between two step boundaries, by step index: r0 dies
+    # after the step before step k (the stateful step of sequence number
+    # FAULT_CRASH_SEQ) and is found dead at k's dispatch.  A crash-only
+    # injector and the checkpoints leave the simulated clock as the clean
+    # stream's, so its boundaries place the crash
+    k = replayed[FAULT_CRASH_SEQ]
+    ts = [t for *_, t in clean["steps"]]
+    with tempfile.TemporaryDirectory() as ckpt:
+        crash = run("crash", fault=FaultInjector(crashes={"r0": 0.5 * (ts[k - 2] + ts[k - 1])}),
+                    ckpt_dir=ckpt)
+    same_as_clean("crash", crash)
+    fs, cl = crash["fleet"].stats, crash["sess"].client
+    writes = [(n, sec) for sec, n in crash["log"]["maybe_checkpoint"] if n]
+    (restore_s, _), = crash["log"]["recover"]
+    check(fs.crashes == 1 and fs.crash_restores == 1 and cl.stats.crash_restores == 1,
+          f"crash: {fs.crashes} crashes, {fs.crash_restores} restores")
+    check(1 <= fs.checkpoints <= FAULT_MAX_CKPTS and fs.steps_replayed >= 1,
+          f"crash: {fs.checkpoints} checkpoints, {fs.steps_replayed} steps replayed")
+    check(crash["client"].primary == "r1", "crash: the session is not on r1")
+    dead = {t.untyped_storage().data_ptr() for t in crash["crashed"]}
+    ctx = crash["fleet"].replica("r1").edge.server.contexts["u0"]
+    restored = [*ctx.env.values(), *ctx.replay.carried_state]
+    check(all(t.untyped_storage().data_ptr() not in dead for t in restored),
+          "crash: the restored session shares storage with the crashed box")
+    print(f"crash of r0 before step {k} (stateful seq {FAULT_CRASH_SEQ}): restored on r1 in "
+          f"{restore_s:.2f} s, {fs.steps_replayed} logged steps replayed; checkpoints "
+          f"{[(n, round(sec, 3)) for n, sec in writes]} (bytes, write s); restored env and state "
+          f"share no storage with the crashed box ({len(dead)} tensors held); tokens and carried "
+          f"state bitwise == clean; wall {crash['wall']:.1f} s")
+    del streams
+    return time.perf_counter() - t_part
+
+
+def phase_fault_zamba(dev, cfg, params, prompt, dev_tokens, bucket) -> dict:
+    """Part b: zamba2-1.2b stateless through an ``RRTOEdgeServer`` with a
+    fault injector; one outage window opens at the second replayed request
+    (an outage-only injector changes nothing before it, so this is where a
+    clean run's boundary would put it).  The request falls back to the
+    device, with ``device_only``'s token, and the stream heals."""
+    from repro_torch.core.netsim import FaultInjector
+    from repro_torch.serving import RRTOEdgeServer, RRTOServedLM
+
+    fault = FaultInjector()
+    edge = RRTOEdgeServer(fault=fault, device=dev)
+    served = RRTOServedLM(cfg, stateful=False, bucket_len=bucket, params=params, edge=edge,
+                          client_id="z0", min_repeats=FAULT_MIN_REPEATS)
+    sess = served.session
+    timer = StepTimer(sess)
+    timed = sess.infer
+
+    def infer(*args):
+        modes = [h.mode for h in sess.history]
+        if not fault.outages and modes.count("replaying") == 1:
+            fault.outages = ((sess.clock.t, sess.clock.t + OUTAGE_S),)
+        return timed(*args)
+
+    sess.infer = infer
+    t0 = time.perf_counter()
+    tokens = served.generate(prompt, FAULT_Z_NEW).tokens
+    wall = time.perf_counter() - t0
+    modes = [h.mode for h in sess.history]
+    check(np.array_equal(tokens, dev_tokens[:, :FAULT_Z_NEW]),
+          f"zamba2 outage tokens {tokens} != device_only {dev_tokens[:, :FAULT_Z_NEW]}")
+    check(sess.client.stats.outage_fallbacks >= 1 and "outage_fallback" in modes,
+          f"zamba2: no outage fallback ({modes})")
+    check(modes[-1] == "replaying" and sess.client.mode == "replaying",
+          f"zamba2: the stream did not heal ({modes})")
+    for mode in ("replaying", "outage_fallback") if dev.type == "cuda" else ():
+        for kernel in ("rmsnorm", "flash_attention", "ssm_scan"):
+            got = timer.launches(mode, kernel)
+            check(bool(got) and all(n > 0 for n in got), f"zamba2 {mode}: {kernel} launches {got}")
+    fb = modes.index("outage_fallback")
+    print(f"[phase 11b] zamba2-1.2b stateless, outage {fault.outages}: modes "
+          f"{[m[:3] for m in modes]}; {sess.client.stats.outage_fallbacks} device fallback "
+          f"(token {tokens[0, fb]} == device_only's), healed to replay; tokens == phase 5's "
+          f"device_only; fallback {1e3 * timer.steps[fb][1]:.1f} ms wall with launches "
+          f"{timer.steps[fb][2]}; {wall:.1f} s")
+    return dict(modes=modes)
+
+
+def phase_fault_sensor(dev) -> dict:
+    """Part c: the sensor encoder at 96 split by the planner (no replan rate
+    limit, so the heal shows at the next sample) under one outage window
+    opened at its second replayed inference: ``declare_outage`` installs the
+    all-device plan, every output stays bitwise plain rrto's, and the
+    session re-offloads once the link is back."""
+    from repro_torch.core.netsim import FaultInjector
+    from repro_torch.core.offload import OffloadSession
+    from repro_torch.models.cnn_zoo import make_sensor_encoder
+    from repro_torch.partition import PartitionConfig
+
+    model = make_sensor_encoder(scale=1.0, input_size=96, device=dev)
+    fault = FaultInjector()
+    split = OffloadSession(model, "rrto", device=dev, fault=fault,
+                           partition=PartitionConfig(min_replan_interval_s=0.0))
+    plain = OffloadSession(model, "rrto", device=dev)
+    cl, plans = split.client, []
+    run_split = cl._run_split_replay
+
+    def logged_split():
+        # the plan each split inference runs with (a healed link may swap it
+        # again at the end of the same inference)
+        plans.append(cl.split_plan.n_device_ops)
+        run_split()
+
+    cl._run_split_replay = logged_split
+    t0 = time.perf_counter()
+    for _ in range(SENSOR_OUTAGE_INFERS):
+        if not fault.outages and [h.mode for h in split.history].count("replaying") == 1:
+            fault.outages = ((split.clock.t, split.clock.t + OUTAGE_S),)
+        s, p = split.infer(*model.example_inputs), plain.infer(*model.example_inputs)
+        check(same_tensors(s.outputs, p.outputs), f"sensor_encoder split under outage != plain "
+              f"rrto in {s.mode}")
+    rp = cl.replanner
+    n = rp.graph.n_ops
+    check(rp.stats.outage_replans == 1 and cl.stats.outage_fallbacks >= 1,
+          f"sensor_encoder: {rp.stats.outage_replans} outage replans, "
+          f"{cl.stats.outage_fallbacks} outage fallbacks")
+    check(n in plans, f"sensor_encoder: the all-device plan was never installed ({plans} of {n})")
+    check(plans[-1] < n, f"sensor_encoder: no re-offload after the heal ({plans} of {n})")
+    print(f"[phase 11c] sensor_encoder @ 96 under outage {fault.outages}: device ops of each split "
+          f"inference {plans} of {n} (the outage plan is all-device, then re-offloaded); outputs bitwise == "
+          f"plain rrto; {time.perf_counter() - t0:.1f} s")
+    return dict(plans=plans)
+
+
 def rss() -> str:
     """This process's resident host memory now (``/proc``, where the kernel
     reports it) and at its peak (``getrusage``)."""
@@ -2073,6 +2413,8 @@ def main() -> None:
     del split
     t10 = time.perf_counter() - t10
     torch.cuda.empty_cache()
+    t11 = phase_fault_qwen(library, dev, q_cfg, q_params, q_prompt, q_dev_tokens, BUCKET, by_path)
+    torch.cuda.empty_cache()
 
     m, by_path["zamba2-1.2b"] = run_path(
         library, "phase 4 zamba2-1.2b stateful", attn + ("ssm_scan",),
@@ -2094,6 +2436,12 @@ def main() -> None:
         library, "phase 10c zamba2-1.2b stateless segments",
         ("rmsnorm", "flash_attention", "ssm_scan"), lambda: split_segments_zamba(library, m, dev))
     t10 += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, by_path["phase 11b zamba2-1.2b stateless outage"] = run_path(
+        library, "phase 11b zamba2-1.2b stateless outage", ("rmsnorm", "flash_attention", "ssm_scan"),
+        lambda: phase_fault_zamba(dev, m["cfg"], params, m["prompt"], m["r_dev"].tokens,
+                                  Z_STATELESS_BUCKET))
+    t11 += time.perf_counter() - t0
     del m
     torch.cuda.empty_cache()
 
@@ -2118,6 +2466,11 @@ def main() -> None:
         library, "phase 10d sensor models split", (), lambda: split_sensor_models(dev))
     t10 += time.perf_counter() - t0
     print(f"[phase 10] split and pipelined replay: {t10:.1f} s over parts a-d")
+    t0 = time.perf_counter()
+    _, by_path["phase 11c sensor encoder outage"] = run_path(
+        library, "phase 11c sensor encoder outage", (), lambda: phase_fault_sensor(dev))
+    t11 += time.perf_counter() - t0
+    print(f"[phase 11] fault tolerance: {t11:.1f} s over parts a-c")
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()

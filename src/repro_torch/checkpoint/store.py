@@ -1,0 +1,167 @@
+"""Checkpoint store: manifest-driven, atomic, async-capable
+(``repro.checkpoint.store``, for a flat ``{name: tensor}`` dict).
+
+Layout, the reference's file for file:
+    <dir>/step_000123/
+        manifest.json          # step, leaf index: name -> (file, shape, dtype)
+        leaf_00000.npy ...     # one file per leaf
+    <dir>/LATEST               # atomically-renamed pointer file
+
+* atomic publish: data is written into ``step_x.tmp.<writer>/`` and then
+  renamed, so a crashed writer never corrupts LATEST;
+* restartability: ``latest_step`` + ``restore`` recover the newest complete
+  checkpoint, ignoring partial ``.tmp`` dirs;
+* async: ``save_async`` copies every leaf to the host first, then writes on
+  a background thread, overlapping the I/O with the next step.
+
+Leaves are named as the reference names a flat dict's leaves (``['key']``),
+so each package reads the other's checkpoints of float and integer leaves.
+numpy has no bfloat16: a bf16 leaf is stored as its raw 16 bits (uint16) and
+the manifest names it ``bfloat16``; loading gives back the same bits.
+"""
+from __future__ import annotations
+
+import itertools
+import json
+import os
+import shutil
+import threading
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+BFLOAT16 = "bfloat16"
+
+# distinguishes concurrent writers' staging dirs within one process; the pid
+# distinguishes processes
+_writer_ids = itertools.count()
+
+
+def _leaf_name(key: str) -> str:
+    return f"['{key}']"
+
+
+def _leaf_key(name: str) -> str:
+    return name[2:-2] if name.startswith("['") and name.endswith("']") else name
+
+
+def _host_array(value: Any) -> Tuple[np.ndarray, str]:
+    """A host snapshot of one leaf and its manifest dtype: a fresh copy,
+    whatever device the leaf is on (the caller's tensor may change after
+    ``save`` returns)."""
+    t = torch.as_tensor(value).detach().contiguous().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16), BFLOAT16
+    arr = t.numpy()
+    return arr, str(arr.dtype)
+
+
+def _from_array(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    if dtype == BFLOAT16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def save(ckpt_dir: str, step: int, flat: Dict[str, Any], *, blocking: bool = True) -> threading.Thread:
+    """Write a checkpoint of ``flat``; returns the writer thread (joined when
+    blocking)."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    # snapshot to host memory synchronously, before the writer starts
+    leaves = [(name, *_host_array(v)) for name, v in flat.items()]
+    # unique per writer: two non-blocking saves of the same step must never
+    # share a staging dir
+    token = f"{os.getpid()}.{next(_writer_ids)}"
+
+    def _write():
+        final = os.path.join(ckpt_dir, f"step_{step:08d}")
+        tmp = f"{final}.tmp.{token}"
+        os.makedirs(tmp)
+        manifest = {"step": step, "leaves": {}}
+        for i, (name, arr, dtype) in enumerate(leaves):
+            fname = f"leaf_{i:05d}.npy"
+            np.save(os.path.join(tmp, fname), arr)
+            manifest["leaves"][_leaf_name(name)] = {
+                "file": fname,
+                "shape": list(arr.shape),
+                "dtype": dtype,
+            }
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            # a concurrent same-step writer may be removing the stale dir at
+            # the same time; losing that race is harmless
+            shutil.rmtree(final, ignore_errors=True)
+        try:
+            os.rename(tmp, final)                  # atomic publish
+        except OSError:
+            # a concurrent writer published this step first; both staging
+            # dirs hold the same step, so keep theirs
+            shutil.rmtree(tmp, ignore_errors=True)
+        latest_tmp = os.path.join(ckpt_dir, f"LATEST.tmp.{token}")
+        with open(latest_tmp, "w") as f:
+            f.write(str(step))
+        os.replace(latest_tmp, os.path.join(ckpt_dir, "LATEST"))
+
+    t = threading.Thread(target=_write, daemon=True)
+    t.start()
+    if blocking:
+        t.join()
+    return t
+
+
+def save_async(ckpt_dir: str, step: int, flat: Dict[str, Any]) -> threading.Thread:
+    return save(ckpt_dir, step, flat, blocking=False)
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    path = os.path.join(ckpt_dir, "LATEST")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        step = int(f.read().strip())
+    if os.path.isdir(os.path.join(ckpt_dir, f"step_{step:08d}")):
+        return step
+    # LATEST points at an incomplete dir (crash window): fall back to a scan
+    steps = sorted(
+        int(d.split("_")[1]) for d in os.listdir(ckpt_dir)
+        if d.startswith("step_") and ".tmp" not in d
+    )
+    return steps[-1] if steps else None
+
+
+def _manifest(ckpt_dir: str, step: int) -> tuple:
+    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        return d, json.load(f)
+
+
+def load_flat(ckpt_dir: str, step: int) -> Dict[str, torch.Tensor]:
+    """Load a checkpoint without a template, as CPU tensors keyed by the
+    saved dict's keys: the session-recovery path, where the reader (a
+    surviving replica) has no template of the crashed session's state."""
+    d, manifest = _manifest(ckpt_dir, step)
+    return {
+        _leaf_key(name): _from_array(np.load(os.path.join(d, meta["file"])), meta["dtype"])
+        for name, meta in manifest["leaves"].items()
+    }
+
+
+def restore(ckpt_dir: str, step: int, template: Dict[str, torch.Tensor], *,
+            device: Any = None) -> Dict[str, torch.Tensor]:
+    """Restore the leaves ``template`` names, each checked against the
+    template's shape and given its dtype, on ``device`` (the template
+    leaf's device when None)."""
+    d, manifest = _manifest(ckpt_dir, step)
+    out = {}
+    for key, leaf in template.items():
+        meta = manifest["leaves"].get(_leaf_name(key))
+        if meta is None:
+            raise KeyError(f"checkpoint missing leaf {key}")
+        t = _from_array(np.load(os.path.join(d, meta["file"])), meta["dtype"])
+        if tuple(t.shape) != tuple(leaf.shape):
+            raise ValueError(
+                f"shape mismatch for {key}: ckpt {tuple(t.shape)} vs target {tuple(leaf.shape)}"
+            )
+        out[key] = t.to(device=leaf.device if device is None else device, dtype=leaf.dtype)
+    return out

@@ -27,6 +27,15 @@ client whose single recorded inference matches a cached IOS adopts it (the
 cache probe), and co-tenant replays of one program run as one
 ``torch.func.vmap``-batched call (:class:`BatchedReplayProgram`).
 
+Fault tolerance: with a :class:`~repro_torch.core.netsim.FaultInjector` the
+client pays a timeout and a retransmission for every lost message, and the
+stateful replay step (non-idempotent: it advances the server-resident state)
+rides a sequence-numbered at-most-once protocol, the server answering a
+retried step from its dedup table (:meth:`OffloadServer.step_once`).  The
+server exports and imports a client's carried state as host copies (a
+replica-to-replica migration), and the client can keep a log of its recent
+steps' wire inputs (:class:`StepLogEntry`) for crash recovery.
+
 Values on the server are tensors on its device; values on the client (the
 application's uploads and downloads) are CPU tensors.
 """
@@ -50,7 +59,7 @@ from repro_torch.core.energy import (
 )
 from repro_torch.core.flatten import fill_args, template_vars
 from repro_torch.core.intercept import InterceptedCall
-from repro_torch.core.netsim import NetworkModel
+from repro_torch.core.netsim import FaultInjector, NetworkModel, RetryPolicy, RpcTimeoutError
 from repro_torch.core.opseq import (
     candidate_sequences,
     detect_loop_carried,
@@ -89,6 +98,11 @@ PAYLOAD_RETENTION_CALLS = 4096
 # inference, and a call-count horizon alone would cut the loop-carried
 # detection window out from under the search
 PAYLOAD_RETENTION_TRANSFERS = 64
+# at-most-once dedup: replies cached per (client, sequence number).  A client
+# retries one in-flight step at a time and moves on once it has the reply, so
+# a small window is ample; the bound keeps a long decode stream from pinning
+# every step's outputs on the server
+DEDUP_WINDOW = 64
 
 
 def host_copy(t: torch.Tensor) -> torch.Tensor:
@@ -117,6 +131,18 @@ def _avals_nbytes(avals) -> int:
             n *= int(d)
         total += n
     return total
+
+
+@dataclasses.dataclass
+class StepLogEntry:
+    """One completed stateful replay step, as crash recovery needs it: the
+    wire inputs (and any fresh-state override), host copies, re-executed
+    against a restored checkpoint reproduce the lost carried state token for
+    token."""
+
+    seq: int
+    wire_inputs: List[torch.Tensor]
+    fresh_carried: Optional[Dict[int, torch.Tensor]]
 
 
 @contextlib.contextmanager
@@ -917,6 +943,9 @@ class OffloadServer:
         self.busy_seconds = 0.0        # accumulated compute (GPU-util proxy)
         self.replay_cache = replay_cache
         self.compile_count = 0         # programs built (not cache hits)
+        # at-most-once protocol: client id -> {sequence number: reply}
+        self.dedup: Dict[str, Dict[int, Any]] = {}
+        self.dedup_hits = 0
 
     def context(self, client_id: str = DEFAULT_CLIENT) -> ClientContext:
         ctx = self.contexts.get(client_id)
@@ -1156,6 +1185,73 @@ class OffloadServer:
         ctx.env.update(zip(bound.h2d_addrs, ins))
         ctx.env.update(zip(bound.d2h_addrs, outs))
 
+    # -- carried-state migration --------------------------------------------
+    def export_carried_state(self, client_id: str = DEFAULT_CLIENT) -> Optional[List[torch.Tensor]]:
+        """Host copies of one client's live server-resident carried state:
+        the wire format of a replica-to-replica migration.  Copies, not
+        views: the live tensors keep advancing after the snapshot.  The split
+        binding takes precedence over the whole-program one (when a split
+        plan is active it owns the live state).  None when the client has no
+        stateful binding or no seeded state yet."""
+        ctx = self.contexts.get(client_id)
+        if ctx is None:
+            return None
+        bound = ctx.split or ctx.replay
+        if bound is None or bound.carried_state is None:
+            return None
+        return [host_copy(v) for v in bound.carried_state]
+
+    def import_carried_state(self, client_id: str, state: List[torch.Tensor]) -> None:
+        """Install an exported carried-state snapshot into this client's
+        bound replay, the receiving half of a migration: the binding's
+        resident state is replaced by device copies and the env's carried
+        buffers re-aliased to them, so the next stateful step (and any
+        catch-up after a fallback) runs from exactly the migrated state."""
+        ctx = self.context(client_id)
+        bound = ctx.split or ctx.replay
+        if bound is None or not bound.program.is_stateful:
+            raise ValueError(
+                f"client {client_id!r} has no stateful replay binding to import carried state into"
+            )
+        pairs = bound.program.carried_pairs
+        if len(state) != len(pairs):
+            raise ValueError(
+                f"carried-state arity mismatch: {len(state)} tensors for {len(pairs)} carried pairs"
+            )
+        bound.carried_state = [v.to(self.device, copy=True) for v in state]
+        if isinstance(bound, BoundSegmentedReplay):
+            graph = bound.graph
+            for in_tid, out_tid, val in zip(
+                graph.carried_in_tids, graph.carried_out_tids, bound.carried_state
+            ):
+                ctx.env[graph.tensors[in_tid].addr] = val
+                ctx.env[graph.tensors[out_tid].addr] = val
+        else:
+            for (i, j), val in zip(pairs, bound.carried_state):
+                ctx.env[bound.h2d_addrs[i]] = val
+                ctx.env[bound.d2h_addrs[j]] = val
+
+    def step_once(self, client_id: str, seq: Optional[int], thunk) -> Tuple[Any, bool]:
+        """Execute ``thunk`` at most once under ``(client_id, seq)``.
+
+        The server half of the reliability protocol: a sequence number
+        already in the dedup table means this request ran and its response
+        was lost in flight, so the cached reply is returned and the thunk
+        (which advances the carried state and so MUST NOT run twice) is not
+        run again.  Returns ``(reply, was_cached)``.  A None sequence number
+        bypasses dedup (the fault-free path)."""
+        if seq is None:
+            return thunk(), False
+        table = self.dedup.setdefault(client_id, {})
+        if seq in table:
+            self.dedup_hits += 1
+            return table[seq], True
+        reply = thunk()
+        table[seq] = reply
+        while len(table) > DEDUP_WINDOW:
+            del table[min(table)]
+        return reply, False
+
     def occupy(self, compute_seconds: float, start_t: float) -> float:
         """Reserve the shared simulated GPU queue; returns the completion
         time."""
@@ -1185,11 +1281,17 @@ class OffloadServer:
 
 @dataclasses.dataclass
 class InferenceStats:
-    """Per-client traffic counters."""
+    """Per-client traffic counters, and the fault-tolerance counters (all 0
+    without a :class:`~repro_torch.core.netsim.FaultInjector`)."""
 
     rpcs: int = 0
     network_bytes: float = 0.0
     cache_adoptions: int = 0
+    retries: int = 0               # lost-message timeouts paid
+    dedup_replies: int = 0         # retried steps answered from the dedup table
+    outage_fallbacks: int = 0      # inferences served device-locally
+    outage_waits: int = 0          # stateful inferences that sat out an outage
+    crash_restores: int = 0        # checkpoint-and-replay recoveries absorbed
 
 
 class RRTOClient:
@@ -1203,6 +1305,9 @@ class RRTOClient:
     the locked IOS is split between the mobile device (``client_device``,
     simulated) and the server by an adaptive planner; inference inputs travel
     divided by ``input_wire_divisor`` when a cut ships them.
+
+    With ``fault`` every lost message costs a timeout (``retry_policy``) and
+    a retransmission, and the stateful step rides the at-most-once protocol.
     """
 
     def __init__(
@@ -1218,6 +1323,8 @@ class RRTOClient:
         client_device: DeviceSpec = JETSON_XAVIER_NX,
         partition: Optional[Any] = None,
         input_wire_divisor: float = 1.0,
+        fault: Optional[FaultInjector] = None,
+        retry_policy: Optional[RetryPolicy] = None,
     ):
         if variant not in ("rrto", "semi_rrto", "transparent"):
             raise ValueError(variant)
@@ -1280,6 +1387,16 @@ class RRTOClient:
         self.fallbacks = 0
         self._query_cache: set = set()
         self.stats = InferenceStats()
+        # fault tolerance: injected link faults and the retry discipline
+        # (None = a perfect wire, every hook below passes through), the
+        # per-stateful-step sequence number behind the server's dedup, and an
+        # optional bounded log of completed steps (a deque of StepLogEntry,
+        # attached by the recovery layer and replayed after a replica crash)
+        self.fault = fault
+        self.retry_policy = retry_policy or RetryPolicy()
+        self.step_seq = 0
+        self.step_log: Optional[Any] = None
+        self.outage_active = False
 
     # -- helpers -------------------------------------------------------------
     @property
@@ -1331,10 +1448,96 @@ class RRTOClient:
         self.stats.network_bytes += nbytes
 
     def _rpc(self, payload: float, response: float) -> None:
+        if self.fault is not None:
+            self._ride_out_losses(payload)
         dt = self.network.rpc_time(payload, response, self.clock.t)
         self.clock.advance(dt)
         self.meter.add(STATE_COMM, dt)
         self._account_network(1, payload + response)
+
+    def _retry_timeout(self, attempt: int) -> None:
+        """Pay one lost-message timeout: the client sat waiting for a reply
+        that never came, then retransmits.  Billed as standby (the radio
+        idles listening); exponential backoff with deterministic jitter."""
+        dt = self.retry_policy.timeout_s(attempt, self.fault.jitter_unit())
+        self.clock.advance(dt)
+        self.meter.add(STATE_STANDBY, dt)
+        self.stats.retries += 1
+
+    def _ride_out_losses(self, payload: float) -> int:
+        """The lost attempts before one delivered message: each costs a
+        timeout and a retransmission of the payload.  Raises
+        :class:`RpcTimeoutError` once the retry budget is spent.  For
+        idempotent traffic only (recording-phase calls re-execute the same
+        work; uploads rewrite the same buffers)."""
+        attempts = 0
+        while self.fault.rpc_fate() != "ok":
+            if attempts >= self.retry_policy.max_attempts:
+                raise RpcTimeoutError(
+                    f"client {self.client_id!r}: RPC lost {attempts + 1} consecutive times"
+                )
+            self._retry_timeout(attempts)
+            self._account_network(1, payload)   # the retransmission
+            attempts += 1
+        return attempts
+
+    def _reliable_step(
+        self,
+        submit,
+        inputs: List[torch.Tensor],
+        fresh: Optional[Dict[int, torch.Tensor]],
+    ) -> Tuple[List[torch.Tensor], float]:
+        """One sequence-numbered stateful step under the at-most-once
+        protocol.  The step advances the server-resident state, so a
+        retransmission must never run it again: the server's dedup table
+        (:meth:`OffloadServer.step_once`) runs the submission on first
+        receipt and answers every retry of the same sequence number from the
+        reply cache.  A lost *request* never reached the server (the retry
+        runs fresh); a lost *response* means the step DID run, and the retry
+        gets the cached reply."""
+        seq = self.step_seq
+        payload = float(sum(_nbytes(a) for a in inputs))
+        attempts = 0
+        while True:
+            fate = self.fault.rpc_fate()
+            if fate != "lost_request":
+                reply, cached = self.server.step_once(
+                    self.client_id, seq,
+                    lambda: submit(inputs, self.clock.t, fresh_carried=fresh),
+                )
+                if cached:
+                    self.stats.dedup_replies += 1
+                if fate == "ok":
+                    return reply
+            # this attempt's reply never arrived: pay the timeout and resend
+            if attempts >= self.retry_policy.max_attempts:
+                raise RpcTimeoutError(
+                    f"client {self.client_id!r}: stateful step {seq} lost "
+                    f"{attempts + 1} consecutive times"
+                )
+            self._retry_timeout(attempts)
+            self._account_network(1, payload)   # the retransmission
+            attempts += 1
+
+    def _note_step(
+        self,
+        wire_inputs: List[torch.Tensor],
+        fresh: Optional[Dict[int, torch.Tensor]],
+    ) -> None:
+        """Advance the stateful-step sequence number and, when the recovery
+        layer attached a step log, log the completed step for crash replay.
+        Host copies, not references: the app may reuse its buffers between
+        steps, and a replayed step must ship exactly what the original
+        shipped."""
+        if not self.stateful_replay:
+            return
+        if self.step_log is not None:
+            self.step_log.append(StepLogEntry(
+                seq=self.step_seq,
+                wire_inputs=[host_copy(a) for a in wire_inputs],
+                fresh_carried={k: host_copy(v) for k, v in fresh.items()} if fresh else None,
+            ))
+        self.step_seq += 1
 
     def _local(self, dt: float = PER_LOCAL_OP_S) -> None:
         self.clock.advance(dt)
@@ -1623,15 +1826,18 @@ class RRTOClient:
                 self._fresh_carried = {}
                 # the edge server's cross-client batcher when one is
                 # installed (multi-tenant serving), a solo replay otherwise
-                if self.replay_submit is not None:
-                    outs, done_at = self.replay_submit(
-                        self._replay_inputs, self.clock.t, fresh_carried=fresh
+                submit = self.replay_submit or (
+                    lambda ins, t, fresh_carried=None: self.server.run_replay(
+                        ins, t, self.client_id, fresh_carried=fresh_carried
                     )
+                )
+                if self.fault is not None and self.stateful_replay:
+                    # the stateful step is not idempotent: retries ride the
+                    # sequence-numbered at-most-once protocol
+                    outs, done_at = self._reliable_step(submit, self._replay_inputs, fresh)
                 else:
-                    outs, done_at = self.server.run_replay(
-                        self._replay_inputs, self.clock.t, self.client_id,
-                        fresh_carried=fresh,
-                    )
+                    outs, done_at = submit(self._replay_inputs, self.clock.t, fresh_carried=fresh)
+                self._note_step(self._replay_inputs, fresh)
                 self._replay_outputs = outs
                 self._replay_done_at = done_at
                 # a full-server plan keeps watching the link, or a bandwidth
@@ -1696,6 +1902,7 @@ class RRTOClient:
         outs = bound.execute(
             self._replay_inputs, ctx.env, execute=self.server.execute, fresh_carried=fresh
         )
+        self._note_step(self._replay_inputs, fresh)
         # server segments occupy the shared GPU — through the co-tenant
         # segment batcher when the edge server installed one
         server_segs = [s for s in self.split_plan.segments if s.placement == PLACE_SERVER]

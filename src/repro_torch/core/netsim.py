@@ -7,7 +7,9 @@ obstruction), as deterministic (seeded) 0.1 s-interval traces over 5 minutes,
 and the shared edge-server ingress that co-tenant clients contend for; and
 the discrete-event timeline that pipelined and open-loop serving run on
 (client clock skew, arrival processes, capacity resources, the event
-scheduler).
+scheduler); and the fault model of the fault-tolerance layer (outage
+windows, per-RPC loss, bandwidth collapses, replica crashes) with the client's
+retry discipline, and the site backhaul a replicated fleet shares.
 
 The link is simulated; every latency/energy number derived from it is a model
 output, not a measurement.
@@ -17,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 import heapq
 import itertools
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -26,9 +28,15 @@ MBPS = 1e6 / 8.0  # bytes/s per Mbps
 TRACE_INTERVAL_S = 0.1
 TRACE_DURATION_S = 300.0
 
+# the wire during a declared outage or a total collapse: not zero (a transfer
+# that slips past the client-side outage guard must stall long but finitely,
+# not hang the simulation), but slow enough that no planner ever chooses it
+OUTAGE_FLOOR_BYTES_PER_S = 1e4
+
 
 def _splitmix64(x: int) -> int:
-    """One splitmix64 round — a stateless 64-bit mixer."""
+    """One splitmix64 round — a stateless 64-bit mixer, so fault draws are a
+    pure function of (seed, draw index) and never depend on an RNG's state."""
     x = (x + 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
     x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
     x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
@@ -43,6 +51,164 @@ def client_stream_seed(seed: int, client_id: str) -> int:
     for b in client_id.encode("utf-8"):
         x = _splitmix64(x ^ b)
     return x
+
+
+class RpcTimeoutError(RuntimeError):
+    """Every retry attempt of one RPC was lost — the link is effectively
+    down and the caller should declare an outage instead of retrying on."""
+
+
+@dataclasses.dataclass(frozen=True)
+class RetryPolicy:
+    """Client-side RPC retry discipline: timeout, exponential backoff with
+    deterministic jitter, bounded attempts.  Jitter comes from the fault
+    injector's stateless hash, so a retried run is exactly reproducible."""
+
+    base_timeout_s: float = 0.02
+    backoff: float = 2.0
+    max_backoff_s: float = 0.5
+    jitter: float = 0.25          # fraction of the timeout, in [0, jitter)
+    max_attempts: int = 8
+
+    def timeout_s(self, attempt: int, unit: float) -> float:
+        """Timeout for retry number ``attempt`` (0-based); ``unit`` in [0,1)
+        supplies the deterministic jitter draw."""
+        t = min(self.base_timeout_s * self.backoff ** attempt, self.max_backoff_s)
+        return t * (1.0 + self.jitter * unit)
+
+
+class FaultInjector:
+    """Deterministic, seeded fault model for the simulated wire and fleet.
+
+    Four fault dimensions, all optional and all off by default:
+
+    * **outage windows** — ``(start_s, end_s)`` intervals during which the
+      link is down: ``bandwidth_factor`` collapses to 0 and clients that
+      consult :meth:`in_outage` fall back to device-local execution;
+    * **per-RPC loss** — each transmitted message is lost with probability
+      ``rpc_loss_prob``; a lost message costs the client a timeout and a
+      retry.  Draws are a pure function of (seed, draw index): splitmix64
+      over Python integers, no numpy or torch RNG state;
+    * **bandwidth collapses** — ``(start_s, end_s, factor)`` episodes that
+      multiply the link bandwidth (0.05 = a 20x collapse), driving the
+      adaptive re-planner without taking the link fully down;
+    * **replica crashes** — ``{replica_name: t}`` crash times the fleet
+      polls through :meth:`due_crashes`; a crash destroys the replica's
+      device memory (carried state included), unlike a mere ``failed`` mark.
+
+    Every consumer guards on ``fault is not None``, so a run without an
+    injector, and a run with a default injector (which perturbs nothing),
+    take the same values, clock and counters as before the fault layer.
+    """
+
+    def __init__(
+        self,
+        *,
+        seed: int = 0,
+        outages: Sequence[Tuple[float, float]] = (),
+        rpc_loss_prob: float = 0.0,
+        collapses: Sequence[Tuple[float, float, float]] = (),
+        crashes: Optional[dict] = None,
+    ):
+        if not 0.0 <= rpc_loss_prob <= 1.0:
+            raise ValueError(f"rpc_loss_prob must be in [0,1], got {rpc_loss_prob}")
+        self.seed = int(seed)
+        self.outages = tuple((float(a), float(b)) for a, b in sorted(outages))
+        for a, b in self.outages:
+            if b <= a:
+                raise ValueError(f"empty outage window ({a}, {b})")
+        self.rpc_loss_prob = float(rpc_loss_prob)
+        self.collapses = tuple((float(a), float(b), float(f)) for a, b, f in sorted(collapses))
+        for a, b, f in self.collapses:
+            if b <= a or not 0.0 < f <= 1.0:
+                raise ValueError(f"bad collapse episode ({a}, {b}, {f})")
+        self.crashes = dict(crashes or {})
+        self.crashed: set = set()
+        # draws taken and messages dropped so far
+        self.draws = 0
+        self.dropped = 0
+
+    # -- outage windows -------------------------------------------------
+    def in_outage(self, t: float) -> bool:
+        return any(a <= t < b for a, b in self.outages)
+
+    def outage_until(self, t: float) -> float:
+        """End of the outage window containing ``t`` (``t`` itself when the
+        link is up)."""
+        for a, b in self.outages:
+            if a <= t < b:
+                return b
+        return t
+
+    # -- bandwidth ------------------------------------------------------
+    def bandwidth_factor(self, t: float) -> float:
+        """Multiplier on the trace bandwidth at ``t``: 0 during an outage,
+        the episode factor during a collapse, 1 otherwise."""
+        if self.in_outage(t):
+            return 0.0
+        factor = 1.0
+        for a, b, f in self.collapses:
+            if a <= t < b:
+                factor = min(factor, f)
+        return factor
+
+    # -- per-RPC loss ---------------------------------------------------
+    def _unit(self, n: int, salt: int) -> float:
+        return _splitmix64(self.seed * 0x10001 + n * 2 + salt) / 2.0 ** 64
+
+    def jitter_unit(self) -> float:
+        """One deterministic uniform draw in [0,1) for backoff jitter."""
+        self.draws += 1
+        return self._unit(self.draws, salt=1)
+
+    def rpc_fate(self) -> str:
+        """Fate of one transmitted message: ``"ok"``, ``"lost_request"`` or
+        ``"lost_response"``.  Consumes one draw; request and response loss
+        are equally likely.  The distinction matters only for
+        non-idempotent work: a lost *response* means the server executed."""
+        self.draws += 1
+        if self._unit(self.draws, salt=0) >= self.rpc_loss_prob:
+            return "ok"
+        self.dropped += 1
+        return "lost_request" if self._unit(self.draws, salt=2) < 0.5 else "lost_response"
+
+    # -- replica crashes ------------------------------------------------
+    def due_crashes(self, t: float) -> List[str]:
+        """Replica names whose crash time has arrived and not yet fired;
+        the caller (the fleet) acts on each exactly once."""
+        due = [name for name, tc in sorted(self.crashes.items())
+               if tc <= t and name not in self.crashed]
+        self.crashed.update(due)
+        return due
+
+    @classmethod
+    def chaos_schedule(
+        cls,
+        seed: int,
+        *,
+        duration_s: float,
+        n_outages: int = 1,
+        mean_outage_s: float = 0.5,
+        rpc_loss_prob: float = 0.05,
+        n_collapses: int = 0,
+        collapse_factor: float = 0.05,
+        crashes: Optional[dict] = None,
+    ) -> "FaultInjector":
+        """A seeded fault schedule over ``[0, duration_s]``: outage windows
+        and collapse episodes placed deterministically from the seed (evenly
+        spread phases, hashed offsets)."""
+        outages = []
+        for i in range(n_outages):
+            u = _splitmix64(seed * 7919 + i) / 2.0 ** 64
+            start = duration_s * (i + 0.25 + 0.5 * u) / max(1, n_outages)
+            outages.append((start, start + mean_outage_s))
+        collapses = []
+        for i in range(n_collapses):
+            u = _splitmix64(seed * 104729 + i) / 2.0 ** 64
+            start = duration_s * (i + 0.1 + 0.4 * u) / max(1, n_collapses)
+            collapses.append((start, start + 2.0 * mean_outage_s, collapse_factor))
+        return cls(seed=seed, outages=outages, rpc_loss_prob=rpc_loss_prob,
+                   collapses=collapses, crashes=crashes)
 
 
 def synth_bandwidth_trace(
@@ -71,6 +237,24 @@ def synth_bandwidth_trace(
 
 
 @dataclasses.dataclass
+class SharedBackhaul:
+    """The site uplink every edge node of one site hangs off.
+
+    A replicated fleet terminates each client radio at one of several edge
+    boxes, but the boxes share one site uplink; once enough nodes serve at
+    once, the backhaul, not any one node's NIC, is the bottleneck.  The same
+    fair-share model as :class:`ServerIngress`, one level up: each of
+    ``active_nodes`` nodes gets ``capacity_bytes_per_s / active_nodes``."""
+
+    capacity_bytes_per_s: float = 10e9 / 8.0    # 10-gigabit site uplink
+    active_nodes: int = 1
+    bytes_total: float = 0.0
+
+    def share(self) -> float:
+        return self.capacity_bytes_per_s / max(1, self.active_nodes)
+
+
+@dataclasses.dataclass
 class ServerIngress:
     """Shared edge-server ingress capacity (AP backhaul / server NIC).
 
@@ -80,19 +264,53 @@ class ServerIngress:
     is a fair-share pipe: each of ``active_clients`` concurrently-served
     links gets ``capacity_bytes_per_s / active_clients``, and a client's
     effective bandwidth is the min of its own link and that share.  The
-    multi-tenant harness updates ``active_clients`` as sessions join/leave."""
+    multi-tenant harness updates ``active_clients`` as sessions join/leave.
+
+    ``backhaul`` chains this node's ingress behind a site-level
+    :class:`SharedBackhaul` (multi-node fleets, :func:`multi_node_ingress`):
+    the share is then also capped by the backhaul's per-node share.  With a
+    ``fault`` injector, collapse and outage episodes squeeze the shared pipe
+    too (a site-level event hits every client behind it)."""
 
     capacity_bytes_per_s: float = 1e9 / 8.0     # gigabit backhaul
     active_clients: int = 1
     # aggregate traffic through the shared link, BOTH directions (every
     # transfer_time call on an attached client link accumulates here)
     bytes_total: float = 0.0
+    backhaul: Optional[SharedBackhaul] = None
+    fault: Optional[FaultInjector] = None
 
-    def share(self) -> float:
-        return self.capacity_bytes_per_s / max(1, self.active_clients)
+    def share(self, t: Optional[float] = None) -> float:
+        share = self.capacity_bytes_per_s / max(1, self.active_clients)
+        if self.backhaul is not None:
+            share = min(share, self.backhaul.share())
+        if self.fault is not None and t is not None:
+            factor = self.fault.bandwidth_factor(t)
+            if factor < 1.0:
+                share = max(share * factor, OUTAGE_FLOOR_BYTES_PER_S)
+        return share
 
-    def account(self, nbytes: float) -> None:
+    def account(self, nbytes: float, t: Optional[float] = None) -> None:
+        """Bill a transfer through this node (and the site backhaul); ``t``
+        is the simulated time of the transfer."""
         self.bytes_total += nbytes
+        if self.backhaul is not None:
+            self.backhaul.bytes_total += nbytes
+
+
+def multi_node_ingress(
+    n_nodes: int,
+    node_capacity_bytes_per_s: float = 1e9 / 8.0,
+    backhaul_bytes_per_s: float = 10e9 / 8.0,
+) -> List[ServerIngress]:
+    """Per-node ingress pipes for an ``n_nodes`` edge fleet behind one shared
+    site backhaul: each node fair-shares its own NIC among its clients AND
+    the site uplink among the nodes."""
+    if n_nodes < 1:
+        raise ValueError(f"need at least one node, got {n_nodes}")
+    backhaul = SharedBackhaul(capacity_bytes_per_s=backhaul_bytes_per_s, active_nodes=n_nodes)
+    return [ServerIngress(capacity_bytes_per_s=node_capacity_bytes_per_s, backhaul=backhaul)
+            for _ in range(n_nodes)]
 
 
 @dataclasses.dataclass
@@ -110,10 +328,18 @@ class NetworkModel:
     per_rpc_cpu_s: float = 30e-6      # serialization / libtirpc stack cost
     interval_s: float = TRACE_INTERVAL_S
     ingress: Optional[ServerIngress] = None
+    # outage windows and collapse episodes scale the trace bandwidth; None
+    # (the default) leaves every timing unchanged
+    fault: Optional[FaultInjector] = None
 
     def bandwidth_at(self, t: float) -> float:
         idx = int(t / self.interval_s) % len(self.trace_bytes_per_s)
-        return float(self.trace_bytes_per_s[idx])
+        bw = float(self.trace_bytes_per_s[idx])
+        if self.fault is not None:
+            factor = self.fault.bandwidth_factor(t)
+            if factor < 1.0:
+                bw = max(bw * factor, OUTAGE_FLOOR_BYTES_PER_S)
+        return bw
 
     def _rtt_at(self, t: float) -> float:
         # deterministic jitter keyed to the trace position
@@ -127,8 +353,8 @@ class NetworkModel:
             return 0.0
         bw = self.bandwidth_at(t)
         if self.ingress is not None:
-            bw = min(bw, self.ingress.share())
-            self.ingress.account(nbytes)
+            bw = min(bw, self.ingress.share(t))
+            self.ingress.account(nbytes, t)
         # a zero-bandwidth interval (obstructed radio, saturated ingress)
         # stalls the transfer for a long-but-finite interval instead of
         # dividing by zero

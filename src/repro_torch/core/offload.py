@@ -13,6 +13,11 @@ below it), non-transparent systems call it directly and eagerly (the "code
 modification").  Latency and energy come from the simulated clock, network
 and power models; the *computed values* are real executions on ``device``
 and must agree across systems.
+
+With a :class:`~repro_torch.core.netsim.FaultInjector` a transparent session
+also rides out link faults: lost messages are retried, and an inference that
+starts inside a declared outage window waits it out (stateful replay), adopts
+the all-device split plan (split replay), or runs on the device.
 """
 from __future__ import annotations
 
@@ -42,7 +47,7 @@ from repro_torch.core.engine import (
 )
 from repro_torch.core.flatten import FlatGraph, graph_cost, trace_app
 from repro_torch.core.intercept import FrameworkNoiseModel, GraphInterceptor
-from repro_torch.core.netsim import NetworkModel, get_network
+from repro_torch.core.netsim import FaultInjector, NetworkModel, RetryPolicy, get_network
 from repro_torch.device import resolve_device, to_host
 
 SYSTEMS = ("device_only", "nnto", "cricket", "semi_rrto", "rrto")
@@ -155,7 +160,9 @@ class OffloadSession:
     stays separate while the kernel queue, replay cache and GPU occupancy
     are shared (see ``repro_torch.serving.multitenant``).  ``partition`` (a
     :class:`~repro_torch.partition.PartitionConfig`, rrto only) splits the
-    replayed IOS between the device and the server."""
+    replayed IOS between the device and the server.  ``fault`` and
+    ``retry_policy`` (transparent systems only) inject link faults and set
+    the client's retry discipline."""
 
     def __init__(
         self,
@@ -173,6 +180,8 @@ class OffloadSession:
         client_id: str = DEFAULT_CLIENT,
         device: Any = "cuda",
         partition: Optional[Any] = None,
+        fault: Optional[FaultInjector] = None,
+        retry_policy: Optional[RetryPolicy] = None,
     ):
         """``execute=False`` makes an account-only session: the clock,
         network, energy and record streams run as usual, nothing is
@@ -234,12 +243,16 @@ class OffloadSession:
                 client_device=self.client_device,
                 partition=partition if system == "rrto" else None,
                 input_wire_divisor=model.input_wire_divisor,
+                fault=fault,
+                retry_policy=retry_policy,
             )
             self.interceptor = GraphInterceptor(
                 self.client,
                 noise or FrameworkNoiseModel(),
                 input_wire_divisor=model.input_wire_divisor,
             )
+            if fault is not None:
+                self.network.fault = fault
         else:
             self.client = None
             self.interceptor = None
@@ -337,8 +350,13 @@ class OffloadSession:
         else:
             self.meter.add(STATE_CONTROL, CLIENT_CONTROL_S)
             self.clock.advance(CLIENT_CONTROL_S)
-            mode = self.client.mode
-            outputs = self._run_intercepted(inputs)
+            cl = self.client
+            if cl.fault is not None and cl.fault.in_outage(self.clock.t):
+                mode, outputs = self._infer_during_outage(inputs)
+            else:
+                cl.outage_active = False
+                mode = cl.mode
+                outputs = self._run_intercepted(inputs)
         if len(self.history) == 0:
             self.stage_marks["after_first_inference"] = self._logs_so_far()
 
@@ -444,6 +462,42 @@ class OffloadSession:
         return results
 
     # ------------------------------------------------------------------
+    def _infer_during_outage(self, inputs) -> Tuple[str, List[torch.Tensor]]:
+        """One inference with the link declared down.  Three escape hatches,
+        picked by what the session has to lose:
+
+        * stateful replay: the carried state lives on the server and cannot
+          be recomputed locally, so the client sits out the window (standby)
+          and resumes through the at-most-once protocol once the link heals;
+        * split replay with a re-planner: adopt the outage plan (the
+          bandwidth at the outage floor lands every segment on the device)
+          and keep replaying through the split machinery;
+        * anything else: run the whole model on the device, the same values
+          at device-class latency.
+        """
+        cl = self.client
+        if not cl.outage_active:
+            # the probe that found the dead link: one timeout burned
+            cl.outage_active = True
+            dt = cl.retry_policy.base_timeout_s
+            self.clock.advance(dt)
+            self.meter.add(STATE_STANDBY, dt)
+        if cl.stateful_replay:
+            cl.stats.outage_waits += 1
+            cl._wait_until(cl.fault.outage_until(self.clock.t))
+            return cl.mode, self._run_intercepted(inputs)
+        if cl.mode == MODE_REPLAYING and cl.replanner is not None:
+            cl.stats.outage_fallbacks += 1
+            plan = cl.replanner.declare_outage(self.clock.t)
+            if plan is not None:
+                cl._install_plan(plan)
+            return cl.mode, self._run_intercepted(inputs)
+        cl.stats.outage_fallbacks += 1
+        # the device path is already eager, op by op, so its values are
+        # bitwise the replay's (the reference needs a separate eager path
+        # because its device_only runs one jit)
+        return "outage_fallback", self._device_only(inputs)
+
     def _direct(self, inputs) -> List[torch.Tensor]:
         """Eager execution of the app on the device: the same aten calls the
         interceptor records, one at a time (zeros of the outputs' avals in an

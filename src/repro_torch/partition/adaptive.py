@@ -17,6 +17,10 @@ It sees bandwidth samples and returns plans; the replay engine owns plan
 installation.  A graph built with ``carried_pairs`` constrains
 ``plan_partition`` to carried-feasible cuts, so every plan this class
 returns keeps the loop-carried state server-resident.
+
+A declared link outage (:meth:`AdaptiveReplanner.declare_outage`) bypasses
+the damping: the session re-plans at once at the outage floor, which lands
+every segment on the device.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from typing import Optional
 
 from repro_torch.core.costmodel import DeviceSpec
 from repro_torch.core.energy import PowerModel
+from repro_torch.core.netsim import OUTAGE_FLOOR_BYTES_PER_S
 from repro_torch.partition.planner import (
     EvaluatedPlan,
     PartitionConfig,
@@ -42,6 +47,7 @@ class ReplannerStats:
         self.plans_considered = 0
         self.replans = 0                  # adopted swaps
         self.rejected_by_hysteresis = 0
+        self.outage_replans = 0           # declared-outage immediate swaps
 
 
 class AdaptiveReplanner:
@@ -69,6 +75,7 @@ class AdaptiveReplanner:
         self.ema_bandwidth: Optional[float] = None
         self._last_plan_t: Optional[float] = None
         self.current: Optional[EvaluatedPlan] = None
+        self._outage_plan = False
 
     def _plan_at(self, bandwidth: float) -> EvaluatedPlan:
         self.stats.plans_considered += 1
@@ -88,9 +95,32 @@ class AdaptiveReplanner:
         self.current = self._plan_at(bandwidth)
         return self.current.plan
 
+    def declare_outage(self, now: float) -> Optional[SplitPlan]:
+        """The link is down: re-plan at once at the outage-floor bandwidth,
+        with no EMA smoothing, rate limit or hysteresis (staying on a
+        wire-crossing plan stalls every inference on a dead link).  The EMA
+        collapses to the floor too, so once the link heals :meth:`observe`'s
+        damped path re-offloads as fresh samples pull the estimate back up.
+        Returns the outage plan, or None when it is already installed."""
+        self.ema_bandwidth = OUTAGE_FLOOR_BYTES_PER_S
+        self._last_plan_t = now
+        if self._outage_plan:
+            return None
+        self._outage_plan = True
+        self.stats.outage_replans += 1
+        candidate = self._plan_at(OUTAGE_FLOOR_BYTES_PER_S)
+        same = self.current is not None and (
+            candidate.plan.signature() == self.current.plan.signature()
+        )
+        self.current = candidate
+        return None if same else candidate.plan
+
     def observe(self, bandwidth: float, now: float) -> Optional[SplitPlan]:
         """Feed one bandwidth sample; returns a new plan iff the session
         should swap (hysteresis and rate limit already applied)."""
+        if bandwidth > OUTAGE_FLOOR_BYTES_PER_S:
+            # a real sample: the link is back, outage declarations re-arm
+            self._outage_plan = False
         if self.current is None:
             return self.initial_plan(bandwidth, now)
         self.stats.observations += 1

@@ -1,1 +1,47 @@
+"""RRTO serving in the port (``repro.serving``).
 
+* :class:`~repro_torch.serving.engine.LocalServing`,
+  :class:`~repro_torch.serving.engine.RRTOServedLM` and
+  :class:`~repro_torch.serving.engine.MultiClientServedLM` — LM generation,
+  local and through the offloading stack;
+* :class:`~repro_torch.serving.multitenant.RRTOEdgeServer` — the shared edge
+  server and its cooperative multi-client round loop;
+* :class:`~repro_torch.serving.replay_cache.ReplayCache` — the
+  content-addressed cache of replay programs;
+* :class:`~repro_torch.serving.fleet.EdgeFleet` — N replicated edge servers
+  behind a hedged, affinity-placing router, with cache replication,
+  carried-state migration and crash recovery;
+* :class:`~repro_torch.serving.recovery.SessionCheckpointer` — periodic
+  carried-state checkpoints and bounded step replay.
+"""
+from repro_torch.distributed.straggler import AllReplicasFailedError, NoHealthyReplicaError
+from repro_torch.serving.engine import (
+    GenerationResult,
+    LocalServing,
+    MultiClientServedLM,
+    RRTOServedLM,
+)
+from repro_torch.serving.fleet import EdgeFleet, FleetClient, FleetReplica, FleetResult, FleetStats
+from repro_torch.serving.multitenant import ReplayBatcher, RRTOEdgeServer
+from repro_torch.serving.recovery import CarriedCheckpoint, SessionCheckpointer
+from repro_torch.serving.replay_cache import CacheStats, ReplayCache
+
+__all__ = [
+    "AllReplicasFailedError",
+    "CacheStats",
+    "CarriedCheckpoint",
+    "EdgeFleet",
+    "FleetClient",
+    "FleetReplica",
+    "FleetResult",
+    "FleetStats",
+    "GenerationResult",
+    "LocalServing",
+    "MultiClientServedLM",
+    "NoHealthyReplicaError",
+    "ReplayBatcher",
+    "ReplayCache",
+    "RRTOEdgeServer",
+    "RRTOServedLM",
+    "SessionCheckpointer",
+]

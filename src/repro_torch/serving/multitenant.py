@@ -62,7 +62,7 @@ from repro_torch.core.engine import (
     SimClock,
     host_copy,
 )
-from repro_torch.core.netsim import ServerIngress, get_network
+from repro_torch.core.netsim import FaultInjector, ServerIngress, get_network
 from repro_torch.core.offload import InferenceResult, OffloadableModel, OffloadSession
 from repro_torch.core.opseq import bits_equal
 from repro_torch.device import resolve_device
@@ -436,7 +436,12 @@ class ReplayBatcher:
 
 
 class RRTOEdgeServer:
-    """Shared edge-server state + the cooperative multi-client round loop."""
+    """Shared edge-server state + the cooperative multi-client round loop.
+
+    ``ingress`` is this box's shared pipe (one of
+    :func:`~repro_torch.core.netsim.multi_node_ingress`'s in a fleet); with
+    ``fault`` the injector reaches the ingress and every session on the box;
+    ``name`` labels the box in a fleet."""
 
     def __init__(
         self,
@@ -444,18 +449,26 @@ class RRTOEdgeServer:
         server_device: DeviceSpec = GTX_2080TI,
         execute: bool = True,
         cache_capacity: int = 8,
+        cache_capacity_bytes: Optional[float] = None,
         batch_window_s: float = 2e-3,
         environment: str = "indoor",
+        ingress: Optional[ServerIngress] = None,
         clock: Optional[SimClock] = None,
+        name: str = "edge",
+        fault: Optional[FaultInjector] = None,
         device: Any = "cuda",
     ):
         self.clock = clock or SimClock()
-        self.cache = ReplayCache(cache_capacity)
+        self.name = name
+        self.fault = fault
+        self.cache = ReplayCache(cache_capacity, cache_capacity_bytes)
         self.server = OffloadServer(
             server_device, device=resolve_device(device), execute=execute,
             replay_cache=self.cache,
         )
-        self.ingress = ServerIngress()
+        self.ingress = ingress or ServerIngress()
+        if fault is not None:
+            self.ingress.fault = fault
         self.batcher = ReplayBatcher(self.server, window_s=batch_window_s)
         self.environment = environment
         self.sessions: Dict[str, OffloadSession] = {}
@@ -487,6 +500,8 @@ class RRTOEdgeServer:
             seed if seed is not None else len(self.sessions),
         )
         network.ingress = self.ingress
+        if self.fault is not None:
+            session_kwargs.setdefault("fault", self.fault)
         sess = OffloadSession(
             model,
             "rrto",
@@ -561,6 +576,8 @@ class RRTOEdgeServer:
         sess.server = self.server
         sess.client.server = self.server
         sess.network.ingress = self.ingress
+        if self.fault is not None:
+            sess.network.fault = self.fault
         sess.client.replay_submit = self.batcher.make_submit(sess.client)
         sess.client.split_submit = self.batcher.make_split_submit(sess.client)
         self.sessions[cid] = sess

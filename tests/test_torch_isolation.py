@@ -51,6 +51,18 @@ res = [split.infer(*enc.example_inputs) for _ in range(4)]
 assert res[-1].mode == "replaying" and split.client.split_plan is not None
 streamed = split.infer_stream([tuple(enc.example_inputs)] * 2)
 assert all(bool((s.outputs[0] == res[-1].outputs[0]).all()) for s in streamed)
+import repro_torch.checkpoint.store, repro_torch.distributed.straggler
+import repro_torch.serving.fleet, repro_torch.serving.recovery
+from repro_torch.serving import EdgeFleet
+fleet = EdgeFleet(2, device="cpu")
+lm = RRTOServedLM(cfg, bucket_len=12, seed=1, edge=fleet.replicas[0].edge, client_id="u0")
+g = lm.start_generation(prompt, 5)
+for step in range(lm.steps_total(g)):
+    if step == 6:
+        assert fleet.migrate("u0") == "r1"
+    lm.absorb_step(g, lm.session.infer(*lm.step_inputs(g)).outputs)
+assert fleet.stats.migrations == 1 and lm.session.client.stateful_replay
+assert (np.concatenate(g["out"], axis=1) == a).all(), (g["out"], a)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro")
 print("LOADED", bad)
 """
