@@ -55,8 +55,9 @@ random weights from a seed:
   some step's response lost and answered from the dedup table) and through
   a crash of r0 (restored on r1 from a checkpoint and the step log), each
   bitwise the clean stream in tokens and final carried state; (b) zamba2-1.2b
-  stateless through one outage window: the request falls back to the device
-  (flash attention and the scan launch there too) and the stream heals; (c)
+  stateless, clean and through one outage window: the request falls back to
+  the device (flash attention and the scan launch there too), its token and
+  logits bitwise the clean stream's replay of it, and the stream heals; (c)
   the split sensor encoder adopts the all-device plan for the outage and
   re-offloads after it.
 
@@ -2100,7 +2101,13 @@ def predict_losses(seed: int, clean: dict) -> tuple:
     each recorded step's RPCs, and each replayed step's uploads followed by
     its stateful step (a replayed step's wire downloads draw no fate).  The
     losses change timing only, never which messages are sent, so the draws
-    line up with the lossy run's one for one."""
+    line up with the lossy run's one for one.
+
+    This mirrors the order of ``RRTOClient._ride_out_losses`` (one fate per
+    RPC, one jitter per loss) and ``RRTOClient._reliable_step`` (a lost
+    request re-sends, a lost response is answered from the dedup table), and
+    must change with them: a drift shows as a mismatch of the lossy
+    stream's counters against this prediction, which fails the phase."""
     from repro_torch.core.netsim import FaultInjector
 
     f = FaultInjector(seed=seed, rpc_loss_prob=FAULT_LOSS)
@@ -2238,36 +2245,65 @@ def phase_fault_qwen(library, dev, cfg, params, prompt, dev_tokens, bucket, by_p
     return time.perf_counter() - t_part
 
 
-def phase_fault_zamba(dev, cfg, params, prompt, dev_tokens, bucket) -> dict:
-    """Part b: zamba2-1.2b stateless through an ``RRTOEdgeServer`` with a
-    fault injector; one outage window opens at the second replayed request
-    (an outage-only injector changes nothing before it, so this is where a
-    clean run's boundary would put it).  The request falls back to the
-    device, with ``device_only``'s token, and the stream heals."""
-    from repro_torch.core.netsim import FaultInjector
-    from repro_torch.serving import RRTOEdgeServer, RRTOServedLM
+def zamba_logits_stream(dev, cfg, params, prompt, bucket, fault=None) -> dict:
+    """``FAULT_Z_NEW`` greedy tokens of zamba2 stateless through one session
+    on its own ``RRTOEdgeServer``.  The app is ``RRTOServedLM``'s stateless
+    next-token step that also returns the last position's logits, so a
+    request's whole result can be held bitwise, not only its argmax.  With
+    ``fault``, one outage window opens at the second replayed request (an
+    outage-only injector changes nothing before it, so this is where a clean
+    run's boundary would put it)."""
+    from repro_torch.core.offload import OffloadableModel
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving import RRTOEdgeServer
 
-    fault = FaultInjector()
+    model = get_model(cfg)
+
+    def next_token(p, padded_tokens, cur_len):
+        logits = model.forward(p, {"tokens": padded_tokens}, cfg)
+        idx = torch.clamp(cur_len.reshape(1) - 1, 0, padded_tokens.shape[1] - 1)
+        last = logits.index_select(1, idx.long())
+        return [torch.argmax(last[:, 0, : cfg.vocab], dim=-1).to(torch.int32), last]
+
+    app = OffloadableModel(
+        name=f"{cfg.name}-nexttoken-logits", apply=next_token, params=params,
+        example_inputs=(torch.zeros((1, bucket), dtype=torch.int32),
+                        torch.zeros((), dtype=torch.int32)),
+    )
     edge = RRTOEdgeServer(fault=fault, device=dev)
-    served = RRTOServedLM(cfg, stateful=False, bucket_len=bucket, params=params, edge=edge,
-                          client_id="z0", min_repeats=FAULT_MIN_REPEATS)
-    sess = served.session
+    sess = edge.connect(app, client_id="z0", min_repeats=FAULT_MIN_REPEATS)
     timer = StepTimer(sess)
-    timed = sess.infer
-
-    def infer(*args):
-        modes = [h.mode for h in sess.history]
-        if not fault.outages and modes.count("replaying") == 1:
-            fault.outages = ((sess.clock.t, sess.clock.t + OUTAGE_S),)
-        return timed(*args)
-
-    sess.infer = infer
+    buf = np.zeros((1, bucket), np.int32)
+    buf[:, : prompt.shape[1]] = prompt
+    out = []
     t0 = time.perf_counter()
-    tokens = served.generate(prompt, FAULT_Z_NEW).tokens
-    wall = time.perf_counter() - t0
-    modes = [h.mode for h in sess.history]
-    check(np.array_equal(tokens, dev_tokens[:, :FAULT_Z_NEW]),
-          f"zamba2 outage tokens {tokens} != device_only {dev_tokens[:, :FAULT_Z_NEW]}")
+    for cur in range(prompt.shape[1], prompt.shape[1] + FAULT_Z_NEW):
+        modes = [h.mode for h in sess.history]
+        if fault is not None and not fault.outages and modes.count("replaying") == 1:
+            fault.outages = ((sess.clock.t, sess.clock.t + OUTAGE_S),)
+        res = sess.infer(torch.from_numpy(buf.copy()), torch.tensor(cur, dtype=torch.int32))
+        out.append(res.outputs[0].numpy()[:, None])
+        buf[:, cur] = out[-1][:, 0]
+    return dict(sess=sess, timer=timer, tokens=np.concatenate(out, axis=1),
+                modes=[h.mode for h in sess.history], wall=time.perf_counter() - t0)
+
+
+def phase_fault_zamba(dev, cfg, params, prompt, dev_tokens, bucket) -> dict:
+    """Part b: zamba2-1.2b stateless, a clean stream and one through an
+    outage window (:func:`zamba_logits_stream`).  The outage's request falls
+    back to the device and the stream heals.  What the fallback guarantees is
+    continuity: every request's outputs, the fallback's logits included, are
+    bitwise the clean stream's at the same request, where that request was
+    replayed on the server."""
+    from repro_torch.core.netsim import FaultInjector
+
+    clean = zamba_logits_stream(dev, cfg, params, prompt, bucket)
+    fault = FaultInjector()
+    run = zamba_logits_stream(dev, cfg, params, prompt, bucket, fault=fault)
+    sess, timer, modes = run["sess"], run["timer"], run["modes"]
+    for r in (clean, run):
+        check(np.array_equal(r["tokens"], dev_tokens[:, :FAULT_Z_NEW]),
+              f"zamba2 outage tokens {r['tokens']} != device_only {dev_tokens[:, :FAULT_Z_NEW]}")
     check(sess.client.stats.outage_fallbacks >= 1 and "outage_fallback" in modes,
           f"zamba2: no outage fallback ({modes})")
     check(modes[-1] == "replaying" and sess.client.mode == "replaying",
@@ -2277,11 +2313,20 @@ def phase_fault_zamba(dev, cfg, params, prompt, dev_tokens, bucket) -> dict:
             got = timer.launches(mode, kernel)
             check(bool(got) and all(n > 0 for n in got), f"zamba2 {mode}: {kernel} launches {got}")
     fb = modes.index("outage_fallback")
+    check(clean["modes"][fb] == "replaying",
+          f"zamba2: the clean stream's request {fb} was not replayed ({clean['modes']})")
+    for i, (h, ref) in enumerate(zip(sess.history, clean["sess"].history)):
+        check(same_tensors(h.outputs, ref.outputs),
+              f"zamba2 outage: request {i} ({h.mode}) outputs differ from the clean stream's "
+              f"({ref.mode})")
     print(f"[phase 11b] zamba2-1.2b stateless, outage {fault.outages}: modes "
-          f"{[m[:3] for m in modes]}; {sess.client.stats.outage_fallbacks} device fallback "
-          f"(token {tokens[0, fb]} == device_only's), healed to replay; tokens == phase 5's "
+          f"{[m[:3] for m in modes]} (clean {[m[:3] for m in clean['modes']]}); "
+          f"{sess.client.stats.outage_fallbacks} device fallback, healed to replay; the outputs "
+          f"of all {len(modes)} requests, token and logits "
+          f"{tuple(sess.history[fb].outputs[1].shape)}, bitwise == the clean stream's (the "
+          f"fallback's against the clean replay of request {fb}); tokens == phase 5's "
           f"device_only; fallback {1e3 * timer.steps[fb][1]:.1f} ms wall with launches "
-          f"{timer.steps[fb][2]}; {wall:.1f} s")
+          f"{timer.steps[fb][2]}; clean {clean['wall']:.1f} s, outage {run['wall']:.1f} s")
     return dict(modes=modes)
 
 

@@ -290,9 +290,8 @@ class ServerIngress:
                 share = max(share * factor, OUTAGE_FLOOR_BYTES_PER_S)
         return share
 
-    def account(self, nbytes: float, t: Optional[float] = None) -> None:
-        """Bill a transfer through this node (and the site backhaul); ``t``
-        is the simulated time of the transfer."""
+    def account(self, nbytes: float) -> None:
+        """Bill a transfer through this node (and the site backhaul)."""
         self.bytes_total += nbytes
         if self.backhaul is not None:
             self.backhaul.bytes_total += nbytes
@@ -354,7 +353,7 @@ class NetworkModel:
         bw = self.bandwidth_at(t)
         if self.ingress is not None:
             bw = min(bw, self.ingress.share(t))
-            self.ingress.account(nbytes, t)
+            self.ingress.account(nbytes)
         # a zero-bandwidth interval (obstructed radio, saturated ingress)
         # stalls the transfer for a long-but-finite interval instead of
         # dividing by zero

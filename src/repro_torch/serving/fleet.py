@@ -48,7 +48,6 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.costmodel import GTX_2080TI, DeviceSpec
 from repro_torch.core.engine import SimClock
 from repro_torch.core.netsim import EventTimeline, FaultInjector, SharedBackhaul, multi_node_ingress
 from repro_torch.core.offload import InferenceResult, OffloadableModel, OffloadSession
@@ -233,16 +232,7 @@ class EdgeFleet:
         self,
         n_replicas: int = 2,
         *,
-        server_device: DeviceSpec = GTX_2080TI,
-        execute: bool = True,
-        cache_capacity: int = 8,
-        cache_capacity_bytes: Optional[float] = None,
-        batch_window_s: float = 2e-3,
-        environment: str = "indoor",
-        node_capacity_bytes_per_s: float = 1e9 / 8.0,
-        backhaul_bytes_per_s: float = 10e9 / 8.0,
         hedging: bool = True,
-        hedge_multiplier: float = 2.0,
         min_observations: int = 8,
         fault: Optional[FaultInjector] = None,
         checkpoint_dir: Optional[str] = None,
@@ -254,27 +244,13 @@ class EdgeFleet:
         dev = resolve_device(device)
         self.clock = SimClock()
         self.timeline = EventTimeline()
-        ingresses = multi_node_ingress(
-            n_replicas,
-            node_capacity_bytes_per_s=node_capacity_bytes_per_s,
-            backhaul_bytes_per_s=backhaul_bytes_per_s,
-        )
+        ingresses = multi_node_ingress(n_replicas)
         self.backhaul: SharedBackhaul = ingresses[0].backhaul
         self.replicas: List[FleetReplica] = [
             FleetReplica(
                 name=f"r{i}",
                 edge=RRTOEdgeServer(
-                    server_device=server_device,
-                    execute=execute,
-                    cache_capacity=cache_capacity,
-                    cache_capacity_bytes=cache_capacity_bytes,
-                    batch_window_s=batch_window_s,
-                    environment=environment,
-                    ingress=ingresses[i],
-                    clock=self.clock,
-                    name=f"r{i}",
-                    fault=fault,
-                    device=dev,
+                    ingress=ingresses[i], clock=self.clock, name=f"r{i}", fault=fault, device=dev,
                 ),
             )
             for i in range(n_replicas)
@@ -284,7 +260,7 @@ class EdgeFleet:
             self.replicas,
             # an infinite multiplier never trips the speculative deadline, so
             # a no-hedge fleet still recovers from outright failures
-            hedge_multiplier=hedge_multiplier if hedging else float("inf"),
+            hedge_multiplier=2.0 if hedging else float("inf"),
             min_observations=min_observations,
         )
         self.clients: Dict[str, FleetClient] = {}

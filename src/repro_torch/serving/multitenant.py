@@ -449,7 +449,6 @@ class RRTOEdgeServer:
         server_device: DeviceSpec = GTX_2080TI,
         execute: bool = True,
         cache_capacity: int = 8,
-        cache_capacity_bytes: Optional[float] = None,
         batch_window_s: float = 2e-3,
         environment: str = "indoor",
         ingress: Optional[ServerIngress] = None,
@@ -461,7 +460,7 @@ class RRTOEdgeServer:
         self.clock = clock or SimClock()
         self.name = name
         self.fault = fault
-        self.cache = ReplayCache(cache_capacity, cache_capacity_bytes)
+        self.cache = ReplayCache(cache_capacity)
         self.server = OffloadServer(
             server_device, device=resolve_device(device), execute=execute,
             replay_cache=self.cache,
