@@ -59,7 +59,19 @@ random weights from a seed:
   the device (flash attention and the scan launch there too), its token and
   logits bitwise the clean stream's replay of it, and the stream heals; (c)
   the split sensor encoder adopts the all-device plan for the outage and
-  re-offloads after it.
+  re-offloads after it;
+* admission and overload (phase 12): (a) four zamba2-1.2b stateless clients
+  (gold, silver, bronze, bronze) on an edge guarded by an
+  ``AdmissionController`` calibrated as ``benchmarks/load_knee.py`` does,
+  and its twin edge without one, under the same open-loop Poisson arrivals
+  below and beyond the capacity knee: all admitted below it; typed sheds,
+  ``degraded_device`` responses and an admitted p99 at most half the twin's
+  beyond it (simulated clock); every returned response bitwise the twin's;
+  (b) one ``run_round`` with ``round_capacity = 2``: the EDF/DRR pair batched
+  at width 2, the rest solo, bitwise the uncapped round; (c) a qwen3-0.6b
+  stateful decode shed twice with its step and carried state untouched,
+  then decoded on; (d) the split sensor encoder's tier-1 degrade
+  (``degraded_split``) and the planner's restore.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after (every batched call under ``no_vmap_fallback``, so an op
@@ -2245,17 +2257,12 @@ def phase_fault_qwen(library, dev, cfg, params, prompt, dev_tokens, bucket, by_p
     return time.perf_counter() - t_part
 
 
-def zamba_logits_stream(dev, cfg, params, prompt, bucket, fault=None) -> dict:
-    """``FAULT_Z_NEW`` greedy tokens of zamba2 stateless through one session
-    on its own ``RRTOEdgeServer``.  The app is ``RRTOServedLM``'s stateless
-    next-token step that also returns the last position's logits, so a
-    request's whole result can be held bitwise, not only its argmax.  With
-    ``fault``, one outage window opens at the second replayed request (an
-    outage-only injector changes nothing before it, so this is where a clean
-    run's boundary would put it)."""
+def zamba_logits_app(cfg, params, bucket):
+    """``RRTOServedLM``'s stateless next-token step that also returns the
+    last position's logits, so a request's whole result can be held
+    bitwise, not only its argmax."""
     from repro_torch.core.offload import OffloadableModel
     from repro_torch.models.registry import get_model
-    from repro_torch.serving import RRTOEdgeServer
 
     model = get_model(cfg)
 
@@ -2265,13 +2272,24 @@ def zamba_logits_stream(dev, cfg, params, prompt, bucket, fault=None) -> dict:
         last = logits.index_select(1, idx.long())
         return [torch.argmax(last[:, 0, : cfg.vocab], dim=-1).to(torch.int32), last]
 
-    app = OffloadableModel(
+    return OffloadableModel(
         name=f"{cfg.name}-nexttoken-logits", apply=next_token, params=params,
         example_inputs=(torch.zeros((1, bucket), dtype=torch.int32),
                         torch.zeros((), dtype=torch.int32)),
     )
+
+
+def zamba_logits_stream(dev, cfg, params, prompt, bucket, fault=None) -> dict:
+    """``FAULT_Z_NEW`` greedy tokens of zamba2 stateless through one session
+    on its own ``RRTOEdgeServer``, through :func:`zamba_logits_app`.  With
+    ``fault``, one outage window opens at the second replayed request (an
+    outage-only injector changes nothing before it, so this is where a clean
+    run's boundary would put it)."""
+    from repro_torch.serving import RRTOEdgeServer
+
     edge = RRTOEdgeServer(fault=fault, device=dev)
-    sess = edge.connect(app, client_id="z0", min_repeats=FAULT_MIN_REPEATS)
+    sess = edge.connect(zamba_logits_app(cfg, params, bucket), client_id="z0",
+                        min_repeats=FAULT_MIN_REPEATS)
     timer = StepTimer(sess)
     buf = np.zeros((1, bucket), np.int32)
     buf[:, : prompt.shape[1]] = prompt
@@ -2374,6 +2392,375 @@ def phase_fault_sensor(dev) -> dict:
           f"inference {plans} of {n} (the outage plan is all-device, then re-offloaded); outputs bitwise == "
           f"plain rrto; {time.perf_counter() - t0:.1f} s")
     return dict(plans=plans)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: admission and overload
+# ---------------------------------------------------------------------------
+OVER_CLIENTS = (("z0", "gold"), ("z1", "silver"), ("z2", "bronze"), ("z3", "bronze"))
+# benchmarks/load_knee.py: each tenant's share of the offered load (Zipf
+# within a tenant), the admission rate as a fraction of the measured
+# capacity, the idle gap before each phase and the p99 bound beyond the knee
+OVER_POPULATION = {"gold": 0.15, "silver": 0.30, "bronze": 0.55}
+ADMIT_FRACTION, DRAIN_GAP_S, P99_RATIO_BOUND = 0.8, 0.05, 0.5
+OVER_PHASES = ((0.25, 16), (4.0, 24))    # (offered load / capacity, requests)
+OVER_SEED = 0
+# the token buckets' burst.  load_knee keeps the default (the queue limit,
+# in_flight + 16 tokens), sized for phases of 420 requests; a phase of ~16
+# fits inside it, so nothing would ever be denied.  The steady in-flight
+# level plus 2 lets the light phase through and runs dry in the heavy one
+OVER_BURST_EXTRA = 2
+OVER_Q_NEW, OVER_Q_SHED_AT = 8, 3        # qwen3-0.6b tokens; shed after the 3rd (part c)
+OVER_SPLIT_MAX = 400                     # sensor inferences allowed for the restore (part d)
+
+
+def attach_admission(edge, adm) -> None:
+    """Attach a controller to a warm edge, the reference's idiom: recording
+    never competes with the load for tokens."""
+    adm.bind(server=edge.server, ingress=edge.ingress)
+    edge.admission = adm
+    edge.batcher.admission = adm
+    for cid, sess in edge.sessions.items():
+        adm.register(cid, sess.tenant)
+        sess.admission = adm
+
+
+def over_request(prompt, dev_tokens, bucket, j) -> tuple:
+    """The zamba2 step at position ``prompt_len + j``: the buffer holds the
+    prompt and the first ``j`` of phase 5's ``device_only`` tokens, so its
+    token must be ``dev_tokens[0, j]``."""
+    n = prompt.shape[1]
+    buf = np.zeros((1, bucket), np.int32)
+    buf[:, :n] = prompt
+    buf[:, n:n + j] = dev_tokens[:, :j]
+    return torch.from_numpy(buf), torch.tensor(n + j, dtype=torch.int32)
+
+
+def over_schedule(offered_hz, n_requests, seed) -> list:
+    """``load_knee._phase_schedule`` over this phase's clients: each
+    client's Poisson stream seeded by ``client_stream_seed``, merged."""
+    from repro_torch.core.netsim import client_stream_seed, poisson_arrivals
+
+    by_tenant = {}
+    for cid, tenant in OVER_CLIENTS:
+        by_tenant.setdefault(tenant, []).append(cid)
+    duration = n_requests / offered_hz
+    events = []
+    for tenant, cids in by_tenant.items():
+        zipf = [1.0 / (1 + rank) for rank in range(len(cids))]
+        for cid, z in zip(cids, zipf):
+            rate = offered_hz * OVER_POPULATION[tenant] * z / sum(zipf)
+            offs = poisson_arrivals(rate, max(1, round(rate * duration)),
+                                    seed=client_stream_seed(seed, cid))
+            events.extend((off, cid) for off in offs)
+    return sorted(events)
+
+
+def drive_overload(edge, events, served, req) -> list:
+    """``load_knee._drive_phase``: open loop, the clock set to each arrival.
+    Request k of a client is the step at position ``prompt_len + k mod
+    Z_NEW``.  A shed is counted and checked, never swallowed."""
+    from repro_torch.serving.admission import AdmissionRejectedError
+
+    t0 = max(edge.clock.t, edge.server.busy_until) + DRAIN_GAP_S
+    out = []
+    for off, cid in events:
+        j = served[cid] % Z_NEW
+        served[cid] += 1
+        edge.clock.t = t0 + off
+        try:
+            r = edge.sessions[cid].infer(*req(j))
+        except AdmissionRejectedError as e:
+            check(e.client_id == cid and e.retry_after_s > 0,
+                  f"{edge.name}: shed of {cid} without a retry-after ({e})")
+            out.append(dict(cid=cid, j=j, mode="shed", err=e))
+            continue
+        out.append(dict(cid=cid, j=j, mode=r.mode, outputs=r.outputs, wall=r.wall_seconds))
+    return out
+
+
+def p99(xs) -> float:
+    return float(np.percentile(np.asarray(xs), 99)) if xs else 0.0
+
+
+def phase_overload(dev, cfg, params, prompt, dev_tokens, bucket) -> dict:
+    """Part a: zamba2-1.2b stateless (:func:`zamba_logits_app`, phase 5's
+    weights and prompt) on an edge of four clients, gold / silver / bronze /
+    bronze, warmed into replay, then guarded by an admission controller
+    calibrated as ``benchmarks/load_knee.py`` calibrates; its twin edge has
+    no controller.  Both edges take the same open-loop Poisson schedule, a
+    phase below the knee and one beyond it."""
+    from repro_torch.serving import RRTOEdgeServer
+    from repro_torch.serving.admission import AdmissionController, SLOClass
+
+    t_part = time.perf_counter()
+    app = zamba_logits_app(cfg, params, bucket)
+
+    def req(j):
+        return over_request(prompt, dev_tokens, bucket, j)
+
+    edges, timers = {}, {}
+    for name in ("guarded", "twin"):
+        edge = RRTOEdgeServer(name=name, device=dev)
+        for cid, tenant in OVER_CLIENTS:
+            sess = edge.connect(app, client_id=cid, tenant=tenant, min_repeats=FAULT_MIN_REPEATS)
+            timers[name, cid] = StepTimer(sess)
+        for cid, sess in edge.sessions.items():
+            while sess.client.mode != "replaying" and len(sess.history) < 4:
+                res = sess.infer(*req(0))
+                check(int(res.outputs[0][0]) == int(dev_tokens[0, 0]),
+                      f"{name} {cid}: warm-up token {res.outputs[0]} != device_only")
+            check(sess.client.mode == "replaying", f"{name} {cid}: never reached replaying")
+        edges[name] = edge
+    guarded, twin = edges["guarded"], edges["twin"]
+    check(guarded.clock.t == twin.clock.t, "the twin edges warmed up on different clocks")
+    warm_s = time.perf_counter() - t_part
+
+    # calibration (load_knee._calibrate): one replayed request on each edge
+    cal = {name: edge.sessions["z0"].infer(*req(1)) for name, edge in edges.items()}
+    check(same_tensors(cal["guarded"].outputs, cal["twin"].outputs), "calibration outputs differ")
+    compute_s, wall_s = cal["guarded"].server_busy_seconds, cal["guarded"].wall_seconds
+    device_s = guarded.sessions["z0"].device_fallback_seconds()
+    capacity = 1.0 / compute_s
+    in_flight = int(np.ceil(wall_s / compute_s))
+    classes = {
+        "gold": SLOClass("gold", deadline_s=0.5 * device_s, priority=2, weight=4.0),
+        "silver": SLOClass("silver", deadline_s=max(10 * device_s, 0.05), priority=1, weight=2.0),
+        "bronze": SLOClass("bronze", deadline_s=max(20 * device_s, 0.2), priority=0, weight=1.0),
+    }
+    adm = AdmissionController(queue_limit=in_flight + 16, rate_hz=ADMIT_FRACTION * capacity,
+                              burst=in_flight + OVER_BURST_EXTRA, borrow_depth=in_flight + 8,
+                              classes=classes)
+    attach_admission(guarded, adm)
+    print(f"[phase 12a] calibration (simulated clock): a replayed request occupies the server "
+          f"{1e3 * compute_s:.3f} ms (capacity {capacity:.1f} req/s), its wall {1e3 * wall_s:.3f} "
+          f"ms (in flight {in_flight}), the device fallback {1e3 * device_s:.3f} ms; admission "
+          f"at {adm.rate_hz:.1f} req/s, burst {adm.burst:g}, queue limit {adm.queue_limit}, "
+          f"borrow depth {adm.borrow_depth}; budgets (ms) "
+          f"{ {n: round(1e3 * c.deadline_s, 3) for n, c in classes.items()} }")
+
+    runs = []
+    served = {name: {cid: 2 for cid, _ in OVER_CLIENTS} for name in edges}
+    for k, (mult, n) in enumerate(OVER_PHASES):
+        events = over_schedule(mult * capacity, n, OVER_SEED + 1000 + k)
+        got = drive_overload(guarded, events, served["guarded"], req)
+        ref = drive_overload(twin, events, served["twin"], req)
+        runs.append((mult, got, ref))
+    for mult, got, ref in runs:
+        check(all(r["mode"] == "replaying" for r in ref),
+              f"the twin did not replay every request at {mult}x: {[r['mode'] for r in ref]}")
+        for i, (g, r) in enumerate(zip(got, ref)):
+            check(int(r["outputs"][0][0]) == int(dev_tokens[0, r["j"]]),
+                  f"twin request {i} at {mult}x: token != device_only")
+            if g["mode"] != "shed":
+                check(same_tensors(g["outputs"], r["outputs"]),
+                      f"request {i} at {mult}x ({g['mode']}): outputs differ from the twin's replay")
+        modes = Counter(g["mode"] for g in got)
+        adm_lat = [g["wall"] for g in got if g["mode"] == "replaying"]
+        ratio = p99(adm_lat) / p99([r["wall"] for r in ref])
+        print(f"[phase 12a] {mult}x capacity, {len(got)} requests: {dict(modes)}; admitted p99 "
+              f"{1e3 * p99(adm_lat):.3f} ms, twin p99 {1e3 * p99([r['wall'] for r in ref]):.3f} ms "
+              f"(simulated clock; ratio {ratio:.3f})")
+        if mult < 1.0:
+            check(modes == {"replaying": len(got)}, f"below the knee not all admitted: {dict(modes)}")
+        else:
+            check(modes["shed"] >= 1, f"beyond the knee: no typed shed ({dict(modes)})")
+            check(modes["degraded_device"] >= 1, f"beyond the knee: no degraded_device ({dict(modes)})")
+            check(ratio <= P99_RATIO_BOUND, f"beyond the knee: admitted p99 {ratio:.3f} x the twin's")
+    if dev.type == "cuda":
+        for mode in ("replaying", "degraded_device"):
+            for kernel in ("rmsnorm", "flash_attention", "ssm_scan"):
+                got = [n for cid, _ in OVER_CLIENTS for n in timers["guarded", cid].launches(mode, kernel)]
+                check(bool(got) and all(n > 0 for n in got), f"12a {mode}: {kernel} launches {got}")
+    shares = adm.admitted_shares()
+    wall = {mode: np.mean([t for cid, _ in OVER_CLIENTS for m, t, _ in timers["guarded", cid].steps
+                           if m == mode]) for mode in ("replaying", "degraded_device")}
+    step = next(n for m, _, n in timers["guarded", "z1"].steps if m == "replaying")
+    deg = next(n for cid, _ in OVER_CLIENTS for m, _, n in timers["guarded", cid].steps
+               if m == "degraded_device")
+    print(f"[phase 12a] tenants' admitted share against their weight share: "
+          f"{ {t: (round(shares.get(t, 0.0), 3), round(adm.weight_share(t), 3)) for t in classes} }; "
+          f"stats {adm.stats.as_dict()}; edge summary queue depth {guarded.summary()['queue_depth']}")
+    print(f"[phase 12a] host wall per request: replayed {1e3 * wall['replaying']:.1f} ms, "
+          f"degraded_device {1e3 * wall['degraded_device']:.1f} ms, shed 0; launches of a replayed "
+          f"request {step}, of a degraded one {deg}; every returned response, token and logits "
+          f"{tuple(cal['guarded'].outputs[1].shape)}, bitwise == the twin's replay; tokens == phase 5's "
+          f"device_only; warm-up {warm_s:.1f} s, part {time.perf_counter() - t_part:.1f} s")
+    return dict(edges=edges, classes=classes, req=req, replay_launches=step)
+
+
+def phase_round_formation(library, over) -> None:
+    """Part b: the same four sessions under a controller that sheds nothing
+    and ``round_capacity = 2``.  One ``run_round`` over all four: the pair
+    ``drr_select`` picks from the EDF order runs as one vmap batch of width
+    2, the other two replay solo, and every output is bitwise the uncapped
+    twin round's (a vmap batch of 4) and its lane loop's."""
+    from repro_torch.core.engine import no_vmap_fallback
+    from repro_torch.serving.admission import AdmissionController, drr_select
+
+    t_part = time.perf_counter()
+    guarded, twin = over["edges"]["guarded"], over["edges"]["twin"]
+    inert = AdmissionController(rate_hz=1e12, burst=1e12, queue_limit=10**9,
+                                classes=over["classes"])
+    attach_admission(guarded, inert)
+    batcher = guarded.batcher
+    batcher.round_capacity = 2
+    # the expected pair: EDF (deadline, then priority, then arrival) at the
+    # round's stamp time, then DRR from the batcher's current deficits
+    t = guarded.clock.t
+    order = [cid for _, (cid, tenant) in sorted(
+        enumerate(OVER_CLIENTS),
+        key=lambda it: (inert.deadline_for(it[1][0], t), -inert.slo(it[1][1]).priority, it[0]))]
+    want = drr_select(order, 2, inert.tenant_of, lambda tenant: inert.slo(tenant).weight,
+                      dict(batcher._drr_deficits))
+    log = []
+    inner = batcher._run_vmap_batch
+
+    def logged(fp, members, params_flat):
+        before = dict(library.LAUNCHES)
+        group = inner(fp, members, params_flat)
+        log.append(([cl.client_id for cl, _ in members],
+                    {k: n - before[k] for k, n in library.LAUNCHES.items()}))
+        return group
+
+    batcher._run_vmap_batch = logged
+    solo0, vmap0 = batcher.solo_replays, batcher.vmap_batches
+
+    def round_inputs():
+        return {cid: over["req"](i) for i, (cid, _) in enumerate(OVER_CLIENTS)}
+
+    with no_vmap_fallback():
+        capped = guarded.run_round(round_inputs())
+        free = twin.run_round(round_inputs())
+        twin.batcher.enable_vmap = False
+        loop = twin.run_round(round_inputs())
+    check(len(log) == 1 and log[0][0] == want,
+          f"12b: batched members {[ids for ids, _ in log]}, drr_select on the EDF order {order} "
+          f"picks {want}")
+    check(batcher.vmap_batches == vmap0 + 1 and batcher.batch_sizes[-1] == 2,
+          f"12b: vmap batches {batcher.vmap_batches - vmap0}, widths {batcher.batch_sizes}")
+    check(batcher.solo_replays == solo0 + 2, f"12b: solo replays rose by {batcher.solo_replays - solo0}")
+    check(twin.batcher.batch_sizes[-2:] == [4, 4], f"12b twin widths {twin.batcher.batch_sizes}")
+    for i, (cid, _) in enumerate(OVER_CLIENTS):
+        check(capped[cid].mode == "replaying", f"12b {cid}: {capped[cid].mode}")
+        check(same_tensors(capped[cid].outputs, free[cid].outputs)
+              and same_tensors(capped[cid].outputs, loop[cid].outputs),
+              f"12b {cid}: the capped round's outputs differ from the uncapped round's or the loop's")
+    launched = log[0][1]
+    if guarded.server.device.type == "cuda":
+        for kernel in ("rmsnorm", "flash_attention", "ssm_scan"):
+            check(launched[kernel] == over["replay_launches"][kernel],
+                  f"12b: the width-2 call launched {kernel} {launched[kernel]} times, a solo step "
+                  f"{over['replay_launches'][kernel]}")
+    print(f"[phase 12b] EDF order {order} -> DRR picks {want} batched at width 2 "
+          f"(launches {launched}: each kernel once for both lanes), the other two solo; outputs "
+          f"bitwise == the uncapped twin round (width 4) and its lane loop; "
+          f"{time.perf_counter() - t_part:.1f} s")
+
+
+def phase_overload_stateful(dev, cfg, params, prompt, dev_tokens, bucket) -> None:
+    """Part c: qwen3-0.6b stateful on an edge.  After the third token a
+    zero-capacity controller sheds the next step twice, under gold's tiny
+    budget and under an unbounded one (a stateful session cannot take the
+    device fallback); no step runs and the carried state is untouched.
+    Detached, the decode goes on to phase 3's ``device_only`` tokens."""
+    from repro_torch.serving import RRTOEdgeServer, RRTOServedLM
+    from repro_torch.serving.admission import AdmissionController, AdmissionRejectedError, SLOClass
+
+    t_part = time.perf_counter()
+    edge = RRTOEdgeServer(device=dev)
+    lm = RRTOServedLM(cfg, bucket_len=bucket, params=params, edge=edge, client_id="q0",
+                      min_repeats=FAULT_MIN_REPEATS)
+    sess = lm.session
+    g = lm.start_generation(prompt, OVER_Q_NEW)
+    while len(g["out"]) < OVER_Q_SHED_AT:
+        lm.absorb_step(g, sess.infer(*lm.step_inputs(g)).outputs)
+    check(sess.client.stateful_replay, "12c: the decode is not in stateful replay")
+    state0, seq0, n0 = edge.server.export_carried_state("q0"), sess.client.step_seq, len(sess.history)
+    sheds = []
+    for budget in (1e-12, 1e9):
+        adm = AdmissionController(rate_hz=1e-6, burst=0.0, classes={
+            "gold": SLOClass("gold", deadline_s=budget, priority=2, weight=4.0)})
+        adm.bind(server=edge.server, ingress=edge.ingress)
+        adm.register("q0", "gold")
+        sess.admission = adm
+        try:
+            sess.infer(*lm.step_inputs(g))
+        except AdmissionRejectedError as e:
+            check(e.retry_after_s > 0 and e.tenant == "gold", f"12c: shed without retry-after ({e})")
+            sheds.append(e.retry_after_s)
+        else:
+            fail(f"12c: a stateful step under a budget of {budget} s was not shed")
+        check(adm.stats.shed == 1 and adm.stats.degraded_device == 0,
+              f"12c: budget {budget}: {adm.stats.as_dict()}")
+    state1 = edge.server.export_carried_state("q0")
+    check(sess.client.step_seq == seq0 and len(sess.history) == n0,
+          f"12c: a shed step ran (step_seq {seq0} -> {sess.client.step_seq})")
+    check(same_tensors(state0, state1), "12c: the carried state changed under the sheds")
+    sess.admission = None
+    for _ in range(lm.steps_total(g) - g["pos"]):
+        lm.absorb_step(g, sess.infer(*lm.step_inputs(g)).outputs)
+    tokens = np.concatenate(g["out"], axis=1)
+    check(np.array_equal(tokens, dev_tokens[:, :OVER_Q_NEW]),
+          f"12c: tokens {tokens} != device_only {dev_tokens[:, :OVER_Q_NEW]}")
+    nbytes = sum(t.numel() * t.element_size() for t in state0)
+    print(f"[phase 12c] qwen3-0.6b stateful: shed twice after token {OVER_Q_SHED_AT} (gold budget "
+          f"1e-12 s and 1e9 s; retry after {[round(r, 6) for r in sheds]} s simulated), step_seq "
+          f"{seq0} unchanged, the {nbytes} B carried state bitwise unchanged; detached, "
+          f"{OVER_Q_NEW} tokens == phase 3's device_only; {time.perf_counter() - t_part:.1f} s")
+
+
+def phase_overload_split(dev) -> None:
+    """Part d: the sensor encoder at 96 split by the planner, against an
+    idle twin.  Under a zero-capacity controller whose budget cannot cover
+    the device fallback, one request takes tier 1 (``degraded_split``: the
+    device-heavy plan), bitwise the twin's; detached, ``observe`` restores
+    the planner's cut once ``min_replan_interval_s`` has passed."""
+    from repro_torch.core.offload import OffloadSession
+    from repro_torch.models.cnn_zoo import make_sensor_encoder
+    from repro_torch.partition import PartitionConfig
+    from repro_torch.serving.admission import AdmissionController, SLOClass
+
+    t_part = time.perf_counter()
+    model = make_sensor_encoder(scale=1.0, input_size=96, device=dev)
+    cfg = PartitionConfig()
+    split = OffloadSession(model, "rrto", device=dev, partition=cfg)
+    idle = OffloadSession(model, "rrto", device=dev, partition=cfg)
+    x = model.example_inputs
+
+    def both(label):
+        s, w = split.infer(*x), idle.infer(*x)
+        check(same_tensors(s.outputs, w.outputs), f"12d {label} ({s.mode}): outputs differ")
+        return s
+
+    for _ in range(5):
+        both("warm-up")
+    cl = split.client
+    check(cl.mode == "replaying" and cl.split_plan is not None, "12d: no split replay")
+    plan0, n0 = cl.split_plan.signature(), cl.split_plan.n_device_ops
+    adm = AdmissionController(rate_hz=1e-6, burst=0.0, default_class=SLOClass(deadline_s=1e-12))
+    split.admission = adm
+    adm.register(split.client_id)
+    t_deg = split.clock.t
+    r = both("degraded")
+    n_deg = cl.split_plan.n_device_ops
+    check(r.mode == "degraded_split" and n_deg > n0, f"12d: {r.mode}, device ops {n0} -> {n_deg}")
+    check(cl.replanner.stats.overload_degrades == 1 and adm.stats.degraded_split == 1,
+          f"12d: {cl.replanner.stats.overload_degrades} overload degrades, {adm.stats.as_dict()}")
+    split.admission = None
+    after = []
+    for _ in range(OVER_SPLIT_MAX):
+        both("after")
+        after.append((split.clock.t - t_deg, cl.split_plan.signature()))
+        if after[-1][1] == plan0:
+            break
+    check(after[-1][1] == plan0, f"12d: the cut {plan0} never came back ({after[-1]})")
+    check(after[-1][0] >= cfg.min_replan_interval_s and all(p != plan0 for _, p in after[:-1]),
+          f"12d: restored after {after[-1][0]:.4f} s, before min_replan_interval_s")
+    print(f"[phase 12d] sensor_encoder @ 96: plan {plan0} ({n0} device ops) -> degraded_split with "
+          f"{n_deg} of {cl.replanner.graph.n_ops} device ops, bitwise the idle twin; detached, "
+          f"back on {plan0} after {len(after)} inferences ({after[-1][0]:.4f} s simulated, "
+          f"interval {cfg.min_replan_interval_s} s); {time.perf_counter() - t_part:.1f} s")
 
 
 def rss() -> str:
@@ -2487,6 +2874,7 @@ def main() -> None:
         lambda: phase_fault_zamba(dev, m["cfg"], params, m["prompt"], m["r_dev"].tokens,
                                   Z_STATELESS_BUCKET))
     t11 += time.perf_counter() - t0
+    z_cfg, z_prompt, z_dev_tokens = m["cfg"], m["prompt"], m["r_dev"].tokens
     del m
     torch.cuda.empty_cache()
 
@@ -2533,7 +2921,7 @@ def main() -> None:
     check_multitenant(f"qwen3-0.6b x{MT_CLIENTS}", runs[True], runs[False])
     check_lane_order(f"qwen3-0.6b x{MT_CLIENTS}", runs[True])
     step_times = time_multitenant_step(runs[True], runs[False], dev)
-    del runs, q_params
+    del runs
     torch.cuda.empty_cache()
     runs = {}
     for vm in (True, False):
@@ -2547,9 +2935,28 @@ def main() -> None:
                                       enable_vmap=vm))
     check_multitenant(f"zamba2-1.2b stateless x{MT_Z_CLIENTS}", runs[True], runs[False])
     check_lane_order(f"zamba2-1.2b stateless x{MT_Z_CLIENTS}", runs[True])
-    del runs, params
+    del runs
     torch.cuda.empty_cache()
     print(f"[phase 7] ({time.perf_counter() - t0:.1f} s); batched step {step_times}")
+
+    t0 = time.perf_counter()
+    zamba = ("rmsnorm", "flash_attention", "ssm_scan")
+    over, by_path["phase 12a zamba2-1.2b stateless overload"] = run_path(
+        library, "phase 12a zamba2-1.2b stateless overload", zamba,
+        lambda: phase_overload(dev, z_cfg, params, z_prompt, z_dev_tokens, Z_STATELESS_BUCKET))
+    _, by_path["phase 12b zamba2-1.2b round formation"] = run_path(
+        library, "phase 12b zamba2-1.2b round formation", zamba,
+        lambda: phase_round_formation(library, over))
+    del over, params
+    torch.cuda.empty_cache()
+    _, by_path["phase 12c qwen3-0.6b stateful shed"] = run_path(
+        library, "phase 12c qwen3-0.6b stateful shed", ("rmsnorm", "decode_attention"),
+        lambda: phase_overload_stateful(dev, q_cfg, q_params, q_prompt, q_dev_tokens, BUCKET))
+    del q_params
+    torch.cuda.empty_cache()
+    _, by_path["phase 12d sensor encoder degraded split"] = run_path(
+        library, "phase 12d sensor encoder degraded split", (), lambda: phase_overload_split(dev))
+    print(f"[phase 12] admission and overload: {time.perf_counter() - t0:.1f} s over parts a-d")
 
     t0 = time.perf_counter()
     mla = ("rmsnorm", "flash_attention")

@@ -1397,6 +1397,11 @@ class RRTOClient:
         self.step_seq = 0
         self.step_log: Optional[Any] = None
         self.outage_active = False
+        # overload protection: the tenant this client bills against and the
+        # absolute simulated deadline of the request in flight (None = no
+        # SLO; EDF round formation orders it last)
+        self.tenant = "default"
+        self.deadline_t: Optional[float] = None
 
     # -- helpers -------------------------------------------------------------
     @property

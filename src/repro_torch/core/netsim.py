@@ -279,6 +279,13 @@ class ServerIngress:
     bytes_total: float = 0.0
     backhaul: Optional[SharedBackhaul] = None
     fault: Optional[FaultInjector] = None
+    # overload protection: a bound AdmissionController mirrors its wait-queue
+    # depth here, so queueing at the edge box is observable at the ingress
+    queue_depth: int = 0
+
+    def set_queue_depth(self, depth: int) -> None:
+        """Record the admitted-but-uncompleted backlog behind this ingress."""
+        self.queue_depth = int(depth)
 
     def share(self, t: Optional[float] = None) -> float:
         share = self.capacity_bytes_per_s / max(1, self.active_clients)

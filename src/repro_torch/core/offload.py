@@ -18,6 +18,12 @@ With a :class:`~repro_torch.core.netsim.FaultInjector` a transparent session
 also rides out link faults: lost messages are retried, and an inference that
 starts inside a declared outage window waits it out (stateful replay), adopts
 the all-device split plan (split replay), or runs on the device.
+
+With an :class:`~repro_torch.serving.admission.AdmissionController` every
+request of a transparent session is admitted, degraded or shed first (the
+overload ladder): a split session re-cuts device-heavy, a stateless one runs
+on the device when its deadline budget covers that, and anything else
+raises :class:`~repro_torch.serving.admission.AdmissionRejectedError`.
 """
 from __future__ import annotations
 
@@ -162,7 +168,10 @@ class OffloadSession:
     :class:`~repro_torch.partition.PartitionConfig`, rrto only) splits the
     replayed IOS between the device and the server.  ``fault`` and
     ``retry_policy`` (transparent systems only) inject link faults and set
-    the client's retry discipline."""
+    the client's retry discipline.  ``admission`` (an
+    :class:`~repro_torch.serving.admission.AdmissionController`, transparent
+    systems only) guards every request; ``tenant`` names the SLO class the
+    client bills against."""
 
     def __init__(
         self,
@@ -182,6 +191,8 @@ class OffloadSession:
         partition: Optional[Any] = None,
         fault: Optional[FaultInjector] = None,
         retry_policy: Optional[RetryPolicy] = None,
+        admission: Optional[Any] = None,
+        tenant: str = "default",
     ):
         """``execute=False`` makes an account-only session: the clock,
         network, energy and record streams run as usual, nothing is
@@ -218,6 +229,11 @@ class OffloadSession:
         self.history: List[InferenceResult] = []
         self.stage_marks: Dict[str, int] = {}
         self._loaded = False
+        # overload protection; None = no admission layer, every path below is
+        # bitwise what it is without one
+        self.admission = admission
+        self.tenant = tenant
+        self._device_fallback_s: Optional[float] = None
 
         # ---- trace the model once (fake tensors: shapes only); the setup
         # outputs are computed eagerly here, once
@@ -251,6 +267,9 @@ class OffloadSession:
                 noise or FrameworkNoiseModel(),
                 input_wire_divisor=model.input_wire_divisor,
             )
+            self.client.tenant = tenant
+            if admission is not None:
+                admission.register(client_id, tenant)
             if fault is not None:
                 self.network.fault = fault
         else:
@@ -329,10 +348,55 @@ class OffloadSession:
             resident_inputs=self._aux_addrs,
         )
 
-    def infer(self, *inputs) -> InferenceResult:
+    def device_fallback_seconds(self) -> float:
+        """Latency of one eager device-local inference: the degradation
+        ladder's tier-2 cost (it must fit the tenant's deadline budget for a
+        degraded response to be worth returning)."""
+        if self._device_fallback_s is None:
+            self._device_fallback_s = self.client_device.sequence_time(
+                self._steady_flops,
+                self._steady_bytes,
+                num_kernels=self._n_kernels,
+                fusion_factor=1.0,  # eager per-op dispatch on the device
+            )
+        return self._device_fallback_s
+
+    def _admission_decision(self, deadline_s: Optional[float]):
+        """Consult the admission controller for one arriving request and take
+        the ladder's decision half: raise on a shed, install the
+        device-heavy plan on tier 1, and return the decision and the
+        request's absolute deadline (None, None without a controller)."""
+        adm, cl = self.admission, self.client
+        if adm is None or cl is None:
+            return None, None
+        t = self.clock.t
+        decision = adm.decide(
+            self.client_id,
+            t,
+            can_degrade_split=cl.mode == MODE_REPLAYING and cl.replanner is not None,
+            can_degrade_device=not cl.stateful_replay,
+            degraded_latency_s=self.device_fallback_seconds(),
+        )
+        if decision.action == "shed":
+            raise adm.shed_error(self.client_id, decision)
+        budget = (
+            deadline_s if deadline_s is not None
+            else adm.slo(adm.tenant_of(self.client_id)).deadline_s
+        )
+        deadline_t = t + budget
+        cl.deadline_t = deadline_t
+        if decision.action == "degrade_split":
+            plan = cl.replanner.degrade(t)
+            if plan is not None:
+                cl._install_plan(plan)
+        return decision, deadline_t
+
+    def infer(self, *inputs, deadline_s: Optional[float] = None) -> InferenceResult:
         """One inference.  Inputs are host values (CPU tensors or numpy); a
         CPU tensor is passed through as the same object, so a handle the
-        session handed out keeps its identity on the way back in."""
+        session handed out keeps its identity on the way back in.
+        ``deadline_s`` overrides the tenant's SLO budget for this request
+        (with an admission controller only)."""
         if not self._loaded:
             self.load()
         t0, e0 = self.clock.t, self.meter.snapshot()
@@ -351,12 +415,25 @@ class OffloadSession:
             self.meter.add(STATE_CONTROL, CLIENT_CONTROL_S)
             self.clock.advance(CLIENT_CONTROL_S)
             cl = self.client
-            if cl.fault is not None and cl.fault.in_outage(self.clock.t):
+            decision, deadline_t = self._admission_decision(deadline_s)
+            arrival_t = self.clock.t
+            if decision is not None and decision.action == "degrade_device":
+                # the device path is eager, op by op: bitwise the replay
+                mode = "degraded_device"
+                outputs = self._device_only(inputs)
+            elif cl.fault is not None and cl.fault.in_outage(self.clock.t):
                 mode, outputs = self._infer_during_outage(inputs)
             else:
                 cl.outage_active = False
                 mode = cl.mode
                 outputs = self._run_intercepted(inputs)
+                if decision is not None and decision.action == "degrade_split":
+                    mode = "degraded_split"
+            if decision is not None:
+                if decision.action == "admit":
+                    self.admission.note_admitted(arrival_t, self.clock.t)
+                self.admission.note_completion(arrival_t, self.clock.t, deadline_t)
+                cl.deadline_t = None
         if len(self.history) == 0:
             self.stage_marks["after_first_inference"] = self._logs_so_far()
 
@@ -379,6 +456,7 @@ class OffloadSession:
         inputs_seq: Sequence[Tuple[Any, ...]],
         *,
         arrivals: Optional[Any] = None,
+        deadlines: Optional[Any] = None,
     ) -> List[StreamResult]:
         """Open-loop streaming inference: submit every element of
         ``inputs_seq`` at its arrival offset (seconds from now; default 0, a
@@ -393,7 +471,10 @@ class OffloadSession:
         sum-bound, and results come in order, bitwise the sequential split
         replay's.  Any other state (recording, full-server plan, pipelining
         off) falls back to a closed-loop ``infer()`` per arrival, so a cold
-        session can be streamed from the start and warms itself up."""
+        session can be streamed from the start and warms itself up.
+        ``deadlines`` (any iterable of per-request budgets in seconds) go to
+        each ``infer()``; on the pipelined path, which bypasses it, they are
+        scored after the fact against the in-order completions."""
         if self.system != "rrto":
             raise ValueError("infer_stream requires an rrto session")
         if not self._loaded:
@@ -417,6 +498,11 @@ class OffloadSession:
                     f"arrival offsets must be non-decreasing: offset at index {i} "
                     f"({a!r}) precedes offset at index {i - 1} ({offs[i - 1]!r})"
                 )
+        deads = None
+        if deadlines is not None:
+            deads = [float(d) for d in deadlines]
+            if len(deads) != n:
+                raise ValueError(f"{n} inputs but {len(deads)} deadline budgets")
         base = self.clock.t
         cl = self.client
         # the executor is valid only while the session is replay-locked (a
@@ -424,9 +510,9 @@ class OffloadSession:
         pipe = cl.pipelined_exec if cl.mode == MODE_REPLAYING else None
         if pipe is None:
             results = []
-            for off, ins in zip(offs, inputs_seq):
+            for i, (off, ins) in enumerate(zip(offs, inputs_seq)):
                 cl._wait_until(base + off)
-                r = self.infer(*ins)
+                r = self.infer(*ins, deadline_s=None if deads is None else deads[i])
                 results.append(StreamResult(r.outputs, base + off, self.clock.t))
             return results
         env = self.server.context(self.client_id).env
@@ -447,6 +533,11 @@ class OffloadSession:
         results = [
             StreamResult(o, base + off, done) for o, off, done in zip(outputs, offs, dones)
         ]
+        if deads is not None and self.admission is not None:
+            # pipelined submissions bypass infer(): score the deadlines after
+            # the fact against the in-order completion times
+            for r, d in zip(results, deads):
+                self.admission.note_completion(r.arrival_t, r.done_at, r.arrival_t + d)
         # completions are in order, so the last one closes the window
         wall = max(0.0, results[-1].done_at - base)
         dev1, link1 = pipe.busy_snapshot()
@@ -515,12 +606,7 @@ class OffloadSession:
 
     def _device_only(self, inputs) -> List[torch.Tensor]:
         outs = self._direct(inputs)
-        dt = self.client_device.sequence_time(
-            self._steady_flops,
-            self._steady_bytes,
-            num_kernels=self._n_kernels,
-            fusion_factor=1.0,  # eager per-op dispatch on the device
-        )
+        dt = self.device_fallback_seconds()
         self.clock.advance(dt)
         self.meter.add(STATE_INFERENCE, dt)
         return outs

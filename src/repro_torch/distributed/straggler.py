@@ -89,7 +89,13 @@ class HedgedRouter:
     completion source they also need ``latency(req_idx)`` (the
     :class:`ReplicaModel` protocol).  ``completion_source(replica, req_idx)``
     returns the completion latency in seconds, or None when the replica
-    fails to complete the request."""
+    fails to complete the request.
+
+    ``health(index)`` is a soft health signal (the fleet's circuit
+    breakers): an unhealthy replica is routed *around*, not treated as
+    failed.  If every candidate is unhealthy, a second pass ignores the
+    signal, so saturation never escalates to :class:`NoHealthyReplicaError`.
+    None routes as a router without breakers does."""
 
     def __init__(
         self,
@@ -98,6 +104,7 @@ class HedgedRouter:
         min_observations: int = 8,
         window: int = OBSERVATION_WINDOW,
         completion_source: Optional[Callable[[Any, int], Optional[float]]] = None,
+        health: Optional[Callable[[int], bool]] = None,
     ):
         if window < 1:
             raise ValueError(f"observation window must be >= 1, got {window}")
@@ -108,6 +115,7 @@ class HedgedRouter:
         self._observed: Deque[float] = deque(maxlen=window)
         self.stats = HedgeStats()
         self._rr = 0
+        self.health = health
 
     @property
     def observed_count(self) -> int:
@@ -134,14 +142,22 @@ class HedgedRouter:
             )
         return self.hedge_multiplier * self.observed_median
 
+    def _healthy(self, idx: int) -> bool:
+        return self.health is None or self.health(idx)
+
     def _pick(self, exclude: int) -> int:
-        rr = self._rr
-        for _ in range(len(self.replicas)):
-            rr = (rr + 1) % len(self.replicas)
-            if rr == exclude or self.replicas[rr].failed:
-                continue
-            self._rr = rr
-            return rr
+        # the first pass honours the soft health signal; the fallback pass
+        # takes any replica not failed (a saturated box beats no box)
+        for honor_health in (True, False) if self.health is not None else (True,):
+            rr = self._rr
+            for _ in range(len(self.replicas)):
+                rr = (rr + 1) % len(self.replicas)
+                if rr == exclude or self.replicas[rr].failed:
+                    continue
+                if honor_health and not self._healthy(rr):
+                    continue
+                self._rr = rr
+                return rr
         raise NoHealthyReplicaError("no healthy replica available")
 
     def _settle(self, t: float, primary_won: bool) -> None:
@@ -198,8 +214,12 @@ class HedgedRouter:
         while t_primary is None and t_backup is None:
             # the primary failed outright and so did the backup pick: walk
             # every remaining healthy replica before giving up (failure
-            # recovery, not speculation: the success path runs no extra)
-            remaining = [i for i, r in enumerate(self.replicas) if i not in tried and not r.failed]
+            # recovery, not speculation: the success path runs no extra);
+            # healthy candidates first, saturated ones as a last resort
+            remaining = sorted(
+                (i for i, r in enumerate(self.replicas) if i not in tried and not r.failed),
+                key=lambda i: not self._healthy(i),
+            )
             if not remaining:
                 raise AllReplicasFailedError(
                     f"request {req_idx}: primary {primary_rep.name!r} and "

@@ -20,7 +20,9 @@ returns keeps the loop-carried state server-resident.
 
 A declared link outage (:meth:`AdaptiveReplanner.declare_outage`) bypasses
 the damping: the session re-plans at once at the outage floor, which lands
-every segment on the device.
+every segment on the device.  An overloaded server
+(:meth:`AdaptiveReplanner.degrade`, the admission ladder's first tier) plans
+at the same floor but leaves the bandwidth estimate alone.
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ class ReplannerStats:
         self.replans = 0                  # adopted swaps
         self.rejected_by_hysteresis = 0
         self.outage_replans = 0           # declared-outage immediate swaps
+        self.overload_degrades = 0        # admission-driven device-heavy swaps
 
 
 class AdaptiveReplanner:
@@ -114,6 +117,25 @@ class AdaptiveReplanner:
         )
         self.current = candidate
         return None if same else candidate.plan
+
+    def degrade(self, now: float) -> Optional[SplitPlan]:
+        """The *server* is overloaded: shift work onto the device by planning
+        as if the wire were at the outage floor (every segment the planner
+        can move lands device-side).  Unlike :meth:`declare_outage` the link
+        is healthy, so the EMA is left alone: the next :meth:`observe`
+        sample re-plans back toward offloading once the pressure clears.
+        ``_last_plan_t`` is stamped, so ``min_replan_interval_s`` rate-limits
+        the restore.  Returns the device-heavy plan, or None when the
+        session already runs it."""
+        self._last_plan_t = now
+        candidate = self._plan_at(OUTAGE_FLOOR_BYTES_PER_S)
+        if self.current is not None and (
+            candidate.plan.signature() == self.current.plan.signature()
+        ):
+            return None
+        self.stats.overload_degrades += 1
+        self.current = candidate
+        return candidate.plan
 
     def observe(self, bandwidth: float, now: float) -> Optional[SplitPlan]:
         """Feed one bandwidth sample; returns a new plan iff the session

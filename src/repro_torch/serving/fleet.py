@@ -29,6 +29,10 @@ pieces into a replicated fleet:
   every ``checkpoint_every`` steps (:mod:`repro_torch.serving.recovery`); a
   crashed replica's session restores on a peer from the checkpoint files and
   the client's step log alone.
+* **Overload** — with ``circuit_breaker=True`` each replica has a
+  :class:`CircuitBreaker` fed by every dispatch outcome, and the router
+  routes around an open one; ``admission_factory`` gives each replica its
+  own :class:`~repro_torch.serving.admission.AdmissionController`.
 
 Every replica's server computes on one ``device``: on one card the replicas
 share it, and a migration moves the env by reference (its bytes are still
@@ -77,6 +81,64 @@ class FleetReplica:
     @property
     def load(self) -> int:
         return len(self.edge.sessions)
+
+
+class CircuitBreaker:
+    """Per-replica saturation breaker (closed / open / half-open).
+
+    A replica that keeps failing, or completing far beyond the fleet's
+    observed baseline, is *saturated*: hedging into it only deepens its
+    queue.  The breaker counts consecutive bad outcomes (a failure, or a
+    latency above ``latency_multiplier`` times the router's observed
+    median); at ``failure_threshold`` it opens for ``cooldown_s`` of
+    simulated time, the router's health hook routes around it, and after the
+    cooldown one probe request (half-open) decides: good closes the breaker,
+    bad re-opens it.  It is a soft signal: the router falls back to an
+    open-breaker replica when nothing else is healthy."""
+
+    CLOSED = "closed"
+    OPEN = "open"
+    HALF_OPEN = "half_open"
+
+    def __init__(self, *, failure_threshold: int = 3, cooldown_s: float = 0.25,
+                 latency_multiplier: float = 4.0):
+        if failure_threshold < 1:
+            raise ValueError(f"failure_threshold must be >= 1, got {failure_threshold}")
+        self.failure_threshold = int(failure_threshold)
+        self.cooldown_s = float(cooldown_s)
+        self.latency_multiplier = float(latency_multiplier)
+        self.state = self.CLOSED
+        self.consecutive_bad = 0
+        self.open_until = 0.0
+        self.opens = 0
+
+    def allow(self, t: float) -> bool:
+        """May this replica take a request at ``t``?  An elapsed cooldown
+        moves open -> half-open and admits the probe."""
+        if self.state == self.OPEN:
+            if t >= self.open_until:
+                self.state = self.HALF_OPEN
+                return True
+            return False
+        return True
+
+    def record(self, t: float, *, failed: bool, latency_s: Optional[float] = None,
+               baseline_s: Optional[float] = None) -> None:
+        """Score one completed (or failed) dispatch on this replica."""
+        bad = failed or (
+            latency_s is not None and baseline_s is not None and baseline_s > 0.0
+            and latency_s > self.latency_multiplier * baseline_s
+        )
+        if bad:
+            self.consecutive_bad += 1
+            if self.state == self.HALF_OPEN or self.consecutive_bad >= self.failure_threshold:
+                self.state = self.OPEN
+                self.open_until = t + self.cooldown_s
+                self.opens += 1
+                self.consecutive_bad = 0
+        else:
+            self.consecutive_bad = 0
+            self.state = self.CLOSED
 
 
 @dataclasses.dataclass
@@ -148,17 +210,23 @@ class FleetClient:
         """The session on the client's current primary replica."""
         return self.sessions[self.primary]
 
-    def infer(self, *inputs) -> InferenceResult:
+    def infer(self, *inputs, deadline_s: Optional[float] = None) -> InferenceResult:
         """Hedged inference; returns the winning replica's result."""
-        return self.dispatch(*inputs)[0]
+        return self.dispatch(*inputs, deadline_s=deadline_s)[0]
 
-    def dispatch(self, *inputs) -> Tuple[InferenceResult, float, str]:
+    def dispatch(self, *inputs, deadline_s: Optional[float] = None
+                 ) -> Tuple[InferenceResult, float, str]:
         """One hedged request through the fleet router; returns ``(winning
         result, completion latency, winner replica name)``.  The completion
         source runs the real replay on the chosen replica and reports its
         ``wall_seconds`` plus the replica's injected slowdown; a failed
-        replica reports no completion and the router re-dispatches.  May
-        raise :class:`~repro_torch.distributed.straggler.AllReplicasFailedError`."""
+        replica reports no completion and the router re-dispatches.  Every
+        outcome feeds the replica's circuit breaker, and a stateless client
+        whose primary's breaker is open starts elsewhere.  ``deadline_s``
+        goes to the session's admission controller.  May raise
+        :class:`~repro_torch.distributed.straggler.AllReplicasFailedError`,
+        or :class:`~repro_torch.serving.admission.AdmissionRejectedError`
+        when the replica's controller sheds the request."""
         fleet = self.fleet
         fleet.apply_due_faults()
         req = self._req_idx
@@ -166,17 +234,34 @@ class FleetClient:
         results: Dict[str, InferenceResult] = {}
 
         def complete(replica: FleetReplica, idx: int) -> Optional[float]:
-            res = self._execute_on(replica, inputs)
+            res = self._execute_on(replica, inputs, deadline_s)
+            breaker = fleet.breakers.get(replica.name) if fleet.breakers is not None else None
             if res is None:
+                if breaker is not None:
+                    breaker.record(fleet.clock.t, failed=True)
                 return None
             results[replica.name] = res
-            return res.wall_seconds + max(0.0, replica.slowdown(idx))
+            lat = res.wall_seconds + max(0.0, replica.slowdown(idx))
+            if breaker is not None:
+                breaker.record(fleet.clock.t, failed=False, latency_s=lat,
+                               baseline_s=fleet.router.observed_median)
+            return lat
 
+        primary_idx = fleet.replica_index(self.primary)
+        if (fleet.breakers is not None and not self.stateful
+                and not fleet.breakers[self.primary].allow(fleet.clock.t)):
+            # the primary's breaker is open: route around the saturated box
+            # before dispatching into it (a stateful session stays home: its
+            # carried state has a single home)
+            try:
+                primary_idx = fleet.router._pick(exclude=primary_idx)
+            except NoHealthyReplicaError:
+                pass  # nothing better: the saturated primary still serves
         # a live stateful session's step is not idempotent: hedge it on
         # failure only
         latency, winner = fleet.router.dispatch(
             req,
-            primary=fleet.replica_index(self.primary),
+            primary=primary_idx,
             completion=complete,
             speculative=not (self.stateful and self.session.client.stateful_replay),
         )
@@ -189,7 +274,8 @@ class FleetClient:
             fleet._maybe_checkpoint(self)
         return results[winner], latency, winner
 
-    def _execute_on(self, replica: FleetReplica, inputs: Sequence[Any]) -> Optional[InferenceResult]:
+    def _execute_on(self, replica: FleetReplica, inputs: Sequence[Any],
+                    deadline_s: Optional[float] = None) -> Optional[InferenceResult]:
         if replica.failed:
             return None
         sess = self.sessions.get(replica.name)
@@ -208,7 +294,7 @@ class FleetClient:
                 sess = self.sessions[replica.name]
             else:
                 sess = self.fleet._backup_session(self, replica)
-        return sess.infer(*inputs)
+        return sess.infer(*inputs, deadline_s=deadline_s)
 
     def _note_lock(self) -> None:
         """Record fingerprint affinity once this client's IOS locks, so later
@@ -226,7 +312,10 @@ class EdgeFleet:
     All replicas share one :class:`~repro_torch.core.engine.SimClock`
     (sessions migrate between them without time jumps), compute on one
     ``device``, and hang their per-node ingress off one site
-    :class:`~repro_torch.core.netsim.SharedBackhaul`."""
+    :class:`~repro_torch.core.netsim.SharedBackhaul`.  ``circuit_breaker``
+    gives each replica a :class:`CircuitBreaker` with its defaults behind
+    the router's health hook; ``admission_factory(replica name)`` builds
+    each replica's admission controller."""
 
     def __init__(
         self,
@@ -237,6 +326,8 @@ class EdgeFleet:
         fault: Optional[FaultInjector] = None,
         checkpoint_dir: Optional[str] = None,
         checkpoint_every: int = 4,
+        circuit_breaker: bool = False,
+        admission_factory: Optional[Callable[[str], Any]] = None,
         device: Any = "cuda",
     ):
         if n_replicas < 1:
@@ -250,18 +341,31 @@ class EdgeFleet:
             FleetReplica(
                 name=f"r{i}",
                 edge=RRTOEdgeServer(
-                    ingress=ingresses[i], clock=self.clock, name=f"r{i}", fault=fault, device=dev,
+                    ingress=ingresses[i], clock=self.clock, name=f"r{i}", fault=fault,
+                    # one controller per box: each guards its own queue
+                    admission=admission_factory(f"r{i}") if admission_factory is not None else None,
+                    device=dev,
                 ),
             )
             for i in range(n_replicas)
         ]
         self.hedging = hedging
+        # per-replica breakers, the router's soft health signal; None routes
+        # as a fleet without breakers does
+        self.breakers: Optional[Dict[str, CircuitBreaker]] = (
+            {rep.name: CircuitBreaker() for rep in self.replicas}
+            if circuit_breaker else None
+        )
         self.router = HedgedRouter(
             self.replicas,
             # an infinite multiplier never trips the speculative deadline, so
             # a no-hedge fleet still recovers from outright failures
             hedge_multiplier=2.0 if hedging else float("inf"),
             min_observations=min_observations,
+            health=(
+                (lambda i: self.breakers[self.replicas[i].name].allow(self.clock.t))
+                if circuit_breaker else None
+            ),
         )
         self.clients: Dict[str, FleetClient] = {}
         self._affinity: Dict[str, str] = {}   # model name / IOS fp -> replica
@@ -572,6 +676,10 @@ class EdgeFleet:
             hedging=self.hedging,
             fleet=self.stats.as_dict(),
             router=self.router.stats.as_dict(),
+            breakers=(
+                {name: dict(state=b.state, opens=b.opens) for name, b in self.breakers.items()}
+                if self.breakers is not None else None
+            ),
             backhaul_bytes=self.backhaul.bytes_total,
             events_fired=self.timeline.fired,
             per_replica={rep.name: rep.edge.summary() for rep in self.replicas},

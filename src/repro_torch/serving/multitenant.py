@@ -44,6 +44,12 @@ outputs must be available inside its own ``infer()`` call, the harness
 *preloads* each round's replay inputs into the batcher; the first submitter
 executes the whole group, and later members collect their outputs.  A
 member whose submission differs from its preload replays solo.
+
+Overload protection (``RRTOEdgeServer(admission=...)``, an
+:class:`~repro_torch.serving.admission.AdmissionController`): every request
+is admitted, degraded or shed before it runs, each round's members are
+ordered earliest-deadline-first, and with ``ReplayBatcher.round_capacity``
+the batch slots are shared deficit-round-robin across tenants.
 """
 from __future__ import annotations
 
@@ -67,6 +73,7 @@ from repro_torch.core.offload import InferenceResult, OffloadableModel, OffloadS
 from repro_torch.core.opseq import bits_equal
 from repro_torch.device import resolve_device
 from repro_torch.partition.segments import PLACE_SERVER
+from repro_torch.serving.admission import AdmissionController, drr_select
 from repro_torch.serving.replay_cache import ReplayCache
 
 Members = List[Tuple[RRTOClient, List[torch.Tensor]]]
@@ -147,7 +154,13 @@ class ReplayBatcher:
     ``vmap_compiles`` (batched programs built, not taken from the cache),
     ``vmap_compiles_avoided`` (widths served by a padded program built for
     another width), ``vmap_padded_lanes`` and ``digest_cache_hits``;
-    ``batch_sizes`` lists every group's width."""
+    ``batch_sizes`` lists every group's width.
+
+    ``admission`` (bound by :class:`RRTOEdgeServer`) supplies the SLO
+    priority and weight behind EDF ordering and DRR slot selection;
+    ``round_capacity`` caps the batch slots per fingerprint and round (only
+    with a controller attached).  Without either, a round forms in
+    submission order."""
 
     def __init__(self, server: OffloadServer, *, window_s: float = 2e-3):
         self.server = server
@@ -178,6 +191,12 @@ class ReplayBatcher:
         self.seg_batches = 0
         self.seg_batched = 0
         self.seg_solo = 0
+        self.admission: Optional[AdmissionController] = None
+        # max batch slots per round and fingerprint; None = unbounded.  The
+        # DRR deficits persist across rounds, so a tenant short-changed in
+        # one round is made whole in the next
+        self.round_capacity: Optional[int] = None
+        self._drr_deficits: Dict[str, float] = {}
 
     def begin_round(
         self,
@@ -187,9 +206,11 @@ class ReplayBatcher:
         """Preload one driving round: for each fingerprint, the replay-phase
         clients that will submit this round and their wire inputs; for each
         (fingerprint, server segment), the split-mode clients whose plans run
-        that segment on the GPU this round."""
+        that segment on the GPU this round.  Each fingerprint's members are
+        ordered by :meth:`_order_members`; a member it drops keeps no
+        preload and replays solo."""
         self.end_round()
-        self._pending = {fp: list(members) for fp, members in entries.items()}
+        self._pending = {fp: self._order_members(list(members)) for fp, members in entries.items()}
         self._groups = {}
         self._seg_pending = {k: list(v) for k, v in (seg_entries or {}).items()}
         self._seg_groups = {}
@@ -209,6 +230,29 @@ class ReplayBatcher:
             for key in self._round_claims:
                 cache.release(key)
         self._round_claims = []
+
+    def _order_members(self, members: Members) -> Members:
+        """EDF-order one fingerprint's round members (deadline, then SLO
+        priority, then arrival order), then DRR-select down to
+        ``round_capacity`` slots across tenants.  With no controller and no
+        deadline it returns the very list it was given."""
+        adm = self.admission
+        if adm is None and not any(cl.deadline_t is not None for cl, _ in members):
+            return members
+        if len(members) > 1:
+            def edf_key(item):
+                idx, (cl, _) = item
+                deadline = cl.deadline_t if cl.deadline_t is not None else float("inf")
+                prio = adm.slo(cl.tenant).priority if adm is not None else 0
+                return (deadline, -prio, idx)
+
+            members = [m for _, m in sorted(enumerate(members), key=edf_key)]
+        if adm is not None and self.round_capacity is not None and len(members) > self.round_capacity:
+            members = drr_select(
+                members, self.round_capacity, lambda m: m[0].tenant,
+                lambda tenant: adm.slo(tenant).weight, self._drr_deficits,
+            )
+        return members
 
     @property
     def pending_depth(self) -> int:
@@ -441,6 +485,9 @@ class RRTOEdgeServer:
     ``ingress`` is this box's shared pipe (one of
     :func:`~repro_torch.core.netsim.multi_node_ingress`'s in a fleet); with
     ``fault`` the injector reaches the ingress and every session on the box;
+    with ``admission`` (an
+    :class:`~repro_torch.serving.admission.AdmissionController`) the
+    controller guards every session on the box and orders its rounds;
     ``name`` labels the box in a fleet."""
 
     def __init__(
@@ -455,6 +502,7 @@ class RRTOEdgeServer:
         clock: Optional[SimClock] = None,
         name: str = "edge",
         fault: Optional[FaultInjector] = None,
+        admission: Optional[AdmissionController] = None,
         device: Any = "cuda",
     ):
         self.clock = clock or SimClock()
@@ -469,6 +517,12 @@ class RRTOEdgeServer:
         if fault is not None:
             self.ingress.fault = fault
         self.batcher = ReplayBatcher(self.server, window_s=batch_window_s)
+        # None (the default) leaves every path bitwise what it is without an
+        # admission layer
+        self.admission = admission
+        if admission is not None:
+            admission.bind(server=self.server, ingress=self.ingress)
+            self.batcher.admission = admission
         self.environment = environment
         self.sessions: Dict[str, OffloadSession] = {}
         # sessions moved onto / off this box
@@ -483,6 +537,7 @@ class RRTOEdgeServer:
         seed: Optional[int] = None,
         min_repeats: int = 3,
         environment: Optional[str] = None,
+        tenant: str = "default",
         **session_kwargs: Any,
     ) -> OffloadSession:
         """Attach one mobile client running ``model`` to this edge server.
@@ -490,7 +545,8 @@ class RRTOEdgeServer:
         Each client gets its own wireless link (seeded per client) tied to
         the shared server ingress, its own energy meter, and a server-side
         device-memory namespace keyed by ``client_id``.  ``environment``
-        overrides the server default per client."""
+        overrides the server default per client; ``tenant`` names the SLO
+        class the client bills against on this box's admission controller."""
         cid = client_id if client_id is not None else f"c{len(self.sessions)}"
         if cid in self.sessions:
             raise ValueError(f"client id {cid!r} already connected")
@@ -501,6 +557,9 @@ class RRTOEdgeServer:
         network.ingress = self.ingress
         if self.fault is not None:
             session_kwargs.setdefault("fault", self.fault)
+        if self.admission is not None:
+            session_kwargs.setdefault("admission", self.admission)
+        session_kwargs.setdefault("tenant", tenant)
         sess = OffloadSession(
             model,
             "rrto",
@@ -526,8 +585,14 @@ class RRTOEdgeServer:
         recording-phase clients run their per-operator RPC storms serialized
         through the shared server and ingress.  Split-plan clients run their
         own segment walks, and their server segments batch by (fingerprint,
-        segment bounds)."""
+        segment bounds).  With an admission controller each member's
+        deadline is stamped first, so the batcher's EDF order sees it."""
         self.ingress.active_clients = len(inputs_by_client)
+        if self.admission is not None:
+            for cid in inputs_by_client:
+                self.sessions[cid].client.deadline_t = self.admission.deadline_for(
+                    cid, self.clock.t
+                )
         entries: Dict[str, Members] = {}
         seg_entries: Dict[SegKey, List[str]] = {}
         for cid, inputs in inputs_by_client.items():
@@ -542,6 +607,9 @@ class RRTOEdgeServer:
                 if seg.placement == PLACE_SERVER:
                     seg_entries.setdefault((cl.ios_fp, seg.start, seg.end), []).append(cid)
         self.batcher.begin_round(entries, seg_entries)
+        if self.admission is not None:
+            # refresh the ingress's queue depth on the simulated clock
+            self.admission.queue_depth(self.clock.t)
         try:
             return {
                 cid: self.sessions[cid].infer(*inputs)
@@ -637,5 +705,7 @@ class RRTOEdgeServer:
             mean_batch=sum(b.batch_sizes) / len(b.batch_sizes) if b.batch_sizes else 0.0,
             link_bytes=self.ingress.bytes_total,  # both directions
             gpu_busy_seconds=self.server.busy_seconds,
+            queue_depth=self.ingress.queue_depth,
             pending_depth=b.pending_depth,
+            admission=self.admission.stats.as_dict() if self.admission is not None else None,
         )

@@ -63,6 +63,16 @@ for step in range(lm.steps_total(g)):
     lm.absorb_step(g, lm.session.infer(*lm.step_inputs(g)).outputs)
 assert fleet.stats.migrations == 1 and lm.session.client.stateful_replay
 assert (np.concatenate(g["out"], axis=1) == a).all(), (g["out"], a)
+import repro_torch.serving.admission
+from repro_torch.serving.admission import AdmissionController, AdmissionRejectedError, SLOClass
+adm = AdmissionController(rate_hz=1e-6, burst=0.0, default_class=SLOClass(deadline_s=1e9))
+lm.session.admission = adm
+adm.register("u0")
+try:
+    lm.session.infer(*lm.step_inputs(g))
+    raise SystemExit("a stateful step under a zero-capacity controller was not shed")
+except AdmissionRejectedError as e:
+    assert e.retry_after_s > 0 and adm.stats.shed == 1
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro")
 print("LOADED", bad)
 """
