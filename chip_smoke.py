@@ -71,7 +71,20 @@ random weights from a seed:
   at width 2, the rest solo, bitwise the uncapped round; (c) a qwen3-0.6b
   stateful decode shed twice with its step and carried state untouched,
   then decoded on; (d) the split sensor encoder's tier-1 degrade
-  (``degraded_split``) and the planner's restore.
+  (``degraded_split``) and the planner's restore;
+* observability (phase 13, after 12b, on the simulated clock): (a) a
+  zamba2-1.2b stateless ``EdgeFleet(2, hedging=True)`` traced and its
+  untraced twin on tests/test_obs.py's schedule (the primary stalled, the
+  router hedging to r1), every response and counter bitwise the twin's, the
+  race loser annotated cancelled and the root metrics snapshot agreeing with
+  every counter; (b) the trace of phase 11a's migrated qwen3-0.6b stream,
+  which ran traced there, bitwise the clean untraced stream; (c)
+  ``plan_explain`` on phase 10a's qwen3 IOS; (d) the trace, decisions and
+  gauges of phase 12a's guarded edge, which ran traced there, every response
+  bitwise its untraced twin's; (e) the Chrome trace
+  of (a) and (b) written to ``traces/phase13_trace.json`` and checked,
+  and the host wall of a replayed qwen3 step with a tracer attached against
+  detached, in turns.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after (every batched call under ``no_vmap_fallback``, so an op
@@ -86,6 +99,7 @@ import dataclasses
 import json
 from collections import Counter
 import os
+import re
 import subprocess
 import sys
 import time
@@ -112,10 +126,15 @@ RMSNORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # its f32 check is what holds the path
 LOGIT_REL_TOL = 0.05
 HYBRID_LOGIT_REL_TOL = 0.10
+# Depth: the qwen3 prompt feeds seven stateful streams (phases 3, 10b, 11a's
+# four, 12c), a replayed step each per prompt token, so it is kept at 16;
+# minicpm3 and xlstm take 6 new tokens (3 recorded, 3 replayed when
+# stateless).  Every check holds at these depths; the run stays well inside
+# its time limit
 PROMPT_LEN, NEW_TOKENS, BUCKET = 32, 32, 512       # qwen3-0.6b
 Z_PROMPT, Z_NEW, Z_BUCKET, Z_STATELESS_BUCKET = 16, 16, 128, 64   # zamba2-1.2b
-M_PROMPT, M_NEW, M_BUCKET = 16, 8, 64           # minicpm3-4b, stateful and stateless
-X_PROMPT, X_NEW, X_BUCKET = 8, 8, 64            # xlstm-1.3b stateful (no bucket: recurrent state)
+M_PROMPT, M_NEW, M_BUCKET = 16, 6, 64           # minicpm3-4b, stateful and stateless
+X_PROMPT, X_NEW, X_BUCKET = 8, 6, 64            # xlstm-1.3b stateful (no bucket: recurrent state)
 X_STATELESS_PROMPT = 16                         # xlstm-1.3b stateless, bucket 64
 # MLA's flash call (minicpm3-4b: 40 heads of nope 64 + rope 32) and the
 # mLSTM scan (xlstm-1.3b: 4 heads, N = 1024 keys, P = 1025 values with the
@@ -1719,7 +1738,7 @@ def split_segments_qwen(library, m, dev) -> dict:
               f"{plan_kernels(cl._ios_calls, plan)}; {SPLIT_STEPS} steps bitwise == step_fn "
               f"(outputs and carried state), {1e3 * (time.perf_counter() - t0) / SPLIT_STEPS:.1f} "
               f"ms per eager split step")
-    return dict(limit=limit, plans=[p.signature() for p in plans])
+    return dict(limit=limit, plans=[p.signature() for p in plans], graph=graph)
 
 
 def split_served_qwen(dev, cfg, params, prompt, dev_tokens, bucket) -> dict:
@@ -2050,19 +2069,20 @@ def timed_method(obj, name, dev, log: dict):
 
 
 def fleet_stream(dev, cfg, params, prompt, bucket, *, fault=None, migrate_at=None,
-                 ckpt_dir=None) -> dict:
+                 ckpt_dir=None, tracer=None) -> dict:
     """Part a: one stateful decode of ``FAULT_NEW`` tokens held by a
     ``FleetClient`` of ``EdgeFleet(2, hedging=False)``, every step through
     ``FleetClient.dispatch``.  ``migrate_at``: move the session r0 -> r1
     before that step.  ``ckpt_dir``: checkpoint every ``FAULT_CKPT_EVERY``
     stateful steps, at most ``FAULT_MAX_CKPTS`` times (each rewrites the
     parameters), and keep the crashed box's tensors to check that nothing of
-    them survives into the restored session."""
+    them survives into the restored session.  ``tracer`` traces the fleet
+    (the migrated stream, which phase 13b reads)."""
     from repro_torch.serving import EdgeFleet, FleetClient, RRTOServedLM
 
     t_all = time.perf_counter()
     fleet = EdgeFleet(2, hedging=False, fault=fault, checkpoint_dir=ckpt_dir,
-                      checkpoint_every=FAULT_CKPT_EVERY, device=dev)
+                      checkpoint_every=FAULT_CKPT_EVERY, tracer=tracer, device=dev)
     served = RRTOServedLM(cfg, bucket_len=bucket, params=params, edge=fleet.replicas[0].edge,
                           client_id="u0", min_repeats=FAULT_MIN_REPEATS)
     sess = served.session
@@ -2098,7 +2118,8 @@ def fleet_stream(dev, cfg, params, prompt, bucket, *, fault=None, migrate_at=Non
     sync(dev)
     loop_s = time.perf_counter() - t0
     return dict(
-        fleet=fleet, sess=sess, client=fc, steps=steps, log=log, crashed=crashed,
+        fleet=fleet, sess=sess, client=fc, served=served, g=g, steps=steps, log=log,
+        crashed=crashed,
         tokens=np.concatenate(g["out"], axis=1),
         state=fleet.locate("u0").edge.server.export_carried_state("u0"),
         wall=time.perf_counter() - t_all, loop_s=loop_s,
@@ -2151,13 +2172,17 @@ def predict_losses(seed: int, clean: dict) -> tuple:
     return retries, dedup
 
 
-def phase_fault_qwen(library, dev, cfg, params, prompt, dev_tokens, bucket, by_path) -> float:
+def phase_fault_qwen(library, dev, cfg, params, prompt, dev_tokens, bucket, by_path) -> tuple:
     """Part a: qwen3-0.6b through ``EdgeFleet(2)``: a clean stream, then a
     migrated, a lossy and a crashed one, each bitwise the clean stream in
-    tokens and final carried state.  Returns the part's seconds."""
+    tokens and final carried state.  The migrated stream runs traced, so
+    the clean stream holds a traced run bitwise too.  Returns the part's
+    seconds and the migrated stream, whose trace phase 13b reads and whose
+    decode phase 13e continues."""
     import tempfile
 
     from repro_torch.core.netsim import FaultInjector
+    from repro_torch.obs import Tracer
 
     t_part = time.perf_counter()
     kernels = ("rmsnorm", "decode_attention")
@@ -2191,7 +2216,7 @@ def phase_fault_qwen(library, dev, cfg, params, prompt, dev_tokens, bucket, by_p
         check(hits == cl.stats.dedup_replies,
               f"{kind}: server dedup hits {hits} != client dedup replies {cl.stats.dedup_replies}")
 
-    mig = run("migrated", migrate_at=n_rec + 4)
+    mig = run("migrated", migrate_at=n_rec + 4, tracer=Tracer())
     same_as_clean("migrated", mig)
     check(mig["fleet"].stats.migrations == 1 and mig["fleet"].locate("u0").name == "r1",
           f"migrations {mig['fleet'].stats.migrations}")
@@ -2199,7 +2224,7 @@ def phase_fault_qwen(library, dev, cfg, params, prompt, dev_tokens, bucket, by_p
     (im_s, _), = mig["log"]["import_carried_state"]
     (mig_s, _), = mig["log"]["migrate"]
     state_bytes = sum(t.numel() * t.element_size() for t in state)
-    print(f"migrated before step {n_rec + 4}: tokens and carried state bitwise == clean; "
+    print(f"migrated before step {n_rec + 4}, traced: tokens and carried state bitwise == clean; "
           f"migrate {mig_s:.3f} s (export {ex_s:.4f} s + import {im_s:.4f} s of {state_bytes} B "
           f"carried state; the env's {mig['fleet'].stats.migration_bytes:.0f} B billed to the "
           f"backhaul, moved by reference); wall {mig['wall']:.1f} s")
@@ -2254,7 +2279,7 @@ def phase_fault_qwen(library, dev, cfg, params, prompt, dev_tokens, bucket, by_p
           f"share no storage with the crashed box ({len(dead)} tensors held); tokens and carried "
           f"state bitwise == clean; wall {crash['wall']:.1f} s")
     del streams
-    return time.perf_counter() - t_part
+    return time.perf_counter() - t_part, mig
 
 
 def zamba_logits_app(cfg, params, bucket):
@@ -2489,7 +2514,10 @@ def phase_overload(dev, cfg, params, prompt, dev_tokens, bucket) -> dict:
     bronze, warmed into replay, then guarded by an admission controller
     calibrated as ``benchmarks/load_knee.py`` calibrates; its twin edge has
     no controller.  Both edges take the same open-loop Poisson schedule, a
-    phase below the knee and one beyond it."""
+    phase below the knee and one beyond it.  The guarded edge and its
+    controller are traced, the controller's counters and the ingress depth
+    in the edge's registry (phase 13d reads them); the twin is not."""
+    from repro_torch.obs import Tracer
     from repro_torch.serving import RRTOEdgeServer
     from repro_torch.serving.admission import AdmissionController, SLOClass
 
@@ -2500,8 +2528,9 @@ def phase_overload(dev, cfg, params, prompt, dev_tokens, bucket) -> dict:
         return over_request(prompt, dev_tokens, bucket, j)
 
     edges, timers = {}, {}
+    tracer = Tracer()
     for name in ("guarded", "twin"):
-        edge = RRTOEdgeServer(name=name, device=dev)
+        edge = RRTOEdgeServer(name=name, device=dev, tracer=tracer if name == "guarded" else None)
         for cid, tenant in OVER_CLIENTS:
             sess = edge.connect(app, client_id=cid, tenant=tenant, min_repeats=FAULT_MIN_REPEATS)
             timers[name, cid] = StepTimer(sess)
@@ -2530,7 +2559,7 @@ def phase_overload(dev, cfg, params, prompt, dev_tokens, bucket) -> dict:
     }
     adm = AdmissionController(queue_limit=in_flight + 16, rate_hz=ADMIT_FRACTION * capacity,
                               burst=in_flight + OVER_BURST_EXTRA, borrow_depth=in_flight + 8,
-                              classes=classes)
+                              classes=classes, tracer=tracer, metrics=guarded.metrics)
     attach_admission(guarded, adm)
     print(f"[phase 12a] calibration (simulated clock): a replayed request occupies the server "
           f"{1e3 * compute_s:.3f} ms (capacity {capacity:.1f} req/s), its wall {1e3 * wall_s:.3f} "
@@ -2586,7 +2615,9 @@ def phase_overload(dev, cfg, params, prompt, dev_tokens, bucket) -> dict:
           f"request {step}, of a degraded one {deg}; every returned response, token and logits "
           f"{tuple(cal['guarded'].outputs[1].shape)}, bitwise == the twin's replay; tokens == phase 5's "
           f"device_only; warm-up {warm_s:.1f} s, part {time.perf_counter() - t_part:.1f} s")
-    return dict(edges=edges, classes=classes, req=req, replay_launches=step)
+    decisions = [[(g["cid"], g["j"], g["mode"]) for g in got] for _, got, _ in runs]
+    return dict(edges=edges, classes=classes, req=req, replay_launches=step, adm=adm,
+                tracer=tracer, decisions=decisions)
 
 
 def phase_round_formation(library, over) -> None:
@@ -2763,6 +2794,391 @@ def phase_overload_split(dev) -> None:
           f"interval {cfg.min_replan_interval_s} s); {time.perf_counter() - t_part:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: observability
+# ---------------------------------------------------------------------------
+# tests/test_obs.py's TestTracedFleet schedule: 8 requests until the IOS
+# locks and replays (2 recorded: 6 replays keep the router's median, and so
+# its deadline, at a replay's latency), then 6 with the primary stalled by
+# this many simulated seconds (the router hedges to r1: the first race meets
+# r1's recording, the next ones its replay), then 2 un-stalled
+OBS_WARM, OBS_STALLED, OBS_AFTER, OBS_STALL_S = 8, 6, 2, 1.0
+OBS_PLAN_MBPS = 8.0          # part c's operating point
+OBS_HOST_PAIRS = 6           # part e: replayed steps with the tracer attached / detached
+OBS_TRACE = os.path.join(ROOT, "traces", "phase13_trace.json")
+# phase 12a's decisions at full width, below the knee and beyond it: they
+# run on the simulated clock, so every card and every run gives these,
+# traced or not (an untraced edge gave them before the tracer existed)
+KNEE_DECISIONS = ({"replaying": 16}, {"replaying": 10, "degraded_device": 12, "shed": 2})
+
+
+def monotone_tracks(tracer) -> None:
+    """Every span closes after it opens, and each track's spans open in
+    nondecreasing simulated time (tests/test_obs.py)."""
+    check(all(sp.t1 is None or sp.t1 >= sp.t0 for sp in tracer.spans), "a span ends before it begins")
+    last = {}
+    for sp in tracer.spans:
+        check(sp.t0 >= last.get(sp.track, 0.0), f"track {sp.track} went backwards at {sp.name}")
+        last[sp.track] = sp.t0
+    check(all(i.t >= 0.0 for i in tracer.instants), "an instant before time 0")
+
+
+def names_by_track(tracer) -> dict:
+    out = {}
+    for ev in (*tracer.spans, *tracer.instants):
+        out.setdefault(ev.track, set()).add(ev.name)
+    return out
+
+
+def snapshot_agrees(fleet, clients) -> dict:
+    """``fleet.metrics.snapshot()`` against every stats surface it backs
+    (tests/test_obs.py::test_root_snapshot_agrees_with_legacy_counters):
+    the fleet's and router's counters, each replica's cache and batcher,
+    and each listed client's sessions under the replica that connected
+    them (``clients``: client id -> {scope replica: session})."""
+    snap = fleet.metrics.snapshot()
+    fs, rs = fleet.stats, fleet.router.stats
+    for name, value in fs.as_dict().items():
+        check(snap[f"fleet.{name}"] == value, f"snapshot fleet.{name} {snap[f'fleet.{name}']} != {value}")
+    for name in ("requests", "hedged", "primary_wins", "hedge_wins", "failures_recovered",
+                 "total_latency_s"):
+        check(snap[f"hedge.{name}"] == getattr(rs, name), f"snapshot hedge.{name} differs")
+    check(snap["hedge.latency_s"]["count"] == len(rs.latencies), "snapshot hedge.latency_s differs")
+    for i, rep in enumerate(fleet.replicas):
+        for name, value in rep.edge.cache.stats.as_dict().items():
+            if name != "hit_rate":
+                check(snap[f"r{i}.cache.{name}"] == value, f"snapshot r{i}.cache.{name} differs")
+        for name, value in rep.edge.batcher.stats.as_dict().items():
+            check(snap[f"r{i}.batcher.{name}"] == value, f"snapshot r{i}.batcher.{name} differs")
+    for cid, sessions in clients.items():
+        for scope, sess in sessions.items():
+            for name, value in sess.client.stats.as_dict().items():
+                key = f"{scope}.client.{cid}.{name}"
+                check(snap[key] == value, f"snapshot {key} {snap[key]} != {value}")
+    return snap
+
+
+def obs_hedged_fleet(dev, app, req, tracer) -> dict:
+    """One run of the hedged schedule through ``EdgeFleet(2, hedging=True,
+    min_observations=4)``; request k asks for the token at ``prompt_len +
+    k mod Z_NEW``.  Returns the fleet, the client and each request's
+    outputs, mode, completion latency, winner and simulated clock."""
+    from repro_torch.serving import EdgeFleet
+
+    fleet = EdgeFleet(2, hedging=True, min_observations=4, tracer=tracer, device=dev)
+    c = fleet.connect(app, client_id="u0", min_repeats=FAULT_MIN_REPEATS)
+    reqs = []
+    for n, stall in ((OBS_WARM, None), (OBS_STALLED, OBS_STALL_S), (OBS_AFTER, 0.0)):
+        if stall is not None:
+            fleet.replica(c.primary).slowdown = lambda i, s=stall: s
+        for _ in range(n):
+            j = len(reqs) % Z_NEW
+            res, latency, winner = c.dispatch(*req(j))
+            reqs.append(dict(j=j, mode=res.mode, outputs=res.outputs, latency=latency,
+                             winner=winner, t=fleet.clock.t))
+        if stall is None:
+            check(c.session.client.mode == "replaying", "13a: the primary never reached replaying")
+    return dict(fleet=fleet, client=c, reqs=reqs)
+
+
+def phase_obs_fleet(dev, cfg, params, prompt, dev_tokens, bucket, tracer) -> dict:
+    """Part a: zamba2-1.2b stateless (:func:`zamba_logits_app`, phase 5's
+    weights) through a traced hedged fleet and its untraced twin, on the
+    same schedule.  Tracing must change nothing: every response (token and
+    logits), winner, latency and simulated clock, the client counters and
+    the fleet's, router's and backhaul's summaries equal the twin's.  At
+    least one request races, its loser annotated cancelled, and the root
+    snapshot agrees with every counter."""
+    t_part = time.perf_counter()
+    app = zamba_logits_app(cfg, params, bucket)
+
+    def req(j):
+        return over_request(prompt, dev_tokens, bucket, j)
+
+    secs = {}
+    runs = {}
+    for name, tr in (("traced", tracer), ("twin", None)):
+        t0 = time.perf_counter()
+        runs[name] = obs_hedged_fleet(dev, app, req, tr)
+        secs[name] = time.perf_counter() - t0
+    got, twin = runs["traced"], runs["twin"]
+    for i, (x, y) in enumerate(zip(got["reqs"], twin["reqs"])):
+        check(int(x["outputs"][0][0]) == int(dev_tokens[0, x["j"]]),
+              f"13a request {i}: token {x['outputs'][0]} != device_only {dev_tokens[0, x['j']]}")
+        check(same_tensors(x["outputs"], y["outputs"]), f"13a request {i}: outputs differ from the twin's")
+        check(all(x[k] == y[k] for k in ("mode", "latency", "winner", "t")),
+              f"13a request {i}: {[(x[k], y[k]) for k in ('mode', 'latency', 'winner', 't')]}")
+    check(len(got["reqs"]) == len(twin["reqs"]) == OBS_WARM + OBS_STALLED + OBS_AFTER,
+          "13a: the twins served different request counts")
+    fleet, c = got["fleet"], got["client"]
+    check(sorted(c.sessions) == sorted(twin["client"].sessions), "13a: different sessions")
+    for name, sess in c.sessions.items():
+        check(sess.client.stats.as_dict() == twin["client"].sessions[name].client.stats.as_dict(),
+              f"13a: {name}'s client counters differ from the twin's")
+    sa, sb = fleet.summary(), twin["fleet"].summary()
+    for key in ("fleet", "router", "backhaul_bytes"):
+        check(sa[key] == sb[key], f"13a: summary {key} {sa[key]} != the twin's {sb[key]}")
+    by_req = {}
+    for sp in tracer.find("hedge_dispatch"):
+        by_req.setdefault((sp.args["client"], sp.args["req"]), []).append(sp)
+    raced = [sps for sps in by_req.values() if len(sps) >= 2]
+    check(raced and len(raced) == fleet.router.stats.hedged,
+          f"13a: {len(raced)} raced requests, the router hedged {fleet.router.stats.hedged}")
+    for sps in raced:
+        check(len(sps) == 2 and {sp.args["role"] for sp in sps} == {"primary", "backup"},
+              f"13a: race roles {[sp.args['role'] for sp in sps]}")
+        check(sum(sp.args["winner"] for sp in sps) == 1, "13a: a race without exactly one winner")
+        check(all(sp.args["cancelled"] == (not sp.args["winner"]) for sp in sps),
+              "13a: the race loser is not annotated cancelled")
+    check(fleet.stats.backup_sessions == 1 and c.sessions["r1"].client.stats.cache_adoptions == 1,
+          f"13a: backup sessions {fleet.stats.backup_sessions}; r1 did not adopt through the cache")
+    monotone_tracks(tracer)
+    snap = snapshot_agrees(fleet, {"u0": c.sessions})
+    winners = Counter(sp.args["role"] for sps in raced for sp in sps if sp.args["winner"])
+    print(f"[phase 13a] zamba2-1.2b stateless, EdgeFleet(2, hedging) traced and untraced: "
+          f"{len(got['reqs'])} requests each ({OBS_WARM} warm, {OBS_STALLED} with r0 stalled "
+          f"{OBS_STALL_S} s, {OBS_AFTER} after); every token == device_only, every response "
+          f"(token and logits), winner, latency and simulated clock bitwise the twin's, client "
+          f"counters and summaries equal; {len(raced)} races (winners {dict(winners)}), losers "
+          f"cancelled; r1's backup adopted the IOS through the cache tier; the snapshot's "
+          f"{len(snap)} keys agree with every counter; {tracer.n_events} events on "
+          f"{len(tracer.tracks())} tracks; traced {secs['traced']:.1f} s, twin {secs['twin']:.1f} s")
+    return dict(secs=secs, races=len(raced))
+
+
+def phase_obs_migrated(mig) -> None:
+    """Part b: the trace of phase 11a's migrated qwen3-0.6b stream (moved r0
+    -> r1 before step ``n_rec + 4``), which ran traced and bitwise the clean
+    untraced stream in tokens and final carried state.  Its trace must hold
+    the recorded RPCs, the replays, the migration and the state transfer on
+    monotone tracks, and the root snapshot must agree with every counter."""
+    fleet, tracer = mig["fleet"], mig["fleet"].tracer
+    check(fleet.stats.migrations == 1 and fleet.locate("u0").name == "r1",
+          f"13b: migrations {fleet.stats.migrations}")
+    names = names_by_track(tracer)
+    on = {rep: set().union(*(v for k, v in names.items() if k.startswith(f"{rep}/")))
+          for rep in ("r0", "r1")}
+    check({"record_rpc", "replay_call"} <= on["r0"] and "gpu_exec" in on["r1"],
+          f"13b: r0's tracks hold {sorted(on['r0'])}, r1's {sorted(on['r1'])}")
+    check({"migrate", "state_transfer"} <= names.get("fleet", set()),
+          f"13b: the fleet track holds {sorted(names.get('fleet', ()))}")
+    (span,) = tracer.find("migrate")
+    check(span.args["src"] == "r0" and span.args["dst"] == "r1"
+          and span.args["bytes"] == fleet.stats.migration_bytes, f"13b: migrate span {span.args}")
+    monotone_tracks(tracer)
+    snap = snapshot_agrees(fleet, {"u0": {"r0": mig["sess"]}})
+    print(f"[phase 13b] phase 11a's migrated qwen3-0.6b stream, traced there ({len(mig['steps'])} "
+          f"steps, tokens and final carried state bitwise the clean untraced stream's): migrate "
+          f"span r0 -> r1 of {span.args['bytes']:.0f} B; {len(snap)} snapshot keys agree; r0's "
+          f"tracks {sorted(on['r0'])}, r1's {sorted(on['r1'])}; {tracer.n_events} events")
+
+
+def phase_obs_plan(graph) -> None:
+    """Part c: ``plan_partition`` on phase 10a's locked qwen3-0.6b IOS
+    graph with a tracer: one ``plan_explain`` instant whose chosen plan is
+    the returned one and the cheapest of its candidates; the untraced call
+    returns the same plan at the same cost."""
+    from repro_torch.core.costmodel import GTX_2080TI, JETSON_XAVIER_NX
+    from repro_torch.obs import Tracer
+    from repro_torch.partition import plan_cost, plan_partition
+
+    bw = OBS_PLAN_MBPS * 1e6 / 8
+    tracer = Tracer()
+    t0 = time.perf_counter()
+    best = plan_partition(graph, JETSON_XAVIER_NX, GTX_2080TI, bw, tracer=tracer,
+                          trace_track="planner", now=0.0)
+    traced_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    plain = plan_partition(graph, JETSON_XAVIER_NX, GTX_2080TI, bw)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    explains = [i for i in tracer.instants if i.name == "plan_explain"]
+    check(len(explains) == 1 and tracer.n_events == 1, f"13c: {tracer.n_events} events")
+    ev = explains[0]
+    rows = ev.args["candidates"]
+    cheapest = min(rows, key=lambda r: r["cost"])
+    check(ev.args["chosen"] == best.plan.signature() == cheapest["plan"],
+          f"13c: chosen {ev.args['chosen']}, returned {best.plan.signature()}, cheapest "
+          f"{cheapest['plan']}")
+    check(cheapest["cost"] == plan_cost(best, "latency"), "13c: the chosen row's cost differs")
+    check(plain.plan.signature() == best.plan.signature() and plain.seconds == best.seconds,
+          "13c: the untraced planner chose differently")
+    json.dumps(ev.args)   # plain values only
+    print(f"[phase 13c] plan_partition on phase 10a's qwen3-0.6b IOS ({graph.n_ops} ops, stateful) "
+          f"at {OBS_PLAN_MBPS} Mbps: one plan_explain of {len(rows)} candidates, chosen "
+          f"{best.plan.signature()} == the cheapest ({1e3 * cheapest['cost']:.3f} ms simulated) == "
+          f"the untraced call's; planner host {traced_ms:.1f} ms traced, {plain_ms:.1f} ms untraced")
+
+
+def phase_obs_admission(over) -> None:
+    """Part d: phase 12a's guarded edge, which ran traced with its
+    controller's ``metrics=edge.metrics``.  Its decisions equal
+    :data:`KNEE_DECISIONS` (12a held every response bitwise its untraced
+    twin's); the snapshot holds the ingress queue depth and the batcher's
+    pending depth, and each decision is one ``admission`` instant."""
+    edge, adm, tracer = over["edges"]["guarded"], over["adm"], over["tracer"]
+    counts = tuple(dict(Counter(m for *_, m in d)) for d in over["decisions"])
+    check(counts == KNEE_DECISIONS, f"13d: decisions {counts}, expected {KNEE_DECISIONS}")
+    snap = edge.metrics.snapshot()
+    check("queue_depth" in snap and "batcher.pending_depth" in snap,
+          f"13d: snapshot keys {sorted(snap)}")
+    check(snap["queue_depth"] == edge.ingress.queue_depth, "13d: the ingress gauge differs")
+    for name, value in adm.stats.as_dict().items():
+        check(snap[name] == value, f"13d: snapshot {name} {snap[name]} != {value}")
+    instants = [i for i in tracer.instants if i.name == "admission"]
+    n = sum(len(d) for d in over["decisions"])
+    check(len(instants) == n and adm.stats.requests == n,
+          f"13d: {len(instants)} admission instants for {n} decisions")
+    check(Counter(i.args["action"] for i in instants)
+          == Counter({"admit": adm.stats.admitted, "degrade_device": adm.stats.degraded_device,
+                      "shed": adm.stats.shed}), "13d: the instants' actions differ from the counters")
+    depth = [c for c in tracer.counters if c.name == "queue_depth"]
+    check(bool(depth), "13d: no queue_depth samples on the ingress track")
+    # no per-track monotonicity here: the open-loop drive sets the clock to
+    # each arrival, earlier than the previous request's completion
+    print(f"[phase 13d] phase 12a's guarded edge, traced there, controller metrics=edge.metrics: "
+          f"all {n} decisions {list(counts)}; snapshot queue_depth {snap['queue_depth']}, "
+          f"batcher.pending_depth {snap['batcher.pending_depth']}, {len(instants)} admission "
+          f"instants, {len(depth)} queue_depth samples; {tracer.n_events} events")
+
+
+def plain_value(v) -> bool:
+    """A value JSON writes as itself: no tensor, array scalar or device that
+    ``default=str`` would turn into a string."""
+    if isinstance(v, (bool, int, float, str, type(None))):
+        return not isinstance(v, np.integer)
+    if isinstance(v, (list, tuple)):
+        return all(plain_value(x) for x in v)
+    if isinstance(v, dict):
+        return all(isinstance(k, str) and plain_value(x) for k, x in v.items())
+    return False
+
+
+def merged_trace(parts: dict):
+    """One tracer holding every part's events, each track prefixed with its
+    part's label (each part ran on its own simulated clock)."""
+    from repro_torch.obs import Tracer
+
+    out = Tracer()
+    for label, tr in parts.items():
+        base = len(out.spans)
+        out.spans.extend(dataclasses.replace(
+            sp, id=base + sp.id, track=f"{label}-{sp.track}",
+            parent=None if sp.parent is None else base + sp.parent) for sp in tr.spans)
+        out.instants.extend(dataclasses.replace(i, track=f"{label}-{i.track}") for i in tr.instants)
+        out.counters.extend(dataclasses.replace(c, track=f"{label}-{c.track}") for c in tr.counters)
+    return out
+
+
+def check_chrome_trace(path: str) -> tuple:
+    """tests/test_obs.py::test_chrome_trace_schema's rules on the written
+    file; returns (events, tracks, replica processes)."""
+    with open(path) as f:
+        doc = json.load(f)
+    check(doc["displayTimeUnit"] == "ms" and doc["traceEvents"], "13e: empty trace")
+    names, tracks = set(), set()
+    for e in doc["traceEvents"]:
+        check(e["ph"] in {"X", "i", "C", "M"}, f"13e: event phase {e['ph']}")
+        if e["ph"] == "M":
+            check(e["name"] in {"process_name", "thread_name"}, f"13e: metadata {e['name']}")
+            continue
+        check(isinstance(e["ts"], (int, float)) and e["pid"] == e["tid"].split("/", 1)[0],
+              f"13e: event {e}")
+        names.add(e["name"])
+        tracks.add(e["tid"])
+        check(e["ph"] != "X" or e["dur"] >= 0.0, f"13e: negative duration {e}")
+        check(e["ph"] != "i" or e["s"] == "t", f"13e: instant scope {e}")
+    check({"record_rpc", "replay_call", "hedge_dispatch", "migrate"} <= names,
+          f"13e: the trace's names {sorted(names)}")
+    replicas = {t.split("/", 1)[0] for t in tracks if re.match(r"^\w+-r\d+/", t)}
+    check(len(replicas) >= 2, f"13e: replica processes {replicas}")
+    return len(doc["traceEvents"]), len(tracks), len(replicas)
+
+
+def phase_obs_host(dev, r) -> dict:
+    """Part e's host cost: replayed qwen3-0.6b steps continuing part b's
+    decode (phase 11a's migrated stream), with a tracer attached to the
+    client, its GPU queue and its ingress, and detached, in turns (detached
+    first in even pairs, attached first in odd ones): host times move up to
+    80% between calls, so only turns within one call compare."""
+    from repro_torch.obs import Tracer
+
+    served, g, sess = r["served"], r["g"], r["sess"]
+    hooks = (sess.client, sess.client.server, sess.network.ingress)
+    scratch = Tracer()
+    walls = {"attached": [], "detached": []}
+    for i in range(OBS_HOST_PAIRS):
+        for mode in ("detached", "attached") if i % 2 == 0 else ("attached", "detached"):
+            for h in hooks:
+                h.tracer = scratch if mode == "attached" else None
+            t0 = time.perf_counter()
+            res = sess.infer(*served.step_inputs(g))
+            sync(dev)
+            walls[mode].append(time.perf_counter() - t0)
+            check(res.mode == "replaying", f"13e: a {mode} step was {res.mode}")
+            served.absorb_step(g, res.outputs)
+    for h in hooks:
+        h.tracer = None
+    check(scratch.n_events > 0, "13e: the attached steps emitted nothing")
+    med = {k: 1e3 * float(np.median(v)) for k, v in walls.items()}
+    print(f"[phase 13e] host wall per replayed qwen3-0.6b step, {OBS_HOST_PAIRS} in turns each: "
+          f"tracer attached median {med['attached']:.1f} ms (all {[round(1e3 * t, 1) for t in walls['attached']]}), "
+          f"detached {med['detached']:.1f} ms (all {[round(1e3 * t, 1) for t in walls['detached']]}); "
+          f"{scratch.n_events / OBS_HOST_PAIRS:.0f} events per attached step")
+    return med
+
+
+def phase_obs(library, dev, by_path, z, q, over) -> float:
+    """Phase 13, observability on the card: (a) a hedged zamba2-1.2b
+    stateless fleet traced against its untraced twin, (b) the trace of
+    phase 11a's migrated qwen3-0.6b stream, (c) ``plan_explain`` on phase
+    10a's qwen3 IOS, (d) the trace and gauges of phase 12a's guarded edge,
+    (e) the Chrome trace of (a) and (b) and the host cost of an attached
+    tracer.  Returns the phase's seconds."""
+    from repro_torch.obs import Tracer, write_chrome_trace
+
+    t_phase = time.perf_counter()
+    secs = {}
+    tr_a = Tracer()
+    t0 = time.perf_counter()
+    _, by_path["phase 13a zamba2-1.2b stateless hedged fleet, traced and twin"] = run_path(
+        library, "phase 13a zamba2-1.2b stateless hedged fleet", ("rmsnorm", "flash_attention", "ssm_scan"),
+        lambda: phase_obs_fleet(dev, z["cfg"], z["params"], z["prompt"], z["dev_tokens"],
+                                Z_STATELESS_BUCKET, tr_a))
+    secs["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mig = q["migrated"]
+    phase_obs_migrated(mig)
+    secs["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, by_path["phase 13c plan_explain"] = run_path(
+        library, "phase 13c plan_explain", (), lambda: phase_obs_plan(q["graph"]))
+    secs["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_obs_admission(over)
+    secs["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    os.makedirs(os.path.dirname(OBS_TRACE), exist_ok=True)
+    merged = merged_trace({"13a": tr_a, "13b": mig["fleet"].tracer})
+    bad = [(ev.name, ev.args) for ev in (*merged.spans, *merged.instants) if not plain_value(ev.args)]
+    check(not bad, f"13e: {len(bad)} events carry args that are not plain values, e.g. {bad[:3]}")
+    write_chrome_trace(merged, OBS_TRACE)
+    write_s = time.perf_counter() - t0
+    n_events, n_tracks, n_replicas = check_chrome_trace(OBS_TRACE)
+    print(f"[phase 13e] {os.path.relpath(OBS_TRACE, ROOT)}: {n_events} trace events "
+          f"({merged.n_events} spans, instants and counters) on {n_tracks} tracks of "
+          f"{n_replicas} replica processes, {os.path.getsize(OBS_TRACE) / 1e6:.1f} MB, written in "
+          f"{write_s:.1f} s; schema valid (simulated-clock timestamps)")
+    del merged, tr_a
+    _, by_path["phase 13e qwen3-0.6b host cost of tracing"] = run_path(
+        library, "phase 13e qwen3-0.6b host cost of tracing", ("rmsnorm", "decode_attention"),
+        lambda: phase_obs_host(dev, mig))
+    secs["e"] = time.perf_counter() - t0
+    total = time.perf_counter() - t_phase
+    print(f"[phase 13] observability: {total:.1f} s over parts a-e "
+          f"({', '.join(f'{k} {v:.1f}' for k, v in secs.items())})")
+    return total
+
+
 def rss() -> str:
     """This process's resident host memory now (``/proc``, where the kernel
     reports it) and at its peak (``getrusage``)."""
@@ -2833,7 +3249,7 @@ def main() -> None:
     check_prefill_vs_decode(m, dev, LOGIT_REL_TOL)
     q_cfg, q_params, q_prompt, q_dev_tokens = m["cfg"], m["params"], m["prompt"], m["r_dev"].tokens
     t10 = time.perf_counter()
-    _, by_path["phase 10a qwen3-0.6b segments"] = run_path(
+    seg_a, by_path["phase 10a qwen3-0.6b segments"] = run_path(
         library, "phase 10a qwen3-0.6b segments", ("rmsnorm", "decode_attention"),
         lambda: split_segments_qwen(library, m, dev))
     del m
@@ -2845,7 +3261,8 @@ def main() -> None:
     del split
     t10 = time.perf_counter() - t10
     torch.cuda.empty_cache()
-    t11 = phase_fault_qwen(library, dev, q_cfg, q_params, q_prompt, q_dev_tokens, BUCKET, by_path)
+    t11, q_migrated = phase_fault_qwen(library, dev, q_cfg, q_params, q_prompt, q_dev_tokens, BUCKET,
+                                       by_path)
     torch.cuda.empty_cache()
 
     m, by_path["zamba2-1.2b"] = run_path(
@@ -2947,8 +3364,14 @@ def main() -> None:
     _, by_path["phase 12b zamba2-1.2b round formation"] = run_path(
         library, "phase 12b zamba2-1.2b round formation", zamba,
         lambda: phase_round_formation(library, over))
-    del over, params
+    t12 = time.perf_counter() - t0
+    phase_obs(library, dev, by_path,
+              dict(cfg=z_cfg, params=params, prompt=z_prompt, dev_tokens=z_dev_tokens),
+              dict(cfg=q_cfg, params=q_params, prompt=q_prompt, migrated=q_migrated,
+                   graph=seg_a["graph"]), over)
+    del over, params, seg_a, q_migrated
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     _, by_path["phase 12c qwen3-0.6b stateful shed"] = run_path(
         library, "phase 12c qwen3-0.6b stateful shed", ("rmsnorm", "decode_attention"),
         lambda: phase_overload_stateful(dev, q_cfg, q_params, q_prompt, q_dev_tokens, BUCKET))
@@ -2956,7 +3379,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     _, by_path["phase 12d sensor encoder degraded split"] = run_path(
         library, "phase 12d sensor encoder degraded split", (), lambda: phase_overload_split(dev))
-    print(f"[phase 12] admission and overload: {time.perf_counter() - t0:.1f} s over parts a-d")
+    print(f"[phase 12] admission and overload: {t12 + time.perf_counter() - t0:.1f} s over parts a-d")
 
     t0 = time.perf_counter()
     mla = ("rmsnorm", "flash_attention")

@@ -36,6 +36,12 @@ server exports and imports a client's carried state as host copies (a
 replica-to-replica migration), and the client can keep a log of its recent
 steps' wire inputs (:class:`StepLogEntry`) for crash recovery.
 
+Observability: with a :class:`~repro_torch.obs.Tracer` the client emits its
+RPCs, replay calls and downloads as spans on its track and the server its
+GPU occupancy on ``<name>/gpu``, all on the simulated clock; every counter
+of :class:`InferenceStats` lives in a :class:`~repro_torch.obs.MetricsRegistry`
+scope.  Tracing off (``tracer=None``, the default) emits nothing.
+
 Values on the server are tensors on its device; values on the client (the
 application's uploads and downloads) are CPU tensors.
 """
@@ -74,6 +80,7 @@ from repro_torch.core.records import (
     InferenceSequence,
     OperatorRecord,
 )
+from repro_torch.obs import MetricsRegistry, RegistryBackedStats, Tracer
 
 MODE_RECORDING = "recording"
 MODE_REPLAYING = "replaying"
@@ -823,6 +830,8 @@ class PipelinedSegmentedReplay:
         *,
         input_wire_divisor: float = 1.0,
         t0: float = 0.0,
+        tracer: Optional[Tracer] = None,
+        trace_track: str = "stream",
     ):
         from repro_torch.core.netsim import CapacityResource
         from repro_torch.partition.pipeline import RES_LINK, RES_SERVER, stage_chain
@@ -839,8 +848,10 @@ class PipelinedSegmentedReplay:
         # carries wire-divided input bytes, so the adapter divides no more
         self._link_model = NetworkLink(network, 1.0)
         # session-lifetime resources on an unbounded stream: running totals
-        self.device = CapacityResource("device", free_at=t0, record_intervals=False)
-        self.link = CapacityResource("link", free_at=t0, record_intervals=False)
+        self.device = CapacityResource("device", free_at=t0, record_intervals=False,
+                                       tracer=tracer, track=f"{trace_track}/device")
+        self.link = CapacityResource("link", free_at=t0, record_intervals=False,
+                                     tracer=tracer, track=f"{trace_track}/radio")
         self._per_inference_server_s = sum(
             s.seconds for s in self.chain if s.resource == RES_SERVER
         )
@@ -925,7 +936,8 @@ class OffloadServer:
     optional content-addressed ``replay_cache`` (fingerprint ->
     :class:`ReplayProgram`) and ``compile_count`` are shared.  With the
     default single client and no cache it behaves as a single-tenant
-    server."""
+    server.  ``name`` labels its GPU track (``<name>/gpu``) when a
+    ``tracer`` is attached."""
 
     def __init__(
         self,
@@ -934,9 +946,13 @@ class OffloadServer:
         device: torch.device,
         execute: bool = True,
         replay_cache: Optional[Any] = None,
+        name: str = "server",
+        tracer: Optional[Tracer] = None,
     ):
         self.device_spec = device_spec
         self.device = device
+        self.name = name
+        self.tracer = tracer
         self.execute = execute
         self.contexts: Dict[str, ClientContext] = {}
         self.busy_until = 0.0          # async kernel-queue completion time
@@ -1258,6 +1274,8 @@ class OffloadServer:
         begin = max(self.busy_until, start_t)
         self.busy_until = begin + compute_seconds
         self.busy_seconds += compute_seconds
+        if self.tracer is not None and compute_seconds > 0.0:
+            self.tracer.span(f"{self.name}/gpu", "gpu_exec", begin, self.busy_until)
         return self.busy_until
 
     def replay_compute_seconds(self, client_id: str = DEFAULT_CLIENT) -> float:
@@ -1279,19 +1297,26 @@ class OffloadServer:
 # client (Alg. 3)
 # ---------------------------------------------------------------------------
 
-@dataclasses.dataclass
-class InferenceStats:
+class InferenceStats(RegistryBackedStats):
     """Per-client traffic counters, and the fault-tolerance counters (all 0
-    without a :class:`~repro_torch.core.netsim.FaultInjector`)."""
+    without a :class:`~repro_torch.core.netsim.FaultInjector`), under the
+    reference's names and in its order (``wall_seconds`` and ``joules`` stay
+    0 there too: the session's results carry them).  Registry-backed: a
+    fleet root's ``snapshot()`` reports every client's RPC count and wire
+    bytes."""
 
-    rpcs: int = 0
-    network_bytes: float = 0.0
-    cache_adoptions: int = 0
-    retries: int = 0               # lost-message timeouts paid
-    dedup_replies: int = 0         # retried steps answered from the dedup table
-    outage_fallbacks: int = 0      # inferences served device-locally
-    outage_waits: int = 0          # stateful inferences that sat out an outage
-    crash_restores: int = 0        # checkpoint-and-replay recoveries absorbed
+    _fields = (
+        ("rpcs", 0),
+        ("network_bytes", 0.0),
+        ("wall_seconds", 0.0),
+        ("joules", 0.0),
+        ("cache_adoptions", 0),
+        ("retries", 0),               # lost-message timeouts paid
+        ("dedup_replies", 0),         # retried steps answered from the dedup table
+        ("outage_fallbacks", 0),      # inferences served device-locally
+        ("outage_waits", 0),          # stateful inferences that sat out an outage
+        ("crash_restores", 0),        # checkpoint-and-replay recoveries absorbed
+    )
 
 
 class RRTOClient:
@@ -1308,6 +1333,10 @@ class RRTOClient:
 
     With ``fault`` every lost message costs a timeout (``retry_policy``) and
     a retransmission, and the stateful step rides the at-most-once protocol.
+
+    With ``tracer`` its RPCs, replay calls and downloads are spans on
+    ``trace_track`` (``client/<client_id>`` by default); ``metrics`` is the
+    registry scope its :class:`InferenceStats` counters live in.
     """
 
     def __init__(
@@ -1323,6 +1352,9 @@ class RRTOClient:
         client_device: DeviceSpec = JETSON_XAVIER_NX,
         partition: Optional[Any] = None,
         input_wire_divisor: float = 1.0,
+        tracer: Optional[Tracer] = None,
+        trace_track: Optional[str] = None,
+        metrics: Optional[MetricsRegistry] = None,
         fault: Optional[FaultInjector] = None,
         retry_policy: Optional[RetryPolicy] = None,
     ):
@@ -1386,7 +1418,11 @@ class RRTOClient:
         self._fresh_carried: Dict[int, torch.Tensor] = {}
         self.fallbacks = 0
         self._query_cache: set = set()
-        self.stats = InferenceStats()
+        # observability: spans land on this client's track; None = tracing
+        # off (every emission site guards on it)
+        self.tracer = tracer
+        self.trace_track = trace_track or f"client/{client_id}"
+        self.stats = InferenceStats(registry=metrics)
         # fault tolerance: injected link faults and the retry discipline
         # (None = a perfect wire, every hook below passes through), the
         # per-stateful-step sequence number behind the server's dedup, and an
@@ -1455,19 +1491,28 @@ class RRTOClient:
     def _rpc(self, payload: float, response: float) -> None:
         if self.fault is not None:
             self._ride_out_losses(payload)
-        dt = self.network.rpc_time(payload, response, self.clock.t)
+        t0 = self.clock.t
+        dt = self.network.rpc_time(payload, response, t0)
         self.clock.advance(dt)
         self.meter.add(STATE_COMM, dt)
         self._account_network(1, payload + response)
+        if self.tracer is not None:
+            self.tracer.span(
+                self.trace_track, "record_rpc" if self.mode == MODE_RECORDING else "rpc",
+                t0, t0 + dt, payload=payload, response=response,
+            )
 
     def _retry_timeout(self, attempt: int) -> None:
         """Pay one lost-message timeout: the client sat waiting for a reply
         that never came, then retransmits.  Billed as standby (the radio
         idles listening); exponential backoff with deterministic jitter."""
         dt = self.retry_policy.timeout_s(attempt, self.fault.jitter_unit())
+        t0 = self.clock.t
         self.clock.advance(dt)
         self.meter.add(STATE_STANDBY, dt)
         self.stats.retries += 1
+        if self.tracer is not None:
+            self.tracer.instant(self.trace_track, "retry", t0, attempt=attempt, timeout=dt)
 
     def _ride_out_losses(self, payload: float) -> int:
         """The lost attempts before one delivered message: each costs a
@@ -1641,6 +1686,9 @@ class RRTOClient:
                     ios, fp = candidate, cand_fp
                     self.cache_adopted = True
                     self.stats.cache_adoptions += 1
+                    if self.tracer is not None:
+                        self.tracer.instant(self.trace_track, "cache_adopt", self.clock.t,
+                                            fp=cand_fp)
                     break
         if ios is None:
             return
@@ -1686,12 +1734,17 @@ class RRTOClient:
                 power=self.meter.power_model,
                 config=self.partition,
                 input_wire_divisor=self.input_wire_divisor,
+                tracer=self.tracer,
+                trace_track=self.trace_track,
             )
             self._install_plan(self.replanner.initial_plan(
                 self.network.bandwidth_at(self.clock.t), self.clock.t
             ))
         self.mode = MODE_REPLAYING
         self._replay_pos = 0
+        if self.tracer is not None:
+            self.tracer.instant(self.trace_track, "ios_locked", self.clock.t,
+                                fp=self.ios_fp or "", adopted=self.cache_adopted)
 
     def _configure_carried(self, program: ReplayProgram) -> None:
         """Adopt a program's loop-carried spec: build the ordinal maps and
@@ -1766,6 +1819,8 @@ class RRTOClient:
                 self.network,
                 input_wire_divisor=self.input_wire_divisor,
                 t0=self.clock.t,
+                tracer=self.tracer,
+                trace_track=self.trace_track,
             )
             self._claim_stream_key(
                 f"{self.ios_fp}|{plan.signature()}" if self.ios_fp is not None else None
@@ -1836,6 +1891,7 @@ class RRTOClient:
                         ins, t, self.client_id, fresh_carried=fresh_carried
                     )
                 )
+                t_sub = self.clock.t
                 if self.fault is not None and self.stateful_replay:
                     # the stateful step is not idempotent: retries ride the
                     # sequence-numbered at-most-once protocol
@@ -1845,6 +1901,9 @@ class RRTOClient:
                 self._note_step(self._replay_inputs, fresh)
                 self._replay_outputs = outs
                 self._replay_done_at = done_at
+                if self.tracer is not None:
+                    self.tracer.span(self.trace_track, "replay_call", t_sub, max(done_at, t_sub),
+                                     fp=self.ios_fp or "", batched=self.replay_submit is not None)
                 # a full-server plan keeps watching the link, or a bandwidth
                 # collapse could never swap it back to a split
                 self._maybe_replan()
@@ -1872,13 +1931,17 @@ class RRTOClient:
                 # local copy, no network round trip
                 self._local()
                 return self._replay_outputs[self._wire_out_index.get(cursor, cursor)]
+            t0 = self.clock.t
             dt = (
-                self.network._rtt_at(self.clock.t)
-                + self.network.transfer_time(rec.response_bytes, self.clock.t)
+                self.network._rtt_at(t0)
+                + self.network.transfer_time(rec.response_bytes, t0)
             )
             self.clock.advance(dt)
             self.meter.add(STATE_COMM, dt)
             self._account_network(1, rec.payload_bytes + rec.response_bytes)
+            if self.tracer is not None:
+                self.tracer.span(self.trace_track, "replay_d2h", t0, t0 + dt,
+                                 bytes=rec.response_bytes)
             return self._replay_outputs[self._wire_out_index.get(cursor, cursor)]
 
         # intermediate operator: answered from the recorded result, locally
@@ -1895,9 +1958,10 @@ class RRTOClient:
 
         ctx = self.server.context(self.client_id)
         bound = ctx.split
+        t0 = self.clock.t
         sched = compute_schedule(
             bound.graph, self.split_plan, self.client_device, self.server.device_spec,
-            NetworkLink(self.network, self.input_wire_divisor), t0=self.clock.t,
+            NetworkLink(self.network, self.input_wire_divisor), t0=t0,
             # the D2H records pay the real output downlink; modeling it here
             # would charge the shared ingress twice
             include_output_downlink=False,
@@ -1911,11 +1975,15 @@ class RRTOClient:
         # server segments occupy the shared GPU — through the co-tenant
         # segment batcher when the edge server installed one
         server_segs = [s for s in self.split_plan.segments if s.placement == PLACE_SERVER]
-        completions = [
-            self.split_submit(seg, dur, start) if self.split_submit is not None
-            else self.server.occupy(dur, start)
-            for seg, (start, dur) in zip(server_segs, sched.server_busy)
-        ]
+        completions = []
+        for seg, (start, dur) in zip(server_segs, sched.server_busy):
+            completions.append(
+                self.split_submit(seg, dur, start) if self.split_submit is not None
+                else self.server.occupy(dur, start)
+            )
+            if self.tracer is not None:
+                self.tracer.span(f"{self.server.name}/gpu", "segment_exec", start, start + dur,
+                                 client=self.client_id, ops=f"{seg.start}:{seg.end}")
         # phase-integrated billing covers the body once: overlapped uplink is
         # inside the inference draw (Schedule.radio_only_seconds)
         self.meter.add(STATE_INFERENCE, sched.device_seconds)
@@ -1930,6 +1998,11 @@ class RRTOClient:
                 max(completions) if self.split_submit is not None else self.server.busy_until
             )
         self._account_network(sched.crossings, sched.comm_bytes)
+        if self.tracer is not None:
+            self.tracer.span(self.trace_track, "cut_uplink", t0, t0 + sched.radio_only_seconds,
+                             bytes=sched.comm_bytes, crossings=sched.crossings)
+            self.tracer.span(self.trace_track, "device_exec", t0, t0 + sched.device_seconds,
+                             plan=self.split_plan.signature())
         self._split_output_local = list(sched.output_local)
         self._replay_outputs = outs
         self._replay_done_at = self.clock.t

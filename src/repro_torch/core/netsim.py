@@ -19,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 import heapq
 import itertools
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -278,14 +278,25 @@ class ServerIngress:
     # transfer_time call on an attached client link accumulates here)
     bytes_total: float = 0.0
     backhaul: Optional[SharedBackhaul] = None
+    # observability: with a Tracer attached, each billed transfer samples
+    # the cumulative ingress byte counter on ``track`` (at the simulated
+    # time the caller passes; transfer_time does)
+    tracer: Optional[Any] = None
+    track: str = "ingress"
     fault: Optional[FaultInjector] = None
     # overload protection: a bound AdmissionController mirrors its wait-queue
     # depth here, so queueing at the edge box is observable at the ingress
     queue_depth: int = 0
+    depth_gauge: Optional[Any] = None
 
-    def set_queue_depth(self, depth: int) -> None:
-        """Record the admitted-but-uncompleted backlog behind this ingress."""
+    def set_queue_depth(self, depth: int, t: Optional[float] = None) -> None:
+        """Record the admitted-but-uncompleted backlog behind this ingress
+        (the gauge, and a trace counter sampled on the simulated clock)."""
         self.queue_depth = int(depth)
+        if self.depth_gauge is not None:
+            self.depth_gauge.set(self.queue_depth)
+        if self.tracer is not None and t is not None:
+            self.tracer.counter(self.track, "queue_depth", t, float(self.queue_depth))
 
     def share(self, t: Optional[float] = None) -> float:
         share = self.capacity_bytes_per_s / max(1, self.active_clients)
@@ -297,11 +308,13 @@ class ServerIngress:
                 share = max(share * factor, OUTAGE_FLOOR_BYTES_PER_S)
         return share
 
-    def account(self, nbytes: float) -> None:
+    def account(self, nbytes: float, t: Optional[float] = None) -> None:
         """Bill a transfer through this node (and the site backhaul)."""
         self.bytes_total += nbytes
         if self.backhaul is not None:
             self.backhaul.bytes_total += nbytes
+        if self.tracer is not None and t is not None:
+            self.tracer.counter(self.track, "ingress_bytes", t, self.bytes_total)
 
 
 def multi_node_ingress(
@@ -360,7 +373,7 @@ class NetworkModel:
         bw = self.bandwidth_at(t)
         if self.ingress is not None:
             bw = min(bw, self.ingress.share(t))
-            self.ingress.account(nbytes)
+            self.ingress.account(nbytes, t)
         # a zero-bandwidth interval (obstructed radio, saturated ingress)
         # stalls the transfer for a long-but-finite interval instead of
         # dividing by zero
@@ -455,13 +468,17 @@ class CapacityResource:
     frontier (``free_at``) and every busy interval is recorded, the same
     semantics as ``OffloadServer.busy_until``.  ``record_intervals=False``
     keeps only the running total (``busy_total``), for session-lifetime
-    resources driven by an unbounded stream."""
+    resources driven by an unbounded stream.  With a ``tracer`` every
+    reservation emits an ``occupy`` span on ``track`` (the resource's name by
+    default), so an analytic schedule renders like an executed timeline."""
 
     name: str
     free_at: float = 0.0
     record_intervals: bool = True
     busy: List[Tuple[float, float]] = dataclasses.field(default_factory=list)
     busy_total: float = 0.0
+    tracer: Optional[Any] = None
+    track: Optional[str] = None
 
     def earliest(self, t: float) -> float:
         """Earliest instant a reservation requested at ``t`` can begin."""
@@ -478,6 +495,8 @@ class CapacityResource:
             self.busy_total += duration
             if self.record_intervals:
                 self.busy.append((begin, end))
+            if self.tracer is not None:
+                self.tracer.span(self.track or self.name, "occupy", begin, end)
         self.free_at = end
         return begin, end
 

@@ -24,6 +24,12 @@ request of a transparent session is admitted, degraded or shed first (the
 overload ladder): a split session re-cuts device-heavy, a stateless one runs
 on the device when its deadline budget covers that, and anything else
 raises :class:`~repro_torch.serving.admission.AdmissionRejectedError`.
+
+With a :class:`~repro_torch.obs.Tracer` (``tracer=``) a transparent session
+emits its client's spans on ``trace_track`` and the outage path's events
+(``outage_declared``, ``outage_wait``, ``outage_fallback``, ``link_healed``)
+there too, on the simulated clock; ``metrics=`` is the registry scope of the
+client's counters.
 """
 from __future__ import annotations
 
@@ -55,6 +61,7 @@ from repro_torch.core.flatten import FlatGraph, graph_cost, trace_app
 from repro_torch.core.intercept import FrameworkNoiseModel, GraphInterceptor
 from repro_torch.core.netsim import FaultInjector, NetworkModel, RetryPolicy, get_network
 from repro_torch.device import resolve_device, to_host
+from repro_torch.obs import MetricsRegistry, Tracer
 
 SYSTEMS = ("device_only", "nnto", "cricket", "semi_rrto", "rrto")
 
@@ -171,7 +178,8 @@ class OffloadSession:
     the client's retry discipline.  ``admission`` (an
     :class:`~repro_torch.serving.admission.AdmissionController`, transparent
     systems only) guards every request; ``tenant`` names the SLO class the
-    client bills against."""
+    client bills against.  ``tracer``, ``trace_track`` and ``metrics``
+    (transparent systems only) are the client's observability hooks."""
 
     def __init__(
         self,
@@ -189,6 +197,9 @@ class OffloadSession:
         client_id: str = DEFAULT_CLIENT,
         device: Any = "cuda",
         partition: Optional[Any] = None,
+        tracer: Optional[Tracer] = None,
+        trace_track: Optional[str] = None,
+        metrics: Optional[MetricsRegistry] = None,
         fault: Optional[FaultInjector] = None,
         retry_policy: Optional[RetryPolicy] = None,
         admission: Optional[Any] = None,
@@ -259,6 +270,9 @@ class OffloadSession:
                 client_device=self.client_device,
                 partition=partition if system == "rrto" else None,
                 input_wire_divisor=model.input_wire_divisor,
+                tracer=tracer,
+                trace_track=trace_track,
+                metrics=metrics,
                 fault=fault,
                 retry_policy=retry_policy,
             )
@@ -424,7 +438,10 @@ class OffloadSession:
             elif cl.fault is not None and cl.fault.in_outage(self.clock.t):
                 mode, outputs = self._infer_during_outage(inputs)
             else:
-                cl.outage_active = False
+                if cl.outage_active:
+                    cl.outage_active = False
+                    if cl.tracer is not None:
+                        cl.tracer.instant(cl.trace_track, "link_healed", self.clock.t)
                 mode = cl.mode
                 outputs = self._run_intercepted(inputs)
                 if decision is not None and decision.action == "degrade_split":
@@ -571,19 +588,29 @@ class OffloadSession:
             # the probe that found the dead link: one timeout burned
             cl.outage_active = True
             dt = cl.retry_policy.base_timeout_s
+            t0 = self.clock.t
             self.clock.advance(dt)
             self.meter.add(STATE_STANDBY, dt)
+            if cl.tracer is not None:
+                cl.tracer.instant(cl.trace_track, "outage_declared", t0)
         if cl.stateful_replay:
+            end = cl.fault.outage_until(self.clock.t)
             cl.stats.outage_waits += 1
-            cl._wait_until(cl.fault.outage_until(self.clock.t))
+            if cl.tracer is not None:
+                cl.tracer.span(cl.trace_track, "outage_wait", self.clock.t, end)
+            cl._wait_until(end)
             return cl.mode, self._run_intercepted(inputs)
         if cl.mode == MODE_REPLAYING and cl.replanner is not None:
             cl.stats.outage_fallbacks += 1
+            if cl.tracer is not None:
+                cl.tracer.instant(cl.trace_track, "outage_fallback", self.clock.t, path="split")
             plan = cl.replanner.declare_outage(self.clock.t)
             if plan is not None:
                 cl._install_plan(plan)
             return cl.mode, self._run_intercepted(inputs)
         cl.stats.outage_fallbacks += 1
+        if cl.tracer is not None:
+            cl.tracer.instant(cl.trace_track, "outage_fallback", self.clock.t, path="device")
         # the device path is already eager, op by op, so its values are
         # bitwise the replay's (the reference needs a separate eager path
         # because its device_only runs one jit)

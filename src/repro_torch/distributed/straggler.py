@@ -20,6 +20,8 @@ import dataclasses
 from collections import deque
 from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
+from repro_torch.obs import MetricsRegistry, RegistryBackedStats
+
 # the deadline tracks the *recent* latency distribution, so the observation
 # buffer is bounded: an unbounded history leaks over a long-lived stream and
 # freezes the deadline on stale samples
@@ -50,18 +52,24 @@ class ReplicaModel:
         return self.base_latency_s + max(0.0, self.jitter(req_idx))
 
 
-@dataclasses.dataclass
-class HedgeStats:
+class HedgeStats(RegistryBackedStats):
     """Hedged-dispatch counters and the latency of every request, under the
-    reference's names."""
+    reference's names; registry-backed.  ``latencies`` aliases the
+    registry's ``latency_s`` histogram values, so ``.append`` and slicing
+    keep working while the distribution shows in a snapshot."""
 
-    requests: int = 0
-    hedged: int = 0
-    primary_wins: int = 0
-    hedge_wins: int = 0
-    failures_recovered: int = 0
-    total_latency_s: float = 0.0
-    latencies: List[float] = dataclasses.field(default_factory=list)
+    _fields = (
+        ("requests", 0),
+        ("hedged", 0),
+        ("primary_wins", 0),
+        ("hedge_wins", 0),
+        ("failures_recovered", 0),
+        ("total_latency_s", 0.0),
+    )
+
+    @property
+    def latencies(self) -> List[float]:
+        return self.registry.histogram("latency_s").values
 
     @property
     def p99(self) -> float:
@@ -75,8 +83,7 @@ class HedgeStats:
         return self.total_latency_s / max(1, self.requests)
 
     def as_dict(self) -> Dict[str, Any]:
-        d = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
-             if f.name != "latencies"}
+        d = super().as_dict()
         d["latency_p99_s"] = self.p99
         d["latency_mean_s"] = self.mean
         return d
@@ -95,7 +102,8 @@ class HedgedRouter:
     breakers): an unhealthy replica is routed *around*, not treated as
     failed.  If every candidate is unhealthy, a second pass ignores the
     signal, so saturation never escalates to :class:`NoHealthyReplicaError`.
-    None routes as a router without breakers does."""
+    None routes as a router without breakers does.  ``metrics`` is the
+    registry scope of its :class:`HedgeStats`."""
 
     def __init__(
         self,
@@ -104,6 +112,7 @@ class HedgedRouter:
         min_observations: int = 8,
         window: int = OBSERVATION_WINDOW,
         completion_source: Optional[Callable[[Any, int], Optional[float]]] = None,
+        metrics: Optional[MetricsRegistry] = None,
         health: Optional[Callable[[int], bool]] = None,
     ):
         if window < 1:
@@ -113,7 +122,7 @@ class HedgedRouter:
         self.min_observations = min_observations
         self.completion_source = completion_source
         self._observed: Deque[float] = deque(maxlen=window)
-        self.stats = HedgeStats()
+        self.stats = HedgeStats(registry=metrics)
         self._rr = 0
         self.health = health
 

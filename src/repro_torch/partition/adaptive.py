@@ -23,6 +23,10 @@ the damping: the session re-plans at once at the outage floor, which lands
 every segment on the device.  An overloaded server
 (:meth:`AdaptiveReplanner.degrade`, the admission ladder's first tier) plans
 at the same floor but leaves the bandwidth estimate alone.
+
+With a tracer every decision is an instant on ``trace_track``
+(``outage_replan``, ``overload_degrade``, ``replan``, ``replan_rejected``),
+beside the planner's ``plan_explain``.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from typing import Optional
 from repro_torch.core.costmodel import DeviceSpec
 from repro_torch.core.energy import PowerModel
 from repro_torch.core.netsim import OUTAGE_FLOOR_BYTES_PER_S
+from repro_torch.obs import MetricsRegistry, RegistryBackedStats, Tracer
 from repro_torch.partition.planner import (
     EvaluatedPlan,
     PartitionConfig,
@@ -41,16 +46,17 @@ from repro_torch.partition.planner import (
 from repro_torch.partition.segments import SegmentGraph, SplitPlan
 
 
-class ReplannerStats:
-    """Re-planning counters, under the reference's names."""
+class ReplannerStats(RegistryBackedStats):
+    """Re-planning counters, under the reference's names; registry-backed."""
 
-    def __init__(self):
-        self.observations = 0
-        self.plans_considered = 0
-        self.replans = 0                  # adopted swaps
-        self.rejected_by_hysteresis = 0
-        self.outage_replans = 0           # declared-outage immediate swaps
-        self.overload_degrades = 0        # admission-driven device-heavy swaps
+    _fields = (
+        ("observations", 0),
+        ("plans_considered", 0),
+        ("replans", 0),               # adopted swaps
+        ("rejected_by_hysteresis", 0),
+        ("outage_replans", 0),        # declared-outage immediate swaps
+        ("overload_degrades", 0),     # admission-driven device-heavy swaps
+    )
 
 
 class AdaptiveReplanner:
@@ -66,6 +72,9 @@ class AdaptiveReplanner:
         power: Optional[PowerModel] = None,
         config: Optional[PartitionConfig] = None,
         input_wire_divisor: float = 1.0,
+        tracer: Optional[Tracer] = None,
+        trace_track: str = "planner",
+        metrics: Optional[MetricsRegistry] = None,
     ):
         self.graph = graph
         self.device = device
@@ -74,18 +83,21 @@ class AdaptiveReplanner:
         self.power = power or PowerModel()
         self.config = config or PartitionConfig()
         self.input_wire_divisor = input_wire_divisor
-        self.stats = ReplannerStats()
+        self.tracer = tracer
+        self.trace_track = trace_track
+        self.stats = ReplannerStats(registry=metrics)
         self.ema_bandwidth: Optional[float] = None
         self._last_plan_t: Optional[float] = None
         self.current: Optional[EvaluatedPlan] = None
         self._outage_plan = False
 
-    def _plan_at(self, bandwidth: float) -> EvaluatedPlan:
+    def _plan_at(self, bandwidth: float, now: float = 0.0) -> EvaluatedPlan:
         self.stats.plans_considered += 1
         ev = plan_partition(
             self.graph, self.device, self.server, bandwidth,
             rtt_s=self.rtt_s, power=self.power, config=self.config,
             input_wire_divisor=self.input_wire_divisor,
+            tracer=self.tracer, trace_track=self.trace_track, now=now,
         )
         # a stateful graph never yields a cut that would strand the carried
         # state on the device side
@@ -95,7 +107,7 @@ class AdaptiveReplanner:
     def initial_plan(self, bandwidth: float, now: float = 0.0) -> SplitPlan:
         self.ema_bandwidth = bandwidth
         self._last_plan_t = now
-        self.current = self._plan_at(bandwidth)
+        self.current = self._plan_at(bandwidth, now)
         return self.current.plan
 
     def declare_outage(self, now: float) -> Optional[SplitPlan]:
@@ -111,7 +123,10 @@ class AdaptiveReplanner:
             return None
         self._outage_plan = True
         self.stats.outage_replans += 1
-        candidate = self._plan_at(OUTAGE_FLOOR_BYTES_PER_S)
+        candidate = self._plan_at(OUTAGE_FLOOR_BYTES_PER_S, now)
+        if self.tracer is not None:
+            self.tracer.instant(self.trace_track, "outage_replan", now,
+                                adopted=candidate.plan.signature())
         same = self.current is not None and (
             candidate.plan.signature() == self.current.plan.signature()
         )
@@ -128,12 +143,15 @@ class AdaptiveReplanner:
         the restore.  Returns the device-heavy plan, or None when the
         session already runs it."""
         self._last_plan_t = now
-        candidate = self._plan_at(OUTAGE_FLOOR_BYTES_PER_S)
+        candidate = self._plan_at(OUTAGE_FLOOR_BYTES_PER_S, now)
         if self.current is not None and (
             candidate.plan.signature() == self.current.plan.signature()
         ):
             return None
         self.stats.overload_degrades += 1
+        if self.tracer is not None:
+            self.tracer.instant(self.trace_track, "overload_degrade", now,
+                                adopted=candidate.plan.signature())
         self.current = candidate
         return candidate.plan
 
@@ -161,7 +179,7 @@ class AdaptiveReplanner:
             return None
         self._last_plan_t = now
 
-        candidate = self._plan_at(self.ema_bandwidth)
+        candidate = self._plan_at(self.ema_bandwidth, now)
         if candidate.plan.signature() == self.current.plan.signature():
             self.current = candidate     # refresh the modeled cost at this bw
             return None
@@ -171,12 +189,20 @@ class AdaptiveReplanner:
             rtt_s=self.rtt_s, power=self.power, input_wire_divisor=self.input_wire_divisor,
         )
         objective = self.config.objective
-        if plan_cost(candidate, objective) < plan_cost(incumbent, objective) * (
-            1.0 - self.config.hysteresis
-        ):
+        cand_cost = plan_cost(candidate, objective)
+        inc_cost = plan_cost(incumbent, objective)
+        if cand_cost < inc_cost * (1.0 - self.config.hysteresis):
             self.current = candidate
             self.stats.replans += 1
+            if self.tracer is not None:
+                self.tracer.instant(self.trace_track, "replan", now,
+                                    adopted=candidate.plan.signature(), cost=cand_cost,
+                                    incumbent_cost=inc_cost, bandwidth=self.ema_bandwidth)
             return candidate.plan
         self.stats.rejected_by_hysteresis += 1
+        if self.tracer is not None:
+            self.tracer.instant(self.trace_track, "replan_rejected", now,
+                                candidate=candidate.plan.signature(), cost=cand_cost,
+                                incumbent_cost=inc_cost, bandwidth=self.ema_bandwidth)
         self.current = incumbent
         return None

@@ -25,7 +25,7 @@ graph enumerates its carried-feasible cuts instead.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from repro_torch.core.costmodel import DeviceSpec
 from repro_torch.core.energy import PowerModel
@@ -293,6 +293,9 @@ def plan_partition(
     power: Optional[PowerModel] = None,
     config: Optional[PartitionConfig] = None,
     input_wire_divisor: float = 1.0,
+    tracer: Optional[Any] = None,
+    trace_track: str = "planner",
+    now: float = 0.0,
 ) -> EvaluatedPlan:
     """Pick the best split of ``graph`` at the given operating point.
 
@@ -300,7 +303,9 @@ def plan_partition(
     binary-offloading endpoints, so the result is never worse than
     full-offload or device-only under the shared model.  For a stateful
     graph only carried-feasible cuts are enumerated, and full-server is the
-    guaranteed fallback."""
+    guaranteed fallback.  With a ``tracer`` the whole per-candidate cost
+    table and the chosen signature ride on one ``plan_explain`` instant on
+    ``trace_track`` at simulated time ``now``."""
     config = config or PartitionConfig()
     power = power or PowerModel()
     n = graph.n_ops
@@ -329,6 +334,7 @@ def plan_partition(
 
     best: Optional[EvaluatedPlan] = None
     seen: set = set()
+    explain: List[Dict[str, Any]] = []
     for plan in candidates:
         sig = plan.signature()
         if sig in seen:
@@ -338,9 +344,22 @@ def plan_partition(
             graph, plan, device, server, bandwidth_bytes_per_s,
             rtt_s=rtt_s, power=power, input_wire_divisor=input_wire_divisor,
         )
+        if tracer is not None:
+            # "why this cut": every candidate's cost rides on the trace; the
+            # period is computed only when the objective prices it (the
+            # pipeline-period evaluation is lazy)
+            row = {"plan": sig, "seconds": ev.seconds, "joules": ev.joules,
+                   "cost": plan_cost(ev, config.objective)}
+            if config.objective == "throughput":
+                row["period_s"] = ev.period_seconds
+            explain.append(row)
         if best is None or plan_cost(ev, config.objective) < plan_cost(best, config.objective):
             best = ev
     assert best is not None
+    if tracer is not None:
+        tracer.instant(trace_track, "plan_explain", now, objective=config.objective,
+                       bandwidth_bytes_per_s=bandwidth_bytes_per_s,
+                       chosen=best.plan.signature(), candidates=explain)
     best.plan = dataclasses.replace(
         best.plan,
         objective=config.objective,

@@ -45,6 +45,8 @@ import dataclasses
 import heapq
 from typing import Any, Callable, Dict, List, Optional
 
+from repro_torch.obs import MetricsRegistry, RegistryBackedStats, Tracer
+
 # decision actions, in ladder order
 ADMIT = "admit"
 DEGRADE_SPLIT = "degrade_split"
@@ -140,23 +142,23 @@ class TokenBucket:
         self.tokens -= n
 
 
-@dataclasses.dataclass
-class AdmissionStats:
-    """Admission counters, under the reference's names."""
+class AdmissionStats(RegistryBackedStats):
+    """Admission counters, under the reference's names; registry-backed, so
+    one snapshot reports the overload posture beside the batcher, cache and
+    hedge counters."""
 
-    requests: int = 0
-    admitted: int = 0
-    borrowed: int = 0             # admits on spare capacity beyond the share
-    degraded_split: int = 0       # ladder tier 1: device-heavy re-plan
-    degraded_device: int = 0      # ladder tier 2: eager device fallback
-    shed: int = 0                 # ladder tier 3: typed rejection
-    queue_rejects: int = 0        # admission failures due to the queue bound
-    bucket_rejects: int = 0       # admission failures due to token buckets
-    deadline_hits: int = 0
-    deadline_misses: int = 0
-
-    def as_dict(self) -> Dict[str, int]:
-        return dataclasses.asdict(self)
+    _fields = (
+        ("requests", 0),
+        ("admitted", 0),
+        ("borrowed", 0),           # admits on spare capacity beyond the share
+        ("degraded_split", 0),     # ladder tier 1: device-heavy re-plan
+        ("degraded_device", 0),    # ladder tier 2: eager device fallback
+        ("shed", 0),               # ladder tier 3: typed rejection
+        ("queue_rejects", 0),      # admission failures due to the queue bound
+        ("bucket_rejects", 0),     # admission failures due to token buckets
+        ("deadline_hits", 0),
+        ("deadline_misses", 0),
+    )
 
 
 class AdmissionController:
@@ -173,7 +175,9 @@ class AdmissionController:
     The wait queue is the set of admitted-but-uncompleted requests, a heap
     of completion times: the depth at ``t`` is the backlog on the simulated
     timeline.  :meth:`bind` mirrors the depth onto the edge's
-    :class:`~repro_torch.core.netsim.ServerIngress`."""
+    :class:`~repro_torch.core.netsim.ServerIngress`, where ``metrics`` makes
+    it a ``queue_depth`` gauge.  With a ``tracer`` every decision is an
+    ``admission`` instant on the ``admission`` track."""
 
     def __init__(
         self,
@@ -184,6 +188,8 @@ class AdmissionController:
         borrow_depth: Optional[int] = None,
         classes: Optional[Dict[str, SLOClass]] = None,
         default_class: Optional[SLOClass] = None,
+        tracer: Optional[Tracer] = None,
+        metrics: Optional[MetricsRegistry] = None,
     ):
         if queue_limit < 1:
             raise ValueError(f"queue_limit must be >= 1, got {queue_limit}")
@@ -195,7 +201,9 @@ class AdmissionController:
         )
         self.default_class = default_class or SLOClass()
         self.classes: Dict[str, SLOClass] = dict(classes or {})
-        self.stats = AdmissionStats()
+        self.tracer = tracer
+        self.metrics = metrics
+        self.stats = AdmissionStats(registry=metrics)
         self.bucket = TokenBucket(self.rate_hz, self.burst)
         self._tenant_buckets: Dict[str, TokenBucket] = {}
         self._tenants: Dict[str, str] = {}       # client_id -> tenant
@@ -211,11 +219,13 @@ class AdmissionController:
     def bind(self, *, server: Any = None, ingress: Any = None) -> None:
         """Attach the edge box's shared resources: the server supplies the
         busy-frontier backlog for retry-after estimates; the ingress mirrors
-        the wait-queue depth."""
+        the wait-queue depth as an observable gauge."""
         if server is not None:
             self.server = server
         if ingress is not None:
             self.ingress = ingress
+            if self.metrics is not None and ingress.depth_gauge is None:
+                ingress.depth_gauge = self.metrics.gauge("queue_depth")
 
     def register(self, client_id: str, tenant: str = "default",
                  slo: Optional[SLOClass] = None) -> None:
@@ -253,7 +263,7 @@ class AdmissionController:
             heapq.heappop(self._done_heap)
         depth = len(self._done_heap)
         if self.ingress is not None:
-            self.ingress.set_queue_depth(depth)
+            self.ingress.set_queue_depth(depth, t)
         return depth
 
     def retry_after(self, t: float, depth: int) -> float:
@@ -309,20 +319,23 @@ class AdmissionController:
         if reason is None:
             self.stats.admitted += 1
             self.admitted_by_tenant[tenant] = self.admitted_by_tenant.get(tenant, 0) + 1
+            self._trace(ADMIT, client_id, tenant, t, depth)
             return AdmissionDecision(ADMIT, queue_depth=depth)
 
         # admission failed: walk the ladder
         if can_degrade_split:
             self.stats.degraded_split += 1
+            self._trace(DEGRADE_SPLIT, client_id, tenant, t, depth)
             return AdmissionDecision(DEGRADE_SPLIT, queue_depth=depth, reason=reason)
         budget = self.slo(tenant).deadline_s
         if can_degrade_device and (degraded_latency_s is None or degraded_latency_s <= budget):
             self.stats.degraded_device += 1
+            self._trace(DEGRADE_DEVICE, client_id, tenant, t, depth)
             return AdmissionDecision(DEGRADE_DEVICE, queue_depth=depth, reason=reason)
         self.stats.shed += 1
-        return AdmissionDecision(
-            SHED, retry_after_s=self.retry_after(t, depth), queue_depth=depth, reason=reason
-        )
+        retry = self.retry_after(t, depth)
+        self._trace(SHED, client_id, tenant, t, depth, retry_after=retry)
+        return AdmissionDecision(SHED, retry_after_s=retry, queue_depth=depth, reason=reason)
 
     def note_admitted(self, t: float, done_at: float) -> None:
         """Record one admitted request's completion time on the wait queue
@@ -361,6 +374,12 @@ class AdmissionController:
         if total_w <= 0:
             return 1.0
         return self.slo(tenant).weight / total_w
+
+    def _trace(self, action: str, client_id: str, tenant: str, t: float, depth: int,
+               **extra: Any) -> None:
+        if self.tracer is not None:
+            self.tracer.instant("admission", "admission", t, action=action, client=client_id,
+                                tenant=tenant, depth=depth, **extra)
 
 
 def drr_select(

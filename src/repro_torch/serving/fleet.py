@@ -33,6 +33,13 @@ pieces into a replicated fleet:
   :class:`CircuitBreaker` fed by every dispatch outcome, and the router
   routes around an open one; ``admission_factory`` gives each replica its
   own :class:`~repro_torch.serving.admission.AdmissionController`.
+* **Observability** — ``EdgeFleet.metrics`` is one root
+  :class:`~repro_torch.obs.MetricsRegistry` (scopes ``r<i>``, ``hedge`` and
+  ``fleet``), so ``fleet.metrics.snapshot()`` reads the whole fleet; with a
+  ``tracer`` each hedge attempt is a ``hedge_dispatch`` span on
+  ``<replica>/hedge`` (the loser annotated ``cancelled=True`` once the race
+  resolves) and placement, migration, crashes and checkpoints are events on
+  the ``fleet`` track.
 
 Every replica's server computes on one ``device``: on one card the replicas
 share it, and a migration moves the env by reference (its bytes are still
@@ -57,6 +64,7 @@ from repro_torch.core.netsim import EventTimeline, FaultInjector, SharedBackhaul
 from repro_torch.core.offload import InferenceResult, OffloadableModel, OffloadSession
 from repro_torch.device import resolve_device
 from repro_torch.distributed.straggler import HedgedRouter, NoHealthyReplicaError
+from repro_torch.obs import MetricsRegistry, RegistryBackedStats, Tracer
 from repro_torch.serving.multitenant import RRTOEdgeServer
 from repro_torch.serving.recovery import SessionCheckpointer
 
@@ -141,25 +149,23 @@ class CircuitBreaker:
             self.state = self.CLOSED
 
 
-@dataclasses.dataclass
-class FleetStats:
-    """Fleet-wide counters, under the reference's names."""
+class FleetStats(RegistryBackedStats):
+    """Fleet-wide counters, under the reference's names; registry-backed."""
 
-    placements: int = 0
-    affinity_hits: int = 0
-    migrations: int = 0
-    migration_bytes: float = 0.0
-    cache_syncs: int = 0
-    replicated_fingerprints: int = 0
-    backup_sessions: int = 0
-    crashes: int = 0
-    crash_restores: int = 0
-    checkpoints: int = 0
-    checkpoint_bytes: float = 0.0
-    steps_replayed: int = 0
-
-    def as_dict(self) -> Dict[str, Any]:
-        return dataclasses.asdict(self)
+    _fields = (
+        ("placements", 0),
+        ("affinity_hits", 0),
+        ("migrations", 0),
+        ("migration_bytes", 0.0),
+        ("cache_syncs", 0),
+        ("replicated_fingerprints", 0),
+        ("backup_sessions", 0),
+        ("crashes", 0),
+        ("crash_restores", 0),
+        ("checkpoints", 0),
+        ("checkpoint_bytes", 0.0),
+        ("steps_replayed", 0),
+    )
 
 
 @dataclasses.dataclass
@@ -229,22 +235,37 @@ class FleetClient:
         when the replica's controller sheds the request."""
         fleet = self.fleet
         fleet.apply_due_faults()
+        tracer = fleet.tracer
         req = self._req_idx
         self._req_idx += 1
         results: Dict[str, InferenceResult] = {}
+        # replica name -> its hedge_dispatch span, kept until the race
+        # resolves so the loser can be annotated
+        hedge_spans: Dict[str, int] = {}
+        primary_at_dispatch = self.primary
 
         def complete(replica: FleetReplica, idx: int) -> Optional[float]:
+            t0 = fleet.clock.t
             res = self._execute_on(replica, inputs, deadline_s)
             breaker = fleet.breakers.get(replica.name) if fleet.breakers is not None else None
             if res is None:
                 if breaker is not None:
                     breaker.record(fleet.clock.t, failed=True)
+                if tracer is not None:
+                    tracer.instant(f"{replica.name}/hedge", "hedge_failed", t0,
+                                   client=self.client_id, req=req)
                 return None
             results[replica.name] = res
             lat = res.wall_seconds + max(0.0, replica.slowdown(idx))
             if breaker is not None:
                 breaker.record(fleet.clock.t, failed=False, latency_s=lat,
                                baseline_s=fleet.router.observed_median)
+            if tracer is not None:
+                hedge_spans[replica.name] = tracer.span(
+                    f"{replica.name}/hedge", "hedge_dispatch", t0, t0 + lat,
+                    client=self.client_id, req=req,
+                    role="primary" if replica.name == primary_at_dispatch else "backup",
+                )
             return lat
 
         primary_idx = fleet.replica_index(self.primary)
@@ -265,6 +286,9 @@ class FleetClient:
             completion=complete,
             speculative=not (self.stateful and self.session.client.stateful_replay),
         )
+        if tracer is not None:
+            for name, sid in hedge_spans.items():
+                tracer.annotate(sid, winner=name == winner, cancelled=name != winner)
         if winner != self.primary and fleet.replica(self.primary).failed:
             # the primary is dead: re-home this client on the winner (a
             # stateful client already moved inside the completion source)
@@ -315,7 +339,10 @@ class EdgeFleet:
     :class:`~repro_torch.core.netsim.SharedBackhaul`.  ``circuit_breaker``
     gives each replica a :class:`CircuitBreaker` with its defaults behind
     the router's health hook; ``admission_factory(replica name)`` builds
-    each replica's admission controller."""
+    each replica's admission controller.  ``metrics`` is the root registry
+    (a fresh one by default) under which each replica reports as ``r<i>``,
+    the router as ``hedge`` and the fleet as ``fleet``; ``tracer`` reaches
+    every replica, the router's completions and the fleet's events."""
 
     def __init__(
         self,
@@ -323,6 +350,8 @@ class EdgeFleet:
         *,
         hedging: bool = True,
         min_observations: int = 8,
+        tracer: Optional[Tracer] = None,
+        metrics: Optional[MetricsRegistry] = None,
         fault: Optional[FaultInjector] = None,
         checkpoint_dir: Optional[str] = None,
         checkpoint_every: int = 4,
@@ -335,13 +364,16 @@ class EdgeFleet:
         dev = resolve_device(device)
         self.clock = SimClock()
         self.timeline = EventTimeline()
+        self.tracer = tracer
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
         ingresses = multi_node_ingress(n_replicas)
         self.backhaul: SharedBackhaul = ingresses[0].backhaul
         self.replicas: List[FleetReplica] = [
             FleetReplica(
                 name=f"r{i}",
                 edge=RRTOEdgeServer(
-                    ingress=ingresses[i], clock=self.clock, name=f"r{i}", fault=fault,
+                    ingress=ingresses[i], clock=self.clock, name=f"r{i}", tracer=tracer,
+                    metrics=self.metrics.scope(f"r{i}"), fault=fault,
                     # one controller per box: each guards its own queue
                     admission=admission_factory(f"r{i}") if admission_factory is not None else None,
                     device=dev,
@@ -362,6 +394,7 @@ class EdgeFleet:
             # a no-hedge fleet still recovers from outright failures
             hedge_multiplier=2.0 if hedging else float("inf"),
             min_observations=min_observations,
+            metrics=self.metrics.scope("hedge"),
             health=(
                 (lambda i: self.breakers[self.replicas[i].name].allow(self.clock.t))
                 if circuit_breaker else None
@@ -369,7 +402,7 @@ class EdgeFleet:
         )
         self.clients: Dict[str, FleetClient] = {}
         self._affinity: Dict[str, str] = {}   # model name / IOS fp -> replica
-        self.stats = FleetStats()
+        self.stats = FleetStats(registry=self.metrics.scope("fleet"))
         self.fault = fault
         self.checkpointer = (
             SessionCheckpointer(checkpoint_dir, every=checkpoint_every)
@@ -418,9 +451,15 @@ class EdgeFleet:
             owner = self._affinity.get(key)
             if owner is not None and not self.replica(owner).failed:
                 self.stats.affinity_hits += 1
+                if self.tracer is not None:
+                    self.tracer.instant("fleet", "place", self.clock.t, model=model.name,
+                                        replica=owner, affinity=True)
                 return self.replica(owner)
         rep = min(healthy, key=lambda r: r.load)
         self._affinity.setdefault(model.name, rep.name)
+        if self.tracer is not None:
+            self.tracer.instant("fleet", "place", self.clock.t, model=model.name,
+                                replica=rep.name, affinity=False)
         return rep
 
     def connect(
@@ -524,6 +563,11 @@ class EdgeFleet:
         dst = self._target(src, to, "migration", client_id)
         if dst.name == src.name:
             return src.name
+        mig_span = (
+            self.tracer.begin("fleet", "migrate", self.clock.t, client=client_id,
+                              src=src.name, dst=dst.name)
+            if self.tracer is not None else None
+        )
         sess = src.edge.sessions[client_id]
         cl = sess.client
         self.replicate_caches()
@@ -531,12 +575,16 @@ class EdgeFleet:
         src_ctx = src.edge.server.contexts.get(client_id)
         src.edge.disconnect(client_id)
         dst.edge.adopt_session(sess)
+        moved = 0.0
         if src_ctx is not None:
             dst.edge.server.context(client_id).env.update(src_ctx.env)
             moved = float(sum(_nbytes(v) for v in src_ctx.env.values()))
             self.stats.migration_bytes += moved
             # replica-to-replica traffic rides the site backhaul, not a radio
             self.backhaul.bytes_total += moved
+            if self.tracer is not None:
+                self.tracer.instant("fleet", "state_transfer", self.clock.t, client=client_id,
+                                    bytes=moved)
         if cl.ios is not None:
             self._rebind(dst, client_id, cl)
             if state is not None:
@@ -544,6 +592,9 @@ class EdgeFleet:
         src.edge.server.contexts.pop(client_id, None)
         self._rehome(client_id, src, dst, sess)
         self.stats.migrations += 1
+        if mig_span is not None:
+            self.tracer.annotate(mig_span, bytes=moved)
+            self.tracer.end(mig_span, self.clock.t)
         return dst.name
 
     # -- crash recovery --------------------------------------------------
@@ -568,6 +619,8 @@ class EdgeFleet:
         rep.edge.server.dedup.clear()
         self._crashed.add(name)
         self.stats.crashes += 1
+        if self.tracer is not None:
+            self.tracer.instant("fleet", "crash", self.clock.t, replica=name)
 
     def is_crashed(self, name: str) -> bool:
         return name in self._crashed
@@ -582,6 +635,9 @@ class EdgeFleet:
             self.stats.checkpoints += 1
             self.stats.checkpoint_bytes += nbytes
             self.backhaul.bytes_total += nbytes
+            if self.tracer is not None:
+                self.tracer.instant("fleet", "checkpoint", self.clock.t, client=client.client_id,
+                                    bytes=nbytes, seq=client.session.client.step_seq)
 
     def recover(self, client_id: str, to: Optional[str] = None) -> str:
         """Restore a stateful session whose home replica *crashed* onto a
@@ -612,6 +668,11 @@ class EdgeFleet:
                 f"no checkpoint for {client_id!r}: its carried state died with "
                 f"{src.name!r} before the first checkpoint boundary"
             )
+        span = (
+            self.tracer.begin("fleet", "crash_restore", self.clock.t, client=client_id,
+                              src=src.name, dst=dst.name, seq=ckpt.seq)
+            if self.tracer is not None else None
+        )
         self.replicate_caches()
         src.edge.disconnect(client_id)
         dst.edge.adopt_session(sess)
@@ -641,6 +702,9 @@ class EdgeFleet:
         self.stats.crash_restores += 1
         cl.stats.crash_restores += 1
         self._rehome(client_id, src, dst, sess)
+        if span is not None:
+            self.tracer.annotate(span, bytes=ckpt.nbytes, steps_replayed=replayed)
+            self.tracer.end(span, self.clock.t)
         return dst.name
 
     # -- open-loop serving on the event timeline -------------------------

@@ -50,6 +50,12 @@ Overload protection (``RRTOEdgeServer(admission=...)``, an
 is admitted, degraded or shed before it runs, each round's members are
 ordered earliest-deadline-first, and with ``ReplayBatcher.round_capacity``
 the batch slots are shared deficit-round-robin across tenants.
+
+Observability: ``RRTOEdgeServer.metrics`` is the root (or fleet-scoped)
+:class:`~repro_torch.obs.MetricsRegistry` behind every counter on the box:
+``cache.*``, ``batcher.*`` and ``client.<id>.*``.  With a ``tracer`` the
+box's GPU queue, ingress, batch rounds and clients emit on tracks under its
+name.
 """
 from __future__ import annotations
 
@@ -72,6 +78,7 @@ from repro_torch.core.netsim import FaultInjector, ServerIngress, get_network
 from repro_torch.core.offload import InferenceResult, OffloadableModel, OffloadSession
 from repro_torch.core.opseq import bits_equal
 from repro_torch.device import resolve_device
+from repro_torch.obs import MetricsRegistry, RegistryBackedStats, Tracer
 from repro_torch.partition.segments import PLACE_SERVER
 from repro_torch.serving.admission import AdmissionController, drr_select
 from repro_torch.serving.replay_cache import ReplayCache
@@ -143,18 +150,45 @@ class _SegmentGroup:
     width: int
 
 
+class BatcherStats(RegistryBackedStats):
+    """Batch-formation counters, registry-backed (one fleet snapshot reports
+    every replica's batching).  ``batch_sizes`` aliases the ``batch_width``
+    histogram's values, so width percentiles show in
+    ``MetricsRegistry.snapshot()`` while ``.append`` keeps working."""
+
+    _fields = (
+        ("batches_executed", 0),
+        ("batched_replays", 0),      # submissions served from a batch
+        ("solo_replays", 0),         # submissions that fell back to solo
+        ("vmap_batches", 0),         # groups executed as one vmap call
+        ("vmap_compiles", 0),        # batched programs built (not cached)
+        ("vmap_compiles_avoided", 0),  # widths served by a padded program
+        ("vmap_padded_lanes", 0),    # masked lanes executed across batches
+        ("digest_cache_hits", 0),
+        ("seg_batches", 0),          # co-tenant server segments run as one occupancy
+        ("seg_batched", 0),          # segment submissions served from such a group
+        ("seg_solo", 0),             # segment submissions that ran alone
+    )
+
+    @property
+    def batch_sizes(self) -> List[int]:
+        return self.registry.histogram("batch_width").values
+
+
 class ReplayBatcher:
     """Groups same-fingerprint replay submissions into batched executions.
 
-    Counters are plain attributes: ``batches_executed``, ``batched_replays``,
-    ``solo_replays``, ``vmap_batches`` (groups executed as one vmap call),
-    ``seg_batches`` (co-tenant server segments run as one occupancy),
-    ``seg_batched`` and ``seg_solo`` (segment submissions served from such a
-    group, or alone),
+    Its counters live in ``stats`` (a :class:`BatcherStats` in the
+    ``metrics`` scope) and read and write as attributes of the batcher too:
+    ``batches_executed``, ``batched_replays``, ``solo_replays``,
+    ``vmap_batches`` (groups executed as one vmap call), ``seg_batches``
+    (co-tenant server segments run as one occupancy), ``seg_batched`` and
+    ``seg_solo`` (segment submissions served from such a group, or alone),
     ``vmap_compiles`` (batched programs built, not taken from the cache),
     ``vmap_compiles_avoided`` (widths served by a padded program built for
     another width), ``vmap_padded_lanes`` and ``digest_cache_hits``;
-    ``batch_sizes`` lists every group's width.
+    ``batch_sizes`` lists every group's width.  With a ``tracer`` every
+    formed group is a ``batch_round`` span on ``<track>/batcher``.
 
     ``admission`` (bound by :class:`RRTOEdgeServer`) supplies the SLO
     priority and weight behind EDF ordering and DRR slot selection;
@@ -162,9 +196,19 @@ class ReplayBatcher:
     with a controller attached).  Without either, a round forms in
     submission order."""
 
-    def __init__(self, server: OffloadServer, *, window_s: float = 2e-3):
+    def __init__(
+        self,
+        server: OffloadServer,
+        *,
+        window_s: float = 2e-3,
+        tracer: Optional[Tracer] = None,
+        track: str = "edge",
+        metrics: Optional[MetricsRegistry] = None,
+    ):
         self.server = server
         self.window_s = window_s
+        self.tracer = tracer
+        self.track = track
         # False forces the per-client loop even for shared-param groups, so
         # the vmap path can be diffed bitwise against it
         self.enable_vmap = True
@@ -179,18 +223,10 @@ class ReplayBatcher:
         self._vmap_widths_served: Dict[str, set] = {}
         # cache claims held for the current round
         self._round_claims: List[str] = []
-        self.batches_executed = 0
-        self.batched_replays = 0
-        self.solo_replays = 0
-        self.vmap_batches = 0
-        self.vmap_compiles = 0
-        self.vmap_compiles_avoided = 0
-        self.vmap_padded_lanes = 0
-        self.digest_cache_hits = 0
-        self.batch_sizes: List[int] = []
-        self.seg_batches = 0
-        self.seg_batched = 0
-        self.seg_solo = 0
+        self.depth_gauge = metrics.gauge("pending_depth") if metrics is not None else None
+        # the counter attributes (``batcher.vmap_batches`` and the rest)
+        # delegate to this object: see the properties below the class
+        self.stats = BatcherStats(registry=metrics)
         self.admission: Optional[AdmissionController] = None
         # max batch slots per round and fingerprint; None = unbounded.  The
         # DRR deficits persist across rounds, so a tenant short-changed in
@@ -263,6 +299,16 @@ class ReplayBatcher:
             + sum(len(m) for m in self._seg_pending.values())
         )
 
+    def sample_depth(self, now: Optional[float] = None) -> int:
+        """Sample the pending-round depth onto the gauge (and, with an
+        admission controller attached, onto the trace as a counter)."""
+        depth = self.pending_depth
+        if self.depth_gauge is not None:
+            self.depth_gauge.set(depth)
+        if self.tracer is not None and now is not None and self.admission is not None:
+            self.tracer.counter(f"{self.track}/batcher", "pending_depth", now, float(depth))
+        return depth
+
     def _wire_digest(self, client_id: str) -> Optional[Tuple]:
         """The cached wire-input digest of one client's bound replay
         (recomputed only when the binding changes)."""
@@ -323,6 +369,10 @@ class ReplayBatcher:
                 self._seg_groups[key] = group
                 if width > 1:
                     self.seg_batches += 1
+                if self.tracer is not None:
+                    self.tracer.span(f"{self.track}/batcher", "batch_round", begin, group.done_at,
+                                     fp=client.ios_fp, width=width,
+                                     segment=f"{seg.start}:{seg.end}")
         if group is not None and cid in group.remaining:
             group.remaining.discard(cid)
             if group.width > 1:
@@ -476,7 +526,23 @@ class ReplayBatcher:
         self._groups[fp] = group
         self.batches_executed += 1
         self.batch_sizes.append(batch)
+        if self.tracer is not None:
+            self.tracer.span(f"{self.track}/batcher", "batch_round", start, group.done_at,
+                             fp=fp, width=batch, vmap=group.outs is not None)
         return group
+
+
+def _delegate_stat(name: str) -> property:
+    return property(
+        lambda self: getattr(self.stats, name),
+        lambda self, v: setattr(self.stats, name, v),
+    )
+
+
+# the batcher's counter attributes read and write the registry-backed stats
+for _stat_name, _ in BatcherStats._fields:
+    setattr(ReplayBatcher, _stat_name, _delegate_stat(_stat_name))
+ReplayBatcher.batch_sizes = property(lambda self: self.stats.batch_sizes)
 
 
 class RRTOEdgeServer:
@@ -488,7 +554,11 @@ class RRTOEdgeServer:
     with ``admission`` (an
     :class:`~repro_torch.serving.admission.AdmissionController`) the
     controller guards every session on the box and orders its rounds;
-    ``name`` labels the box in a fleet."""
+    ``name`` labels the box in a fleet and its tracks.  ``metrics`` is the
+    registry every counter on the box lives in (a fresh root by default),
+    with the scopes ``cache``, ``batcher`` and ``client.<id>``; ``tracer``
+    reaches the server, the ingress, the batcher, every session and an
+    admission controller that has none."""
 
     def __init__(
         self,
@@ -501,27 +571,37 @@ class RRTOEdgeServer:
         ingress: Optional[ServerIngress] = None,
         clock: Optional[SimClock] = None,
         name: str = "edge",
+        tracer: Optional[Tracer] = None,
+        metrics: Optional[MetricsRegistry] = None,
         fault: Optional[FaultInjector] = None,
         admission: Optional[AdmissionController] = None,
         device: Any = "cuda",
     ):
         self.clock = clock or SimClock()
         self.name = name
+        self.tracer = tracer
         self.fault = fault
-        self.cache = ReplayCache(cache_capacity)
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.cache = ReplayCache(cache_capacity, metrics=self.metrics.scope("cache"))
         self.server = OffloadServer(
             server_device, device=resolve_device(device), execute=execute,
-            replay_cache=self.cache,
+            replay_cache=self.cache, name=name, tracer=tracer,
         )
         self.ingress = ingress or ServerIngress()
+        if tracer is not None:
+            self.ingress.tracer = tracer
+            self.ingress.track = f"{name}/ingress"
         if fault is not None:
             self.ingress.fault = fault
-        self.batcher = ReplayBatcher(self.server, window_s=batch_window_s)
+        self.batcher = ReplayBatcher(self.server, window_s=batch_window_s, tracer=tracer,
+                                     track=name, metrics=self.metrics.scope("batcher"))
         # None (the default) leaves every path bitwise what it is without an
         # admission layer
         self.admission = admission
         if admission is not None:
             admission.bind(server=self.server, ingress=self.ingress)
+            if admission.tracer is None:
+                admission.tracer = tracer
             self.batcher.admission = admission
         self.environment = environment
         self.sessions: Dict[str, OffloadSession] = {}
@@ -568,6 +648,9 @@ class RRTOEdgeServer:
             clock=self.clock,
             client_id=cid,
             min_repeats=min_repeats,
+            tracer=self.tracer,
+            trace_track=f"{self.name}/client/{cid}",
+            metrics=self.metrics.scope(f"client.{cid}"),
             **session_kwargs,
         )
         sess.client.replay_submit = self.batcher.make_submit(sess.client)
@@ -607,6 +690,7 @@ class RRTOEdgeServer:
                 if seg.placement == PLACE_SERVER:
                     seg_entries.setdefault((cl.ios_fp, seg.start, seg.end), []).append(cid)
         self.batcher.begin_round(entries, seg_entries)
+        self.batcher.sample_depth(self.clock.t)
         if self.admission is not None:
             # refresh the ingress's queue depth on the simulated clock
             self.admission.queue_depth(self.clock.t)

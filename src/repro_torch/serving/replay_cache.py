@@ -33,11 +33,12 @@ way.
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 from collections import OrderedDict
 from typing import Any, Dict, Optional, Set
+
+from repro_torch.obs import MetricsRegistry, RegistryBackedStats
 
 PERSIST_VERSION = 1
 
@@ -46,13 +47,17 @@ PERSIST_VERSION = 1
 DEFAULT_PROGRAM_NBYTES = 1 << 20
 
 
-@dataclasses.dataclass
-class CacheStats:
-    hits: int = 0
-    misses: int = 0
-    insertions: int = 0
-    evictions: int = 0
-    bytes_evicted: float = 0.0
+class CacheStats(RegistryBackedStats):
+    """Replay-cache counters, registry-backed: a fleet root's snapshot
+    reports every replica's hits, misses and evictions under its scope."""
+
+    _fields = (
+        ("hits", 0),
+        ("misses", 0),
+        ("insertions", 0),
+        ("evictions", 0),
+        ("bytes_evicted", 0.0),
+    )
 
     @property
     def hit_rate(self) -> float:
@@ -60,7 +65,7 @@ class CacheStats:
         return self.hits / total if total else 0.0
 
     def as_dict(self) -> Dict[str, float]:
-        return dict(dataclasses.asdict(self), hit_rate=self.hit_rate)
+        return dict(super().as_dict(), hit_rate=self.hit_rate)
 
 
 def program_nbytes(program: Any) -> int:
@@ -81,9 +86,11 @@ class ReplayCache:
     Each entry carries a byte estimate; an insert evicts least-recently-used
     *unpinned* entries while the entry count exceeds ``capacity`` or the
     byte total exceeds ``capacity_bytes`` (when set).  ``pin()`` grants a
-    fingerprint — and every entry derived from it — residency."""
+    fingerprint — and every entry derived from it — residency.  ``metrics``
+    is the registry scope of its :class:`CacheStats`."""
 
-    def __init__(self, capacity: int = 8, capacity_bytes: Optional[float] = None):
+    def __init__(self, capacity: int = 8, capacity_bytes: Optional[float] = None,
+                 metrics: Optional[MetricsRegistry] = None):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         if capacity_bytes is not None and capacity_bytes <= 0:
@@ -101,7 +108,7 @@ class ReplayCache:
         # fingerprints known from a persisted cache file whose programs have
         # not been built since the restart: metadata only
         self._known: Dict[str, Dict[str, Any]] = {}
-        self.stats = CacheStats()
+        self.stats = CacheStats(registry=metrics)
 
     def __contains__(self, fingerprint: str) -> bool:
         # membership probes (the client-side cache-adoption check) count as

@@ -525,13 +525,16 @@ class TestDisabledBitwiseIdentity:
 
     def test_queue_depth_gauges_observable(self):
         """The ingress wait-queue depth and the batcher's pending-round depth
-        surface in ``summary()`` once a controller is attached."""
+        surface as registry gauges and in ``summary()`` once a controller is
+        attached."""
         model, x = make_mlp()
         edge = RRTOEdgeServer(execute=True, device="cpu")
         edge.connect(model, client_id="c0", min_repeats=2)
-        attach(edge, AdmissionController(rate_hz=1e6))
+        attach(edge, AdmissionController(rate_hz=1e6, metrics=edge.metrics))
         for _ in range(4):
             edge.run_round({"c0": (x,)})
+        snap = edge.metrics.snapshot()
+        assert "queue_depth" in snap and "batcher.pending_depth" in snap
         summary = edge.summary()
         assert summary["queue_depth"] == edge.ingress.queue_depth
         assert summary["pending_depth"] == edge.batcher.pending_depth

@@ -73,7 +73,26 @@ try:
     raise SystemExit("a stateful step under a zero-capacity controller was not shed")
 except AdmissionRejectedError as e:
     assert e.retry_after_s > 0 and adm.stats.shed == 1
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro")
+import json, os, tempfile
+import repro_torch.obs
+from repro_torch.obs import Tracer, write_chrome_trace
+tracer = Tracer()
+traced = EdgeFleet(2, tracer=tracer, device="cpu")
+tlm = RRTOServedLM(cfg, bucket_len=12, seed=1, edge=traced.replicas[0].edge, client_id="u0")
+tg = tlm.start_generation(prompt, 5)
+for step in range(tlm.steps_total(tg)):
+    if step == 6:
+        traced.migrate("u0")
+    tlm.absorb_step(tg, tlm.session.infer(*tlm.step_inputs(tg)).outputs)
+assert (np.concatenate(tg["out"], axis=1) == a).all(), (tg["out"], a)
+assert traced.metrics.snapshot()["fleet.migrations"] == 1
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "trace.json")
+    write_chrome_trace(tracer, path)
+    with open(path) as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"]}
+assert {"record_rpc", "replay_call", "migrate", "state_transfer"} <= names, names
+bad =sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro")
 print("LOADED", bad)
 """
 
