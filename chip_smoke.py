@@ -85,6 +85,18 @@ random weights from a seed:
   of (a) and (b) written to ``traces/phase13_trace.json`` and checked,
   and the host wall of a replayed qwen3 step with a tracer attached against
   detached, in turns.
+* the replay soundness verifier (phase 14, after 12d): phase 12a's guarded
+  edge and 12c's edge run with ``verify=True``, the fail-fast hooks proving
+  every client's locked IOS (12a's twin runs without, and every response is
+  bitwise the twin's); then (a) every pass and the aten op census over three
+  full-width IOSes locked earlier in the run (12c's qwen3-0.6b stateful with
+  phase 10a's plans, phase 5's zamba2-1.2b stateless with 10c's, phase 6's
+  KAPAO with the planner's sweep), no ERROR diagnostic, each pass timed on
+  the host; (b) three unsound copies of 12c's IOS refused before anything is
+  built (a rotated window: RRTO101; a forged carried pair: RRTO204; a plan
+  over n + 5 ops: RRTO301, with RRTO305 for its cache key); (c)
+  ``python -m repro_torch.analysis --all-registry`` in process on the card,
+  its JSON report in ``traces/phase14_analysis.json``.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after (every batched call under ``no_vmap_fallback``, so an op
@@ -2516,7 +2528,10 @@ def phase_overload(dev, cfg, params, prompt, dev_tokens, bucket) -> dict:
     no controller.  Both edges take the same open-loop Poisson schedule, a
     phase below the knee and one beyond it.  The guarded edge and its
     controller are traced, the controller's counters and the ingress depth
-    in the edge's registry (phase 13d reads them); the twin is not."""
+    in the edge's registry (phase 13d reads them), and the guarded edge runs
+    the replay soundness verifier at each client's lock; the twin does
+    neither, so every response bitwise the twin's also holds verify on ==
+    off."""
     from repro_torch.obs import Tracer
     from repro_torch.serving import RRTOEdgeServer
     from repro_torch.serving.admission import AdmissionController, SLOClass
@@ -2527,21 +2542,27 @@ def phase_overload(dev, cfg, params, prompt, dev_tokens, bucket) -> dict:
     def req(j):
         return over_request(prompt, dev_tokens, bucket, j)
 
-    edges, timers = {}, {}
+    edges, timers, hooks = {}, {}, HookTimer()
     tracer = Tracer()
     for name in ("guarded", "twin"):
-        edge = RRTOEdgeServer(name=name, device=dev, tracer=tracer if name == "guarded" else None)
+        edge = RRTOEdgeServer(name=name, device=dev, tracer=tracer if name == "guarded" else None,
+                              verify=name == "guarded")
         for cid, tenant in OVER_CLIENTS:
             sess = edge.connect(app, client_id=cid, tenant=tenant, min_repeats=FAULT_MIN_REPEATS)
             timers[name, cid] = StepTimer(sess)
+            check(sess.client.verify == (name == "guarded"), f"{name} {cid}: verify not the edge's")
         for cid, sess in edge.sessions.items():
-            while sess.client.mode != "replaying" and len(sess.history) < 4:
-                res = sess.infer(*req(0))
-                check(int(res.outputs[0][0]) == int(dev_tokens[0, 0]),
-                      f"{name} {cid}: warm-up token {res.outputs[0]} != device_only")
+            with hooks:
+                while sess.client.mode != "replaying" and len(sess.history) < 4:
+                    res = sess.infer(*req(0))
+                    check(int(res.outputs[0][0]) == int(dev_tokens[0, 0]),
+                          f"{name} {cid}: warm-up token {res.outputs[0]} != device_only")
             check(sess.client.mode == "replaying", f"{name} {cid}: never reached replaying")
         edges[name] = edge
     guarded, twin = edges["guarded"], edges["twin"]
+    check(len(hooks.calls) >= len(OVER_CLIENTS), f"12a: the verifier ran {len(hooks.calls)} times")
+    print(f"[phase 12a] the guarded edge's verifier at its {len(OVER_CLIENTS)} clients' locks: "
+          f"{hooks.summary()}")
     check(guarded.clock.t == twin.clock.t, "the twin edges warmed up on different clocks")
     warm_s = time.perf_counter() - t_part
 
@@ -2689,24 +2710,32 @@ def phase_round_formation(library, over) -> None:
           f"{time.perf_counter() - t_part:.1f} s")
 
 
-def phase_overload_stateful(dev, cfg, params, prompt, dev_tokens, bucket) -> None:
-    """Part c: qwen3-0.6b stateful on an edge.  After the third token a
-    zero-capacity controller sheds the next step twice, under gold's tiny
-    budget and under an unbounded one (a stateful session cannot take the
-    device fallback); no step runs and the carried state is untouched.
-    Detached, the decode goes on to phase 3's ``device_only`` tokens."""
+def phase_overload_stateful(dev, cfg, params, prompt, dev_tokens, bucket) -> dict:
+    """Part c: qwen3-0.6b stateful on an edge that runs the replay soundness
+    verifier at the lock (the donation pass proves the KV caches' carried
+    pairs).  After the third token a zero-capacity controller sheds the next
+    step twice, under gold's tiny budget and under an unbounded one (a
+    stateful session cannot take the device fallback); no step runs and the
+    carried state is untouched.  Detached, the decode goes on to phase 3's
+    ``device_only`` tokens.  Returns the edge and session (phase 14 reads
+    the locked IOS)."""
     from repro_torch.serving import RRTOEdgeServer, RRTOServedLM
     from repro_torch.serving.admission import AdmissionController, AdmissionRejectedError, SLOClass
 
     t_part = time.perf_counter()
-    edge = RRTOEdgeServer(device=dev)
+    edge = RRTOEdgeServer(device=dev, verify=True)
     lm = RRTOServedLM(cfg, bucket_len=bucket, params=params, edge=edge, client_id="q0",
                       min_repeats=FAULT_MIN_REPEATS)
     sess = lm.session
     g = lm.start_generation(prompt, OVER_Q_NEW)
-    while len(g["out"]) < OVER_Q_SHED_AT:
-        lm.absorb_step(g, sess.infer(*lm.step_inputs(g)).outputs)
+    with HookTimer() as hooks:
+        while len(g["out"]) < OVER_Q_SHED_AT:
+            lm.absorb_step(g, sess.infer(*lm.step_inputs(g)).outputs)
     check(sess.client.stateful_replay, "12c: the decode is not in stateful replay")
+    check(sess.client.verify and len(hooks.calls) >= 2,
+          f"12c: the verifier ran {len(hooks.calls)} times at the lock")
+    print(f"[phase 12c] the verifier at the lock ({len(sess.client._ios_calls)} records, "
+          f"{len(sess.client.ios.carried_pairs)} carried pairs): {hooks.summary()}")
     state0, seq0, n0 = edge.server.export_carried_state("q0"), sess.client.step_seq, len(sess.history)
     sheds = []
     for budget in (1e-12, 1e9):
@@ -2739,6 +2768,7 @@ def phase_overload_stateful(dev, cfg, params, prompt, dev_tokens, bucket) -> Non
           f"1e-12 s and 1e9 s; retry after {[round(r, 6) for r in sheds]} s simulated), step_seq "
           f"{seq0} unchanged, the {nbytes} B carried state bitwise unchanged; detached, "
           f"{OVER_Q_NEW} tokens == phase 3's device_only; {time.perf_counter() - t_part:.1f} s")
+    return dict(edge=edge, sess=sess)
 
 
 def phase_overload_split(dev) -> None:
@@ -3179,6 +3209,208 @@ def phase_obs(library, dev, by_path, z, q, over) -> float:
     return total
 
 
+VERIFY_JSON = os.path.join(ROOT, "traces", "phase14_analysis.json")
+
+
+class HookTimer:
+    """Times the replay soundness verifier's fail-fast hooks while entered:
+    every call of ``verify_calls``, ``verify_split_calls`` and
+    ``verify_plan`` (the engine's hooks import them at call time), with its
+    seconds and the codes it reported."""
+
+    NAMES = (("repro_torch.analysis.verify", "verify_calls"),
+             ("repro_torch.analysis.verify", "verify_split_calls"),
+             ("repro_torch.analysis.plancheck", "verify_plan"))
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import importlib
+
+        self._saved = []
+        for mod_name, name in self.NAMES:
+            mod = importlib.import_module(mod_name)
+            fn = getattr(mod, name)
+            self._saved.append((mod, name, fn))
+            setattr(mod, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.calls.append((name, time.perf_counter() - t0, [d.code for d in out]))
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+    def summary(self) -> str:
+        if not self.calls:
+            return "no hook ran"
+        return (f"{len(self.calls)} hook calls ({dict(Counter(n for n, _, _ in self.calls))}), "
+                f"{sum(t for _, t, _ in self.calls):.3f} s in all, "
+                f"{[round(t, 3) for _, t, _ in self.calls]} s each; codes "
+                f"{dict(Counter(c for _, _, codes in self.calls for c in codes))}")
+
+
+def verify_subject(label, calls, pairs, plans, min_repeats) -> dict:
+    """Part a: ``verify_ios``'s passes and census over one locked IOS, each
+    timed on the host, gathered into its report; no ERROR diagnostic."""
+    from repro_torch.analysis import AnalysisReport, lint_ios, op_census, sanitize_donation
+    from repro_torch.analysis.plancheck import verify_plan_for_calls
+    from repro_torch.analysis.verify import records_of
+    from repro_torch.core.records import CAT_D2D, FUNC_H2D
+
+    secs, report = {}, AnalysisReport(subject=label)
+    t0 = time.perf_counter()
+    report.extend(lint_ios(records_of(calls), min_repeats=min_repeats))
+    secs["dataflow"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report.extend(sanitize_donation(calls, pairs))
+    secs["donation"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for plan in plans:
+        report.extend(verify_plan_for_calls(calls, plan, pairs))
+    secs[f"plans x{len(plans)}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report.census = census = op_census(records_of(calls))
+    secs["census"] = time.perf_counter() - t0
+    check(report.ok, f"14a {label}: ERROR diagnostics {[d.as_dict() for d in report.errors]}")
+    h2d = [c for c in calls if c.record.func == FUNC_H2D]
+    n_d2d = sum(1 for c in calls if c.record.category == CAT_D2D)
+    with_payload = sum(1 for i, _ in pairs if h2d[i].h2d_value is not None)
+    warned = Counter(d.code for d in report.warnings)
+    print(f"[phase 14a] {label}: {census['n_records']} records, {census['n_kernels']} kernels "
+          f"(+ {n_d2d} DtoD), {census['n_h2d']} H2D + {census['n_d2h']} D2H transfers, wire "
+          f"{census['h2d_bytes'] + census['d2h_bytes']:.0f} B, {census['flops']:.4g} flops, "
+          f"{census['mem_bytes']:.4g} HBM bytes; {len(pairs)} carried pairs ({with_payload} with "
+          f"the upload's payload for RRTO203); {len(plans)} plans; 0 errors, warnings "
+          f"{dict(warned)}; host s {', '.join(f'{k} {v:.3f}' for k, v in secs.items())}")
+    for code in sorted(warned):
+        d = next(d for d in report.warnings if d.code == code)
+        print(f"    {code} e.g. {d.message}")
+    return dict(report=report, secs=secs)
+
+
+def expect_unsound(label, code_set, fn, server) -> None:
+    """Part b: ``fn`` must raise ``ReplaySoundnessError`` with exactly the
+    ERROR codes ``code_set`` before the server builds anything."""
+    from repro_torch.analysis import ReplaySoundnessError
+
+    built = server.compile_count
+    t0 = time.perf_counter()
+    try:
+        fn()
+    except ReplaySoundnessError as e:
+        got = {d.code for d in e.diagnostics}
+        check(got == code_set, f"14b {label}: raised {sorted(got)}, expected {sorted(code_set)}")
+        where = [d.where for d in e.diagnostics][:2]
+    else:
+        fail(f"14b {label}: no ReplaySoundnessError")
+    check(server.compile_count == built, f"14b {label}: a program was built before the check")
+    print(f"[phase 14b] {label}: ReplaySoundnessError {sorted(code_set)} (where {where}), "
+          f"compile_count {built} unchanged, {time.perf_counter() - t0:.3f} s")
+
+
+def negative_cases(q) -> None:
+    """Part b on copies of phase 12c's locked qwen3-0.6b IOS calls, through
+    its verified edge's server and client."""
+    from repro_torch.core.intercept import InterceptedCall
+    from repro_torch.core.records import FUNC_D2H, FUNC_H2D, OperatorRecord
+    from repro_torch.partition import SegmentGraph, SplitPlan
+
+    cl, server = q["sess"].client, q["edge"].server
+    calls, pairs = list(cl._ios_calls), tuple(cl.ios.carried_pairs)
+    check(server.verify and cl.verify, "14b: 12c's edge is not verified")
+
+    def ordinals(cs, func):
+        return [id(c) for c in cs if c.record.func == func]
+
+    # a window rotated by one record; the carried pairs follow their
+    # transfers to their new ordinals
+    rotated = calls[1:] + calls[:1]
+    remap = {}
+    for func in (FUNC_H2D, FUNC_D2H):
+        old, new = ordinals(calls, func), ordinals(rotated, func)
+        remap[func] = {k: new.index(c) for k, c in enumerate(old)}
+    moved = tuple((remap[FUNC_H2D][i], remap[FUNC_D2H][j]) for i, j in pairs)
+    expect_unsound(f"window rotated by one record ({calls[0].record.func} moved last)",
+                   {"RRTO101"}, lambda: server.prepare_replay(rotated, client_id="14b",
+                                                              carried_pairs=moved), server)
+
+    # a forged pair: a wire upload paired with a download of a parameter
+    # buffer (read in the window, written nowhere in it)
+    written = {b for c in calls for b in c.record.out_buffers}
+    param = next(b for c in calls for b in c.record.in_buffers if b not in written)
+    carried_in = {i for i, _ in pairs}
+    h2d = [c for c in calls if c.record.func == FUNC_H2D]
+    i = next(k for k in range(len(h2d)) if k not in carried_in)
+    value = h2d[i].h2d_value
+    aval = (tuple(value.shape), value.dtype) if value is not None else ((), torch.int32)
+    forged = calls + [InterceptedCall(
+        OperatorRecord(FUNC_D2H, (param, 0), in_buffers=(param,)),
+        in_operands=(("a", param),), out_avals=(aval,))]
+    n_d2h = sum(1 for c in calls if c.record.func == FUNC_D2H)
+    expect_unsound(f"forged carried pair ({i}, {n_d2h}) reading parameter buffer {param:#x}",
+                   {"RRTO204"}, lambda: server.prepare_replay(
+                       forged, client_id="14b", carried_pairs=pairs + ((i, n_d2h),)), server)
+
+    # a plan over n + 5 ops; its derived cache key names n + 5 ops too, so
+    # RRTO305 comes with RRTO301, as in the reference
+    n = SegmentGraph(calls).n_ops
+    plan = SplitPlan.parse_signature(f"D0:1|S1:{n + 5}")
+    expect_unsound(f"_install_plan({plan.signature()}) on a {n}-op IOS", {"RRTO301", "RRTO305"},
+                   lambda: cl._install_plan(plan), server)
+    check(cl.split_plan is None and "14b" not in server.contexts,
+          "14b: a refused plan or program was installed")
+
+
+def phase_verifier(dev, q, z, kapao) -> dict:
+    """Phase 14: (a) the verifier's passes and census over three full-width
+    IOSes already locked in this run, (b) three unsound copies refused
+    before anything is built, (c) the CLI's registry sweep on the card."""
+    from repro_torch.analysis.__main__ import (
+        SWEEP_BANDWIDTHS, SWEEP_OBJECTIVES, main, sweep_plans,
+    )
+    from repro_torch.partition import SegmentGraph, SplitPlan
+
+    secs = {}
+    t0 = time.perf_counter()
+    cl = q["sess"].client
+    verify_subject("qwen3-0.6b stateful (12c)", cl._ios_calls, tuple(cl.ios.carried_pairs),
+                   [SplitPlan.parse_signature(p) for p in q["plans"]], cl.min_repeats)
+    verify_subject("zamba2-1.2b stateless (phase 5)", z["calls"], (),
+                   [SplitPlan.parse_signature(p) for p in z["plans"]], z["min_repeats"])
+    tp = time.perf_counter()
+    plans = sweep_plans(SegmentGraph(kapao["calls"]), kapao["client_device"],
+                        kapao["server_device"])
+    print(f"[phase 14a] KAPAO planner sweep ({len(SWEEP_OBJECTIVES)} objectives x "
+          f"{len(SWEEP_BANDWIDTHS)} bandwidths): {[p.signature() for p in plans]}, "
+          f"{time.perf_counter() - tp:.3f} s")
+    verify_subject("KAPAO @ 640 (phase 6)", kapao["calls"], (), plans, kapao["min_repeats"])
+    secs["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    negative_cases(q)
+    secs["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    os.makedirs(os.path.dirname(VERIFY_JSON), exist_ok=True)
+    rc = main(["--all-registry", "--json", VERIFY_JSON, "--device", dev.type])
+    with open(VERIFY_JSON) as f:
+        blob = json.load(f)
+    secs["c"] = time.perf_counter() - t0
+    warned = Counter(d["code"] for r in blob["reports"] for d in r["diagnostics"])
+    check(rc == 0 and blob["ok"] and blob["n_errors"] == 0, f"14c: the CLI sweep exits {rc}")
+    check(len(blob["reports"]) == 11, f"14c: {len(blob['reports'])} subjects, not 11")
+    print(f"[phase 14c] python -m repro_torch.analysis --all-registry on {dev}: exit {rc}, "
+          f"{len(blob['reports'])} subjects, {blob['n_errors']} errors, warnings {dict(warned)}, "
+          f"{secs['c']:.1f} s")
+    return secs
+
+
 def rss() -> str:
     """This process's resident host memory now (``/proc``, where the kernel
     reports it) and at its peak (``getrusage``)."""
@@ -3281,10 +3513,12 @@ def main() -> None:
     check_main_path(m, {"ssm_scan": m["cfg"].n_layers})
     measure_replay_step(m, dev, profile=True)
     t0 = time.perf_counter()
-    _, by_path["phase 10c zamba2-1.2b stateless segments"] = run_path(
+    seg_c, by_path["phase 10c zamba2-1.2b stateless segments"] = run_path(
         library, "phase 10c zamba2-1.2b stateless segments",
         ("rmsnorm", "flash_attention", "ssm_scan"), lambda: split_segments_zamba(library, m, dev))
     t10 += time.perf_counter() - t0
+    z_verify = dict(calls=m["sess"].client._ios_calls, plans=seg_c["plans"],
+                    min_repeats=m["sess"].client.min_repeats)
     t0 = time.perf_counter()
     _, by_path["phase 11b zamba2-1.2b stateless outage"] = run_path(
         library, "phase 11b zamba2-1.2b stateless outage", ("rmsnorm", "flash_attention", "ssm_scan"),
@@ -3306,7 +3540,9 @@ def main() -> None:
     check_kapao(k, dev)
     rrto, timer = k["runs"]["rrto"]
     measure_cnn_step("kapao", rrto, timer, k["model"].example_inputs, dev, profile=True)
-    del k
+    kapao_verify = dict(calls=rrto.client._ios_calls, client_device=rrto.client_device,
+                        server_device=rrto.server_device, min_repeats=rrto.client.min_repeats)
+    del k, rrto, timer
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     phase_zoo(dev)
@@ -3369,10 +3605,11 @@ def main() -> None:
               dict(cfg=z_cfg, params=params, prompt=z_prompt, dev_tokens=z_dev_tokens),
               dict(cfg=q_cfg, params=q_params, prompt=q_prompt, migrated=q_migrated,
                    graph=seg_a["graph"]), over)
+    qa_plans = seg_a["plans"]
     del over, params, seg_a, q_migrated
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    _, by_path["phase 12c qwen3-0.6b stateful shed"] = run_path(
+    q_shed, by_path["phase 12c qwen3-0.6b stateful shed"] = run_path(
         library, "phase 12c qwen3-0.6b stateful shed", ("rmsnorm", "decode_attention"),
         lambda: phase_overload_stateful(dev, q_cfg, q_params, q_prompt, q_dev_tokens, BUCKET))
     del q_params
@@ -3380,6 +3617,15 @@ def main() -> None:
     _, by_path["phase 12d sensor encoder degraded split"] = run_path(
         library, "phase 12d sensor encoder degraded split", (), lambda: phase_overload_split(dev))
     print(f"[phase 12] admission and overload: {t12 + time.perf_counter() - t0:.1f} s over parts a-d")
+
+    t0 = time.perf_counter()
+    v_secs, by_path["phase 14 replay soundness verifier"] = run_path(
+        library, "phase 14 replay soundness verifier", (),
+        lambda: phase_verifier(dev, dict(q_shed, plans=qa_plans), z_verify, kapao_verify))
+    del q_shed, z_verify, kapao_verify
+    torch.cuda.empty_cache()
+    print(f"[phase 14] replay soundness verifier: {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(f'{k} {v:.1f}' for k, v in v_secs.items())})")
 
     t0 = time.perf_counter()
     mla = ("rmsnorm", "flash_attention")

@@ -242,14 +242,24 @@ class ReplayProgram:
     never crosses the network — the per-round replay is the model's
     intrinsic step cost.  The step is out of place (the new state is a new
     tensor); updating donated buffers in place and capturing the step in a
-    CUDA graph are later work."""
+    CUDA graph are later work.
+
+    ``verify=True`` runs the replay soundness verifier over the calls and the
+    carried pairs first and raises
+    :class:`~repro_torch.analysis.ReplaySoundnessError` on any ERROR
+    diagnostic, before anything is built."""
 
     def __init__(
         self,
         calls: List[InterceptedCall],
         *,
         carried_pairs: Tuple[Tuple[int, int], ...] = (),
+        verify: bool = False,
     ):
+        if verify:
+            from repro_torch.analysis.verify import raise_on_errors, verify_calls
+
+            raise_on_errors(verify_calls(calls, carried_pairs))
         plan = replay_address_plan(calls)
         kernel_calls = plan["kernel_calls"]
 
@@ -587,7 +597,8 @@ class SegmentedReplayProgram:
     trailing server segment), and that suffix runs as a **step**
     ``(params, boundary, carried) -> (outputs, new carried)`` exactly like
     ``ReplayProgram.step_fn``, so the state stays server-resident across the
-    cut and never goes on the wire."""
+    cut and never goes on the wire.  ``verify=True`` proves the calls, the
+    carried pairs and the plan first, as :class:`ReplayProgram` does."""
 
     def __init__(
         self,
@@ -595,9 +606,14 @@ class SegmentedReplayProgram:
         plan: Any,
         *,
         carried_pairs: Tuple[Tuple[int, int], ...] = (),
+        verify: bool = False,
     ):
         from repro_torch.partition.segments import SegmentGraph
 
+        if verify:
+            from repro_torch.analysis.verify import raise_on_errors, verify_split_calls
+
+            raise_on_errors(verify_split_calls(calls, plan, carried_pairs))
         self.carried_pairs = tuple((int(i), int(j)) for i, j in carried_pairs)
         graph = SegmentGraph(calls, carried_pairs=self.carried_pairs)
         if plan.n_ops != graph.n_ops:
@@ -937,7 +953,8 @@ class OffloadServer:
     :class:`ReplayProgram`) and ``compile_count`` are shared.  With the
     default single client and no cache it behaves as a single-tenant
     server.  ``name`` labels its GPU track (``<name>/gpu``) when a
-    ``tracer`` is attached."""
+    ``tracer`` is attached.  ``verify=True`` runs the replay soundness
+    verifier before every program it builds."""
 
     def __init__(
         self,
@@ -948,12 +965,14 @@ class OffloadServer:
         replay_cache: Optional[Any] = None,
         name: str = "server",
         tracer: Optional[Tracer] = None,
+        verify: bool = False,
     ):
         self.device_spec = device_spec
         self.device = device
         self.name = name
         self.tracer = tracer
         self.execute = execute
+        self.verify = verify    # static soundness analysis before building
         self.contexts: Dict[str, ClientContext] = {}
         self.busy_until = 0.0          # async kernel-queue completion time
         self.busy_seconds = 0.0        # accumulated compute (GPU-util proxy)
@@ -1032,8 +1051,11 @@ class OffloadServer:
             pairs = tuple(carried_pairs)
             if not pairs and cache is not None and fingerprint is not None:
                 # stale metadata builds the program stateless
-                pairs = self._known_pairs(calls, fingerprint)
-            program = ReplayProgram(calls, carried_pairs=pairs)
+                meta = cache.known_metadata(fingerprint)
+                if meta and meta.get("carried_pairs") and \
+                        not self._stale_metadata(fingerprint, meta, calls):
+                    pairs = tuple((int(i), int(j)) for i, j in meta["carried_pairs"])
+            program = ReplayProgram(calls, carried_pairs=pairs, verify=self.verify)
             self.compile_count += 1
             if cache is not None and fingerprint is not None:
                 cache.put(fingerprint, program)
@@ -1074,8 +1096,14 @@ class OffloadServer:
         if program is None:
             pairs = tuple(carried_pairs)
             if not pairs and cache is not None and key is not None:
-                pairs = self._known_pairs(calls, key, fingerprint)
-            program = SegmentedReplayProgram(calls, plan, carried_pairs=pairs)
+                for k in (key, fingerprint):
+                    meta = cache.known_metadata(k)
+                    if meta and meta.get("carried_pairs") and \
+                            not self._stale_metadata(k, meta, calls):
+                        pairs = tuple((int(i), int(j)) for i, j in meta["carried_pairs"])
+                        break
+            program = SegmentedReplayProgram(calls, plan, carried_pairs=pairs,
+                                             verify=self.verify)
             self.compile_count += 1
             if cache is not None and key is not None:
                 cache.put(key, program)
@@ -1088,21 +1116,31 @@ class OffloadServer:
         ctx.split = bound
         return from_cache
 
-    def _known_pairs(self, calls: List[InterceptedCall], *keys: str) -> Tuple[Tuple[int, int], ...]:
-        """Carried pairs persisted under the first of ``keys`` whose metadata
-        has them; metadata that does not fit these calls is stale, and its
-        entry is forgotten."""
-        n_in = sum(1 for c in calls if c.record.func == FUNC_H2D)
-        n_out = sum(1 for c in calls if c.record.func == FUNC_D2H)
-        for key in keys:
-            meta = self.replay_cache.known_metadata(key) or {}
-            pairs = tuple((int(i), int(j)) for i, j in meta.get("carried_pairs", ()))
-            if not pairs:
-                continue
-            if all(0 <= i < n_in and 0 <= j < n_out for i, j in pairs):
-                return pairs
-            self.replay_cache.forget_known(key)
-        return ()
+    def _stale_metadata(
+        self,
+        key: str,
+        meta: Dict[str, Any],
+        calls: List[InterceptedCall],
+    ) -> bool:
+        """Cross-check persisted cache metadata against the calls about to
+        be built under it.  A hand-edited or stale cache file would bind a
+        stateful program to carried-pair ordinals that do not exist in this
+        recording; instead the entry is evicted with a warning (RRTO306) and
+        the program is built stateless."""
+        import warnings
+
+        from repro_torch.analysis.plancheck import verify_metadata_against_calls
+
+        diags = verify_metadata_against_calls(key, meta, calls)
+        if not diags:
+            return False
+        warnings.warn(
+            f"{self.name}: evicting stale replay-cache metadata for {key!r}: "
+            + "; ".join(f"{d.code}: {d.message}" for d in diags),
+            stacklevel=3,
+        )
+        self.replay_cache.forget_known(key)
+        return True
 
     def replay_values(
         self,
@@ -1337,6 +1375,10 @@ class RRTOClient:
     With ``tracer`` its RPCs, replay calls and downloads are spans on
     ``trace_track`` (``client/<client_id>`` by default); ``metrics`` is the
     registry scope its :class:`InferenceStats` counters live in.
+
+    With ``verify`` the replay soundness verifier proves the locked IOS and
+    its carried pairs before the server builds a program from them, and
+    every split plan (and its derived cache key) before it is installed.
     """
 
     def __init__(
@@ -1357,10 +1399,14 @@ class RRTOClient:
         metrics: Optional[MetricsRegistry] = None,
         fault: Optional[FaultInjector] = None,
         retry_policy: Optional[RetryPolicy] = None,
+        verify: bool = False,
     ):
         if variant not in ("rrto", "semi_rrto", "transparent"):
             raise ValueError(variant)
         self.server = server
+        # static soundness analysis of the locked IOS / each installed plan
+        # before any program is built from them (fail-fast, off by default)
+        self.verify = verify
         self.network = network
         self.clock = clock
         self.meter = meter
@@ -1711,6 +1757,12 @@ class RRTOClient:
         for c in self.calls[: max(0, horizon)]:
             c.h2d_value = None
             c.d2h_value = None
+        if self.verify:
+            # fail fast on an unsound recording before the server builds
+            # (and caches, and possibly shares) a program from it
+            from repro_torch.analysis.verify import raise_on_errors, verify_calls
+
+            raise_on_errors(verify_calls(self._ios_calls, pairs))
         self.server.prepare_replay(
             self._ios_calls,
             client_id=self.client_id,
@@ -1806,10 +1858,24 @@ class RRTOClient:
             self.pipelined_exec = None
             self._claim_stream_key(None)
             return
+        pairs = self.ios.carried_pairs if self.ios is not None else ()
+        if self.verify:
+            # prove the plan against the IOS segment graph (and its derived
+            # cache key) before the server builds segment programs
+            from repro_torch.analysis.plancheck import verify_cache_key, verify_plan
+            from repro_torch.analysis.verify import raise_on_errors
+            from repro_torch.partition.segments import SegmentGraph
+
+            graph = SegmentGraph(self._ios_calls, carried_pairs=pairs)
+            diags = verify_plan(graph, plan)
+            if self.ios_fp is not None:
+                diags.extend(verify_cache_key(f"{self.ios_fp}|{plan.signature()}",
+                                              n_ops=graph.n_ops))
+            raise_on_errors(diags)
         self.split_plan = plan
         self.server.prepare_split(
             self._ios_calls, plan, client_id=self.client_id, fingerprint=self.ios_fp,
-            carried_pairs=self.ios.carried_pairs if self.ios is not None else (),
+            carried_pairs=pairs,
         )
         if self.partition is not None and self.partition.pipelined:
             self.pipelined_exec = PipelinedSegmentedReplay(

@@ -179,7 +179,9 @@ class OffloadSession:
     :class:`~repro_torch.serving.admission.AdmissionController`, transparent
     systems only) guards every request; ``tenant`` names the SLO class the
     client bills against.  ``tracer``, ``trace_track`` and ``metrics``
-    (transparent systems only) are the client's observability hooks."""
+    (transparent systems only) are the client's observability hooks.
+    ``verify`` (rrto) runs the replay soundness verifier before every
+    program the session's client and its own server build."""
 
     def __init__(
         self,
@@ -204,6 +206,7 @@ class OffloadSession:
         retry_policy: Optional[RetryPolicy] = None,
         admission: Optional[Any] = None,
         tenant: str = "default",
+        verify: bool = False,
     ):
         """``execute=False`` makes an account-only session: the clock,
         network, energy and record streams run as usual, nothing is
@@ -235,7 +238,7 @@ class OffloadSession:
         self.clock = clock or SimClock()
         self.meter = EnergyMeter(PowerModel())
         self.server = server or OffloadServer(
-            GTX_2080TI, device=self.device, execute=self.execute
+            GTX_2080TI, device=self.device, execute=self.execute, verify=verify
         )
         self.history: List[InferenceResult] = []
         self.stage_marks: Dict[str, int] = {}
@@ -275,6 +278,7 @@ class OffloadSession:
                 metrics=metrics,
                 fault=fault,
                 retry_policy=retry_policy,
+                verify=verify,
             )
             self.interceptor = GraphInterceptor(
                 self.client,

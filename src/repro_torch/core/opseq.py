@@ -17,7 +17,7 @@ The search is hint-free: it sees nothing but the raw log.
 from __future__ import annotations
 
 import hashlib
-from typing import List, Optional, Sequence, Set, Tuple
+from typing import Iterator, List, Optional, Sequence, Set, Tuple
 
 import torch
 
@@ -161,15 +161,9 @@ def _sync_group_end(tags: str, idx: int) -> int:
     return j
 
 
-def check_data_dependency(
-    logs: Sequence[OperatorRecord], start: int, length: int
-) -> bool:
-    """Observation ③: every operand read inside the candidate window must
-    come from (a) the raw input or a prior operator's output *within* the
-    window, or (b) a parameter-like buffer — one that is never written inside
-    the window (model weights, init-time cached constants).  A cyclically
-    rotated window fails it: it reads an intermediate near its start whose
-    producing write sits *later* in the window."""
+def _dataflow_violations(
+    logs: Sequence[OperatorRecord], start: int, length: int, params_resident: bool
+) -> Iterator[Tuple[int, int]]:
     end = start + length
     written_in_window: Set[int] = set()
     # buffers written anywhere in the window (any iteration-local intermediate
@@ -179,18 +173,55 @@ def check_data_dependency(
         window_writes.update(r.out_buffers)
 
     ever_written_before: Set[int] = set()
-    for r in logs[:start]:
-        ever_written_before.update(r.out_buffers)
+    if not params_resident:
+        for r in logs[:start]:
+            ever_written_before.update(r.out_buffers)
 
-    for r in logs[start:end]:
+    for k, r in enumerate(logs[start:end]):
         for b in r.in_buffers:
             if b in written_in_window:
                 continue  # (a) produced earlier within the window
-            if b not in window_writes and b in ever_written_before:
+            if b not in window_writes and (params_resident or b in ever_written_before):
                 continue  # (b) parameter-like: read-only inside the window
-            return False
+            yield k, b
         written_in_window.update(r.out_buffers)
-    return True
+
+
+def dataflow_violations(
+    logs: Sequence[OperatorRecord],
+    start: int,
+    length: int,
+    *,
+    params_resident: bool = False,
+) -> List[Tuple[int, int]]:
+    """Observation ③ as a *reporting* pass: every operand read inside the
+    candidate window must come from (a) the raw input or a prior operator's
+    output *within* the window, or (b) a parameter-like buffer — one that is
+    never written inside the window (model weights, init-time cached
+    constants).
+
+    Returns every ``(window_index, buffer_address)`` read that satisfies
+    neither — the use-before-def sites a cyclically-rotated window exhibits
+    (it reads an intermediate near its start whose producing write sits
+    *later* in the window).  The replay soundness verifier
+    (``repro_torch.analysis``) reports these as ``RRTO101`` diagnostics; the
+    Operator Sequence Search only needs the boolean
+    (:func:`check_data_dependency`).
+
+    ``params_resident=True`` lints a *standalone* window in replay
+    semantics: a buffer never written inside the window is a resident
+    parameter by the replay engine's convention, whether or not a preceding
+    log region wrote it (the verifier sees only the locked IOS, not the
+    recording noise before it)."""
+    return list(_dataflow_violations(logs, start, length, params_resident))
+
+
+def check_data_dependency(
+    logs: Sequence[OperatorRecord], start: int, length: int
+) -> bool:
+    """Boolean form of :func:`dataflow_violations` (observation ③); stops
+    at the first violation."""
+    return next(_dataflow_violations(logs, start, length, False), None) is None
 
 
 # ---------------------------------------------------------------------------

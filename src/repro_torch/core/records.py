@@ -57,6 +57,17 @@ def category_of(func: str) -> str:
     return _FUNC_TO_CAT.get(func, CAT_MISC)
 
 
+def kernel_primitive(func: str) -> "str | None":
+    """The aten op behind a ``kernel:<op>`` func (``str(op)``, as
+    :attr:`~repro_torch.core.flatten.FlatNode.name` names it, e.g.
+    ``aten.mm.default``), else None: how the replay soundness verifier
+    screens an IOS for replay-unsafe operators without re-parsing the
+    func-name convention at every call site."""
+    if func.startswith("kernel:"):
+        return func[len("kernel:"):]
+    return None
+
+
 @dataclasses.dataclass(frozen=True)
 class OperatorRecord:
     """One intercepted call.

@@ -296,6 +296,7 @@ def plan_partition(
     tracer: Optional[Any] = None,
     trace_track: str = "planner",
     now: float = 0.0,
+    verify: bool = False,
 ) -> EvaluatedPlan:
     """Pick the best split of ``graph`` at the given operating point.
 
@@ -305,7 +306,13 @@ def plan_partition(
     graph only carried-feasible cuts are enumerated, and full-server is the
     guaranteed fallback.  With a ``tracer`` the whole per-candidate cost
     table and the chosen signature ride on one ``plan_explain`` instant on
-    ``trace_track`` at simulated time ``now``."""
+    ``trace_track`` at simulated time ``now``.
+
+    ``verify=True`` runs the static plan verifier
+    (:func:`repro_torch.analysis.plancheck.verify_plan`) over the winning
+    plan before returning it and raises ``ReplaySoundnessError`` on any
+    ERROR diagnostic, so a planner regression can never hand the engine an
+    unexecutable cut."""
     config = config or PartitionConfig()
     power = power or PowerModel()
     n = graph.n_ops
@@ -367,4 +374,9 @@ def plan_partition(
         modeled_seconds=best.seconds,
         modeled_joules=best.joules,
     )
+    if verify:
+        from repro_torch.analysis.plancheck import verify_plan
+        from repro_torch.analysis.verify import raise_on_errors
+
+        raise_on_errors(verify_plan(graph, best.plan))
     return best

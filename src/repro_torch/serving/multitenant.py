@@ -558,7 +558,9 @@ class RRTOEdgeServer:
     registry every counter on the box lives in (a fresh root by default),
     with the scopes ``cache``, ``batcher`` and ``client.<id>``; ``tracer``
     reaches the server, the ingress, the batcher, every session and an
-    admission controller that has none."""
+    admission controller that has none.  ``verify`` runs the replay
+    soundness verifier in the server and, unless a ``connect`` says
+    otherwise, in every session's client."""
 
     def __init__(
         self,
@@ -576,16 +578,18 @@ class RRTOEdgeServer:
         fault: Optional[FaultInjector] = None,
         admission: Optional[AdmissionController] = None,
         device: Any = "cuda",
+        verify: bool = False,
     ):
         self.clock = clock or SimClock()
         self.name = name
         self.tracer = tracer
         self.fault = fault
+        self.verify = verify
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.cache = ReplayCache(cache_capacity, metrics=self.metrics.scope("cache"))
         self.server = OffloadServer(
             server_device, device=resolve_device(device), execute=execute,
-            replay_cache=self.cache, name=name, tracer=tracer,
+            replay_cache=self.cache, name=name, tracer=tracer, verify=verify,
         )
         self.ingress = ingress or ServerIngress()
         if tracer is not None:
@@ -640,6 +644,7 @@ class RRTOEdgeServer:
         if self.admission is not None:
             session_kwargs.setdefault("admission", self.admission)
         session_kwargs.setdefault("tenant", tenant)
+        session_kwargs.setdefault("verify", self.verify)
         sess = OffloadSession(
             model,
             "rrto",

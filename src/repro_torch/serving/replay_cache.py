@@ -274,20 +274,37 @@ class ReplayCache:
         return len(entries)
 
     def load(self, path: str) -> int:
-        """Merge a persisted cache file; returns the fingerprint count.
+        """Merge a persisted cache file; returns the accepted fingerprint
+        count.
 
         Loaded fingerprints are *validated IOS identities*, not programs:
         membership tests succeed (so clients skip the ``min_repeats``
         re-validation wait) while ``get()`` misses until the first client's
-        calls rebuild the program."""
+        calls rebuild the program.
+
+        Each key and its metadata must pass the static verifier
+        (:func:`repro_torch.analysis.plancheck.verify_persisted_entry`): an
+        unsound entry is evicted with a warning, the sound ones merge, and
+        the count returned is of the accepted entries."""
+        import warnings
+
+        from repro_torch.analysis.plancheck import verify_persisted_entry
+
         with open(path) as f:
             payload = json.load(f)
         version = payload.get("version")
         if version != PERSIST_VERSION:
             raise ValueError(f"unsupported replay-cache file version {version!r}")
-        fps = payload["fingerprints"]
-        for fp, meta in fps.items():
-            if "#" in fp or not isinstance(meta, dict):
-                raise ValueError(f"malformed replay-cache entry {fp!r}")
+        accepted = 0
+        for fp, meta in payload["fingerprints"].items():
+            diags = verify_persisted_entry(fp, meta)
+            if diags:
+                warnings.warn(
+                    f"replay cache {path}: evicting persisted entry {fp!r}: "
+                    + "; ".join(f"{d.code}: {d.message}" for d in diags),
+                    stacklevel=2,
+                )
+                continue
             self._known[fp] = meta
-        return len(fps)
+            accepted += 1
+        return accepted

@@ -92,6 +92,12 @@ with tempfile.TemporaryDirectory() as tmp:
     with open(path) as f:
         names = {e["name"] for e in json.load(f)["traceEvents"]}
 assert {"record_rpc", "replay_call", "migrate", "state_transfer"} <= names, names
+import repro_torch.analysis, repro_torch.analysis.__main__
+from repro_torch.analysis import ReplaySoundnessError, verify_ios
+verified = OffloadSession(enc, "rrto", min_repeats=2, device="cpu", verify=True)
+assert [verified.infer(*enc.example_inputs) for _ in range(3)][-1].mode == "replaying"
+report = verify_ios("sensor_encoder", verified.client._ios_calls)
+assert report.ok and report.census["n_kernels"] > 0, report.as_dict()
 bad =sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro")
 print("LOADED", bad)
 """
