@@ -97,6 +97,17 @@ random weights from a seed:
   over n + 5 ops: RRTO301, with RRTO305 for its cache key); (c)
   ``python -m repro_torch.analysis --all-registry`` in process on the card,
   its JSON report in ``traces/phase14_analysis.json``.
+* training (phase 15, last; phase 2 also holds the two backward kernels
+  against their plain versions, two launches bitwise equal, and times them
+  beside the library's autograd backward): (a) one step of a reduced
+  qwen3-0.6b and a reduced minicpm3-4b in bf16, every gradient leaf on the
+  card against the CPU; (b) full-width qwen3-0.6b trained 4 steps at 4 x
+  512 tokens through ``repro_torch.launch.train.main``: straight, crashed
+  after step 2 with asynchronous checkpoints every 2 steps, and resumed,
+  the resumed final loss equal to the straight one; (c) 6 steps on one
+  fixed batch, the loss falling at each, timed with and without ``remat``
+  against the step's bound.  No plain version of the two kernels may run
+  on a CUDA tensor there.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after (every batched call under ``no_vmap_fallback``, so an op
@@ -179,7 +190,41 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:94",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:111",
     "ssm_scan": "src/repro/kernels/ssm_scan/kernel.py:92",
+    # the gradients JAX's AD takes through the two kernels' bodies
+    "rmsnorm_backward": "src/repro/kernels/rmsnorm/kernel.py:26",
+    "flash_attention_backward": "src/repro/kernels/flash_attention/kernel.py:111",
 }
+# the backward kernels' shapes on the training path (rows, d): qwen3-0.6b's
+# d_model at batch 4 x 512 tokens, its q- and k-norm rows, a ragged 5 x 13
+# rows of 130, minicpm3's d_model, and its q and kv latents
+RMSNORM_BWD_SHAPES = [(2048, 1024), (32768, 128), (16384, 128), (65, 130), (64, 2560),
+                      (2048, 768), (2048, 256)]
+# dscale sums every row in another order than the plain version (f32: 2e-4
+# beside the rows' 1e-5), and bf16 rounds dx and dscale once (2e-2)
+RMSNORM_BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# (B, Sq, Sk, Hq, Hkv, D), options: qwen3-0.6b's training shape, MLA's
+# d = 96, then ragged lengths at n_rep 1 / 2 / 4, a window, a soft-cap and
+# a q_offset; tolerance TOL: the kernel sums over key and query tiles in
+# another order, and bf16 rounds the products' inputs and the outputs
+FLASH_BWD_CASES = [
+    ((4, 512, 512, 16, 8, 128), dict(causal=True)),
+    ((1, 64, 64, 40, 40, 96), dict(causal=True)),
+    ((2, 77, 77, 8, 8, 64), dict(causal=True)),
+    ((1, 100, 130, 8, 4, 128), dict(causal=False)),
+    ((2, 45, 77, 8, 2, 64), dict(causal=True, q_offset=32, window=16, logit_cap=30.0)),
+    ((1, 70, 70, 4, 4, 32), dict(causal=True, logit_cap=20.0)),
+    ((1, 128, 384, 4, 1, 64), dict(causal=True, q_offset=256)),
+    ((1, 200, 200, 8, 2, 128), dict(causal=True, window=50)),
+]
+# phase 15: full-width qwen3-0.6b through the trainer's entry point
+TRAIN_ARGS = ["--arch", "qwen3-0.6b", "--batch", "4", "--seq", "512", "--steps", "4",
+              "--log-every", "1", "--device", "cuda"]
+TRAIN_CKPT = ["--ckpt-every", "2"]
+TRAIN_KILL_AT = 2
+FIXED_STEPS = 6            # part c: steps on one batch, the loss falling at each
+NO_REMAT_STEPS = 3         # part c: steps without remat (the first not timed)
+FIXED_LR = 1e-3
+TRAIN_KERNELS = ("rmsnorm", "flash_attention", "rmsnorm_backward", "flash_attention_backward")
 
 
 def fail(msg: str) -> None:
@@ -453,6 +498,9 @@ def phase_kernels(dev):
 
     rows["ssm_scan"], scan_extra = phase_scan(dev, randn)
     extra += scan_extra
+    bwd_rows, bwd_extra = phase_backward_kernels(randn)
+    rows.update(bwd_rows)
+    extra += bwd_extra
     for r in [dict(name=n, **r) for n, r in rows.items()] + extra:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
         print(f"time {r['name']} [{r['shape']}]: kernel {r['ms'] * 1e3:.2f} us, plain "
@@ -483,6 +531,119 @@ def rmsnorm_row(randn, shape) -> dict:
         ms=(turns[0] + turns[3]) / 2, plain_ms=graph_ms(lambda: rmsnorm_ref(x, w)),
         library_ms=(turns[1] + turns[2]) / 2, bound_ms=b_ms, bound_by=b_by,
     )
+
+
+def autograd_ms(fwd, inputs, cot, reps: int = 20) -> float:
+    """Device time of a library call's backward alone: its forward and
+    ``torch.autograd.grad`` together, less the forward, each a CUDA graph."""
+    return (graph_ms(lambda: torch.autograd.grad(fwd(), inputs, cot), reps)
+            - graph_ms(fwd, reps))
+
+
+def phase_backward_kernels(randn) -> tuple:
+    """The two backward kernels of the training path against their plain
+    versions on the card (f32 and bf16, every case; two launches bitwise
+    equal), then each timed at its training shape beside its plain version,
+    the library's autograd backward of the same function and the bound."""
+    from repro_torch.kernels.flash_attention import (
+        attention_chunked_backward,
+        flash_attention,
+        flash_attention_backward_op,
+    )
+    from repro_torch.kernels.rmsnorm import rmsnorm_backward_op, rmsnorm_backward_ref
+
+    bf = torch.bfloat16
+    for shape in RMSNORM_BWD_SHAPES:
+        offset = 1.0 if shape == (65, 130) else 0.0
+        for dtype in (torch.float32, bf):
+            x, dy = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
+            w = (randn(shape[-1], dtype=torch.float32) * 0.1 + 1.0).to(dtype)
+            dx, dw = rmsnorm_backward_op(dy, x, w, 1e-6, offset)
+            torch.cuda.synchronize()
+            rx, rw = rmsnorm_backward_ref(dy, x, w, 1e-6, offset)
+            tol = RMSNORM_BWD_TOL[dtype]
+            err = max(close(dx, rx, tol), close(dw, rw, tol))
+            dx2, dw2 = rmsnorm_backward_op(dy, x, w, 1e-6, offset)
+            same = torch.equal(dx, dx2) and torch.equal(dw, dw2)
+            if not same:
+                MISMATCHES.append(f"rmsnorm_backward {shape} {dtype}: two launches differ")
+            print(f"rmsnorm_backward {shape} {dtype} offset={offset}: max|d| {err:.3g} "
+                  f"(tol {tol}); two launches bitwise {same}")
+    for (b, sq, sk, hq, hkv, d), kw in FLASH_BWD_CASES:
+        args = (kw.get("causal", True), kw.get("window"), kw.get("logit_cap"),
+                kw.get("q_offset", 0))
+        for dtype in (torch.float32, bf):
+            q, do = randn(b, sq, hq, d, dtype=dtype), randn(b, sq, hq, d, dtype=dtype)
+            k, v = randn(b, sk, hkv, d, dtype=dtype), randn(b, sk, hkv, d, dtype=dtype)
+            out = flash_attention(q, k, v, **kw)
+            grads = flash_attention_backward_op(do, q, k, v, out, *args)
+            torch.cuda.synchronize()
+            refs = attention_chunked_backward(do, q, k, v, **kw)
+            err = max(close(g, r, TOL[dtype]) for g, r in zip(grads, refs))
+            same = all(torch.equal(a, c) for a, c in
+                       zip(grads, flash_attention_backward_op(do, q, k, v, out, *args)))
+            if not same:
+                MISMATCHES.append(f"flash_attention_backward {(b, sq, sk, hq, hkv, d)} {kw} "
+                                  f"{dtype}: two launches differ")
+            print(f"flash_attention_backward {(b, sq, sk, hq, hkv, d)} {kw} {dtype}: dq/dk/dv "
+                  f"max|d| {err:.3g} (tol {TOL[dtype]}); two launches bitwise {same}")
+            del q, do, k, v, out, grads, refs
+
+    rows, extra = {}, []
+    n, d = RMSNORM_BWD_SHAPES[0]
+    x, dy = randn(n, d, dtype=bf), randn(n, d, dtype=bf)
+    w = (randn(d, dtype=torch.float32) * 0.1 + 1.0).to(bf)
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    b_ms, b_by = bound_ms(3 * x.numel() * 2 + 2 * d * 2, 10 * x.numel(), bf)
+    rows["rmsnorm_backward"] = dict(
+        shape=f"dy, x ({n},{d}) bf16 (qwen3-0.6b's d_model rows at 4 x 512 tokens)",
+        max_abs_err=max(close(a, r, RMSNORM_BWD_TOL[bf]) for a, r in
+                        zip(rmsnorm_backward_op(dy, x, w, 1e-6, 0.0),
+                            rmsnorm_backward_ref(dy, x, w, 1e-6, 0.0))),
+        ms=graph_ms(lambda: rmsnorm_backward_op(dy, x, w, 1e-6, 0.0)),
+        plain_ms=graph_ms(lambda: rmsnorm_backward_ref(dy, x, w, 1e-6, 0.0)),
+        library_ms=autograd_ms(lambda: F.rms_norm(xg, (d,), wg, 1e-6), (xg, wg), dy),
+        bound_ms=b_ms, bound_by=b_by)
+    for n, d in RMSNORM_BWD_SHAPES[1:3]:
+        x, dy = randn(n, d, dtype=bf), randn(n, d, dtype=bf)
+        w = (randn(d, dtype=torch.float32) * 0.1 + 1.0).to(bf)
+        xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        b_ms, b_by = bound_ms(3 * x.numel() * 2 + 2 * d * 2, 10 * x.numel(), bf)
+        extra.append(dict(
+            name="rmsnorm_backward", shape=f"dy, x ({n},{d}) bf16 (qk-norm rows)",
+            ms=graph_ms(lambda: rmsnorm_backward_op(dy, x, w, 1e-6, 0.0)),
+            plain_ms=graph_ms(lambda: rmsnorm_backward_ref(dy, x, w, 1e-6, 0.0)),
+            library_ms=autograd_ms(lambda: F.rms_norm(xg, (d,), wg, 1e-6), (xg, wg), dy),
+            bound_ms=b_ms, bound_by=b_by))
+
+    for (b, sq, sk, hq, hkv, d), kw in FLASH_BWD_CASES[:2]:
+        q, do = randn(b, sq, hq, d, dtype=bf), randn(b, sq, hq, d, dtype=bf)
+        k, v = randn(b, sk, hkv, d, dtype=bf), randn(b, sk, hkv, d, dtype=bf)
+        out = flash_attention(q, k, v)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        dot = do.transpose(1, 2)
+        pairs = sq * (sq + 1) / 2
+        # the bound: q, k, v, o, dO read and dq, dk, dv written once; 2.5 x
+        # the forward's causal flops (the backward recomputes Q K^T)
+        b_ms, b_by = bound_ms(2 * (4 * q.numel() + 4 * k.numel()),
+                              2.5 * 4 * b * hq * pairs * d, bf)
+        row = dict(
+            shape=f"q/dO ({b},{sq},{hq},{d}), K/V ({b},{sk},{hkv},{d}) bf16, causal",
+            max_abs_err=max(close(g, r, TOL[bf]) for g, r in zip(
+                flash_attention_backward_op(do, q, k, v, out, True, None, None, 0),
+                attention_chunked_backward(do, q, k, v))),
+            ms=graph_ms(lambda: flash_attention_backward_op(do, q, k, v, out, True, None,
+                                                            None, 0), reps=5),
+            plain_ms=graph_ms(lambda: attention_chunked_backward(do, q, k, v), reps=5),
+            library_ms=autograd_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), (qt, kt, vt), dot, reps=5),
+            bound_ms=b_ms, bound_by=b_by)
+        if "flash_attention_backward" not in rows:
+            rows["flash_attention_backward"] = row
+        else:
+            extra.append(dict(name="flash_attention_backward", **row))
+        del q, do, k, v, out, qt, kt, vt, dot
+    return rows, extra
 
 
 def split_sweep(dec_case) -> None:
@@ -3411,6 +3572,318 @@ def phase_verifier(dev, q, z, kapao) -> dict:
     return secs
 
 
+class PlainOnCard:
+    """While entered, every plain version of the training path's kernels
+    (the forward ops' and the backward ops') fails the run if it is handed
+    a CUDA tensor: on the card the ops must launch their kernels."""
+
+    NAMES = (("repro_torch.kernels.rmsnorm.ops", "rmsnorm_ref"),
+             ("repro_torch.kernels.rmsnorm.ops", "rmsnorm_backward_ref"),
+             ("repro_torch.kernels.flash_attention.ops", "attention_chunked"),
+             ("repro_torch.kernels.flash_attention.ops", "attention_chunked_backward"))
+
+    def __enter__(self):
+        import importlib
+
+        self._saved = []
+        for mod_name, name in self.NAMES:
+            mod = importlib.import_module(mod_name)
+            fn = getattr(mod, name)
+            self._saved.append((mod, name, fn))
+            setattr(mod, name, self._guard(name, fn))
+        return self
+
+    @staticmethod
+    def _guard(name, fn):
+        def guarded(*args, **kwargs):
+            check(not any(isinstance(a, torch.Tensor) and a.is_cuda for a in args),
+                  f"the plain {name} ran on a CUDA tensor")
+            return fn(*args, **kwargs)
+        return guarded
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+class StoreTimer:
+    """Seconds of each checkpoint ``save`` (a blocking one writes; an
+    asynchronous one returns after the host snapshot) and ``restore``
+    while entered."""
+
+    def __enter__(self):
+        from repro_torch.checkpoint import store
+
+        self.store, self.calls = store, []
+        self._saved = [(name, getattr(store, name)) for name in ("save", "restore")]
+        for name, fn in self._saved:
+            setattr(store, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            kind = name if name == "restore" or kwargs.get("blocking", True) else "snapshot"
+            self.calls.append((kind, time.perf_counter() - t0))
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved:
+            setattr(self.store, name, fn)
+
+
+def train_grads(cfg, params, nb, dev) -> tuple:
+    """The loss of one batch and its gradient over every parameter leaf, by
+    the train step's own loss function."""
+    from repro_torch.training.optimizer import leaf_paths, tree_map
+    from repro_torch.training.step import batch_to_device, make_loss_fn
+
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss = make_loss_fn(cfg)(live, batch_to_device(nb, dev))
+    paths = [path for path, _ in leaf_paths(live)]
+    grads = torch.autograd.grad(loss, [p for _, p in leaf_paths(live)])
+    return loss.detach().cpu(), {k: g.cpu() for k, g in zip(paths, grads)}
+
+
+def phase_train_small(dev) -> None:
+    """Phase 15a: one training step of a reduced qwen3-0.6b and a reduced
+    minicpm3-4b (head dims the backward kernels take: 32, and MLA's 96),
+    the card (kernels, forward and backward) against the CPU (plain
+    versions) on the same weights and batch.  In f32 the loss and every
+    gradient leaf agree within 2e-4 of the leaf's largest magnitude (only
+    the sum orders differ).  In bf16 the loss and one ``make_train_step``'s
+    loss and grad norm agree within 2e-2; its gradient leaves are printed,
+    not held: bf16's own rounding moves these leaves 0.5-1.9% (relative L2)
+    from f32 on the CPU, so a 2e-2 bound on them would measure rounding
+    luck."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.registry import get_model
+    from repro_torch.training.data import DataConfig, synth_batch
+    from repro_torch.training.optimizer import init_opt_state, tree_map
+    from repro_torch.training.step import make_train_step
+
+    # 300 tokens: two loss chunks, the second padded; ragged 64-row tiles
+    shape = ShapeConfig("phase15a", 300, 2, "train")
+    for name, heads in (("qwen3-0.6b", dict(d_head=32)),
+                        ("minicpm3-4b", dict(nope_head_dim=64, rope_head_dim=32, v_head_dim=64,
+                                             d_head=96))):
+        for dtype in (torch.float32, torch.bfloat16):
+            cfg = get_reduced_config(name, dtype=str(dtype).split(".")[1], **heads)
+            tol = TOL[dtype]
+            p_cpu = get_model(cfg).init_params(cfg, 1, "cpu")
+            p_dev = tree_map(lambda t: t.to(dev), p_cpu)
+            nb = synth_batch(cfg, shape, 0, DataConfig())
+            l_cpu, g_cpu = train_grads(cfg, p_cpu, nb, "cpu")
+            l_dev, g_dev = train_grads(cfg, p_dev, nb, dev)
+            check(abs(float(l_dev) - float(l_cpu)) <= tol * abs(float(l_cpu)),
+                  f"15a {cfg.name} {dtype}: loss {float(l_dev)} on the card, {float(l_cpu)} "
+                  f"on the cpu")
+            worst, worst_l2 = 0.0, 0.0
+            for k, ref in g_cpu.items():
+                ref, got = ref.float(), g_dev[k].float()
+                scale = float(ref.abs().max())
+                err = float((got - ref).abs().max())
+                if dtype == torch.float32:
+                    check(err <= tol * scale, f"15a {cfg.name}: grad {k} max|d| {err:.3g} over "
+                                              f"{tol} x {scale:.3g}")
+                worst = max(worst, err / scale if scale else 0.0)
+                worst_l2 = max(worst_l2, float((got - ref).norm() / ref.norm()))
+            m = {}
+            for where, params in (("cpu", p_cpu), ("card", p_dev)):
+                params = tree_map(torch.clone, params)   # the step updates them in place
+                _, _, metrics = make_train_step(cfg)(params, init_opt_state(params), nb)
+                m[where] = (float(metrics["loss"]), float(metrics["grad_norm"]))
+            for i, what in enumerate(("loss", "grad_norm")):
+                check(abs(m["card"][i] - m["cpu"][i]) <= tol * abs(m["cpu"][i]),
+                      f"15a {cfg.name} {dtype}: train step {what} {m['card'][i]} vs "
+                      f"{m['cpu'][i]}")
+            print(f"[15a] reduced {cfg.name} {dtype}, batch 2 x 300: loss card "
+                  f"{float(l_dev):.6f} / cpu {float(l_cpu):.6f}; {len(g_cpu)} grad leaves, worst "
+                  f"max|d| / max|ref| {worst:.3g}, worst relative L2 {worst_l2:.3g} "
+                  f"({'held at ' + str(tol) if dtype == torch.float32 else 'printed'}); train "
+                  f"step loss / grad norm card {m['card']} cpu {m['cpu']} (tol {tol})")
+
+
+TRAIN_GROUPS = (("rmsnorm forward", ("rmsnorm_warp", "rmsnorm_block", "rmsnorm_scalar")),
+                ("rmsnorm backward", ("rows_kernel", "scale_kernel")),
+                ("flash forward", ("wgmma_kernel", "core_kernel")),
+                ("flash backward", ("dq_kernel", "dkv_kernel")),
+                ("GEMMs", ("gemm", "Gemm", "xmma", "cutlass", "nvjet", "sm90_")))
+
+
+def profile_train_step(step) -> dict:
+    """Device time of one eager training step by kernel, from
+    ``torch.profiler`` (one warm-up step first, outside it): the top 12
+    kernels, the shares of the hand kernels and the GEMMs, and the share of
+    the step's wall the card was busy (kernels on one stream do not
+    overlap, so their sum is the busy time)."""
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e6
+    by_name = defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name][0] += 1
+            by_name[e.name][1] += e.time_range.elapsed_us()
+    total = sum(t for _, t in by_name.values())
+    if not total:
+        print("[15c] train step profile: no device time in the trace (not measured)")
+        return {}
+    print(f"[15c] train step profile: device busy {total / 1e3:.1f} ms of a {wall / 1e3:.1f} ms "
+          f"profiled step ({100 * total / wall:.1f}%; idle {100 - 100 * total / wall:.1f}%), "
+          f"{sum(c for c, _ in by_name.values())} kernel records")
+    for name, (count, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+        print(f"  {t / 1e3:8.2f} ms {100 * t / total:5.1f}%  {count:5d} records  {name[:90]}")
+    shares = {}
+    for group, keys in TRAIN_GROUPS:
+        hits = [(c, t) for k, (c, t) in by_name.items() if any(x in k for x in keys)]
+        t = sum(t for _, t in hits)
+        shares[group] = t / 1e3
+        print(f"  share of {group}: {t / 1e3:.2f} ms ({sum(c for c, _ in hits)} records), "
+              f"{100 * t / total:.1f}% of the device time")
+    return dict(busy_ms=total / 1e3, wall_ms=wall / 1e3, shares_ms=shares)
+
+
+def train_flops(cfg, params, tokens: int, batch: int, seq: int) -> float:
+    """A training step's work: 6 x parameters x tokens, plus attention's
+    causal products, the forward's 4 B Hq S(S+1)/2 d a layer and 2.5 times
+    that for the backward."""
+    from repro_torch.training.optimizer import leaf_paths
+
+    n_params = sum(p.numel() for _, p in leaf_paths(params))
+    attn = 4 * batch * cfg.n_heads * seq * (seq + 1) / 2 * cfg.d_head * cfg.n_layers
+    return 6 * n_params * tokens + 3.5 * attn
+
+
+def phase_train_full(library, dev, by_path) -> dict:
+    """Phase 15b and c: full-width qwen3-0.6b (28 layers, d_model 1024,
+    bf16) trained through ``repro_torch.launch.train.main`` (b: straight, a
+    crash after step 2 with asynchronous checkpoints every 2 steps, and its
+    resume: the resumed final loss equal to the straight one, every loss
+    finite) and on one fixed batch (c: the loss falling at every step), each
+    part with the launch counters set to 0 just before it and the plain
+    versions barred from CUDA tensors."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import train
+    from repro_torch.training.data import DataConfig, synth_batch
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.step import init_train_state, make_train_step
+
+    out = {}
+    with PlainOnCard(), StoreTimer() as st:
+        straight, by_path["phase 15b qwen3-0.6b straight"] = run_path(
+            library, "phase 15b qwen3-0.6b straight", TRAIN_KERNELS,
+            lambda: train.main(TRAIN_ARGS))
+        with tempfile.TemporaryDirectory() as ckpt:
+            crashed, by_path["phase 15b qwen3-0.6b crash"] = run_path(
+                library, "phase 15b qwen3-0.6b crash", TRAIN_KERNELS,
+                lambda: train.main(TRAIN_ARGS + TRAIN_CKPT + [
+                    "--ckpt-dir", ckpt, "--kill-at", str(TRAIN_KILL_AT)]))
+            resumed, by_path["phase 15b qwen3-0.6b resume"] = run_path(
+                library, "phase 15b qwen3-0.6b resume", TRAIN_KERNELS,
+                lambda: train.main(TRAIN_ARGS + TRAIN_CKPT + ["--ckpt-dir", ckpt]))
+            step_dir = os.path.join(ckpt, "step_00000004")
+            ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                             for f in os.listdir(step_dir))
+        steps = int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1])
+        check(crashed.get("crashed_at") == TRAIN_KILL_AT, f"15b: crash {crashed}")
+        check([s for s, _ in straight["losses"]] == list(range(steps)), f"15b: {straight}")
+        check([s for s, _ in resumed["losses"]] == list(range(TRAIN_KILL_AT, steps)),
+              f"15b: resumed {resumed}")
+        losses = [v for _, v in straight["losses"] + crashed["losses"] + resumed["losses"]]
+        check(all(np.isfinite(v) for v in losses), f"15b: a loss is not finite: {losses}")
+        diff = abs(resumed["final_loss"] - straight["final_loss"])
+        print(f"[15b] losses straight {straight['losses']}, crashed {crashed['losses']}, "
+              f"resumed {resumed['losses']}; resumed final - straight final = {diff!r} "
+              f"(bitwise {diff == 0.0}; rtol 1e-4 enforced)")
+        check(diff <= 1e-4 * abs(straight["final_loss"]), f"15b: resumed {resumed} vs "
+                                                          f"straight {straight}")
+        kinds = {k: [round(t, 3) for kk, t in st.calls if kk == k]
+                 for k in ("snapshot", "save", "restore")}
+        print(f"[15b] checkpoint {ckpt_bytes} bytes ({ckpt_bytes / 1e9:.3f} GB); s per "
+              f"asynchronous snapshot {kinds['snapshot']}, blocking save {kinds['save']}, "
+              f"restore {kinds['restore']}")
+        out.update(ckpt_bytes=ckpt_bytes, store=kinds, diff=diff)
+        torch.cuda.empty_cache()
+
+        cfg = get_config("qwen3-0.6b")
+        batch, seq = (int(TRAIN_ARGS[TRAIN_ARGS.index(f) + 1]) for f in ("--batch", "--seq"))
+        nb = synth_batch(cfg, ShapeConfig("fixed", seq, batch, "train"), 0, DataConfig())
+        opt_cfg = AdamWConfig(lr=FIXED_LR, warmup_steps=1)
+
+        def fixed_batch():
+            params, opt = init_train_state(cfg, seed=0, device=dev)
+            step = make_train_step(cfg, opt_cfg, remat=True)
+            losses, secs = [], []
+            for _ in range(FIXED_STEPS):
+                t0 = time.perf_counter()
+                params, opt, m = step(params, opt, nb)
+                losses.append(float(m["loss"]))
+                secs.append(time.perf_counter() - t0)
+            return params, opt, losses, secs
+
+        torch.cuda.reset_peak_memory_stats()
+        (params, opt, losses, secs), launches = run_path(
+            library, "phase 15c qwen3-0.6b fixed batch", TRAIN_KERNELS, fixed_batch)
+        by_path["phase 15c qwen3-0.6b fixed batch"] = launches
+        peak = torch.cuda.max_memory_allocated()
+        check(all(b < a for a, b in zip(losses, losses[1:])),
+              f"15c: the loss did not fall at every step: {losses}")
+        per_step = {k: n / FIXED_STEPS for k, n in launches.items() if n}
+        remat_step = make_train_step(cfg, opt_cfg, remat=True)
+        out["profile"] = profile_train_step(lambda: remat_step(params, opt, nb))
+
+        def no_remat():
+            step = make_train_step(cfg, opt_cfg, remat=False)
+            secs = []
+            for _ in range(NO_REMAT_STEPS):
+                t0 = time.perf_counter()
+                _, _, m = step(params, opt, nb)
+                float(m["loss"])
+                secs.append(time.perf_counter() - t0)
+            return secs
+
+        torch.cuda.reset_peak_memory_stats()
+        nr_secs, nr_launches = run_path(library, "phase 15c qwen3-0.6b fixed batch, no remat",
+                                        TRAIN_KERNELS, no_remat)
+        by_path["phase 15c qwen3-0.6b fixed batch, no remat"] = nr_launches
+        nr_peak = torch.cuda.max_memory_allocated()
+        step_s = float(np.median(secs[1:]))
+        nr_step_s = float(np.median(nr_secs[1:]))
+        tokens = batch * seq
+        flops = train_flops(cfg, params, tokens, batch, seq)
+        bound_s = flops / PEAK_FLOPS[torch.bfloat16]
+        print(f"[15c] fixed batch {batch} x {seq}, lr {FIXED_LR}: losses {losses}; s per step "
+              f"{[round(t, 4) for t in secs]} (the first builds)")
+        print(f"[15c] step with remat {step_s * 1e3:.1f} ms ({tokens / step_s:.0f} tokens/s, "
+              f"peak {peak / 1e9:.2f} GB), without {nr_step_s * 1e3:.1f} ms "
+              f"({tokens / nr_step_s:.0f} tokens/s, peak {nr_peak / 1e9:.2f} GB); bound "
+              f"{flops / 1e12:.3f} TFLOP at 989 TFLOP/s = {bound_s * 1e3:.2f} ms: "
+              f"{100 * bound_s / step_s:.2f}% of it with remat, {100 * bound_s / nr_step_s:.2f}% "
+              f"without")
+        print(f"[15c] launches per step with remat {per_step}; without "
+              f"{ {k: n / NO_REMAT_STEPS for k, n in nr_launches.items() if n} }")
+        out.update(losses=losses, step_ms=step_s * 1e3, no_remat_ms=nr_step_s * 1e3,
+                   tokens_per_s=tokens / step_s, bound_ms=bound_s * 1e3, per_step=per_step)
+        del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
 def rss() -> str:
     """This process's resident host memory now (``/proc``, where the kernel
     reports it) and at its peak (``getrusage``)."""
@@ -3671,6 +4144,14 @@ def main() -> None:
     del m, params
     torch.cuda.empty_cache()
     print(f"[phase 9] ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    with PlainOnCard():
+        _, by_path["phase 15a reduced qwen3 and minicpm3 train step"] = run_path(
+            library, "phase 15a reduced qwen3 and minicpm3 train step", TRAIN_KERNELS,
+            lambda: phase_train_small(dev))
+    phase_train_full(library, dev, by_path)
+    print(f"[phase 15] training: {time.perf_counter() - t0:.1f} s")
     print(f"launches by path: {by_path}")
 
     kernels = []
@@ -3685,7 +4166,7 @@ def main() -> None:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=r["shape"],
             launches_by_path={path: counts[name] for path, counts in by_path.items()},
-            batched=batched_rows[name],
+            batched=batched_rows.get(name),
             more=[{k: v for k, v in r.items() if k != "name"} for r in extra_rows
                   if r["name"] == name],
         ))

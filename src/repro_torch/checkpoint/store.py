@@ -1,5 +1,5 @@
 """Checkpoint store: manifest-driven, atomic, async-capable
-(``repro.checkpoint.store``, for a flat ``{name: tensor}`` dict).
+(``repro.checkpoint.store``, for a dict of tensors, flat or nested).
 
 Layout, the reference's file for file:
     <dir>/step_000123/
@@ -14,8 +14,11 @@ Layout, the reference's file for file:
 * async: ``save_async`` copies every leaf to the host first, then writes on
   a background thread, overlapping the I/O with the next step.
 
-Leaves are named as the reference names a flat dict's leaves (``['key']``),
-so each package reads the other's checkpoints of float and integer leaves.
+Leaves are named as the reference's ``jax.tree_util.keystr`` names a dict's
+leaves: ``['key']`` in a flat dict, ``['params']['blocks']['sub0']['wq']``
+in a nested one; so each package reads the other's checkpoints of float
+and integer leaves (a train state among them: the LM params have the
+reference's layout).
 numpy has no bfloat16: a bf16 leaf is stored as its raw 16 bits (uint16) and
 the manifest names it ``bfloat16``; loading gives back the same bits.
 """
@@ -26,7 +29,7 @@ import json
 import os
 import shutil
 import threading
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,8 +41,13 @@ BFLOAT16 = "bfloat16"
 _writer_ids = itertools.count()
 
 
-def _leaf_name(key: str) -> str:
-    return f"['{key}']"
+def _leaves(tree: Dict[str, Any], prefix: str = "") -> List[Tuple[str, Any]]:
+    """(keystr name, leaf) of every leaf of a nested dict, in its order."""
+    out = []
+    for key, value in tree.items():
+        name = f"{prefix}['{key}']"
+        out += _leaves(value, name) if isinstance(value, dict) else [(name, value)]
+    return out
 
 
 def _leaf_key(name: str) -> str:
@@ -63,12 +71,12 @@ def _from_array(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def save(ckpt_dir: str, step: int, flat: Dict[str, Any], *, blocking: bool = True) -> threading.Thread:
-    """Write a checkpoint of ``flat``; returns the writer thread (joined when
-    blocking)."""
+def save(ckpt_dir: str, step: int, tree: Dict[str, Any], *, blocking: bool = True) -> threading.Thread:
+    """Write a checkpoint of ``tree`` (a dict of tensors, flat or nested);
+    returns the writer thread (joined when blocking)."""
     os.makedirs(ckpt_dir, exist_ok=True)
     # snapshot to host memory synchronously, before the writer starts
-    leaves = [(name, *_host_array(v)) for name, v in flat.items()]
+    leaves = [(name, *_host_array(v)) for name, v in _leaves(tree)]
     # unique per writer: two non-blocking saves of the same step must never
     # share a staging dir
     token = f"{os.getpid()}.{next(_writer_ids)}"
@@ -81,7 +89,7 @@ def save(ckpt_dir: str, step: int, flat: Dict[str, Any], *, blocking: bool = Tru
         for i, (name, arr, dtype) in enumerate(leaves):
             fname = f"leaf_{i:05d}.npy"
             np.save(os.path.join(tmp, fname), arr)
-            manifest["leaves"][_leaf_name(name)] = {
+            manifest["leaves"][name] = {
                 "file": fname,
                 "shape": list(arr.shape),
                 "dtype": dtype,
@@ -110,8 +118,8 @@ def save(ckpt_dir: str, step: int, flat: Dict[str, Any], *, blocking: bool = Tru
     return t
 
 
-def save_async(ckpt_dir: str, step: int, flat: Dict[str, Any]) -> threading.Thread:
-    return save(ckpt_dir, step, flat, blocking=False)
+def save_async(ckpt_dir: str, step: int, tree: Dict[str, Any]) -> threading.Thread:
+    return save(ckpt_dir, step, tree, blocking=False)
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -147,21 +155,28 @@ def load_flat(ckpt_dir: str, step: int) -> Dict[str, torch.Tensor]:
     }
 
 
-def restore(ckpt_dir: str, step: int, template: Dict[str, torch.Tensor], *,
-            device: Any = None) -> Dict[str, torch.Tensor]:
-    """Restore the leaves ``template`` names, each checked against the
-    template's shape and given its dtype, on ``device`` (the template
-    leaf's device when None)."""
+def restore(ckpt_dir: str, step: int, template: Dict[str, Any], *,
+            device: Any = None) -> Dict[str, Any]:
+    """Restore into the structure of ``template`` (flat or nested): each
+    leaf it names, checked against the template leaf's shape and given its
+    dtype, on ``device`` (the template leaf's device when None)."""
     d, manifest = _manifest(ckpt_dir, step)
-    out = {}
-    for key, leaf in template.items():
-        meta = manifest["leaves"].get(_leaf_name(key))
+
+    def load(name: str, leaf) -> torch.Tensor:
+        meta = manifest["leaves"].get(name)
         if meta is None:
-            raise KeyError(f"checkpoint missing leaf {key}")
+            raise KeyError(f"checkpoint missing leaf {name}")
         t = _from_array(np.load(os.path.join(d, meta["file"])), meta["dtype"])
         if tuple(t.shape) != tuple(leaf.shape):
-            raise ValueError(
-                f"shape mismatch for {key}: ckpt {tuple(t.shape)} vs target {tuple(leaf.shape)}"
-            )
-        out[key] = t.to(device=leaf.device if device is None else device, dtype=leaf.dtype)
-    return out
+            raise ValueError(f"shape mismatch for {name}: ckpt {tuple(t.shape)} vs "
+                             f"target {tuple(leaf.shape)}")
+        return t.to(device=leaf.device if device is None else device, dtype=leaf.dtype)
+
+    def walk(node: Dict[str, Any], prefix: str) -> Dict[str, Any]:
+        out = {}
+        for key, leaf in node.items():
+            name = f"{prefix}['{key}']"
+            out[key] = walk(leaf, name) if isinstance(leaf, dict) else load(name, leaf)
+        return out
+
+    return walk(template, "")

@@ -61,6 +61,14 @@ class ArchConfig:
         return pad_to_multiple(self.vocab, VOCAB_PAD)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
     """Small same-family variant for CPU tests (the reference's rule for the
     dense, MLA, SSM and xLSTM families)."""

@@ -8,7 +8,11 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import library
-from repro_torch.kernels.flash_attention.ref import attention_chunked, attention_dense
+from repro_torch.kernels.flash_attention.ref import (
+    attention_chunked,
+    attention_chunked_backward,
+    attention_dense,
+)
 
 HEAD_DIMS = (32, 64, 96, 128, 256)
 TILE_ROWS = 64   # packed (query, head) rows per block of the wgmma route
@@ -139,6 +143,119 @@ def _flash_attention_vmap(info, in_dims, q, k, v, causal, window, logit_cap, q_o
 
 torch.library.register_vmap(flash_attention_op, _flash_attention_vmap)
 
+BWD_HEAD_DIMS = (32, 64, 96, 128)
+BWD_TILE = 64   # query rows and keys per tile of the backward
+
+
+def backward_plan(b: int, sq: int, sk: int, hq: int, hkv: int, d: int) -> Dict[str, object]:
+    """The backward's two launches: the dq pass, one block per 64 queries of
+    one (query head, batch row), grid (ceil(Sq / 64), Hq, B), which also
+    writes each row's logsumexp and dO . O; then the dk/dv pass, one block
+    per 64 keys of one (KV head, batch row), grid (ceil(Sk / 64), Hkv, B),
+    walking the group's query heads in order.  Each keeps four f32 tiles of
+    64 rows (Q, dO, K, V; rows padded by one float against bank conflicts)
+    and one or two 64 x 64 f32 tiles of dS / P in shared memory."""
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash attention backward takes head dims {BWD_HEAD_DIMS}, not {d}")
+    tiles = 4 * BWD_TILE * (d + 1) * 4
+    tile = BWD_TILE * (BWD_TILE + 1) * 4
+    return dict(grid_dq=(-(-sq // BWD_TILE), hq, b), grid_dkv=(-(-sk // BWD_TILE), hkv, b),
+                smem_dq=tiles + tile, smem_dkv=tiles + 2 * tile)
+
+
+def flash_attention_backward_cuda(
+    dout: torch.Tensor,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    causal: bool,
+    window: Optional[int],
+    logit_cap: Optional[float],
+    q_offset: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernels; raises on anything they do not take."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    b, sq, hq, d = q.shape
+    bk, sk, hkv, dk_ = k.shape
+    if bk != b or dk_ != d or hq % hkv:
+        raise ValueError(f"q {tuple(q.shape)} vs k {tuple(k.shape)}")
+    if dout.shape != q.shape or out.shape != q.shape:
+        raise ValueError(f"dout {tuple(dout.shape)}, out {tuple(out.shape)} vs q {tuple(q.shape)}")
+    if not all(t.dtype == q.dtype for t in (k, v, out, dout)):
+        raise TypeError("q, k, v, out and dout must share one dtype")
+    ts = (dout, q, k, v, out)
+    if not all(t.is_contiguous() and t.device == q.device for t in ts):
+        raise ValueError("flash attention backward takes contiguous tensors on one device")
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("flash attention backward reads 4-element vectors: 16-byte aligned tensors")
+    if q_offset < 0:
+        raise ValueError(f"q_offset {q_offset} < 0")
+    plan = backward_plan(b, sq, sk, hq, hkv, d)
+    if max(plan["grid_dq"][1:] + plan["grid_dkv"][1:]) > 65535:
+        raise ValueError(f"grids {plan['grid_dq']}, {plan['grid_dkv']} over the launch limit")
+    dtype = library.dtype_code(q.dtype)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if b == 0 or sq == 0 or sk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    # each query row's logsumexp and dO . O, written by the dq pass
+    stats = torch.empty((2, b, hq, sq), dtype=torch.float32, device=q.device)
+    fn = library.entry("flash_attention_backward")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    library.LAUNCHES["flash_attention_backward"] += 1
+    library.check("flash_attention_backward", fn(
+        dout.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+        b, sq, sk, hq, hkv, d, int(causal),
+        0 if window is None else int(window),
+        0.0 if logit_cap is None else float(logit_cap),
+        int(q_offset), dtype, stream,
+    ))
+    return dq, dk, dv
+
+
+@torch.library.custom_op("repro_torch::flash_attention_backward", mutates_args=())
+def flash_attention_backward_op(
+    dout: torch.Tensor,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    causal: bool,
+    window: Optional[int],
+    logit_cap: Optional[float],
+    q_offset: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    if q.device.type == "cpu":
+        grads = attention_chunked_backward(dout, q, k, v, causal=causal, window=window,
+                                           logit_cap=logit_cap, q_offset=q_offset)
+        return tuple(g.contiguous() for g in grads)
+    if q.device.type == "cuda":
+        return flash_attention_backward_cuda(dout, q, k, v, out, causal, window, logit_cap,
+                                             q_offset)
+    raise ValueError(f"flash_attention_backward runs on cpu or cuda tensors, not {q.device}")
+
+
+@flash_attention_backward_op.register_fake
+def _(dout, q, k, v, out, causal, window, logit_cap, q_offset):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, causal, window, logit_cap, q_offset = inputs
+    ctx.save_for_backward(q, k, v, output)
+    ctx.args = (causal, window, logit_cap, q_offset)
+
+
+def _flash_grad(ctx, dout):
+    q, k, v, out = ctx.saved_tensors
+    dq, dk, dv = flash_attention_backward_op(dout.contiguous(), q, k, v, out, *ctx.args)
+    return dq, dk, dv, None, None, None, None
+
+
+torch.library.register_autograd(flash_attention_op, _flash_grad, setup_context=_flash_setup)
+
 
 def flash_attention(
     q: torch.Tensor,
@@ -156,5 +273,6 @@ def flash_attention(
 
 __all__ = [
     "flash_attention", "flash_attention_cuda", "attention_chunked", "attention_dense",
-    "packed_row", "tile_plan",
+    "packed_row", "tile_plan", "attention_chunked_backward", "backward_plan",
+    "flash_attention_backward_cuda", "flash_attention_backward_op",
 ]

@@ -123,3 +123,46 @@ def attention_chunked(
         m = m_new
     out = o / torch.clamp(l, min=1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)   # (B, Sq, Hq, D)
+
+
+def attention_chunked_backward(
+    dout: torch.Tensor,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    logit_cap: Optional[float] = None,
+    q_offset: int = 0,
+) -> tuple:
+    """(dq, dk, dv): the vjp of :func:`attention_chunked` for the cotangent
+    ``dout``, written out (a custom op's body runs below autograd) in f32
+    over the materialized scores, the results in the inputs' dtype.  With
+    P = softmax(S): dV = P^T dO, dP = dO V^T, dS = P (dP - rowsum(P dP)),
+    times the soft-cap's 1 - tanh^2 and the scale, dQ = dS K, dK = dS^T Q;
+    dK and dV are summed over each GQA group's query heads."""
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    n_rep = hq // hkv
+    scale = 1.0 / float(d) ** 0.5
+    qf, do = q.float(), dout.float()
+    kf, vf = _repeat_kv(k, n_rep).float(), _repeat_kv(v, n_rep).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if logit_cap is not None:
+        t = torch.tanh(s / logit_cap)
+        s = logit_cap * t
+    q_pos = torch.arange(sq, device=q.device) + q_offset
+    k_pos = torch.arange(sk, device=q.device)
+    p = torch.softmax(s + _mask_bias(q_pos, k_pos, causal, window)[None, None], dim=-1)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, vf)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    if logit_cap is not None:
+        ds = ds * (1.0 - t * t)
+    ds = ds * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dk = dk.reshape(b, sk, hkv, n_rep, d).sum(dim=3)
+    dv = dv.reshape(b, sk, hkv, n_rep, d).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -1,6 +1,7 @@
 """Build and load the hand-written Hopper kernels.
 
-Each kernel's CUDA C++ source (``kernels/<name>/csrc/<name>.cu``) compiles
+Each kernel's CUDA C++ source (``kernels/<op>/csrc/<name>.cu``, where a
+backward kernel lives beside its forward op's) compiles
 with one ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library
 with a plain C interface, loaded with ``ctypes``: a build of seconds, where a
 source that includes PyTorch's headers takes minutes.  The first use builds
@@ -24,7 +25,10 @@ import subprocess
 from pathlib import Path
 from typing import Dict, List
 
-KERNELS = ("rmsnorm", "decode_attention", "flash_attention", "ssm_scan")
+KERNELS = ("rmsnorm", "decode_attention", "flash_attention", "ssm_scan",
+           "rmsnorm_backward", "flash_attention_backward")
+# the op package each kernel's source lives in, where it is not its own name
+_OP_DIR = {"rmsnorm_backward": "rmsnorm", "flash_attention_backward": "flash_attention"}
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
@@ -61,6 +65,21 @@ _ARGTYPES = {
     # x, ld, gi, B, C, D (or null), h0 (or null), y, h_out, b, s, h, p, g, n,
     # chunk, dtype, route, warps, smem bytes, vec, stream: x, B, C and y in
     # the working dtype, the rest f32; route, warps and smem from scan_plan
+    # dy, x, scale, dx, dscale, partial (f32 (grid, d) scratch), rows, d, eps,
+    # offset, dtype, rows_per_block, grid, stream (rmsnorm_backward_plan)
+    "repro_rmsnorm_backward": [
+        _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
+        _C.c_longlong, _C.c_int, _C.c_float, _C.c_float, _C.c_int, _C.c_int,
+        _C.c_longlong, _C.c_void_p,
+    ],
+    # dout, q, k, v, out, dq, dk, dv, stats (f32 (2, b, hq, sq) scratch), b,
+    # sq, sk, hq, hkv, d, causal, window, logit_cap, q_offset, dtype, stream
+    "repro_flash_attention_backward": [
+        _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
+        _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
+        _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
+        _C.c_int, _C.c_int, _C.c_float, _C.c_int, _C.c_int, _C.c_void_p,
+    ],
     "repro_ssm_scan": [
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
@@ -79,17 +98,18 @@ def reset_launches() -> None:
 
 
 def source_path(name: str) -> Path:
-    return _PKG / name / "csrc" / f"{name}.cu"
+    return _PKG / _OP_DIR.get(name, name) / "csrc" / f"{name}.cu"
 
 
 def build_digest(name: str) -> str:
-    """Hash of what a kernel's library is built from: every file under its
-    ``csrc/`` (the ``.cu`` and any header it includes) and the nvcc flags, so
-    an edited header or flag rebuilds it."""
+    """Hash of what a kernel's library is built from: its ``.cu``, every
+    header under its ``csrc/`` and the nvcc flags, so an edited source,
+    header or flag rebuilds it."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    csrc = source_path(name).parent
-    for f in sorted(p for p in csrc.rglob("*") if p.is_file()):
-        h.update(f.relative_to(csrc).as_posix().encode() + b"\0" + f.read_bytes())
+    src = source_path(name)
+    for f in sorted(p for p in src.parent.rglob("*")
+                    if p.is_file() and (p == src or p.suffix != ".cu")):
+        h.update(f.relative_to(src.parent).as_posix().encode() + b"\0" + f.read_bytes())
     return h.hexdigest()[:12]
 
 

@@ -6,12 +6,12 @@ node, just as one ``pallas_call`` is one jaxpr equation in the reference.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import library
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_ref, rmsnorm_ref
 
 VEC_BYTES = 16          # one vector load or store per lane
 WARP_ROW_MAX = 1024     # the warp route's longest row
@@ -110,6 +110,86 @@ def _rmsnorm_vmap(info, in_dims, x, scale, eps, offset):
 
 torch.library.register_vmap(rmsnorm_op, _rmsnorm_vmap)
 
+BWD_ROWS_MIN = 4              # rows per block of the backward's first pass: one a warp
+BWD_BLOCKS_MAX = 1056         # 8 blocks on each of the H100's 132 SMs
+BWD_D_MAX = 8192              # the first pass keeps 4 f32 partial rows of d in shared memory
+
+
+def rmsnorm_backward_plan(rows: int, d: int) -> Dict[str, int]:
+    """The backward's launch for ``rows`` rows of ``d``: the first pass
+    gives each block of 4 warps ``rows_per_block`` consecutive rows (at
+    least one a warp, and never more than ``BWD_BLOCKS_MAX`` blocks), writes
+    dx and one f32 partial row of dscale per block (4 partial rows of d in
+    ``smem`` bytes of shared memory); the second pass sums the ``grid``
+    partial rows of each column in block order.  The plan depends on the
+    shape alone, so two launches sum in the same order."""
+    rpb = max(BWD_ROWS_MIN, -(-rows // BWD_BLOCKS_MAX))
+    rpb = -(-rpb // 4) * 4
+    return dict(rows_per_block=rpb, grid=-(-rows // rpb), smem=4 * d * 4)
+
+
+def rmsnorm_backward_cuda(
+    dy: torch.Tensor, x: torch.Tensor, scale: torch.Tensor, eps: float, offset: float
+):
+    """Launch the backward kernel; raises on anything it does not take."""
+    d = x.shape[-1]
+    if not (dy.dtype == x.dtype == scale.dtype):
+        raise TypeError(f"dy {dy.dtype}, x {x.dtype}, scale {scale.dtype}")
+    if dy.shape != x.shape or tuple(scale.shape) != (d,):
+        raise ValueError(f"dy {tuple(dy.shape)}, x {tuple(x.shape)}, scale {tuple(scale.shape)}")
+    if not all(t.is_contiguous() and t.device == x.device for t in (dy, x, scale)):
+        raise ValueError("rmsnorm backward takes contiguous tensors on one device")
+    if d > BWD_D_MAX:
+        raise ValueError(f"rmsnorm backward takes rows of at most {BWD_D_MAX}, not {d}")
+    dtype = library.dtype_code(x.dtype)
+    dx = torch.empty_like(x)
+    rows = x.numel() // d if d else 0
+    if rows == 0:
+        return dx, torch.zeros_like(scale)
+    plan = rmsnorm_backward_plan(rows, d)
+    dscale = torch.empty_like(scale)
+    partial = torch.empty((plan["grid"], d), dtype=torch.float32, device=x.device)
+    fn = library.entry("rmsnorm_backward")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    library.LAUNCHES["rmsnorm_backward"] += 1
+    library.check("rmsnorm_backward", fn(
+        dy.data_ptr(), x.data_ptr(), scale.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+        partial.data_ptr(), rows, d, float(eps), float(offset), dtype,
+        plan["rows_per_block"], plan["grid"], stream,
+    ))
+    return dx, dscale
+
+
+@torch.library.custom_op("repro_torch::rmsnorm_backward", mutates_args=())
+def rmsnorm_backward_op(
+    dy: torch.Tensor, x: torch.Tensor, scale: torch.Tensor, eps: float, offset: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    if x.device.type == "cpu":
+        return rmsnorm_backward_ref(dy, x, scale, eps, offset)
+    if x.device.type == "cuda":
+        return rmsnorm_backward_cuda(dy, x, scale, eps, offset)
+    raise ValueError(f"rmsnorm_backward runs on cpu or cuda tensors, not {x.device}")
+
+
+@rmsnorm_backward_op.register_fake
+def _(dy, x, scale, eps, offset):
+    return torch.empty_like(x), torch.empty_like(scale)
+
+
+def _rmsnorm_setup(ctx, inputs, output):
+    x, scale, eps, offset = inputs
+    ctx.save_for_backward(x, scale)
+    ctx.eps, ctx.offset = eps, offset
+
+
+def _rmsnorm_grad(ctx, dy):
+    x, scale = ctx.saved_tensors
+    dx, dscale = rmsnorm_backward_op(dy.contiguous(), x, scale, ctx.eps, ctx.offset)
+    return dx, dscale, None, None
+
+
+torch.library.register_autograd(rmsnorm_op, _rmsnorm_grad, setup_context=_rmsnorm_setup)
+
 
 def rmsnorm(
     x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6, offset: float = 0.0
@@ -117,4 +197,7 @@ def rmsnorm(
     return rmsnorm_op(x, scale, float(eps), float(offset))
 
 
-__all__ = ["rmsnorm", "rmsnorm_ref", "rmsnorm_cuda", "rmsnorm_plan"]
+__all__ = [
+    "rmsnorm", "rmsnorm_ref", "rmsnorm_cuda", "rmsnorm_plan", "rmsnorm_backward_op",
+    "rmsnorm_backward_ref", "rmsnorm_backward_cuda", "rmsnorm_backward_plan",
+]

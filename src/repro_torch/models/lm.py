@@ -11,17 +11,19 @@ over the layer axis, so a traced step holds every layer's operators.
 
 API:
     init_params(cfg, seed, device)             -> params dict
-    forward(params, batch, cfg)                -> logits
+    forward(params, batch, cfg, remat=, return_hidden=) -> logits or hidden
+    loss_fn(params, batch, cfg, remat=)        -> mean next-token NLL
     init_cache(cfg, batch, max_seq, device)    -> decode cache dict
     prefill(params, batch, cfg, max_seq)       -> (last logits, cache)
     decode_step(params, token, cache, pos, cfg) -> (logits, cache)
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -104,15 +106,66 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
-def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig) -> torch.Tensor:
-    """Full-sequence forward.  batch: {"tokens": (B, S) int}."""
+def _layer_params(stacked: Dict[str, Any]) -> Callable[[int], Dict[str, Any]]:
+    """Layer i of the stacked blocks.  Select views, as the served paths
+    trace them; when a leaf requires grad (training), one ``unbind`` per
+    leaf instead, so the leaf's gradient is one stack of the layers' and not
+    a zero-filled copy of the whole stack per layer."""
+    def leaves(t):
+        return [x for v in t.values() for x in (leaves(v) if isinstance(v, dict) else [v])]
+
+    if not any(t.requires_grad for t in leaves(stacked)):
+        return lambda i: layer_slice(stacked, i)
+
+    def unbind(t):
+        return {k: unbind(v) if isinstance(v, dict) else v.unbind(0) for k, v in t.items()}
+
+    def pick(t, i):
+        return {k: pick(v, i) if isinstance(v, dict) else v[i] for k, v in t.items()}
+
+    per_layer = unbind(stacked)
+    return lambda i: pick(per_layer, i)
+
+
+def forward(
+    params,
+    batch: Dict[str, torch.Tensor],
+    cfg: ArchConfig,
+    *,
+    remat: bool = False,
+    return_hidden: bool = False,
+) -> torch.Tensor:
+    """Full-sequence forward.  batch: {"tokens": (B, S) int}.  ``remat``
+    checkpoints each layer (``torch.utils.checkpoint``: the backward reruns
+    the layer's forward), the reference's ``jax.checkpoint`` of its layer
+    scan; ``return_hidden`` returns the last layer's (B, S, D) output before
+    the final norm."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     h = params["embed"][tokens]
     positions = _positions(b, s, h.device)
+    layer = _layer_params(params["blocks"]["sub0"])
     for i in range(cfg.n_layers):
-        h = _layer_forward(layer_slice(params["blocks"]["sub0"], i), h, cfg, positions)
+        if remat:
+            h = checkpoint(_layer_forward, layer(i), h, cfg, positions, use_reentrant=False)
+        else:
+            h = _layer_forward(layer(i), h, cfg, positions)
+    if return_hidden:
+        return h
     return _logits(params, h, cfg)
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *, remat: bool = True):
+    """Mean next-token NLL over the full logits (labels -1 or >= vocab are
+    masked; a negative label indexes from the end, as the reference's
+    ``take_along_axis`` does, before its mask drops it)."""
+    logits = forward(params, batch, cfg, remat=remat)
+    labels = batch["labels"].long()
+    logp = torch.log_softmax(logits, dim=-1)
+    idx = torch.where(labels < 0, labels + logp.shape[-1], labels)
+    nll = -torch.gather(logp, -1, idx[..., None])[..., 0]
+    mask = (labels >= 0) & (labels < cfg.vocab)
+    return (nll * mask).sum() / torch.clamp(mask.sum(dtype=torch.int32), min=1)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device: Any = "cuda"):

@@ -1,0 +1,200 @@
+"""The gradients of the two kernels on the training path, rmsnorm and flash
+attention: ``repro_torch::rmsnorm_backward`` and
+``repro_torch::flash_attention_backward``, registered as the forward ops'
+autograd.  On the CPU: autograd through each forward op gives its plain
+backward (held against ``jax.vjp`` of the reference's refs in
+tests/test_torch_training.py); ``torch.library.opcheck`` of all four ops;
+the launch plans; the wrappers refuse what the kernels do not take.  On
+the card (``requires_cuda``): each backward kernel against its plain
+version at the training shapes and ragged ones, f32 and bf16, and two
+launches bitwise equal."""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import library  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_chunked_backward,
+    backward_plan,
+    flash_attention,
+    flash_attention_backward_cuda,
+    flash_attention_backward_op,
+)
+from repro_torch.kernels.flash_attention.ops import flash_attention_op  # noqa: E402
+from repro_torch.kernels.rmsnorm import (  # noqa: E402
+    rmsnorm,
+    rmsnorm_backward_cuda,
+    rmsnorm_backward_op,
+    rmsnorm_backward_plan,
+    rmsnorm_backward_ref,
+)
+from repro_torch.kernels.rmsnorm.ops import rmsnorm_op  # noqa: E402
+
+SMEM_MAX = 232448   # bytes of shared memory an H100 block may take
+TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# the sums of the kernels run in another order than the plain versions'
+# (dscale over every row; the flash gradients over key and query tiles),
+# and bf16 rounds the outputs once: f32 within 2e-4, bf16 within 2e-2 of
+# the largest magnitude
+FLASH_CASES = [
+    ((2, 40, 40, 4, 4, 64), dict(causal=True)),
+    ((1, 33, 50, 4, 4, 64), dict(causal=False)),
+    ((1, 130, 130, 8, 4, 128), dict(causal=True)),
+    ((2, 29, 29, 8, 2, 64), dict(causal=True, window=16)),
+    ((1, 70, 70, 4, 4, 32), dict(causal=True, logit_cap=5.0)),
+    ((1, 21, 85, 4, 1, 128), dict(causal=True, q_offset=64)),
+    ((1, 64, 64, 8, 8, 96), dict(causal=True)),
+    ((2, 19, 150, 8, 2, 128), dict(causal=True, q_offset=131, window=40, logit_cap=20.0)),
+]
+
+
+def _t(rng, shape, dtype=torch.float32, device="cpu"):
+    return torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(device, dtype)
+
+
+def _close(out, ref, dtype):
+    tol = TOL[dtype]
+    atol = tol * float(ref.float().abs().max()) if dtype == torch.bfloat16 else tol
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_autograd_is_the_plain_backward(rng, dtype):
+    x = _t(rng, (3, 5, 96), dtype).requires_grad_(True)
+    w = _t(rng, (96,), dtype).requires_grad_(True)
+    dy = _t(rng, (3, 5, 96), dtype)
+    dx, dw = torch.autograd.grad(rmsnorm(x, w, eps=1e-5, offset=1.0), (x, w), dy)
+    rx, rw = rmsnorm_backward_ref(dy, x.detach(), w.detach(), 1e-5, 1.0)
+    assert torch.equal(dx, rx) and torch.equal(dw, rw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_is_the_plain_backward(rng, dtype):
+    q = _t(rng, (1, 20, 4, 32), dtype).requires_grad_(True)
+    k = _t(rng, (1, 26, 2, 32), dtype).requires_grad_(True)
+    v = _t(rng, (1, 26, 2, 32), dtype).requires_grad_(True)
+    do = _t(rng, (1, 20, 4, 32), dtype)
+    kw = dict(causal=True, window=9, logit_cap=7.0, q_offset=6)
+    grads = torch.autograd.grad(flash_attention(q, k, v, **kw), (q, k, v), do)
+    refs = attention_chunked_backward(do, q.detach(), k.detach(), v.detach(), **kw)
+    for g, r in zip(grads, refs):
+        assert g.is_contiguous() and torch.equal(g, r)
+
+
+def test_opcheck_of_the_forward_and_backward_ops(rng):
+    """Schemas, fake kernels and the autograd registrations agree with the
+    ops' CPU bodies."""
+    x, w = _t(rng, (2, 3, 16)).requires_grad_(True), _t(rng, (16,)).requires_grad_(True)
+    torch.library.opcheck(rmsnorm_op, (x, w, 1e-6, 0.0))
+    torch.library.opcheck(rmsnorm_backward_op, (_t(rng, (2, 3, 16)), x.detach(), w.detach(),
+                                                1e-6, 0.0))
+    q = _t(rng, (1, 6, 4, 16)).requires_grad_(True)
+    k = _t(rng, (1, 6, 2, 16)).requires_grad_(True)
+    v = _t(rng, (1, 6, 2, 16)).requires_grad_(True)
+    torch.library.opcheck(flash_attention_op, (q, k, v, True, None, None, 0))
+    out = flash_attention(q, k, v).detach()
+    torch.library.opcheck(flash_attention_backward_op,
+                          (_t(rng, (1, 6, 4, 16)), q.detach(), k.detach(), v.detach(), out,
+                           True, None, None, 0))
+
+
+def test_served_trace_keeps_one_node_per_kernel(rng):
+    """Autograd on the ops leaves a trace without grad as it was: one node
+    each, no backward op."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    def fn(x, w, q, k, v):
+        return rmsnorm(x, w), flash_attention(q, k, v)
+
+    g = make_fx(fn, tracing_mode="fake")(_t(rng, (1, 4, 32)), _t(rng, (32,)),
+                                          _t(rng, (1, 4, 4, 32)), _t(rng, (1, 4, 2, 32)),
+                                          _t(rng, (1, 4, 2, 32)))
+    targets = [str(n.target) for n in g.graph.nodes if n.op == "call_function"]
+    assert targets == ["repro_torch.rmsnorm.default", "repro_torch.flash_attention.default"]
+
+
+@pytest.mark.parametrize("rows,d", [(2048, 1024), (32768, 128), (16384, 128), (65, 130),
+                                    (64, 2560), (3, 8192)])
+def test_rmsnorm_backward_plan(rows, d):
+    plan = rmsnorm_backward_plan(rows, d)
+    assert plan["rows_per_block"] % 4 == 0 and plan["rows_per_block"] >= 4
+    assert plan["grid"] == -(-rows // plan["rows_per_block"]) <= 1056
+    assert (plan["grid"] - 1) * plan["rows_per_block"] < rows
+    assert plan["smem"] == 16 * d <= SMEM_MAX
+
+
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+def test_flash_backward_plan_fits_shared_memory(d):
+    plan = backward_plan(4, 512, 512, 16, 8, d)
+    assert plan["grid_dq"] == (8, 16, 4) and plan["grid_dkv"] == (8, 8, 4)
+    assert plan["smem_dq"] < plan["smem_dkv"] <= SMEM_MAX - 512   # + the static row stats
+
+
+def test_backward_wrappers_refuse_what_the_kernels_do_not_take(rng):
+    q = _t(rng, (1, 8, 2, 256))
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_backward_cuda(q, q, q, q, q, True, None, None, 0)
+    q = _t(rng, (1, 8, 2, 64))
+    k = _t(rng, (1, 8, 2, 64), torch.bfloat16)
+    with pytest.raises(TypeError):
+        flash_attention_backward_cuda(q, q, k, k, q, True, None, None, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_backward_cuda(q, q.transpose(1, 2).contiguous().transpose(1, 2),
+                                      q, q, q, True, None, None, 0)
+    qm = torch.zeros(8 * 2 * 64 + 1)[1:].view(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_backward_cuda(qm, q, q, q, q, True, None, None, 0)
+    x = _t(rng, (4, 16))
+    with pytest.raises(ValueError, match="contiguous"):
+        rmsnorm_backward_cuda(x.t(), x.t(), _t(rng, (4,)), 1e-6, 0.0)
+    with pytest.raises(ValueError, match="at most"):
+        y = _t(rng, (1, 8200))
+        rmsnorm_backward_cuda(y, y, _t(rng, (8200,)), 1e-6, 0.0)
+    with pytest.raises(TypeError):
+        rmsnorm_backward_cuda(x, x.bfloat16(), _t(rng, (16,)), 1e-6, 0.0)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: python -m pytest -m requires_cuda tests/")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2048, 1024), (32768, 128), (16384, 128), (65, 130),
+                                   (64, 2560), (4, 768), (4, 256)])
+def test_rmsnorm_backward_kernel_matches_plain_on_card(rng, dtype, shape):
+    _card()
+    x, dy = _t(rng, shape, dtype, "cuda"), _t(rng, shape, dtype, "cuda")
+    w = (_t(rng, shape[-1:], torch.float32, "cuda") * 0.1 + 1.0).to(dtype)
+    before = library.LAUNCHES["rmsnorm_backward"]
+    dx, dw = rmsnorm_backward_op(dy, x, w, 1e-6, 0.0)
+    rx, rw = rmsnorm_backward_ref(dy, x, w, 1e-6, 0.0)
+    assert library.LAUNCHES["rmsnorm_backward"] == before + 1
+    _close(dx, rx, dtype)
+    _close(dw, rw, dtype)
+    dx2, dw2 = rmsnorm_backward_op(dy, x, w, 1e-6, 0.0)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(FLASH_CASES)))
+def test_flash_backward_kernel_matches_plain_on_card(rng, dtype, case):
+    _card()
+    (b, sq, sk, hq, hkv, d), kw = FLASH_CASES[case]
+    q, do = _t(rng, (b, sq, hq, d), dtype, "cuda"), _t(rng, (b, sq, hq, d), dtype, "cuda")
+    k, v = _t(rng, (b, sk, hkv, d), dtype, "cuda"), _t(rng, (b, sk, hkv, d), dtype, "cuda")
+    out = flash_attention(q, k, v, **kw)
+    args = (kw.get("causal", True), kw.get("window"), kw.get("logit_cap"), kw.get("q_offset", 0))
+    before = library.LAUNCHES["flash_attention_backward"]
+    grads = flash_attention_backward_op(do, q, k, v, out, *args)
+    assert library.LAUNCHES["flash_attention_backward"] == before + 1
+    refs = attention_chunked_backward(do, q, k, v, **kw)
+    for g, r in zip(grads, refs):
+        _close(g, r, dtype)
+    again = flash_attention_backward_op(do, q, k, v, out, *args)
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))

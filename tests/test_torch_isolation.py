@@ -98,6 +98,15 @@ verified = OffloadSession(enc, "rrto", min_repeats=2, device="cpu", verify=True)
 assert [verified.infer(*enc.example_inputs) for _ in range(3)][-1].mode == "replaying"
 report = verify_ios("sensor_encoder", verified.client._ios_calls)
 assert report.ok and report.census["n_kernels"] > 0, report.as_dict()
+import repro_torch.training.data, repro_torch.training.losses, repro_torch.training.optimizer
+import repro_torch.training.step, repro_torch.launch.train
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.training.data import DataConfig, synth_batch
+from repro_torch.training.step import init_train_state, make_train_step
+params, opt = init_train_state(cfg, seed=0, device="cpu")
+batch = synth_batch(cfg, ShapeConfig("iso", 16, 2, "train"), 0, DataConfig())
+params, opt, metrics = make_train_step(cfg)(params, opt, batch)
+assert int(metrics["step"]) == 1 and np.isfinite(float(metrics["loss"])), metrics
 bad =sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro")
 print("LOADED", bad)
 """
