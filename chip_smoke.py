@@ -119,6 +119,7 @@ the kernel table and the device, as JSON.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 from collections import Counter
 import os
@@ -216,6 +217,11 @@ FLASH_BWD_CASES = [
     ((1, 128, 384, 4, 1, 64), dict(causal=True, q_offset=256)),
     ((1, 200, 200, 8, 2, 128), dict(causal=True, window=50)),
 ]
+# the bf16 flash backward within this relative L2 of the plain emulation
+# of its roundings (ref.py:attention_backward_bf16_products), gradient by
+# gradient: both lie ~2e-3 from the f32 gradients, and apart only by sum
+# orders and a few flipped bf16 roundings
+BWD_EMULATION_TOL = 1e-3
 # phase 15: full-width qwen3-0.6b through the trainer's entry point
 TRAIN_ARGS = ["--arch", "qwen3-0.6b", "--batch", "4", "--seq", "512", "--steps", "4",
               "--log-every", "1", "--device", "cuda"]
@@ -224,6 +230,7 @@ TRAIN_KILL_AT = 2
 FIXED_STEPS = 6            # part c: steps on one batch, the loss falling at each
 NO_REMAT_STEPS = 3         # part c: steps without remat (the first not timed)
 FIXED_LR = 1e-3
+PERTURBATION = 1e-4   # relative noise on the plain flash backward's gradients (15d)
 TRAIN_KERNELS = ("rmsnorm", "flash_attention", "rmsnorm_backward", "flash_attention_backward")
 
 
@@ -542,15 +549,27 @@ def autograd_ms(fwd, inputs, cot, reps: int = 20) -> float:
 
 def phase_backward_kernels(randn) -> tuple:
     """The two backward kernels of the training path against their plain
-    versions on the card (f32 and bf16, every case; two launches bitwise
-    equal), then each timed at its training shape beside its plain version,
-    the library's autograd backward of the same function and the bound."""
+    versions on the card (f32 and bf16, every case, each printed with its
+    route; two launches bitwise equal), then each timed at its training
+    shape beside its plain version, the library's autograd backward of the
+    same function and the bound."""
     from repro_torch.kernels.flash_attention import (
         attention_chunked_backward,
+        backward_plan,
         flash_attention,
         flash_attention_backward_op,
     )
-    from repro_torch.kernels.rmsnorm import rmsnorm_backward_op, rmsnorm_backward_ref
+    from repro_torch.kernels.flash_attention.ref import attention_backward_bf16_products
+    from repro_torch.kernels.rmsnorm import (
+        rmsnorm_backward_op,
+        rmsnorm_backward_plan,
+        rmsnorm_backward_ref,
+    )
+
+    def rms_route(n, d, dtype) -> str:
+        plan = rmsnorm_backward_plan(n, d, dtype)
+        return (f"{plan['route']}, {plan['lanes']} lanes x {plan['vecs']} vectors, grid "
+                f"{plan['grid']}")
 
     bf = torch.bfloat16
     for shape in RMSNORM_BWD_SHAPES:
@@ -567,8 +586,9 @@ def phase_backward_kernels(randn) -> tuple:
             same = torch.equal(dx, dx2) and torch.equal(dw, dw2)
             if not same:
                 MISMATCHES.append(f"rmsnorm_backward {shape} {dtype}: two launches differ")
-            print(f"rmsnorm_backward {shape} {dtype} offset={offset}: max|d| {err:.3g} "
-                  f"(tol {tol}); two launches bitwise {same}")
+            print(f"rmsnorm_backward {shape} {dtype} offset={offset} "
+                  f"({rms_route(*shape, dtype)}): max|d| {err:.3g} (tol {tol}); two launches "
+                  f"bitwise {same}")
     for (b, sq, sk, hq, hkv, d), kw in FLASH_BWD_CASES:
         args = (kw.get("causal", True), kw.get("window"), kw.get("logit_cap"),
                 kw.get("q_offset", 0))
@@ -585,36 +605,41 @@ def phase_backward_kernels(randn) -> tuple:
             if not same:
                 MISMATCHES.append(f"flash_attention_backward {(b, sq, sk, hq, hkv, d)} {kw} "
                                   f"{dtype}: two launches differ")
-            print(f"flash_attention_backward {(b, sq, sk, hq, hkv, d)} {kw} {dtype}: dq/dk/dv "
-                  f"max|d| {err:.3g} (tol {TOL[dtype]}); two launches bitwise {same}")
+            route = backward_plan(b, sq, sk, hq, hkv, d, dtype)["route"]
+            note = ""
+            if dtype == bf:   # the mma route against the emulation of its roundings
+                rel = max(float((g.float() - e.float()).norm() / e.float().norm().clamp_min(1e-30))
+                          for g, e in zip(grads, attention_backward_bf16_products(
+                              do, q, k, v, out, **kw)))
+                if not rel <= BWD_EMULATION_TOL:
+                    MISMATCHES.append(f"flash_attention_backward {(b, sq, sk, hq, hkv, d)} {kw}: "
+                                      f"relative L2 {rel:.3g} from its rounding's emulation")
+                note = f"; vs its rounding's emulation rel L2 {rel:.3g} (tol {BWD_EMULATION_TOL})"
+            print(f"flash_attention_backward {(b, sq, sk, hq, hkv, d)} {kw} {dtype} ({route}): "
+                  f"dq/dk/dv max|d| {err:.3g} (tol {TOL[dtype]}); two launches bitwise {same}"
+                  f"{note}")
             del q, do, k, v, out, grads, refs
 
     rows, extra = {}, []
-    n, d = RMSNORM_BWD_SHAPES[0]
-    x, dy = randn(n, d, dtype=bf), randn(n, d, dtype=bf)
-    w = (randn(d, dtype=torch.float32) * 0.1 + 1.0).to(bf)
-    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
-    b_ms, b_by = bound_ms(3 * x.numel() * 2 + 2 * d * 2, 10 * x.numel(), bf)
-    rows["rmsnorm_backward"] = dict(
-        shape=f"dy, x ({n},{d}) bf16 (qwen3-0.6b's d_model rows at 4 x 512 tokens)",
-        max_abs_err=max(close(a, r, RMSNORM_BWD_TOL[bf]) for a, r in
-                        zip(rmsnorm_backward_op(dy, x, w, 1e-6, 0.0),
-                            rmsnorm_backward_ref(dy, x, w, 1e-6, 0.0))),
-        ms=graph_ms(lambda: rmsnorm_backward_op(dy, x, w, 1e-6, 0.0)),
-        plain_ms=graph_ms(lambda: rmsnorm_backward_ref(dy, x, w, 1e-6, 0.0)),
-        library_ms=autograd_ms(lambda: F.rms_norm(xg, (d,), wg, 1e-6), (xg, wg), dy),
-        bound_ms=b_ms, bound_by=b_by)
-    for n, d in RMSNORM_BWD_SHAPES[1:3]:
+    for i, (n, d) in enumerate(RMSNORM_BWD_SHAPES[:3]):
         x, dy = randn(n, d, dtype=bf), randn(n, d, dtype=bf)
         w = (randn(d, dtype=torch.float32) * 0.1 + 1.0).to(bf)
         xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
         b_ms, b_by = bound_ms(3 * x.numel() * 2 + 2 * d * 2, 10 * x.numel(), bf)
-        extra.append(dict(
-            name="rmsnorm_backward", shape=f"dy, x ({n},{d}) bf16 (qk-norm rows)",
+        what = "qwen3-0.6b's d_model rows at 4 x 512 tokens" if i == 0 else "qk-norm rows"
+        row = dict(
+            shape=f"dy, x ({n},{d}) bf16 ({what}; {rms_route(n, d, bf)})",
+            max_abs_err=max(close(a, r, RMSNORM_BWD_TOL[bf]) for a, r in
+                            zip(rmsnorm_backward_op(dy, x, w, 1e-6, 0.0),
+                                rmsnorm_backward_ref(dy, x, w, 1e-6, 0.0))),
             ms=graph_ms(lambda: rmsnorm_backward_op(dy, x, w, 1e-6, 0.0)),
             plain_ms=graph_ms(lambda: rmsnorm_backward_ref(dy, x, w, 1e-6, 0.0)),
             library_ms=autograd_ms(lambda: F.rms_norm(xg, (d,), wg, 1e-6), (xg, wg), dy),
-            bound_ms=b_ms, bound_by=b_by))
+            bound_ms=b_ms, bound_by=b_by)
+        if i == 0:
+            rows["rmsnorm_backward"] = row
+        else:
+            extra.append(dict(name="rmsnorm_backward", **row))
 
     for (b, sq, sk, hq, hkv, d), kw in FLASH_BWD_CASES[:2]:
         q, do = randn(b, sq, hq, d, dtype=bf), randn(b, sq, hq, d, dtype=bf)
@@ -627,17 +652,27 @@ def phase_backward_kernels(randn) -> tuple:
         # the forward's causal flops (the backward recomputes Q K^T)
         b_ms, b_by = bound_ms(2 * (4 * q.numel() + 4 * k.numel()),
                               2.5 * 4 * b * hq * pairs * d, bf)
+        route = backward_plan(b, sq, sk, hq, hkv, d, bf)["route"]
+
+        def kern():
+            return flash_attention_backward_op(do, q, k, v, out, True, None, None, 0)
+
+        def lib():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        # kernel, SDPA's backward, SDPA's backward, kernel
+        turns = [graph_ms(kern, reps=5), autograd_ms(lib, (qt, kt, vt), dot, reps=5),
+                 autograd_ms(lib, (qt, kt, vt), dot, reps=5), graph_ms(kern, reps=5)]
+        print(f"flash_attention_backward turns ({b},{sq},{hq},{d}) bf16 ({route}): kernel "
+              f"{turns[0] * 1e3:.2f} / {turns[3] * 1e3:.2f} us, SDPA backward "
+              f"{turns[1] * 1e3:.2f} / {turns[2] * 1e3:.2f} us")
         row = dict(
-            shape=f"q/dO ({b},{sq},{hq},{d}), K/V ({b},{sk},{hkv},{d}) bf16, causal",
+            shape=f"q/dO ({b},{sq},{hq},{d}), K/V ({b},{sk},{hkv},{d}) bf16, causal ({route})",
             max_abs_err=max(close(g, r, TOL[bf]) for g, r in zip(
-                flash_attention_backward_op(do, q, k, v, out, True, None, None, 0),
-                attention_chunked_backward(do, q, k, v))),
-            ms=graph_ms(lambda: flash_attention_backward_op(do, q, k, v, out, True, None,
-                                                            None, 0), reps=5),
+                kern(), attention_chunked_backward(do, q, k, v))),
+            ms=(turns[0] + turns[3]) / 2,
             plain_ms=graph_ms(lambda: attention_chunked_backward(do, q, k, v), reps=5),
-            library_ms=autograd_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), (qt, kt, vt), dot, reps=5),
-            bound_ms=b_ms, bound_by=b_by)
+            library_ms=(turns[1] + turns[2]) / 2, bound_ms=b_ms, bound_by=b_by)
         if "flash_attention_backward" not in rows:
             rows["flash_attention_backward"] = row
         else:
@@ -3708,9 +3743,10 @@ def phase_train_small(dev) -> None:
 
 
 TRAIN_GROUPS = (("rmsnorm forward", ("rmsnorm_warp", "rmsnorm_block", "rmsnorm_scalar")),
-                ("rmsnorm backward", ("rows_kernel", "scale_kernel")),
+                ("rmsnorm backward", ("warp_rows_kernel", "rows_kernel", "scale_kernel")),
                 ("flash forward", ("wgmma_kernel", "core_kernel")),
-                ("flash backward", ("dq_kernel", "dkv_kernel")),
+                ("flash backward", ("dq_mma_kernel", "dkv_mma_kernel", "dq_kernel",
+                                    "dkv_kernel")),
                 ("GEMMs", ("gemm", "Gemm", "xmma", "cutlass", "nvjet", "sm90_")))
 
 
@@ -3766,6 +3802,156 @@ def train_flops(cfg, params, tokens: int, batch: int, seq: int) -> float:
     return 6 * n_params * tokens + 3.5 * attn
 
 
+def fixed_batch(cfg, opt_cfg, nb, dev) -> tuple:
+    """``FIXED_STEPS`` steps with `remat` on the batch ``nb`` from the
+    seed-0 train state: (params, opt state, losses, seconds per step)."""
+    from repro_torch.training.step import init_train_state, make_train_step
+
+    params, opt = init_train_state(cfg, seed=0, device=dev)
+    step = make_train_step(cfg, opt_cfg, remat=True)
+    losses, secs = [], []
+    for _ in range(FIXED_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, nb)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    return params, opt, losses, secs
+
+
+class FlashBackwardAs:
+    """While entered, the flash attention backward op computes the
+    gradients of CUDA tensors with the plain ``fn`` in place of its kernel:
+    a comparison run, outside every counted path."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops
+
+        fn = self.fn
+
+        def swapped(dout, q, k, v, out, causal, window, logit_cap, q_offset):
+            grads = fn(dout, q, k, v, out, causal=causal, window=window,
+                       logit_cap=logit_cap, q_offset=q_offset)
+            return tuple(g.contiguous() for g in grads)
+
+        self._saved = ops.flash_attention_backward_cuda
+        ops.flash_attention_backward_cuda = swapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.flash_attention import ops
+
+        ops.flash_attention_backward_cuda = self._saved
+        return False
+
+
+def unrounded_backward(dout, q, k, v, out, **kw):
+    """The plain flash backward (f32 products) in the signature of
+    ``attention_backward_bf16_products``."""
+    from repro_torch.kernels.flash_attention.ref import attention_chunked_backward
+
+    return attention_chunked_backward(dout, q, k, v, **kw)
+
+
+def witness_rounding_calls(dev, kernel_losses) -> None:
+    """Phase 15d, part 1: phase 15c's fixed batch again, each flash
+    backward call of the kernel held within ``BWD_EMULATION_TOL`` (relative
+    L2, gradient by gradient) of the plain emulation of its roundings
+    (``attention_backward_bf16_products``) on the same inputs, inside the
+    model along the kernel's own trajectory; the losses equal 15c's
+    (``kernel_losses``) bit for bit.  Per step, the worst distances of the
+    kernel and of the emulation to the f32 gradients are printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_bf16_products,
+        attention_chunked_backward,
+    )
+    from repro_torch.training.data import DataConfig, synth_batch
+    from repro_torch.training.optimizer import AdamWConfig
+
+    def rel(a, b) -> float:
+        return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+    kernel, calls = ops.flash_attention_backward_cuda, []
+
+    def watched(dout, q, k, v, out, **kw):
+        grads = kernel(dout, q, k, v, out, kw["causal"], kw["window"], kw["logit_cap"],
+                       kw["q_offset"])
+        emul = attention_backward_bf16_products(dout, q, k, v, out, **kw)
+        f32 = attention_chunked_backward(dout.float(), q.float(), k.float(), v.float(), **kw)
+        calls.append((max(rel(g, e) for g, e in zip(grads, emul)),
+                      max(rel(g, t) for g, t in zip(grads, f32)),
+                      max(rel(e, t) for e, t in zip(emul, f32))))
+        return grads
+
+    cfg = get_config("qwen3-0.6b")
+    batch, seq = (int(TRAIN_ARGS[TRAIN_ARGS.index(f) + 1]) for f in ("--batch", "--seq"))
+    nb = synth_batch(cfg, ShapeConfig("fixed", seq, batch, "train"), 0, DataConfig())
+    with FlashBackwardAs(watched):
+        losses = fixed_batch(cfg, AdamWConfig(lr=FIXED_LR, warmup_steps=1), nb, dev)[2]
+    torch.cuda.empty_cache()
+    check(losses == kernel_losses, f"15d: the watched run's losses {losses} are not 15c's "
+                                   f"{kernel_losses}")
+    per = len(calls) // FIXED_STEPS
+    for i in range(FIXED_STEPS):
+        step = calls[i * per:(i + 1) * per]
+        print(f"[15d] step {i}: {len(step)} flash backward calls, worst relative L2 kernel vs "
+              f"emulation {max(c[0] for c in step):.3g} (tol {BWD_EMULATION_TOL}), kernel vs "
+              f"f32 {max(c[1] for c in step):.3g}, emulation vs f32 {max(c[2] for c in step):.3g}")
+    worst = max(c[0] for c in calls)
+    check(worst <= BWD_EMULATION_TOL, f"15d: a flash backward call lies {worst:.3g} from the "
+                                      f"emulation of its roundings")
+
+
+def perturbed_backward(seed: int):
+    """The unrounded plain flash backward with each gradient element scaled
+    by 1 + ``PERTURBATION`` x N(0, 1) (noise from ``seed``) before its
+    rounding to the gradient's dtype."""
+    from repro_torch.kernels.flash_attention.ref import attention_chunked_backward
+
+    gen = {}
+
+    def fn(dout, q, k, v, out, **kw):
+        if q.device not in gen:
+            gen[q.device] = torch.Generator(device=q.device).manual_seed(seed)
+        grads = attention_chunked_backward(dout.float(), q.float(), k.float(), v.float(), **kw)
+        return tuple((g * (1.0 + PERTURBATION * torch.randn(
+            g.shape, generator=gen[q.device], device=g.device))).to(t.dtype)
+            for g, t in zip(grads, (q, k, v)))
+    return fn
+
+
+def witness_rounding_losses(dev, kernel_losses) -> None:
+    """Phase 15d, part 2: phase 15c's fixed batch with plain versions in
+    place of the flash backward kernel (the rounded emulation, the
+    unrounded backward, and the unrounded backward with two seeds of tiny
+    noise: how far a perturbation smaller than the kernel's own difference
+    moves the losses), printed beside the kernel's (``kernel_losses``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention.ref import attention_backward_bf16_products
+    from repro_torch.training.data import DataConfig, synth_batch
+    from repro_torch.training.optimizer import AdamWConfig
+
+    cfg = get_config("qwen3-0.6b")
+    batch, seq = (int(TRAIN_ARGS[TRAIN_ARGS.index(f) + 1]) for f in ("--batch", "--seq"))
+    nb = synth_batch(cfg, ShapeConfig("fixed", seq, batch, "train"), 0, DataConfig())
+    opt_cfg = AdamWConfig(lr=FIXED_LR, warmup_steps=1)
+    runs = {"kernel": kernel_losses}
+    for label, fn in (("rounded emulation", attention_backward_bf16_products),
+                      ("unrounded plain", unrounded_backward),
+                      (f"plain, noise {PERTURBATION} seed 1", perturbed_backward(1)),
+                      (f"plain, noise {PERTURBATION} seed 2", perturbed_backward(2))):
+        with FlashBackwardAs(fn):
+            runs[label] = fixed_batch(cfg, opt_cfg, nb, dev)[2]
+        torch.cuda.empty_cache()
+    print(f"[15d] fixed batch losses by flash backward: {runs}")
+
+
 def phase_train_full(library, dev, by_path) -> dict:
     """Phase 15b and c: full-width qwen3-0.6b (28 layers, d_model 1024,
     bf16) trained through ``repro_torch.launch.train.main`` (b: straight, a
@@ -3781,7 +3967,7 @@ def phase_train_full(library, dev, by_path) -> dict:
     from repro_torch.launch import train
     from repro_torch.training.data import DataConfig, synth_batch
     from repro_torch.training.optimizer import AdamWConfig
-    from repro_torch.training.step import init_train_state, make_train_step
+    from repro_torch.training.step import make_train_step
 
     out = {}
     with PlainOnCard(), StoreTimer() as st:
@@ -3825,20 +4011,17 @@ def phase_train_full(library, dev, by_path) -> dict:
         nb = synth_batch(cfg, ShapeConfig("fixed", seq, batch, "train"), 0, DataConfig())
         opt_cfg = AdamWConfig(lr=FIXED_LR, warmup_steps=1)
 
-        def fixed_batch():
-            params, opt = init_train_state(cfg, seed=0, device=dev)
-            step = make_train_step(cfg, opt_cfg, remat=True)
-            losses, secs = [], []
-            for _ in range(FIXED_STEPS):
-                t0 = time.perf_counter()
-                params, opt, m = step(params, opt, nb)
-                losses.append(float(m["loss"]))
-                secs.append(time.perf_counter() - t0)
-            return params, opt, losses, secs
-
+        # what 15b's runs leave allocated goes before the peak is reset, so
+        # the peak is the fixed-batch run's own
+        held = torch.cuda.memory_allocated()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[15c] allocated before the fixed batch: {held / 1e9:.2f} GB, "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB after gc.collect()")
         torch.cuda.reset_peak_memory_stats()
         (params, opt, losses, secs), launches = run_path(
-            library, "phase 15c qwen3-0.6b fixed batch", TRAIN_KERNELS, fixed_batch)
+            library, "phase 15c qwen3-0.6b fixed batch", TRAIN_KERNELS,
+            lambda: fixed_batch(cfg, opt_cfg, nb, dev))
         by_path["phase 15c qwen3-0.6b fixed batch"] = launches
         peak = torch.cuda.max_memory_allocated()
         check(all(b < a for a, b in zip(losses, losses[1:])),
@@ -3930,9 +4113,14 @@ def main() -> None:
     hgmma = sass_count(str(paths["flash_attention"]), "HGMMA")
     print(f"flash_attention SASS: {hgmma} HGMMA instructions (the bf16 route's wgmma)")
     check(hgmma > 0, "flash_attention's library has no HGMMA: the tensor cores are not used")
-    hmma = sass_count(str(paths["ssm_scan"]), "HMMA")
-    print(f"ssm_scan SASS: {hmma} HMMA instructions (the bf16 route's mma.sync)")
-    check(hmma > 0, "ssm_scan's library has no HMMA: the tensor cores are not used")
+    for name in ("ssm_scan", "flash_attention_backward"):
+        hmma = sass_count(str(paths[name]), "HMMA")
+        print(f"{name} SASS: {hmma} HMMA instructions (the bf16 route's mma.sync)")
+        check(hmma > 0, f"{name}'s library has no HMMA: the tensor cores are not used")
+    spills = [line for line in library.PTXAS.get("flash_attention_backward", [])
+              if "mma_kernel" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
+    check(any("dq_mma_kernel" in line for line in library.PTXAS.get("flash_attention_backward", []))
+          and not spills, f"flash attention backward's mma kernels spill or are missing: {spills}")
     print(f"[phase 1] kernels built in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -4150,7 +4338,11 @@ def main() -> None:
         _, by_path["phase 15a reduced qwen3 and minicpm3 train step"] = run_path(
             library, "phase 15a reduced qwen3 and minicpm3 train step", TRAIN_KERNELS,
             lambda: phase_train_small(dev))
-    phase_train_full(library, dev, by_path)
+    trained = phase_train_full(library, dev, by_path)
+    t1 = time.perf_counter()
+    witness_rounding_calls(dev, trained["losses"])
+    witness_rounding_losses(dev, trained["losses"])
+    print(f"[15d] rounding witness ({time.perf_counter() - t1:.1f} s)")
     print(f"[phase 15] training: {time.perf_counter() - t0:.1f} s")
     print(f"launches by path: {by_path}")
 

@@ -144,23 +144,47 @@ def _flash_attention_vmap(info, in_dims, q, k, v, causal, window, logit_cap, q_o
 torch.library.register_vmap(flash_attention_op, _flash_attention_vmap)
 
 BWD_HEAD_DIMS = (32, 64, 96, 128)
-BWD_TILE = 64   # query rows and keys per tile of the backward
+BWD_TILE = 64   # rows a block owns and rows a streamed tile holds, on both routes
 
 
-def backward_plan(b: int, sq: int, sk: int, hq: int, hkv: int, d: int) -> Dict[str, object]:
-    """The backward's two launches: the dq pass, one block per 64 queries of
-    one (query head, batch row), grid (ceil(Sq / 64), Hq, B), which also
-    writes each row's logsumexp and dO . O; then the dk/dv pass, one block
-    per 64 keys of one (KV head, batch row), grid (ceil(Sk / 64), Hkv, B),
-    walking the group's query heads in order.  Each keeps four f32 tiles of
-    64 rows (Q, dO, K, V; rows padded by one float against bank conflicts)
-    and one or two 64 x 64 f32 tiles of dS / P in shared memory."""
+def backward_plan(b: int, sq: int, sk: int, hq: int, hkv: int, d: int,
+                  dtype: torch.dtype) -> Dict[str, object]:
+    """The backward's two launches, as its C entry point makes them, from
+    the shapes and the dtype alone: the dq pass (which also writes each
+    query row's logsumexp and dO . O) and then the dk/dv pass, each with its
+    grid and dynamic shared memory in bytes.
+
+    bf16 takes the tensor cores (``route="mma"``, mma.sync): the dq pass
+    has one block of 4 warps per 64 packed (query, head) rows of one (KV
+    head, batch row) (:func:`packed_row`), the dk/dv pass one block of 8
+    warps per 64 keys of one (KV head, batch row), two groups of 4 warps
+    taking alternate (head, query tile) iterations.  Both grids are (Hkv, B,
+    tiles) with the tile index slowest, so the blocks that see the most
+    work under the causal mask are dispatched first (the dq pass counts its
+    tiles from the last).  The dq pass keeps six bf16 tiles of 64 rows
+    padded by 16 bytes (Q and dO resident, a two-stage ring of K and V),
+    the dk/dv pass ten (K and V resident, a two-stage ring of Q and dO per
+    group) and two stages of the query rows' f32 logsumexp and delta per
+    group.  f32 takes the CUDA cores (``route="cuda_cores"``, 256 threads a
+    block): grids (ceil(Sq / 64), Hq, B) and (ceil(Sk / 64), Hkv, B), four
+    f32 tiles of 64 rows padded by one float, and one or two 64 x 64 f32
+    tiles of dS / P."""
     if d not in BWD_HEAD_DIMS:
         raise ValueError(f"flash attention backward takes head dims {BWD_HEAD_DIMS}, not {d}")
-    tiles = 4 * BWD_TILE * (d + 1) * 4
-    tile = BWD_TILE * (BWD_TILE + 1) * 4
-    return dict(grid_dq=(-(-sq // BWD_TILE), hq, b), grid_dkv=(-(-sk // BWD_TILE), hkv, b),
-                smem_dq=tiles + tile, smem_dkv=tiles + 2 * tile)
+    kv_tiles = -(-sk // BWD_TILE)
+    if dtype == torch.bfloat16:
+        tile = BWD_TILE * (d + 8) * 2
+        return dict(route="mma", threads_dq=128, threads_dkv=256,
+                    grid_dq=(hkv, b, -(-(sq * (hq // hkv)) // BWD_TILE)),
+                    grid_dkv=(hkv, b, kv_tiles), smem_dq=6 * tile,
+                    smem_dkv=10 * tile + 2 * 4 * BWD_TILE * 4)
+    if dtype == torch.float32:
+        tiles = 4 * BWD_TILE * (d + 1) * 4
+        tile = BWD_TILE * (BWD_TILE + 1) * 4
+        return dict(route="cuda_cores", threads_dq=256, threads_dkv=256,
+                    grid_dq=(-(-sq // BWD_TILE), hq, b), grid_dkv=(kv_tiles, hkv, b),
+                    smem_dq=tiles + tile, smem_dkv=tiles + 2 * tile)
+    raise TypeError(f"kernels take float32 or bfloat16, not {dtype}")
 
 
 def flash_attention_backward_cuda(
@@ -189,10 +213,11 @@ def flash_attention_backward_cuda(
     if not all(t.is_contiguous() and t.device == q.device for t in ts):
         raise ValueError("flash attention backward takes contiguous tensors on one device")
     if any(t.data_ptr() % 16 for t in ts):
-        raise ValueError("flash attention backward reads 4-element vectors: 16-byte aligned tensors")
+        raise ValueError("flash attention backward copies 16-byte vectors: 16-byte aligned "
+                         "tensors")
     if q_offset < 0:
         raise ValueError(f"q_offset {q_offset} < 0")
-    plan = backward_plan(b, sq, sk, hq, hkv, d)
+    plan = backward_plan(b, sq, sk, hq, hkv, d, q.dtype)
     if max(plan["grid_dq"][1:] + plan["grid_dkv"][1:]) > 65535:
         raise ValueError(f"grids {plan['grid_dq']}, {plan['grid_dkv']} over the launch limit")
     dtype = library.dtype_code(q.dtype)

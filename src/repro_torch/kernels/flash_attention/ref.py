@@ -3,7 +3,10 @@
 
 * :func:`attention_dense` — O(S^2) materialized-scores reference;
 * :func:`attention_chunked` — O(S) streaming-softmax reference with the same
-  blockwise math as the kernel; the op's plain version on a CPU tensor.
+  blockwise math as the kernel; the op's plain version on a CPU tensor;
+* :func:`attention_chunked_backward` — its vjp, the backward op's plain
+  version, and :func:`attention_backward_bf16_products`, the same with the
+  bf16 kernel's roundings (a witness of its numerics, not a plain version).
 
 Both take q (B, Sq, Hq, D) and k, v (B, Sk, Hkv, D) and support causal
 masking with ``q_offset``, sliding windows, GQA head grouping and logit
@@ -163,6 +166,50 @@ def attention_chunked_backward(
     ds = ds * scale
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dk = dk.reshape(b, sk, hkv, n_rep, d).sum(dim=3)
+    dv = dv.reshape(b, sk, hkv, n_rep, d).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_backward_bf16_products(
+    dout: torch.Tensor,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    logit_cap: Optional[float] = None,
+    q_offset: int = 0,
+) -> tuple:
+    """:func:`attention_chunked_backward` with the roundings of the bf16
+    kernel (flash_attention_backward.cu's mma route): P and dS rounded to
+    bf16 before the products they enter (dV = P^T dO, dQ = dS K,
+    dK = dS^T Q), delta taken as dO . O from the forward's output ``out``,
+    and rows that see no key given zero gradients."""
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    n_rep = hq // hkv
+    scale = 1.0 / float(d) ** 0.5
+    qf, do = q.float(), dout.float()
+    kf, vf = _repeat_kv(k, n_rep).float(), _repeat_kv(v, n_rep).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    slope = torch.full_like(s, scale)
+    if logit_cap is not None:
+        t = torch.tanh(s / logit_cap)
+        s, slope = logit_cap * t, (1.0 - t * t) * scale
+    q_pos = torch.arange(sq, device=q.device) + q_offset
+    k_pos = torch.arange(sk, device=q.device)
+    seen = _mask_bias(q_pos, k_pos, causal, window) == 0.0
+    p = torch.softmax(s.masked_fill(~seen, float("-inf")), dim=-1).nan_to_num(0.0)
+    delta = (do * out.float()).sum(-1).transpose(1, 2)[..., None]    # (b, hq, sq, 1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, vf)
+    ds = p * (dp - delta) * slope
+    p16, ds16 = p.bfloat16().float(), ds.bfloat16().float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p16, do)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds16, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds16, qf)
     dk = dk.reshape(b, sk, hkv, n_rep, d).sum(dim=3)
     dv = dv.reshape(b, sk, hkv, n_rep, d).sum(dim=3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -66,11 +66,12 @@ _ARGTYPES = {
     # chunk, dtype, route, warps, smem bytes, vec, stream: x, B, C and y in
     # the working dtype, the rest f32; route, warps and smem from scan_plan
     # dy, x, scale, dx, dscale, partial (f32 (grid, d) scratch), rows, d, eps,
-    # offset, dtype, rows_per_block, grid, stream (rmsnorm_backward_plan)
+    # offset, dtype, route, threads, lanes, vecs, rows_per_block, grid,
+    # stream (rmsnorm_backward_plan)
     "repro_rmsnorm_backward": [
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
-        _C.c_longlong, _C.c_int, _C.c_float, _C.c_float, _C.c_int, _C.c_int,
-        _C.c_longlong, _C.c_void_p,
+        _C.c_longlong, _C.c_int, _C.c_float, _C.c_float, _C.c_int, _C.c_int, _C.c_int,
+        _C.c_int, _C.c_int, _C.c_int, _C.c_longlong, _C.c_void_p,
     ],
     # dout, q, k, v, out, dq, dk, dv, stats (f32 (2, b, hq, sq) scratch), b,
     # sq, sk, hq, hkv, d, causal, window, logit_cap, q_offset, dtype, stream
@@ -89,6 +90,8 @@ _ARGTYPES = {
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# each library's ``-Xptxas -v`` summary from the last verbose build
+PTXAS: Dict[str, List[str]] = {}
 _entries: Dict[str, object] = {}
 
 
@@ -133,7 +136,7 @@ def build_all(verbose: bool = False) -> Dict[str, Path]:
     """Compile every kernel library that is not built yet, one ``nvcc`` per
     source, all running at once.  Returns the library path of each kernel.
     ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report, one
-    line per kernel function."""
+    line per kernel function (also kept in ``PTXAS``)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {name: _library_path(name) for name in KERNELS}
     procs = {}
@@ -154,7 +157,8 @@ def build_all(verbose: bool = False) -> Dict[str, Path]:
             failed.append(f"{name}:\n{log}")
             continue
         if verbose and log:
-            print(f"[nvcc {name}]\n" + "\n".join(ptxas_summary(log)))
+            PTXAS[name] = ptxas_summary(log)
+            print(f"[nvcc {name}]\n" + "\n".join(PTXAS[name]))
         os.replace(tmp, paths[name])   # atomic: a reader never sees half a file
     if failed:
         raise RuntimeError("kernel build failed\n" + "\n".join(failed))

@@ -10,29 +10,47 @@
 //
 // Bound: bytes.  dy and x are read and dx written once, ~10 flops an
 // element; the training path's shapes (4 x 512 rows of d_model, 32k rows of
-// the qk-norm head) move megabytes.
+// the qk-norm head) move megabytes.  So each row is read once, into
+// registers, with 16-byte loads, and dscale's partial sums stay in
+// registers until the block ends.  Two routes, chosen on the host
+// (ops.py:rmsnorm_backward_plan, from the shape, the dtype and the
+// pointers' alignment) and passed in:
+//
+//   warp   (D <= 1024, D a multiple of the vector, 16-byte aligned): 8 warps
+//          a block; `lanes` lanes share a row (32 from 32 vectors up, else
+//          the largest power of two <= the row's vectors, so at the
+//          qk-norm's D = 128 a warp holds two bf16 rows or one f32 row),
+//          each lane holding `vecs` vectors of x, dy and w, packed; a row
+//          group loads two rows before it reduces the first.  The row's sum
+//          of squares and sum of g x r are reduced over its lanes with a xor
+//          butterfly (every lane gets the same bits).
+//   scalar (anything else up to D = 8192: longer rows, D not a multiple of
+//          the vector, or an unaligned pointer): rows_kernel, 4 warps a
+//          block, scalar loads, the row read twice (the second read hits L1).
 //
 // dscale is a sum over all rows, taken deterministically, without atomics,
-// so two launches give the same bits:
-//   pass 1 (rows_kernel): block b takes rows_per_block consecutive rows
-//          (ops.py:rmsnorm_backward_plan, from the shape alone); each of its
-//          4 warps takes every 4th row, reduces the row's sum of squares
-//          and sum of g x with warp shuffles (one xor butterfly: every lane
-//          gets the same bits), writes dx, and adds dy * x r of its columns
-//          into its own f32 row of shared memory.  The block then sums its
-//          4 warp rows in warp order into partial[b].
-//   pass 2 (scale_kernel): 8 threads per column sum partial[0..grid) in
-//          fixed strides, then one thread adds their 8 sums in order.
-// The row is read twice in pass 1 (the second read hits L1); the loads are
-// scalar and coalesced (a warp reads 32 neighbouring elements).
+// so two launches give the same bits.  A lane owns fixed columns and adds
+// dy * x r of its rows in registers; the block adds its row slots and warps
+// in a fixed order into partial[block] (a grid of one writes dscale
+// itself), and scale_kernel, a second launch, sums the partial rows of each
+// column: 32 threads a column in fixed strides (a grid of 128 or 256 gives
+// each 4 or 8 rows), then their 32 sums added by a warp's fixed butterfly.
+// Finishing that sum inside the one launch (the last block to finish,
+// elected by a counter, summing every partial row) was measured slower at
+// every training shape: the one block's read of all the partial rows is a
+// serial tail (PERF.md, the rmsnorm backward findings).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kGroups = 8;  // threads summing one column in pass 2
+enum Route { kScalar = 0, kWarp = 1 };
+
+constexpr int kWarps = 4;       // warps of the scalar route's block
+constexpr int kGroups = 32;     // threads summing one column in scale_kernel: a warp's lanes
+static_assert(kGroups == 32, "scale_kernel's last sum is one warp's butterfly");
+constexpr int kVecWarps = 8;    // warps of the warp route's block
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -44,6 +62,46 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
+
+// 16 bytes of T: one element as a float, and floats packed back
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int kN = 4;
+  __device__ static uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                      __float_as_uint(f[3]));
+  }
+  // element e (a constant once unrolled) of a packed vector
+  __device__ static float at(const uint4& r, int e) { return __uint_as_float((&r.x)[e]); }
+};
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  __device__ static uint4 pack(const float* f) {
+    uint4 r;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) h[k] = __floats2bfloat162_rn(f[2 * k], f[2 * k + 1]);
+    return r;
+  }
+  __device__ static float at(const uint4& r, int e) {
+    const uint32_t w = (&r.x)[e >> 1];
+    return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
+  }
+};
+
+// The compiler may not carry values derived from v across this point: after
+// it, the floats a packed vector holds are extracted again, so they are not
+// all live at once.
+__device__ __forceinline__ void repack(uint4& v) {
+  asm volatile("" : "+r"(v.x), "+r"(v.y), "+r"(v.z), "+r"(v.w));
+}
+
+// ---------------------------------------------------------------- scalar
 
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -91,76 +149,269 @@ rows_kernel(const T* __restrict__ dy, const T* __restrict__ x, const T* __restri
   }
 }
 
-// block: 32 columns x kGroups threads; thread (group k, column c) sums
-// partial rows k, k + kGroups, ... of column c, then group 0 adds the
-// kGroups sums in group order
+// block: 32 columns x kGroups (32) warps; thread (group k, column c) sums
+// partial rows k, k + kGroups, ... of column c; then warp w adds the
+// kGroups sums of column w (lane k holds group k's) with a fixed xor
+// butterfly
 template <typename T>
 __global__ void __launch_bounds__(32 * kGroups)
 scale_kernel(const float* __restrict__ partial, T* __restrict__ dscale, int blocks, int d) {
-  __shared__ float sums[kGroups][32];
-  const int col = blockIdx.x * 32 + (threadIdx.x & 31);
+  __shared__ float sums[kGroups][33];  // padded: the transposed read hits 32 banks
+  const int lane = threadIdx.x & 31;
   const int group = threadIdx.x >> 5;
+  const int col = blockIdx.x * 32 + lane;
   float s = 0.f;
   if (col < d) {
+#pragma unroll 4  // loads ahead; the adds stay in order
     for (int b = group; b < blocks; b += kGroups) s += partial[static_cast<long long>(b) * d + col];
   }
-  sums[group][threadIdx.x & 31] = s;
+  sums[group][lane] = s;
   __syncthreads();
-  if (group == 0 && col < d) {
-    float t = 0.f;
+  float t = sums[lane][group];
 #pragma unroll
-    for (int k = 0; k < kGroups; ++k) t += sums[k][threadIdx.x];
-    store(dscale + col, t);
+  for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+  if (lane == 0 && blockIdx.x * 32 + group < d) store(dscale + blockIdx.x * 32 + group, t);
+}
+
+// ---------------------------------------------------------------- warp route
+
+// the warp route: row group (warp, slot) = `lanes` lanes takes rows
+// r0 + group, r0 + group + groups, ... of its block's rows, two at a time.
+// x, dy and the scale stay packed in registers (converted element by
+// element, `repack` keeping the compiler from holding them all as floats),
+// so a thread holds two rows and dscale's sums in ~130 registers.
+template <typename T, int V>
+__global__ void __launch_bounds__(kVecWarps * 32)
+warp_rows_kernel(const T* __restrict__ dy, const T* __restrict__ x, const T* __restrict__ scale,
+                 T* __restrict__ dx, float* __restrict__ partial, T* __restrict__ dscale,
+                 long long rows, int d, int lanes, int rows_per_block, float eps,
+                 float offset) {
+  using Vt = Vec<T>;
+  constexpr int E = Vt::kN;
+  constexpr int U = 2;           // rows a group has in flight
+  extern __shared__ float red[];  // (kVecWarps, d)
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int slots = 32 / lanes;  // rows side by side in a warp
+  const int slot = lane / lanes;
+  const int li = lane % lanes;
+  const int groups = kVecWarps * slots;
+  const int nvec = d / E;
+  const float inv_d = 1.f / static_cast<float>(d);
+
+  uint4 wv[V];  // the scale (zeros past the row, where x and dy are zeros too)
+  float acc[V][E];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int vi = li + j * lanes;
+    wv[j] = vi < nvec ? *reinterpret_cast<const uint4*>(scale + vi * E)
+                      : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[j][e] = 0.f;
+  }
+
+  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_block;
+  const long long r1 = min(rows, r0 + rows_per_block);
+  // warp-uniform trip count: every lane takes part in the shuffles
+  for (long long base = r0 + warp * slots; base < r1;
+       base += static_cast<long long>(groups) * U) {
+    uint4 xv[U][V], gv[U][V];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long row = base + slot + static_cast<long long>(u) * groups;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int vi = li + j * lanes;
+        if (row < r1 && vi < nvec) {
+          xv[u][j] = *reinterpret_cast<const uint4*>(x + row * d + vi * E);
+          gv[u][j] = *reinterpret_cast<const uint4*>(dy + row * d + vi * E);
+        } else {
+          xv[u][j] = gv[u][j] = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long row = base + slot + static_cast<long long>(u) * groups;
+      float ss = 0.f, gx = 0.f;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const float xf = Vt::at(xv[u][j], e);
+          ss += xf * xf;
+          gx += Vt::at(gv[u][j], e) * (offset + Vt::at(wv[j], e)) * xf;
+        }
+      }
+      for (int o = lanes >> 1; o > 0; o >>= 1) {
+        ss += __shfl_xor_sync(0xffffffffu, ss, o);
+        gx += __shfl_xor_sync(0xffffffffu, gx, o);
+      }
+      const float r = rsqrtf(ss * inv_d + eps);
+      const float c_mean = gx * r * inv_d;  // mean(g * x r)
+      const bool live = row < r1;           // a row past the block's end adds nothing
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        repack(xv[u][j]);
+        repack(gv[u][j]);
+        repack(wv[j]);
+        float out[E];
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const float gf = Vt::at(gv[u][j], e);
+          const float xn = Vt::at(xv[u][j], e) * r;
+          if (live) acc[j][e] += gf * xn;
+          out[e] = r * (gf * (offset + Vt::at(wv[j], e)) - xn * c_mean);
+        }
+        const int vi = li + j * lanes;
+        if (live && vi < nvec) *reinterpret_cast<uint4*>(dx + row * d + vi * E) = Vt::pack(out);
+      }
+    }
+  }
+
+  // the warp's row slots into slot 0 (a fixed butterfly), then the warps in
+  // warp order
+  for (int o = lanes; o < 32; o <<= 1) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[j][e] += __shfl_xor_sync(0xffffffffu, acc[j][e], o);
+    }
+  }
+  if (slot == 0) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int vi = li + j * lanes;
+      if (vi < nvec) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) red[warp * d + vi * E + e] = acc[j][e];
+      }
+    }
+  }
+  __syncthreads();
+  float* part = partial + static_cast<long long>(blockIdx.x) * d;
+  for (int c = threadIdx.x; c < d; c += blockDim.x) {
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < kVecWarps; ++k) s += red[k * d + c];
+    if (gridDim.x == 1) {
+      store(dscale + c, s);
+    } else {
+      part[c] = s;
+    }
+  }
+}
+
+// Only the vector counts a plan can give are built: a warp route's row is
+// at most 1024 wide.
+template <typename T, int V>
+cudaError_t launch_warp(const T* dy, const T* x, const T* scale, T* dx, float* partial,
+                        T* dscale, long long rows, int d, int lanes, int rpb, long long grid,
+                        float eps, float offset, int smem, cudaStream_t st) {
+  if constexpr ((V - 1) * 32 * Vec<T>::kN >= 1024) {
+    return cudaErrorInvalidValue;
+  } else {
+    warp_rows_kernel<T, V><<<static_cast<unsigned>(grid), kVecWarps * 32, smem, st>>>(
+        dy, x, scale, dx, partial, dscale, rows, d, lanes, rpb, eps, offset);
+    return cudaGetLastError();
   }
 }
 
 template <typename T>
-cudaError_t launch(const void* dy, const void* x, const void* scale, void* dx, void* dscale,
-                   void* partial, long long rows, int d, float eps, float offset,
+cudaError_t launch(const void* dy_, const void* x_, const void* scale_, void* dx_,
+                   void* dscale_, void* partial_, long long rows, int d, float eps,
+                   float offset, int route, int threads, int lanes, int vecs,
                    int rows_per_block, long long grid, cudaStream_t st) {
+  constexpr int E = Vec<T>::kN;
+  const T* dy = static_cast<const T*>(dy_);
+  const T* x = static_cast<const T*>(x_);
+  const T* scale = static_cast<const T*>(scale_);
+  T* dx = static_cast<T*>(dx_);
+  T* dscale = static_cast<T*>(dscale_);
+  float* partial = static_cast<float*>(partial_);
   if (rows_per_block < 1 || grid < 1 || grid > 0x7fffffffLL ||
       grid != (rows + rows_per_block - 1) / rows_per_block) {
     return cudaErrorInvalidValue;
   }
-  const int smem = kWarps * d * static_cast<int>(sizeof(float));
-  static bool attr_set = false;   // raise the dynamic shared-memory cap once, to d = 8192's
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kWarps * 8192 * 4);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
+  cudaError_t err;
+  if (route == kWarp) {
+    const bool pow2 = lanes >= 1 && lanes <= 32 && (lanes & (lanes - 1)) == 0;
+    if (threads != kVecWarps * 32 || !pow2 || d % E != 0 || d > 1024 || vecs < 1 ||
+        vecs * lanes * E < d || (vecs - 1) * lanes * E >= d) {
+      return cudaErrorInvalidValue;
+    }
+    const int smem = kVecWarps * d * 4;  // the warps' partial rows
+    switch (vecs) {
+#define REPRO_WARP_CASE(V)                                                                    \
+  case V:                                                                                     \
+    err = launch_warp<T, V>(dy, x, scale, dx, partial, dscale, rows, d, lanes, rows_per_block, \
+                            grid, eps, offset, smem, st);                                     \
+    break;
+      REPRO_WARP_CASE(1)
+      REPRO_WARP_CASE(2)
+      REPRO_WARP_CASE(3)
+      REPRO_WARP_CASE(4)
+      REPRO_WARP_CASE(5)
+      REPRO_WARP_CASE(6)
+      REPRO_WARP_CASE(7)
+      REPRO_WARP_CASE(8)
+#undef REPRO_WARP_CASE
+      default:
+        return cudaErrorInvalidValue;
+    }
+  } else if (route == kScalar) {
+    if (threads != kWarps * 32 || d > 8192) {
+      return cudaErrorInvalidValue;
+    }
+    const int smem = kWarps * d * static_cast<int>(sizeof(float));
+    static bool attr_set = false;  // raise the dynamic shared-memory cap once, to d = 8192's
+    if (!attr_set) {
+      err = cudaFuncSetAttribute(rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kWarps * 8192 * 4);
+      if (err != cudaSuccess) return err;
+      attr_set = true;
+    }
+    rows_kernel<T><<<static_cast<unsigned>(grid), kWarps * 32, smem, st>>>(
+        dy, x, scale, dx, partial, rows, d, rows_per_block, eps, offset);
+    err = cudaGetLastError();
+  } else {
+    return cudaErrorInvalidValue;
   }
-  rows_kernel<T><<<static_cast<unsigned>(grid), kWarps * 32, smem, st>>>(
-      static_cast<const T*>(dy), static_cast<const T*>(x), static_cast<const T*>(scale),
-      static_cast<T*>(dx), static_cast<float*>(partial), rows, d, rows_per_block, eps, offset);
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  scale_kernel<T><<<(d + 31) / 32, 32 * kGroups, 0, st>>>(
-      static_cast<const float*>(partial), static_cast<T*>(dscale), static_cast<int>(grid), d);
-  return cudaGetLastError();
+  // the scalar route always sums its partial rows in a second launch; a
+  // warp route's grid of one has written dscale itself
+  if (route == kScalar || grid > 1) {
+    scale_kernel<T><<<(d + 31) / 32, 32 * kGroups, 0, st>>>(partial, dscale,
+                                                            static_cast<int>(grid), d);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (dy, x, scale, dx and dscale alike).
-// partial: f32 scratch of (grid, d).  rows_per_block and grid come from
-// ops.py:rmsnorm_backward_plan; a plan that does not fit the rows returns
-// cudaErrorInvalidValue and launches nothing.  d <= 8192 (pass 1 keeps 4
-// rows of d floats in shared memory).  Returns cudaGetLastError() after the
-// launches.
+// partial: f32 scratch of (grid, d).  route (0 scalar, 1 warp),
+// threads, lanes, vecs, rows_per_block and grid come from
+// ops.py:rmsnorm_backward_plan; a plan that does not fit the shape returns
+// cudaErrorInvalidValue and launches nothing.
+// The warp route needs 16-byte aligned dy, x, scale and dx; the scalar
+// route takes d <= 8192 (it keeps 4 rows of d floats in shared memory).
+// Returns cudaGetLastError() after the launches.
 extern "C" int repro_rmsnorm_backward(const void* dy, const void* x, const void* scale,
                                       void* dx, void* dscale, void* partial, long long rows,
-                                      int d, float eps, float offset, int dtype,
-                                      int rows_per_block, long long grid, void* stream) {
-  if (rows <= 0 || d <= 0 || d > 8192) return static_cast<int>(cudaErrorInvalidValue);
+                                      int d, float eps, float offset, int dtype, int route,
+                                      int threads, int lanes, int vecs, int rows_per_block,
+                                      long long grid, void* stream) {
+  if (rows <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 1) {
-    err = launch<__nv_bfloat16>(dy, x, scale, dx, dscale, partial, rows, d, eps, offset,
-                                rows_per_block, grid, s);
+    err = launch<__nv_bfloat16>(dy, x, scale, dx, dscale, partial, rows, d, eps, offset, route,
+                                threads, lanes, vecs, rows_per_block, grid, s);
   } else if (dtype == 0) {
-    err = launch<float>(dy, x, scale, dx, dscale, partial, rows, d, eps, offset,
-                        rows_per_block, grid, s);
+    err = launch<float>(dy, x, scale, dx, dscale, partial, rows, d, eps, offset, route, threads,
+                        lanes, vecs, rows_per_block, grid, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -110,22 +110,55 @@ def _rmsnorm_vmap(info, in_dims, x, scale, eps, offset):
 
 torch.library.register_vmap(rmsnorm_op, _rmsnorm_vmap)
 
-BWD_ROWS_MIN = 4              # rows per block of the backward's first pass: one a warp
-BWD_BLOCKS_MAX = 1056         # 8 blocks on each of the H100's 132 SMs
-BWD_D_MAX = 8192              # the first pass keeps 4 f32 partial rows of d in shared memory
+BWD_WARPS = 8                 # warps per block of the backward's warp route
+BWD_ROWS_IN_FLIGHT = 2        # rows a row group of the warp route loads at once
+BWD_SMS = 132                 # the H100's streaming multiprocessors
+BWD_BLOCK_BYTES = 32 * 1024   # x and dy bytes a block should have in flight
+BWD_SCALAR_BLOCKS_MAX = 1056  # the scalar route's grid: 8 blocks on each SM
+BWD_D_MAX = 8192
 
 
-def rmsnorm_backward_plan(rows: int, d: int) -> Dict[str, int]:
-    """The backward's launch for ``rows`` rows of ``d``: the first pass
-    gives each block of 4 warps ``rows_per_block`` consecutive rows (at
-    least one a warp, and never more than ``BWD_BLOCKS_MAX`` blocks), writes
-    dx and one f32 partial row of dscale per block (4 partial rows of d in
-    ``smem`` bytes of shared memory); the second pass sums the ``grid``
-    partial rows of each column in block order.  The plan depends on the
-    shape alone, so two launches sum in the same order."""
-    rpb = max(BWD_ROWS_MIN, -(-rows // BWD_BLOCKS_MAX))
-    rpb = -(-rpb // 4) * 4
-    return dict(rows_per_block=rpb, grid=-(-rows // rpb), smem=4 * d * 4)
+def rmsnorm_backward_plan(rows: int, d: int, dtype: torch.dtype, *,
+                          aligned: bool = True) -> Dict[str, object]:
+    """The backward's launch for ``rows`` rows of ``d``, from the shape, the
+    dtype and whether every pointer is 16-byte aligned (``aligned``).
+
+    Rows that split into 16-byte vectors are read once into registers.  The
+    ``warp`` route (d <= 1024) runs blocks of 8 warps in which ``lanes``
+    lanes share a row (32, or the largest power of two up to the row's
+    vectors: two bf16 rows a warp at d = 128) and each holds ``vecs``
+    vectors, packed, of two rows at once.  Blocks take ``rows_per_block``
+    consecutive rows, whole passes of the block's row groups, and there are
+    about as many blocks as keep 32 KB of x and dy in flight on each of the
+    132 SMs.  Anything else (longer rows, rows that do not split into
+    vectors, unaligned pointers) takes the ``scalar`` route (4 warps a
+    block, scalar loads, each row read twice).
+
+    Each block writes one f32 partial row of dscale (``smem`` bytes of
+    dynamic shared memory hold the warps' rows), and a second launch sums
+    the ``grid`` partial rows of each column in a fixed order (a grid of one
+    writes dscale itself).  The plan depends on nothing but its arguments,
+    so two launches sum in the same order."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"kernels take float32 or bfloat16, not {dtype}")
+    elem = 4 if dtype == torch.float32 else 2
+    per_vec = VEC_BYTES // elem
+    nvec = d // per_vec
+    vectorised = aligned and d > 0 and d % per_vec == 0
+    if vectorised and d <= WARP_ROW_MAX:
+        lanes = min(32, 1 << (nvec.bit_length() - 1))
+        vecs = -(-nvec // lanes)
+        step = BWD_WARPS * (32 // lanes) * BWD_ROWS_IN_FLIGHT   # rows of one pass of the block
+        per_block = BWD_WARPS * 32 * vecs * BWD_ROWS_IN_FLIGHT * 2 * VEC_BYTES
+        blocks_max = BWD_SMS * max(1, -(-BWD_BLOCK_BYTES // per_block))
+        rpb = step * -(-rows // (step * blocks_max))
+        plan = dict(route="warp", threads=BWD_WARPS * 32, lanes=lanes, vecs=vecs,
+                    rows_per_block=rpb, smem=4 * BWD_WARPS * d)
+    else:
+        rpb = 4 * -(-max(4, -(-rows // BWD_SCALAR_BLOCKS_MAX)) // 4)
+        plan = dict(route="scalar", threads=128, lanes=32, vecs=1, rows_per_block=rpb,
+                    smem=4 * 4 * d)
+    return dict(plan, grid=-(-rows // plan["rows_per_block"]))
 
 
 def rmsnorm_backward_cuda(
@@ -146,7 +179,8 @@ def rmsnorm_backward_cuda(
     rows = x.numel() // d if d else 0
     if rows == 0:
         return dx, torch.zeros_like(scale)
-    plan = rmsnorm_backward_plan(rows, d)
+    aligned = all(t.data_ptr() % VEC_BYTES == 0 for t in (dy, x, scale, dx))
+    plan = rmsnorm_backward_plan(rows, d, x.dtype, aligned=aligned)
     dscale = torch.empty_like(scale)
     partial = torch.empty((plan["grid"], d), dtype=torch.float32, device=x.device)
     fn = library.entry("rmsnorm_backward")
@@ -155,6 +189,7 @@ def rmsnorm_backward_cuda(
     library.check("rmsnorm_backward", fn(
         dy.data_ptr(), x.data_ptr(), scale.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
         partial.data_ptr(), rows, d, float(eps), float(offset), dtype,
+        ROUTE_CODES[plan["route"]], plan["threads"], plan["lanes"], plan["vecs"],
         plan["rows_per_block"], plan["grid"], stream,
     ))
     return dx, dscale

@@ -24,6 +24,9 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_backward_op,
 )
 from repro_torch.kernels.flash_attention.ops import flash_attention_op  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_backward_bf16_products,
+)
 from repro_torch.kernels.rmsnorm import (  # noqa: E402
     rmsnorm,
     rmsnorm_backward_cuda,
@@ -119,18 +122,66 @@ def test_served_trace_keeps_one_node_per_kernel(rng):
 @pytest.mark.parametrize("rows,d", [(2048, 1024), (32768, 128), (16384, 128), (65, 130),
                                     (64, 2560), (3, 8192)])
 def test_rmsnorm_backward_plan(rows, d):
-    plan = rmsnorm_backward_plan(rows, d)
-    assert plan["rows_per_block"] % 4 == 0 and plan["rows_per_block"] >= 4
-    assert plan["grid"] == -(-rows // plan["rows_per_block"]) <= 1056
-    assert (plan["grid"] - 1) * plan["rows_per_block"] < rows
-    assert plan["smem"] == 16 * d <= SMEM_MAX
+    """The route by dtype, shape and alignment (aligned rows of at most 1024
+    that split into 16-byte vectors take the warp route, the rest the scalar
+    one); the grid covers the rows with no empty block; the warp route's
+    lanes and vectors cover the row; shared memory fits."""
+    for dtype in (torch.float32, torch.bfloat16):
+        per_vec = 4 if dtype == torch.float32 else 8
+        for aligned in (True, False):
+            plan = rmsnorm_backward_plan(rows, d, dtype, aligned=aligned)
+            assert plan["grid"] == -(-rows // plan["rows_per_block"])
+            assert (plan["grid"] - 1) * plan["rows_per_block"] < rows
+            assert plan["smem"] <= SMEM_MAX
+            if not aligned or d % per_vec or d > 1024:
+                assert plan["route"] == "scalar"
+                assert plan["rows_per_block"] % 4 == 0 and plan["grid"] <= 1056
+                assert plan["smem"] == 16 * d
+                continue
+            nvec = d // per_vec
+            assert plan["route"] == "warp" and plan["threads"] == 256
+            lanes = plan["lanes"]
+            assert lanes & (lanes - 1) == 0 and lanes <= min(32, nvec) < 2 * lanes
+            assert (plan["vecs"] - 1) * lanes < nvec <= plan["vecs"] * lanes
+            step = 8 * (32 // lanes) * 2     # 8 warps, two rows in flight a row group
+            assert plan["rows_per_block"] % step == 0 and plan["smem"] == 32 * d
+    assert rmsnorm_backward_plan(32768, 128, torch.bfloat16)["lanes"] == 16   # two rows a warp
+    assert rmsnorm_backward_plan(2048, 1024, torch.bfloat16)["vecs"] == 4     # 32 values a lane
 
 
 @pytest.mark.parametrize("d", [32, 64, 96, 128])
 def test_flash_backward_plan_fits_shared_memory(d):
-    plan = backward_plan(4, 512, 512, 16, 8, d)
-    assert plan["grid_dq"] == (8, 16, 4) and plan["grid_dkv"] == (8, 8, 4)
-    assert plan["smem_dq"] < plan["smem_dkv"] <= SMEM_MAX - 512   # + the static row stats
+    """bf16 takes the tensor cores, packed GQA rows and the tile index as
+    the slowest grid dimension; f32 the CUDA cores; both fit a block's
+    shared memory beside their static arrays."""
+    mma = backward_plan(4, 512, 512, 16, 8, d, torch.bfloat16)
+    assert mma["route"] == "mma" and (mma["threads_dq"], mma["threads_dkv"]) == (128, 256)
+    assert mma["grid_dq"] == (8, 4, 16) and mma["grid_dkv"] == (8, 4, 8)
+    assert mma["smem_dq"] == 6 * 64 * (d + 8) * 2 < mma["smem_dkv"] <= SMEM_MAX
+    assert 2 * (mma["smem_dq"] + 256) <= SMEM_MAX      # two dq blocks share an SM
+    # the dk/dv pass's second group's f32 sums of dK and dV fit in its rings
+    assert 2 * 64 * d * 4 <= 8 * 64 * (d + 8) * 2
+    cores = backward_plan(4, 512, 512, 16, 8, d, torch.float32)
+    assert cores["route"] == "cuda_cores" and cores["threads_dkv"] == 256
+    assert cores["grid_dq"] == (8, 16, 4) and cores["grid_dkv"] == (8, 8, 4)
+    assert cores["smem_dq"] < cores["smem_dkv"] <= SMEM_MAX - 512   # + the static row stats
+    with pytest.raises(TypeError):
+        backward_plan(4, 512, 512, 16, 8, d, torch.float16)
+
+
+@pytest.mark.parametrize("case", range(len(FLASH_CASES)))
+def test_bf16_rounding_of_p_and_ds_fits(rng, case):
+    """The mma route's numerics on the CPU: P and dS rounded to bf16 before
+    their products (and delta from the bf16 output) stay within TOL[bf16]
+    of the plain backward, over every case the card holds the kernel to."""
+    (b, sq, sk, hq, hkv, d), kw = FLASH_CASES[case]
+    bf = torch.bfloat16
+    q, do = _t(rng, (b, sq, hq, d), bf), _t(rng, (b, sq, hq, d), bf)
+    k, v = _t(rng, (b, sk, hkv, d), bf), _t(rng, (b, sk, hkv, d), bf)
+    out = flash_attention(q, k, v, **kw)
+    rounded = attention_backward_bf16_products(do, q, k, v, out, **kw)
+    for g, r in zip(rounded, attention_chunked_backward(do, q, k, v, **kw)):
+        _close(g, r, bf)
 
 
 def test_backward_wrappers_refuse_what_the_kernels_do_not_take(rng):
