@@ -97,17 +97,24 @@ random weights from a seed:
   over n + 5 ops: RRTO301, with RRTO305 for its cache key); (c)
   ``python -m repro_torch.analysis --all-registry`` in process on the card,
   its JSON report in ``traces/phase14_analysis.json``.
-* training (phase 15, last; phase 2 also holds the two backward kernels
+* training (phase 15, last; phase 2 also holds the three backward kernels
   against their plain versions, two launches bitwise equal, and times them
-  beside the library's autograd backward): (a) one step of a reduced
-  qwen3-0.6b and a reduced minicpm3-4b in bf16, every gradient leaf on the
-  card against the CPU; (b) full-width qwen3-0.6b trained 4 steps at 4 x
-  512 tokens through ``repro_torch.launch.train.main``: straight, crashed
-  after step 2 with asynchronous checkpoints every 2 steps, and resumed,
-  the resumed final loss equal to the straight one; (c) 6 steps on one
-  fixed batch, the loss falling at each, timed with and without ``remat``
-  against the step's bound.  No plain version of the two kernels may run
-  on a CUDA tensor there.
+  beside the library's autograd backward where there is one): (a) one step
+  of a reduced qwen3-0.6b, minicpm3-4b, zamba2-1.2b and xlstm-1.3b in f32
+  and bf16, every gradient leaf on the card against the CPU, then reduced
+  zamba2 through the trainer straight, crashed and resumed (bitwise); (b)
+  full-width qwen3-0.6b trained 4 steps at 4 x 512 tokens through
+  ``repro_torch.launch.train.main``: straight, crashed after step 2 with
+  asynchronous checkpoints every 2 steps, and resumed, the resumed final
+  loss equal to the straight one; (c) 6 steps on one fixed batch, the loss
+  falling at each, timed with and without ``remat`` against the step's
+  bound; (d) the bf16 flash backward held call by call against the
+  emulation of its roundings; (e) full-width zamba2-1.2b at 4 x 512 tokens
+  through the trainer and on one batch, with and without ``remat``, one
+  step profiled; (f) full-width xlstm-1.3b on one batch of 1 x 512 tokens,
+  every wide scan backward call of one step held against the plain
+  backward.  No plain version of the training path's kernels may run on a
+  CUDA tensor there.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after (every batched call under ``no_vmap_fallback``, so an op
@@ -194,6 +201,7 @@ REPLACES = {
     # the gradients JAX's AD takes through the two kernels' bodies
     "rmsnorm_backward": "src/repro/kernels/rmsnorm/kernel.py:26",
     "flash_attention_backward": "src/repro/kernels/flash_attention/kernel.py:111",
+    "ssm_scan_backward": "src/repro/kernels/ssm_scan/kernel.py:92",
 }
 # the backward kernels' shapes on the training path (rows, d): qwen3-0.6b's
 # d_model at batch 4 x 512 tokens, its q- and k-norm rows, a ragged 5 x 13
@@ -230,7 +238,6 @@ TRAIN_KILL_AT = 2
 FIXED_STEPS = 6            # part c: steps on one batch, the loss falling at each
 NO_REMAT_STEPS = 3         # part c: steps without remat (the first not timed)
 FIXED_LR = 1e-3
-PERTURBATION = 1e-4   # relative noise on the plain flash backward's gradients (15d)
 TRAIN_KERNELS = ("rmsnorm", "flash_attention", "rmsnorm_backward", "flash_attention_backward")
 
 
@@ -280,16 +287,55 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
 MISMATCHES = []    # phase 2 holds every case, then fails if any disagreed
 
 
-def close(out, ref, tol) -> float:
+def close(out, ref, tol, floor=0.0) -> float:
     err = (out.float() - ref.float()).abs()
-    bad = err > tol + tol * ref.float().abs()
+    bad = err > tol + floor + tol * ref.float().abs()
     if bool(bad.any()):
         at = tuple(int(i) for i in torch.nonzero(bad)[0])
-        msg = (f"max |d| {err.max().item():.3g} over tolerance {tol}; {int(bad.sum())} of "
+        msg = (f"max |d| {err.max().item():.3g} over tolerance {tol}"
+               f"{f' + floor {floor:.3g}' if floor else ''}; {int(bad.sum())} of "
                f"{bad.numel()} values, first at {at} of {tuple(out.shape)}")
         print(f"MISMATCH: {msg}", flush=True)
         MISMATCHES.append(msg)
     return err.max().item()
+
+
+# the scan backward's gradients are held element by element against the
+# plain backward within TOL plus this many times the distance that f32
+# rounding alone moves the plain backward by (its f32 run against its f64
+# run on the same inputs): where terms of ~10^3 cancel to small values, no
+# relative tolerance holds either f32 result (PERF.md, PR 25)
+ROUNDING_FLOOR = 4.0
+SCAN_GRADS = ("dx", "dld", "dgi", "dB", "dC", "dD", "dh0")
+
+
+def hold_scan_backward(grads, refs, args, tol) -> tuple:
+    """The scan backward kernel's ``grads`` against the plain backward's
+    ``refs`` on the same ``args``: each gradient within ``tol`` + tol |ref|
+    + ``ROUNDING_FLOOR`` x its rounding (``close``), where its rounding is
+    max |d| between the plain version in f32 and in f64
+    (``gated_scan_backward_witness``).  Returns (max |d| against the plain
+    backward, readings): per gradient its rounding and the kernel's max |d|
+    to the f64 gradient, and the elements over ``tol`` + tol |ref| alone
+    with, at those, the largest distance to the f64 gradient of the kernel
+    and of the plain version in f32."""
+    from repro_torch.kernels.ssm_scan import gated_scan_backward_witness
+
+    lo, hi = gated_scan_backward_witness(*args)
+    err, readings = 0.0, []
+    for name, got, ref, f32, f64 in zip(SCAN_GRADS, grads, refs, lo, hi):
+        if ref is None:
+            continue
+        rounding = float((f32.double() - f64).abs().max())
+        err = max(err, close(got, ref, tol, floor=ROUNDING_FLOOR * rounding))
+        over = (got.float() - ref.float()).abs() > tol + tol * ref.float().abs()
+        n = int(over.sum())
+        k64 = float((got.double() - f64).abs()[over].max()) if n else 0.0
+        p64 = float((f32.double() - f64).abs()[over].max()) if n else 0.0
+        kernel = float((got.double() - f64).abs().max())
+        readings.append(f"{name} {rounding:.3g} / {kernel:.3g}" + (
+            f" ({n} over: kernel {k64:.3g}, plain {p64:.3g} from f64)" if n else ""))
+    return err, readings
 
 
 def phase_kernels(dev):
@@ -508,6 +554,8 @@ def phase_kernels(dev):
     bwd_rows, bwd_extra = phase_backward_kernels(randn)
     rows.update(bwd_rows)
     extra += bwd_extra
+    rows["ssm_scan_backward"], scan_bwd_extra = phase_scan_backward(randn)
+    extra += scan_bwd_extra
     for r in [dict(name=n, **r) for n, r in rows.items()] + extra:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
         print(f"time {r['name']} [{r['shape']}]: kernel {r['ms'] * 1e3:.2f} us, plain "
@@ -679,6 +727,99 @@ def phase_backward_kernels(randn) -> tuple:
             extra.append(dict(name="flash_attention_backward", **row))
         del q, do, k, v, out, qt, kt, vt, dot
     return rows, extra
+
+
+def scan_backward_cost(b, s, h, p, g, n, chunk, dtype, *, with_d=False, with_h0=False,
+                       with_dh=False) -> tuple:
+    """(bytes, flops) of one scan backward: x, dy, B, C, ld, gi (and D, h0,
+    dh_final) read once and the gradients written once (the f32 states and
+    state gradients that the kernel keeps in its workspace are the design's
+    cost, not the function's: ``phase_scan_backward`` prints them apart);
+    per chunk of Q steps the products C B^T, dy x^T (causal halves), S^T dy,
+    G^T C and G B, and the five Q N P products (the two state passes, B dH,
+    x dH^T, dy H^T), 2 flops each."""
+    el = torch.tensor([], dtype=dtype).element_size()
+    xs, bc, steps, state = b * s * h * p * el, b * s * g * n * el, b * s * h * 4, b * h * n * p * 4
+    read = 2 * xs + 2 * bc + 2 * steps
+    written = xs + 2 * bc + 2 * steps
+    nbytes = (read + written + (2 * h * 4 if with_d else 0) + (2 * state if with_h0 else 0)
+              + (state if with_dh else 0))
+    flops = 0.0
+    for t0 in range(0, s, chunk):
+        q = min(chunk, s - t0)
+        flops += 2 * (q * (q + 1) / 2 * (3 * n + 2 * p) + 5 * q * n * p)
+    return nbytes, b * h * flops
+
+
+# the scan backward's rows (b, s, h, p, g, n, chunk, dtype, with D, h0,
+# dh_final, mLSTM form): zamba2-1.2b's training shape in bf16 and f32, the
+# mLSTM's 1024 x 1025 state at xlstm-1.3b's 1 x 512 tokens (the wide route),
+# then a ragged S, P and N with an initial state and a final-state
+# cotangent on both routes
+SCAN_BWD_CASES = [
+    ((4, 512, 64, 64, 1, 64, 128), torch.bfloat16, True, False, False, False),
+    ((4, 512, 64, 64, 1, 64, 128), torch.float32, True, False, False, False),
+    ((1, 512, 4, 1025, 4, 1024, 128), torch.bfloat16, False, False, False, True),
+    ((2, 77, 8, 33, 2, 20, 32), torch.float32, True, True, True, False),
+    ((2, 77, 8, 33, 2, 20, 32), torch.bfloat16, True, True, True, False),
+    ((1, 150, 4, 161, 4, 160, 64), torch.float32, False, True, True, True),
+    ((1, 150, 4, 161, 4, 160, 64), torch.bfloat16, False, True, True, True),
+]
+
+
+def phase_scan_backward(randn) -> tuple:
+    """The gated scan's backward kernel against its plain version on the
+    card (``SCAN_BWD_CASES``, each printed with its route; each gradient
+    held element by element, ``hold_scan_backward``; two launches bitwise
+    equal), each case timed as a CUDA graph beside the plain version and its
+    bound; no single library call computes it."""
+    from repro_torch.kernels.ssm_scan import (
+        gated_scan_backward_op,
+        gated_scan_backward_padded,
+        scan_backward_plan,
+    )
+
+    rows = []
+    for shape, dtype, with_d, with_h0, with_dh, mlstm in SCAN_BWD_CASES:
+        b, s, h, p, g, n, chunk = shape
+        x, ld, gi, bm, cm, d = scan_inputs(randn, b, s, h, p, g, n, dtype, mlstm=mlstm,
+                                           key_scale=n ** -0.5 if mlstm else 1.0)
+        dy = randn(b, s, h, p, dtype=dtype)
+        h0 = randn(b, h, n, p, dtype=torch.float32) if with_h0 else None
+        dh = randn(b, h, n, p, dtype=torch.float32) if with_dh else None
+        args = (dy, dh, x, ld, gi, bm, cm, d, h0, chunk)
+        grads = gated_scan_backward_op(*args)
+        torch.cuda.synchronize()
+        refs = gated_scan_backward_padded(*args)
+        err, readings = hold_scan_backward(grads, refs, args, TOL[dtype])
+        same = all(torch.equal(a, c) for a, c in zip(grads, gated_scan_backward_op(*args)))
+        if not same:
+            MISMATCHES.append(f"ssm_scan_backward {shape} {dtype}: two launches differ")
+        plan = scan_backward_plan(b, s, h, p, g, n, min(chunk, s), dtype)
+        b_ms, b_by = bound_ms(*scan_backward_cost(*shape, dtype, with_d=with_d, with_h0=with_h0,
+                                                  with_dh=with_dh), dtype)
+        ws_ms = 2 * plan["workspace"] * 4 / HBM_BYTES_PER_S * 1e3
+        ms = graph_ms(lambda: gated_scan_backward_op(*args), reps=5)
+        plain = graph_ms(lambda: gated_scan_backward_padded(*args), reps=3)
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        extras = ", ".join(k for k, v in (("D", with_d), ("h0", with_h0), ("dh_final", with_dh))
+                           if v)
+        label = (f"x/dy ({b},{s},{h},{p}), B/C ({b},{s},{g},{n}) {name}, chunk {chunk}"
+                 f"{', ' + extras if extras else ''} ({plan['route']})")
+        print(f"ssm_scan_backward {label}: grads max|d| {err:.3g} (tol {TOL[dtype]} + "
+              f"{ROUNDING_FLOOR:g} x f32 rounding; max|d| to f64, plain f32 / kernel: "
+              f"{'; '.join(readings)}); two launches bitwise "
+              f"{same}; kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, bound "
+              f"{b_ms * 1e3:.2f} us ({b_by}); grids {plan['grids']}, workspace "
+              f"{plan['workspace'] * 4 / 1e6:.1f} MB (written and read once: {ws_ms * 1e3:.2f} "
+              f"us at {HBM_BYTES_PER_S / 1e12:g} TB/s)")
+        rows.append(dict(name="ssm_scan_backward", shape=label, max_abs_err=err, ms=ms,
+                         plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by))
+        del x, dy, bm, cm, grads, refs, args
+        torch.cuda.empty_cache()
+    row = rows[0]
+    del row["name"]
+    return row, rows[1:]
 
 
 def split_sweep(dec_case) -> None:
@@ -3615,7 +3756,9 @@ class PlainOnCard:
     NAMES = (("repro_torch.kernels.rmsnorm.ops", "rmsnorm_ref"),
              ("repro_torch.kernels.rmsnorm.ops", "rmsnorm_backward_ref"),
              ("repro_torch.kernels.flash_attention.ops", "attention_chunked"),
-             ("repro_torch.kernels.flash_attention.ops", "attention_chunked_backward"))
+             ("repro_torch.kernels.flash_attention.ops", "attention_chunked_backward"),
+             ("repro_torch.kernels.ssm_scan.ops", "gated_scan_padded"),
+             ("repro_torch.kernels.ssm_scan.ops", "gated_scan_backward_padded"))
 
     def __enter__(self):
         import importlib
@@ -3677,22 +3820,25 @@ def train_grads(cfg, params, nb, dev) -> tuple:
 
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
     loss = make_loss_fn(cfg)(live, batch_to_device(nb, dev))
-    paths = [path for path, _ in leaf_paths(live)]
-    grads = torch.autograd.grad(loss, [p for _, p in leaf_paths(live)])
+    paths = [path for path, p in leaf_paths(live) if p.numel()]
+    grads = torch.autograd.grad(loss, [p for _, p in leaf_paths(live) if p.numel()])
     return loss.detach().cpu(), {k: g.cpu() for k, g in zip(paths, grads)}
 
 
 def phase_train_small(dev) -> None:
-    """Phase 15a: one training step of a reduced qwen3-0.6b and a reduced
-    minicpm3-4b (head dims the backward kernels take: 32, and MLA's 96),
-    the card (kernels, forward and backward) against the CPU (plain
-    versions) on the same weights and batch.  In f32 the loss and every
+    """Phase 15a: one training step of a reduced qwen3-0.6b, minicpm3-4b
+    (head dims the backward kernels take: 32, and MLA's 96), zamba2-1.2b and
+    xlstm-1.3b (reduced so that every block runs: the shared attention block
+    at d_head 32 and the Mamba2 scan at P 32; the mLSTM and the sLSTM), the
+    card (kernels, forward and backward) against the CPU (plain versions) on
+    the same weights and batch.  In f32 the loss and every
     gradient leaf agree within 2e-4 of the leaf's largest magnitude (only
     the sum orders differ).  In bf16 the loss and one ``make_train_step``'s
     loss and grad norm agree within 2e-2; its gradient leaves are printed,
-    not held: bf16's own rounding moves these leaves 0.5-1.9% (relative L2)
-    from f32 on the CPU, so a 2e-2 bound on them would measure rounding
-    luck."""
+    not held against the CPU: bf16's own rounding moves these leaves 0.5-1.9%
+    (relative L2) from f32 on the CPU, so a 2e-2 bound on them would measure
+    rounding luck (the scan families' bf16 leaves are held against the plain
+    scan backward on the card, ``phase_scan_backward_in_model``)."""
     from repro_torch.configs import get_reduced_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.models.registry import get_model
@@ -3700,11 +3846,16 @@ def phase_train_small(dev) -> None:
     from repro_torch.training.optimizer import init_opt_state, tree_map
     from repro_torch.training.step import make_train_step
 
-    # 300 tokens: two loss chunks, the second padded; ragged 64-row tiles
-    shape = ShapeConfig("phase15a", 300, 2, "train")
-    for name, heads in (("qwen3-0.6b", dict(d_head=32)),
-                        ("minicpm3-4b", dict(nope_head_dim=64, rope_head_dim=32, v_head_dim=64,
-                                             d_head=96))):
+    # 300 tokens: two loss chunks, the second padded; ragged 64-row tiles.
+    # The scan families take 150 (the sLSTM loops over time on the CPU too):
+    # nine chunks of 16 and a ragged tenth
+    for name, heads, seq in (("qwen3-0.6b", dict(d_head=32), 300),
+                             ("minicpm3-4b", dict(nope_head_dim=64, rope_head_dim=32,
+                                                  v_head_dim=64, d_head=96), 300),
+                             ("zamba2-1.2b", dict(n_layers=5, attn_every=2, d_head=32,
+                                                  ssm_head_dim=32), 150),
+                             ("xlstm-1.3b", dict(n_layers=5, slstm_every=2), 150)):
+        shape = ShapeConfig("phase15a", seq, 2, "train")
         for dtype in (torch.float32, torch.bfloat16):
             cfg = get_reduced_config(name, dtype=str(dtype).split(".")[1], **heads)
             tol = TOL[dtype]
@@ -3735,11 +3886,118 @@ def phase_train_small(dev) -> None:
                 check(abs(m["card"][i] - m["cpu"][i]) <= tol * abs(m["cpu"][i]),
                       f"15a {cfg.name} {dtype}: train step {what} {m['card'][i]} vs "
                       f"{m['cpu'][i]}")
-            print(f"[15a] reduced {cfg.name} {dtype}, batch 2 x 300: loss card "
+            print(f"[15a] reduced {cfg.name} {dtype}, batch 2 x {seq}: loss card "
                   f"{float(l_dev):.6f} / cpu {float(l_cpu):.6f}; {len(g_cpu)} grad leaves, worst "
                   f"max|d| / max|ref| {worst:.3g}, worst relative L2 {worst_l2:.3g} "
                   f"({'held at ' + str(tol) if dtype == torch.float32 else 'printed'}); train "
                   f"step loss / grad norm card {m['card']} cpu {m['cpu']} (tol {tol})")
+
+
+class ScanBackwardPlain:
+    """While entered, the scan backward op computes the gradients of CUDA
+    tensors with the plain backward in place of its kernel: a comparison
+    run, outside every counted path."""
+
+    def __enter__(self):
+        from repro_torch.kernels.ssm_scan import ops
+
+        self._saved = ops.gated_scan_backward_cuda
+        ops.gated_scan_backward_cuda = ops.gated_scan_backward_padded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.ssm_scan import ops
+
+        ops.gated_scan_backward_cuda = self._saved
+        return False
+
+
+def rel_l2(got, ref) -> float:
+    ref = ref.float()
+    norm = float(ref.norm())
+    return float((got.float() - ref).norm()) / norm if norm else float((got.float()).norm())
+
+
+def phase_scan_backward_in_model(dev) -> None:
+    """Phase 15a, the scan families in bf16 (outside every counted path):
+    one batch of reduced zamba2-1.2b and xlstm-1.3b as in 15a, and the
+    xLSTM without its sLSTM blocks, on the card with the scan backward
+    kernel and again with the plain backward in its place (the same
+    forward, bit for bit), and on the CPU.  Every gradient leaf of the
+    kernel's run is held within ``TOL`` (relative L2) of the plain
+    backward's run; each run's worst leaf against the CPU is printed, which
+    tells the scan backward's share of the card's distance to the CPU from
+    the rest of the model's bf16 rounding."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.registry import get_model
+    from repro_torch.training.data import DataConfig, synth_batch
+    from repro_torch.training.optimizer import tree_map
+
+    tol = TOL[torch.bfloat16]
+    for name, kw in (("zamba2-1.2b", dict(n_layers=5, attn_every=2, d_head=32, ssm_head_dim=32)),
+                     ("xlstm-1.3b", dict(n_layers=5, slstm_every=2)),
+                     ("xlstm-1.3b", dict(n_layers=5, slstm_every=8))):
+        cfg = get_reduced_config(name, dtype="bfloat16", **kw)
+        p_cpu = get_model(cfg).init_params(cfg, 1, "cpu")
+        p_dev = tree_map(lambda t: t.to(dev), p_cpu)
+        nb = synth_batch(cfg, ShapeConfig("phase15a", 150, 2, "train"), 0, DataConfig())
+        _, g_cpu = train_grads(cfg, p_cpu, nb, "cpu")
+        _, g_kernel = train_grads(cfg, p_dev, nb, dev)
+        with ScanBackwardPlain():
+            _, g_plain = train_grads(cfg, p_dev, nb, dev)
+
+        def worst(got):
+            return max((rel_l2(got[k], ref), "/".join(k)) for k, ref in g_cpu.items())
+
+        err, leaf = max((rel_l2(g_kernel[k], ref), "/".join(k)) for k, ref in g_plain.items())
+        check(err <= tol, f"15a {cfg.name} bf16: grad {leaf} of the scan backward kernel's run "
+                          f"{err:.3g} (relative L2) from the plain backward's run, over {tol}")
+        (k_err, k_leaf), (p_err, p_leaf) = worst(g_kernel), worst(g_plain)
+        blocks = "no sLSTM" if kw.get("slstm_every", 0) > kw["n_layers"] else "every block"
+        print(f"[15a] reduced {cfg.name} bf16 ({blocks}): kernel run vs plain-backward run worst leaf {leaf} {err:.3g} (held at {tol}); "
+              f"worst leaf vs the CPU: kernel run {k_leaf} {k_err:.3g}, plain-backward run "
+              f"{p_leaf} {p_err:.3g} (relative L2)")
+
+
+# phase 15a: reduced zamba2-1.2b (the default reduction: two Mamba2 layers,
+# no shared block) through the trainer, straight and crashed at 2 and resumed
+SMALL_TRAIN_ARGS = ["--arch", "zamba2-1.2b", "--reduced", "--batch", "2", "--seq", "256",
+                    "--steps", "4", "--log-every", "1", "--device", "cuda"]
+SCAN_TRAIN_KERNELS = ("rmsnorm", "ssm_scan", "rmsnorm_backward", "ssm_scan_backward")
+
+
+def phase_train_small_resume(library, by_path) -> None:
+    """Phase 15a, last part: reduced zamba2-1.2b trained 4 steps through
+    ``repro_torch.launch.train.main`` straight, then crashed after step 2
+    (checkpoints every 2 steps) and resumed: every loss finite, the resumed
+    final loss bitwise the straight one (the step runs under PyTorch's
+    deterministic algorithms: the Mamba2 conv's backward included)."""
+    import tempfile
+
+    from repro_torch.launch import train
+
+    label = "phase 15a reduced zamba2-1.2b"
+    straight, by_path[f"{label} straight"] = run_path(
+        library, f"{label} straight", SCAN_TRAIN_KERNELS, lambda: train.main(SMALL_TRAIN_ARGS))
+    with tempfile.TemporaryDirectory() as ckpt:
+        extra = ["--ckpt-every", "2", "--ckpt-dir", ckpt]
+        crashed, by_path[f"{label} crash"] = run_path(
+            library, f"{label} crash", SCAN_TRAIN_KERNELS,
+            lambda: train.main(SMALL_TRAIN_ARGS + extra + ["--kill-at", "2"]))
+        resumed, by_path[f"{label} resume"] = run_path(
+            library, f"{label} resume", SCAN_TRAIN_KERNELS,
+            lambda: train.main(SMALL_TRAIN_ARGS + extra))
+    losses = [v for _, v in straight["losses"] + crashed["losses"] + resumed["losses"]]
+    check(crashed.get("crashed_at") == 2 and [s for s, _ in resumed["losses"]] == [2, 3],
+          f"15a resume: crashed {crashed}, resumed {resumed}")
+    check(all(np.isfinite(v) for v in losses), f"15a resume: a loss is not finite: {losses}")
+    print(f"[15a] reduced zamba2-1.2b losses straight {straight['losses']}, crashed "
+          f"{crashed['losses']}, resumed {resumed['losses']}; resumed final == straight final: "
+          f"{resumed['final_loss'] == straight['final_loss']}")
+    check(resumed["final_loss"] == straight["final_loss"],
+          f"15a: the resumed final loss {resumed['final_loss']!r} is not the straight run's "
+          f"{straight['final_loss']!r}")
 
 
 TRAIN_GROUPS = (("rmsnorm forward", ("rmsnorm_warp", "rmsnorm_block", "rmsnorm_scalar")),
@@ -3747,10 +4005,16 @@ TRAIN_GROUPS = (("rmsnorm forward", ("rmsnorm_warp", "rmsnorm_block", "rmsnorm_s
                 ("flash forward", ("wgmma_kernel", "core_kernel")),
                 ("flash backward", ("dq_mma_kernel", "dkv_mma_kernel", "dq_kernel",
                                     "dkv_kernel")),
+                ("scan forward", ("ssd_kernel", "ssd_mma_kernel", "ssd_mma_wide_kernel",
+                                  "ssd_wide_kernel")),
+                ("scan backward", ("::cumsum_kernel", "state_pass_kernel", "scores_part_kernel",
+                                   "scores_kernel", "dx_kernel",
+                                   "dbc_kernel", "finish_kernel", "reduce_bc_kernel",
+                                   "reduce_d_kernel")),
                 ("GEMMs", ("gemm", "Gemm", "xmma", "cutlass", "nvjet", "sm90_")))
 
 
-def profile_train_step(step) -> dict:
+def profile_train_step(step, label: str = "15c") -> dict:
     """Device time of one eager training step by kernel, from
     ``torch.profiler`` (one warm-up step first, outside it): the top 12
     kernels, the shares of the hand kernels and the GEMMs, and the share of
@@ -3774,9 +4038,9 @@ def profile_train_step(step) -> dict:
             by_name[e.name][1] += e.time_range.elapsed_us()
     total = sum(t for _, t in by_name.values())
     if not total:
-        print("[15c] train step profile: no device time in the trace (not measured)")
+        print(f"[{label}] train step profile: no device time in the trace (not measured)")
         return {}
-    print(f"[15c] train step profile: device busy {total / 1e3:.1f} ms of a {wall / 1e3:.1f} ms "
+    print(f"[{label}] train step profile: device busy {total / 1e3:.1f} ms of a {wall / 1e3:.1f} ms "
           f"profiled step ({100 * total / wall:.1f}%; idle {100 - 100 * total / wall:.1f}%), "
           f"{sum(c for c, _ in by_name.values())} kernel records")
     for name, (count, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
@@ -3791,26 +4055,28 @@ def profile_train_step(step) -> dict:
     return dict(busy_ms=total / 1e3, wall_ms=wall / 1e3, shares_ms=shares)
 
 
-def train_flops(cfg, params, tokens: int, batch: int, seq: int) -> float:
+def train_flops(cfg, params, tokens: int, batch: int, seq: int, attn_layers=None) -> float:
     """A training step's work: 6 x parameters x tokens, plus attention's
-    causal products, the forward's 4 B Hq S(S+1)/2 d a layer and 2.5 times
-    that for the backward."""
+    causal products, the forward's 4 B Hq S(S+1)/2 d a layer (every layer,
+    or ``attn_layers`` attention sites) and 2.5 times that for the
+    backward."""
     from repro_torch.training.optimizer import leaf_paths
 
     n_params = sum(p.numel() for _, p in leaf_paths(params))
-    attn = 4 * batch * cfg.n_heads * seq * (seq + 1) / 2 * cfg.d_head * cfg.n_layers
+    sites = cfg.n_layers if attn_layers is None else attn_layers
+    attn = 4 * batch * cfg.n_heads * seq * (seq + 1) / 2 * cfg.d_head * sites
     return 6 * n_params * tokens + 3.5 * attn
 
 
-def fixed_batch(cfg, opt_cfg, nb, dev) -> tuple:
-    """``FIXED_STEPS`` steps with `remat` on the batch ``nb`` from the
-    seed-0 train state: (params, opt state, losses, seconds per step)."""
+def fixed_batch(cfg, opt_cfg, nb, dev, steps: int = FIXED_STEPS) -> tuple:
+    """``steps`` steps with `remat` on the batch ``nb`` from the seed-0
+    train state: (params, opt state, losses, seconds per step)."""
     from repro_torch.training.step import init_train_state, make_train_step
 
     params, opt = init_train_state(cfg, seed=0, device=dev)
     step = make_train_step(cfg, opt_cfg, remat=True)
     losses, secs = [], []
-    for _ in range(FIXED_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         params, opt, m = step(params, opt, nb)
         losses.append(float(m["loss"]))
@@ -3845,14 +4111,6 @@ class FlashBackwardAs:
 
         ops.flash_attention_backward_cuda = self._saved
         return False
-
-
-def unrounded_backward(dout, q, k, v, out, **kw):
-    """The plain flash backward (f32 products) in the signature of
-    ``attention_backward_bf16_products``."""
-    from repro_torch.kernels.flash_attention.ref import attention_chunked_backward
-
-    return attention_chunked_backward(dout, q, k, v, **kw)
 
 
 def witness_rounding_calls(dev, kernel_losses) -> None:
@@ -3905,51 +4163,6 @@ def witness_rounding_calls(dev, kernel_losses) -> None:
     worst = max(c[0] for c in calls)
     check(worst <= BWD_EMULATION_TOL, f"15d: a flash backward call lies {worst:.3g} from the "
                                       f"emulation of its roundings")
-
-
-def perturbed_backward(seed: int):
-    """The unrounded plain flash backward with each gradient element scaled
-    by 1 + ``PERTURBATION`` x N(0, 1) (noise from ``seed``) before its
-    rounding to the gradient's dtype."""
-    from repro_torch.kernels.flash_attention.ref import attention_chunked_backward
-
-    gen = {}
-
-    def fn(dout, q, k, v, out, **kw):
-        if q.device not in gen:
-            gen[q.device] = torch.Generator(device=q.device).manual_seed(seed)
-        grads = attention_chunked_backward(dout.float(), q.float(), k.float(), v.float(), **kw)
-        return tuple((g * (1.0 + PERTURBATION * torch.randn(
-            g.shape, generator=gen[q.device], device=g.device))).to(t.dtype)
-            for g, t in zip(grads, (q, k, v)))
-    return fn
-
-
-def witness_rounding_losses(dev, kernel_losses) -> None:
-    """Phase 15d, part 2: phase 15c's fixed batch with plain versions in
-    place of the flash backward kernel (the rounded emulation, the
-    unrounded backward, and the unrounded backward with two seeds of tiny
-    noise: how far a perturbation smaller than the kernel's own difference
-    moves the losses), printed beside the kernel's (``kernel_losses``)."""
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.kernels.flash_attention.ref import attention_backward_bf16_products
-    from repro_torch.training.data import DataConfig, synth_batch
-    from repro_torch.training.optimizer import AdamWConfig
-
-    cfg = get_config("qwen3-0.6b")
-    batch, seq = (int(TRAIN_ARGS[TRAIN_ARGS.index(f) + 1]) for f in ("--batch", "--seq"))
-    nb = synth_batch(cfg, ShapeConfig("fixed", seq, batch, "train"), 0, DataConfig())
-    opt_cfg = AdamWConfig(lr=FIXED_LR, warmup_steps=1)
-    runs = {"kernel": kernel_losses}
-    for label, fn in (("rounded emulation", attention_backward_bf16_products),
-                      ("unrounded plain", unrounded_backward),
-                      (f"plain, noise {PERTURBATION} seed 1", perturbed_backward(1)),
-                      (f"plain, noise {PERTURBATION} seed 2", perturbed_backward(2))):
-        with FlashBackwardAs(fn):
-            runs[label] = fixed_batch(cfg, opt_cfg, nb, dev)[2]
-        torch.cuda.empty_cache()
-    print(f"[15d] fixed batch losses by flash backward: {runs}")
 
 
 def phase_train_full(library, dev, by_path) -> dict:
@@ -4065,6 +4278,183 @@ def phase_train_full(library, dev, by_path) -> dict:
         del params, opt
     torch.cuda.empty_cache()
     return out
+
+
+# phase 15e: full-width zamba2-1.2b through the trainer and on one batch
+Z_TRAIN_ARGS = ["--arch", "zamba2-1.2b", "--batch", "4", "--seq", "512", "--steps", "4",
+                "--log-every", "1", "--device", "cuda"]
+Z_FIXED_STEPS = 4          # steps with remat on one batch (the first not timed)
+Z_NO_REMAT_STEPS = 3       # steps without remat (the first not timed)
+Z_TRAIN_KERNELS = ("rmsnorm", "flash_attention", "ssm_scan", "rmsnorm_backward",
+                   "flash_attention_backward", "ssm_scan_backward")
+# phase 15f: full-width xlstm-1.3b on one batch of 1 x 512 tokens
+X_TRAIN_BATCH, X_TRAIN_SEQ, X_FIXED_STEPS = 1, 512, 2
+
+
+def phase_train_zamba(library, dev, by_path) -> dict:
+    """Phase 15e: full-width zamba2-1.2b (38 Mamba2 layers, the shared block
+    at 6 sites, bf16) trained 4 steps at 4 x 512 tokens through
+    ``repro_torch.launch.train.main``, then ``Z_FIXED_STEPS`` steps with
+    `remat` and ``Z_NO_REMAT_STEPS`` without on one batch: every loss finite
+    and the fixed batch's falling; ms a step, tokens/s, the share of the
+    bound, the peak, one profiled step, and each kernel's launches a step
+    (the scan forward's and backward's among them), each part a path with
+    the counters set to 0 just before it and the plain versions barred from
+    CUDA tensors."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import train
+    from repro_torch.training.data import DataConfig, synth_batch
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.step import make_train_step
+
+    cfg = get_config("zamba2-1.2b")
+    batch, seq = (int(Z_TRAIN_ARGS[Z_TRAIN_ARGS.index(f) + 1]) for f in ("--batch", "--seq"))
+    out = {}
+    with PlainOnCard():
+        straight, by_path["phase 15e zamba2-1.2b train.main"] = run_path(
+            library, "phase 15e zamba2-1.2b train.main", Z_TRAIN_KERNELS,
+            lambda: train.main(Z_TRAIN_ARGS))
+        losses = [v for _, v in straight["losses"]]
+        check(len(losses) == 4 and all(np.isfinite(v) for v in losses),
+              f"15e: train.main losses {straight['losses']}")
+        print(f"[15e] train.main zamba2-1.2b {batch} x {seq}: losses {straight['losses']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        nb = synth_batch(cfg, ShapeConfig("fixed", seq, batch, "train"), 0, DataConfig())
+        opt_cfg = AdamWConfig(lr=FIXED_LR, warmup_steps=1)
+        torch.cuda.reset_peak_memory_stats()
+        (params, opt, losses, secs), launches = run_path(
+            library, "phase 15e zamba2-1.2b fixed batch", Z_TRAIN_KERNELS,
+            lambda: fixed_batch(cfg, opt_cfg, nb, dev, steps=Z_FIXED_STEPS))
+        by_path["phase 15e zamba2-1.2b fixed batch"] = launches
+        peak = torch.cuda.max_memory_allocated()
+        check(all(np.isfinite(v) for v in losses) and all(b < a for a, b in zip(losses, losses[1:])),
+              f"15e: the fixed batch's loss did not fall at every step: {losses}")
+        per_step = {k: n / Z_FIXED_STEPS for k, n in launches.items() if n}
+        remat_step = make_train_step(cfg, opt_cfg, remat=True)
+        out["profile"] = profile_train_step(lambda: remat_step(params, opt, nb), "15e")
+
+        def no_remat():
+            step = make_train_step(cfg, opt_cfg, remat=False)
+            times = []
+            for _ in range(Z_NO_REMAT_STEPS):
+                t0 = time.perf_counter()
+                _, _, m = step(params, opt, nb)
+                float(m["loss"])
+                times.append(time.perf_counter() - t0)
+            return times
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        nr_secs, nr_launches = run_path(library, "phase 15e zamba2-1.2b fixed batch, no remat",
+                                        Z_TRAIN_KERNELS, no_remat)
+        by_path["phase 15e zamba2-1.2b fixed batch, no remat"] = nr_launches
+        nr_peak = torch.cuda.max_memory_allocated()
+    step_s, nr_step_s = float(np.median(secs[1:])), float(np.median(nr_secs[1:]))
+    tokens = batch * seq
+    flops = train_flops(cfg, params, tokens, batch, seq,
+                        attn_layers=cfg.n_layers // cfg.attn_every)
+    bound_s = flops / PEAK_FLOPS[torch.bfloat16]
+    print(f"[15e] fixed batch {batch} x {seq}, lr {FIXED_LR}: losses {losses}; s per step "
+          f"{[round(t, 4) for t in secs]} (the first builds)")
+    print(f"[15e] step with remat {step_s * 1e3:.1f} ms ({tokens / step_s:.0f} tokens/s, peak "
+          f"{peak / 1e9:.2f} GB), without {nr_step_s * 1e3:.1f} ms ({tokens / nr_step_s:.0f} "
+          f"tokens/s, peak {nr_peak / 1e9:.2f} GB); bound {flops / 1e12:.3f} TFLOP at 989 "
+          f"TFLOP/s = {bound_s * 1e3:.2f} ms: {100 * bound_s / step_s:.2f}% of it with remat, "
+          f"{100 * bound_s / nr_step_s:.2f}% without")
+    print(f"[15e] launches per step with remat {per_step}; without "
+          f"{ {k: n / Z_NO_REMAT_STEPS for k, n in nr_launches.items() if n} }")
+    out.update(losses=losses, step_ms=step_s * 1e3, no_remat_ms=nr_step_s * 1e3,
+               tokens_per_s=tokens / step_s, bound_ms=bound_s * 1e3, per_step=per_step,
+               peak_gb=peak / 1e9, no_remat_peak_gb=nr_peak / 1e9)
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class ScanBackwardWatch:
+    """While entered, every launch of the scan backward kernel is followed
+    by the plain backward on the same inputs, each gradient held element by
+    element (``hold_scan_backward``); a comparison run, outside every
+    counted path."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.kernels.ssm_scan import ops
+
+        kernel, plain, calls = ops.gated_scan_backward_cuda, ops.gated_scan_backward_padded, \
+            self.calls
+
+        def watched(*args):
+            grads = kernel(*args)
+            torch.cuda.synchronize()
+            before = len(MISMATCHES)
+            err, _ = hold_scan_backward(grads, plain(*args), args, TOL[args[2].dtype])
+            route = "wide" if args[5].shape[-1] > 128 else "narrow"
+            calls.append((tuple(args[2].shape), route, err, len(MISMATCHES) == before))
+            return grads
+
+        self._saved = kernel
+        ops.gated_scan_backward_cuda = watched
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.ssm_scan import ops
+
+        ops.gated_scan_backward_cuda = self._saved
+        return False
+
+
+def phase_train_xlstm(library, dev, by_path) -> dict:
+    """Phase 15f: full-width xlstm-1.3b (42 mLSTM blocks with the 1024 x 1025
+    state, 6 sLSTM blocks, bf16) trained ``X_FIXED_STEPS`` steps with
+    `remat` on one batch of 1 x 512 tokens (every loss finite; a path, the
+    plain versions barred from CUDA tensors), then one more step with every
+    scan backward call (the wide route) held within ``TOL`` of the plain
+    backward on the model's own inputs (``ScanBackwardWatch``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.training.data import DataConfig, synth_batch
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.step import make_train_step
+
+    cfg = get_config("xlstm-1.3b")
+    nb = synth_batch(cfg, ShapeConfig("fixed", X_TRAIN_SEQ, X_TRAIN_BATCH, "train"), 0,
+                     DataConfig())
+    opt_cfg = AdamWConfig(lr=FIXED_LR, warmup_steps=1)
+    torch.cuda.reset_peak_memory_stats()
+    with PlainOnCard():
+        (params, opt, losses, secs), launches = run_path(
+            library, "phase 15f xlstm-1.3b fixed batch", SCAN_TRAIN_KERNELS,
+            lambda: fixed_batch(cfg, opt_cfg, nb, dev, steps=X_FIXED_STEPS))
+    by_path["phase 15f xlstm-1.3b fixed batch"] = launches
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(v) for v in losses), f"15f: a loss is not finite: {losses}")
+    with ScanBackwardWatch() as watch:
+        _, _, m = make_train_step(cfg, opt_cfg, remat=True)(params, opt, nb)
+    routes = Counter(route for _, route, _, _ in watch.calls)
+    worst = max((err for _, _, err, _ in watch.calls), default=float("nan"))
+    bad = [c for c in watch.calls if not c[3]]
+    shapes = sorted({c[0] for c in watch.calls})
+    print(f"[15f] xlstm-1.3b {X_TRAIN_BATCH} x {X_TRAIN_SEQ}: losses {losses} then "
+          f"{float(m['loss']):.6f}; s per step {[round(t, 3) for t in secs]}; peak "
+          f"{peak / 1e9:.2f} GB; launches per step "
+          f"{ {k: n / X_FIXED_STEPS for k, n in launches.items() if n} }")
+    print(f"[15f] checked step: {len(watch.calls)} scan backward calls {dict(routes)}, x "
+          f"{shapes}; worst max|d| {worst:.3g} against the plain backward (tol "
+          f"{TOL[torch.bfloat16]} + {ROUNDING_FLOOR:g} x f32 rounding); {len(bad)} outside it")
+    check(np.isfinite(float(m["loss"])) and routes.get("wide", 0) == cfg.n_layers
+          - cfg.n_layers // cfg.slstm_every and not bad,
+          f"15f: {len(bad)} scan backward calls outside TOL, routes {dict(routes)}")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, secs=secs, peak_gb=peak / 1e9, calls=len(watch.calls), worst=worst)
 
 
 def rss() -> str:
@@ -4335,14 +4725,22 @@ def main() -> None:
 
     t0 = time.perf_counter()
     with PlainOnCard():
-        _, by_path["phase 15a reduced qwen3 and minicpm3 train step"] = run_path(
-            library, "phase 15a reduced qwen3 and minicpm3 train step", TRAIN_KERNELS,
-            lambda: phase_train_small(dev))
+        _, by_path["phase 15a reduced train steps"] = run_path(
+            library, "phase 15a reduced train steps",
+            TRAIN_KERNELS + ("ssm_scan", "ssm_scan_backward"), lambda: phase_train_small(dev))
+        phase_train_small_resume(library, by_path)
+    phase_scan_backward_in_model(dev)
+    print(f"[15a] ({time.perf_counter() - t0:.1f} s)")
     trained = phase_train_full(library, dev, by_path)
     t1 = time.perf_counter()
     witness_rounding_calls(dev, trained["losses"])
-    witness_rounding_losses(dev, trained["losses"])
     print(f"[15d] rounding witness ({time.perf_counter() - t1:.1f} s)")
+    t1 = time.perf_counter()
+    phase_train_zamba(library, dev, by_path)
+    print(f"[15e] ({time.perf_counter() - t1:.1f} s)")
+    t1 = time.perf_counter()
+    phase_train_xlstm(library, dev, by_path)
+    print(f"[15f] ({time.perf_counter() - t1:.1f} s)")
     print(f"[phase 15] training: {time.perf_counter() - t0:.1f} s")
     print(f"launches by path: {by_path}")
 

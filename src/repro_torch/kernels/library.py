@@ -26,9 +26,10 @@ from pathlib import Path
 from typing import Dict, List
 
 KERNELS = ("rmsnorm", "decode_attention", "flash_attention", "ssm_scan",
-           "rmsnorm_backward", "flash_attention_backward")
+           "rmsnorm_backward", "flash_attention_backward", "ssm_scan_backward")
 # the op package each kernel's source lives in, where it is not its own name
-_OP_DIR = {"rmsnorm_backward": "rmsnorm", "flash_attention_backward": "flash_attention"}
+_OP_DIR = {"rmsnorm_backward": "rmsnorm", "flash_attention_backward": "flash_attention",
+           "ssm_scan_backward": "ssm_scan"}
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
@@ -80,6 +81,15 @@ _ARGTYPES = {
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
         _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
         _C.c_int, _C.c_int, _C.c_float, _C.c_int, _C.c_int, _C.c_void_p,
+    ],
+    # dy, dh_final (or null), x, ld, gi, B, C, D (or null), h0 (or null), dx,
+    # dld, dgi, dB, dC, dD (or null), dh0 (or null), workspace, its floats,
+    # b, s, h, p, g, n, chunk, dtype, route, scores smem bytes, stream
+    # (scan_backward_plan)
+    "repro_ssm_scan_backward": [
+        *[_C.c_void_p] * 17, _C.c_longlong,
+        _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
+        _C.c_int, _C.c_int, _C.c_void_p,
     ],
     "repro_ssm_scan": [
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,

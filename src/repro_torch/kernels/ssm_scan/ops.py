@@ -7,6 +7,11 @@ The wrappers follow ``repro.kernels.ssm_scan.ops``: the chunk is
 ``min(chunk, S)`` and the plain version pads S to a chunk multiple with
 identity steps (log-decay 0 keeps the state, input scale 0 injects nothing);
 the kernel masks a ragged last chunk instead, which computes the same thing.
+
+Its gradient is ``repro_torch::gated_scan_backward`` (the hand-written
+``csrc/ssm_scan_backward.cu`` on a CUDA tensor, ``gated_scan_backward_ref``
+on a CPU one), registered as the forward op's autograd; the served op keeps
+its schema and its one node.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import library
 from repro_torch.kernels.ssm_scan.ref import (
+    gated_scan_backward_ref,
     gated_scan_mma_ref,
     gated_scan_ref,
     gated_step_ref,
@@ -77,6 +83,64 @@ def scan_plan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
                   + 4 * chunk)
         return dict(route="cuda_cores_wide", warps=8, grid=grid, smem=4 * floats)
     raise TypeError(f"kernels take float32 or bfloat16, not {dtype}")
+
+
+BWD_TILE = 32        # columns of P (state pass, dx) or of N (dB/dC) per backward block
+BWD_WIDE_ROWS = 64   # state rows per state-pass block on the wide backward route
+
+
+def scan_backward_plan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
+                       dtype: torch.dtype) -> Dict[str, object]:
+    """The backward kernel's launches for these shapes (``chunk`` is the
+    wrapper's ``min(chunk, S)``), as its C entry point makes them: the
+    route, each launch's grid, threads and shared memory in bytes (static
+    or dynamic), and the f32 workspace in floats.  Eight launches: each
+    chunk's cumulative log-decay (in step order), the state pass (the
+    states entering and the state gradients leaving each chunk, both
+    directions in one grid, each block walking the chunks), the scores (C
+    B^T and dy x^T of each chunk), dx, dB/dC per head, the finish
+    (dlog_decay, din_scale), and the fixed-order sums of dB/dC over a
+    group's heads and of dD.
+
+    ``narrow`` (N <= 128): a state-pass block holds its whole N x 32 state
+    tile in registers (rows rounded to 64 or 128).  ``wide`` (N up to
+    1024): N is split into tiles of 64 rows over the state pass's blocks.
+    The wide route also splits each chunk's score sums over N and P into
+    ``splits`` ranges over as many blocks (the mLSTM has only 16 chunk-heads
+    at 1 x 512 tokens), added in range order by the scores kernel.  The
+    dtype does not change the launches: both run on the CUDA cores.
+    The workspace holds the states and their gradients (B, NC, H, N, P),
+    S and G (B, NC, H, 2, Q, Q), per-step sums, per-tile parts, each head's
+    dB and dC (B, S, H, N), dD's parts and the cumulative log-decays."""
+    if n > MAX_STATE:
+        raise ValueError(f"state size N={n} > {MAX_STATE}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"kernels take float32 or bfloat16, not {dtype}")
+    nc, pt, nt = -(-s // chunk), -(-p // BWD_TILE), -(-n // BWD_TILE)
+    narrow = n <= NARROW_STATE
+    rows = (64 if n <= 64 else 128) if narrow else BWD_WIDE_ROWS
+    q = MAX_CHUNK
+    # the wide route splits each chunk's score sums over N and P into ks
+    # ranges, enough blocks for two on each of the 132 SMs, at most 16
+    ks = 1 if narrow else max(1, min(16, -(-264 // (b * nc * h))))
+    grids = dict(cumsum=(-(-(b * nc * h) // 8),),
+                 state=(pt, 1 if narrow else -(-n // BWD_WIDE_ROWS), 2 * h * b),
+                 scores=(nc, h, b), dx=(pt, nc, h * b), dbc=(nt, nc, h * b),
+                 finish=(nc, h, b))
+    if ks > 1:
+        grids["scores_part"] = (nc * ks, h, b)
+    smem = dict(cumsum=4 * 8 * q, state=4 * (3 * q + 32 * rows + 32 * BWD_TILE),
+                scores_part=4 * 2 * q * 17,
+                scores=4 * (2 * q + 2 * q * 17 + q * (q + 1)),
+                dx=4 * (2 * q + 32 * (q + 4) + 32 * BWD_TILE + 256),
+                dbc=4 * (2 * q + 2 * 32 * (q + 4) + 2 * 32 * (BWD_TILE + 2) + 256),
+                finish=4 * (4 * q + 1))
+    bch = b * nc * h
+    workspace = (2 * bch * n * p + bch * 2 * chunk * chunk + bch * 2 * chunk
+                 + bch * nt * 2 * chunk + bch * nt + 2 * b * s * h * n + bch * pt
+                 + (bch * ks * 2 * q * q if ks > 1 else 0) + bch * chunk)
+    return dict(route="narrow" if narrow else "wide", threads=256, finish_threads=q,
+                grids=grids, smem=smem, workspace=workspace, splits=ks)
 
 
 def vector_flags(route: str, p: int, n: int, x, bm, cm, y) -> int:
@@ -173,6 +237,137 @@ def gated_scan_cuda(
     return y, hout
 
 
+def gated_scan_backward_padded(dy, dh_final, x, ld, gi, Bm, Cm, D, h0, chunk: int, *,
+                               acc: torch.dtype = torch.float32):
+    """The plain backward with the forward's padding rule (identity steps,
+    and a zero cotangent on them); contiguous outputs."""
+    s = x.shape[1]
+    eff = min(chunk, s)
+    pad = (-s) % eff
+    if pad:
+        dy, x, ld, gi, Bm, Cm = (_pad_seq(t, pad) for t in (dy, x, ld, gi, Bm, Cm))
+    grads = gated_scan_backward_ref(dy, dh_final, x, ld, gi, Bm, Cm, D, h0, chunk=eff, acc=acc)
+    return tuple(None if t is None else (t[:, :s] if i < 5 else t).contiguous()
+                 for i, t in enumerate(grads))
+
+
+def gated_scan_backward_witness(dy, dh_final, x, ld, gi, Bm, Cm, D, h0, chunk: int):
+    """The plain backward on f32 copies of the inputs and on f64 copies, each
+    computed in its copies' dtype: (f32 grads, f64 grads), neither rounded
+    to its input's dtype.  The f64 grads stand for the exact gradient, and
+    their distance to the f32 grads is what f32 rounding alone moves the
+    plain version by (most where terms of ~10^3 cancel to small values)."""
+    args = (dy, dh_final, x, ld, gi, Bm, Cm, D, h0)
+    return tuple(gated_scan_backward_padded(*(None if t is None else t.to(dt) for t in args),
+                                            chunk, acc=dt)
+                 for dt in (torch.float32, torch.float64))
+
+
+def gated_scan_backward_cuda(
+    dy: torch.Tensor,
+    dh_final: Optional[torch.Tensor],
+    x: torch.Tensor,
+    ld: torch.Tensor,
+    gi: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    D: Optional[torch.Tensor],
+    h0: Optional[torch.Tensor],
+    chunk: int,
+) -> Tuple[torch.Tensor, ...]:
+    """Launch the backward kernel; raises on anything it does not take.
+    Returns (dx, dld, dgi, dB, dC, dD, dh0) with dD and dh0 None when D and
+    h0 are."""
+    if x.dim() != 4 or Bm.dim() != 4 or Bm.shape != Cm.shape or dy.shape != x.shape:
+        raise ValueError(f"x {tuple(x.shape)}, dy {tuple(dy.shape)}, B {tuple(Bm.shape)}, "
+                         f"C {tuple(Cm.shape)}")
+    b, s, h, p = x.shape
+    _, _, g, n = Bm.shape
+    if tuple(Bm.shape[:2]) != (b, s) or g == 0 or h % g:
+        raise ValueError(f"x {tuple(x.shape)} vs B/C {tuple(Bm.shape)}: need G | H")
+    if tuple(ld.shape) != (b, s, h) or ld.shape != gi.shape:
+        raise ValueError(f"log_decay {tuple(ld.shape)}, in_scale {tuple(gi.shape)} != {(b, s, h)}")
+    if n > MAX_STATE:
+        raise ValueError(f"state size N={n} > {MAX_STATE}")
+    chunk = min(int(chunk), s)
+    if not 0 < chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} not in 1..{MAX_CHUNK}")
+    if not (Bm.dtype == Cm.dtype == dy.dtype == x.dtype):
+        raise TypeError(f"x {x.dtype}, dy {dy.dtype}, B {Bm.dtype}, C {Cm.dtype}")
+    f32 = [t for t in (ld, gi, D, h0, dh_final) if t is not None]
+    if any(t.dtype != torch.float32 for t in f32):
+        raise TypeError("log_decay, in_scale, D, h0 and dh_final must be float32")
+    if D is not None and tuple(D.shape) != (h,):
+        raise ValueError(f"D shape {tuple(D.shape)} != ({h},)")
+    for name, t in (("h0", h0), ("dh_final", dh_final)):
+        if t is not None and tuple(t.shape) != (b, h, n, p):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {(b, h, n, p)}")
+    ts = [dy, x, ld, gi, Bm, Cm, *(t for t in (D, h0, dh_final) if t is not None)]
+    if not all(t.is_contiguous() and t.device == x.device for t in ts):
+        raise ValueError("the scan backward kernel takes contiguous tensors on one device")
+    plan = scan_backward_plan(b, s, h, p, g, n, chunk, x.dtype)
+    if max(max(grid[1:], default=0) for grid in plan["grids"].values()) > 65535:
+        raise ValueError(f"grids {plan['grids']} over the launch limit")
+    dx, dB, dC = torch.empty_like(x), torch.empty_like(Bm), torch.empty_like(Cm)
+    dld = torch.empty((b, s, h), dtype=torch.float32, device=x.device)
+    dgi = torch.empty_like(dld)
+    dD = None if D is None else torch.empty_like(D)
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    ws = torch.empty((plan["workspace"],), dtype=torch.float32, device=x.device)
+    fn = library.entry("ssm_scan_backward")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    library.LAUNCHES["ssm_scan_backward"] += 1
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    library.check("ssm_scan_backward", fn(
+        dy.data_ptr(), ptr(dh_final), x.data_ptr(), ld.data_ptr(), gi.data_ptr(),
+        Bm.data_ptr(), Cm.data_ptr(), ptr(D), ptr(h0), dx.data_ptr(), dld.data_ptr(),
+        dgi.data_ptr(), dB.data_ptr(), dC.data_ptr(), ptr(dD), ptr(dh0), ws.data_ptr(),
+        plan["workspace"], b, s, h, p, g, n, chunk, library.dtype_code(x.dtype),
+        0 if plan["route"] == "narrow" else 1, plan["smem"]["scores"], stream,
+    ))
+    return dx, dld, dgi, dB, dC, dD, dh0
+
+
+@torch.library.custom_op("repro_torch::gated_scan_backward", mutates_args=())
+def gated_scan_backward_op(
+    dy: torch.Tensor,
+    dh_final: Optional[torch.Tensor],
+    x: torch.Tensor,
+    log_decay: torch.Tensor,
+    in_scale: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    D: Optional[torch.Tensor],
+    h0: Optional[torch.Tensor],
+    chunk: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor]:
+    """(dx, dlog_decay, din_scale, dB, dC, dD, dh0).  A custom op returns no
+    optional tensor, so dD and dh0 come back empty, shape (0,), when D and
+    h0 are None."""
+    if x.device.type == "cpu":
+        grads = gated_scan_backward_padded(dy, dh_final, x, log_decay, in_scale, Bm, Cm, D, h0,
+                                           chunk)
+    elif x.device.type == "cuda":
+        grads = gated_scan_backward_cuda(dy, dh_final, x, log_decay, in_scale, Bm, Cm, D, h0,
+                                         chunk)
+    else:
+        raise ValueError(f"gated_scan_backward runs on cpu or cuda tensors, not {x.device}")
+    return tuple(x.new_empty((0,), dtype=torch.float32) if t is None else t for t in grads)
+
+
+@gated_scan_backward_op.register_fake
+def _(dy, dh_final, x, log_decay, in_scale, Bm, Cm, D, h0, chunk):
+    def opt(t):
+        return x.new_empty((0,), dtype=torch.float32) if t is None else torch.empty_like(t)
+
+    return (torch.empty_like(x), torch.empty_like(log_decay), torch.empty_like(in_scale),
+            torch.empty_like(Bm), torch.empty_like(Cm), opt(D), opt(h0))
+
+
 @torch.library.custom_op("repro_torch::gated_scan", mutates_args=())
 def gated_scan_op(
     x: torch.Tensor,
@@ -222,6 +417,28 @@ def _gated_scan_vmap(info, in_dims, x, log_decay, in_scale, Bm, Cm, D, h0, chunk
 torch.library.register_vmap(gated_scan_op, _gated_scan_vmap)
 
 
+def _scan_setup(ctx, inputs, output):
+    x, log_decay, in_scale, Bm, Cm, D, h0, chunk = inputs
+    ctx.save_for_backward(x, log_decay, in_scale, Bm, Cm, D, h0)
+    ctx.chunk = chunk
+    # an unused output's cotangent stays None: training never reads the
+    # final state, and the kernel then adds no dh_final
+    ctx.set_materialize_grads(False)
+
+
+def _scan_grad(ctx, dy, dh_final):
+    x, log_decay, in_scale, Bm, Cm, D, h0 = ctx.saved_tensors
+    if dy is None:
+        dy = torch.zeros_like(x)
+    dx, dld, dgi, dB, dC, dD, dh0 = gated_scan_backward_op(
+        dy.contiguous(), None if dh_final is None else dh_final.contiguous(), x, log_decay,
+        in_scale, Bm, Cm, D, h0, ctx.chunk)
+    return (dx, dld, dgi, dB, dC, None if D is None else dD, None if h0 is None else dh0, None)
+
+
+torch.library.register_autograd(gated_scan_op, _scan_grad, setup_context=_scan_setup)
+
+
 def gated_scan(
     x: torch.Tensor,
     log_decay: torch.Tensor,
@@ -257,6 +474,8 @@ ssm_step = ssm_step_ref
 
 __all__ = [
     "gated_scan", "gated_scan_cuda", "gated_scan_padded", "gated_step", "scan_plan",
+    "scan_backward_plan", "gated_scan_backward_cuda", "gated_scan_backward_op",
+    "gated_scan_backward_padded", "gated_scan_backward_ref", "gated_scan_backward_witness",
     "ssm_scan", "ssm_step", "gated_scan_mma_ref", "gated_scan_ref", "gated_step_ref",
     "ssm_scan_ref", "ssm_step_ref",
 ]

@@ -94,6 +94,127 @@ def gated_scan_ref(
     return y.reshape(b, s, h, p).to(x.dtype), h_prev
 
 
+def gated_scan_backward_ref(
+    dy: torch.Tensor,
+    dh_final: Optional[torch.Tensor],
+    x: torch.Tensor,
+    log_decay: torch.Tensor,
+    in_scale: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    D: Optional[torch.Tensor] = None,
+    h0: Optional[torch.Tensor] = None,
+    *,
+    chunk: int = 128,
+    acc: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`gated_scan_ref`, written out in f32 over its
+    chunked intermediates (a custom op's body runs below autograd, so the
+    plain backward cannot be autograd of the plain forward; ``acc``
+    float64 computes the same in f64, a witness of f32's rounding).  ``dy``
+    is the cotangent of y, ``dh_final`` that of the final state (None:
+    unused).
+    Returns (dx, dlog_decay, din_scale, dB, dC, dD, dh0), each in its
+    input's dtype; dD and dh0 are None without D and h0.  With e_i =
+    exp(cs_i), w_j = exp(cs_last - cs_j) gi_j, L = the decay mask with gi on
+    its columns, H the state entering a chunk and dH the gradient of the
+    state leaving it:
+
+        dS = dy x^T, G = dS o L,    dx = S^T dy + diag(w) B dH + D dy
+        dB = G^T C + diag(w) x dH^T, dC = G B + diag(e) dy H^T
+        dH_in = exp(cs_last) dH + C^T diag(e) dy       (reverse over chunks)
+
+    and dlog_decay is the reverse cumulative sum, inside each chunk, of the
+    gradient of cs (whose last step also takes the chunk decay's and the
+    chunk state's terms), taken in a form whose terms do not cancel: at a
+    step the whole chunk's row and column sums of dS o S would, leaving
+    f32 noise of their size where the gradient is 0.  S must be a multiple
+    of ``min(chunk, S)``."""
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    rep = h // g
+    chunk = min(chunk, s)
+    if h % g or s % chunk:
+        raise ValueError(f"heads {h} / groups {g}, seq {s} / chunk {chunk}")
+    nc = s // chunk
+
+    xf = x.to(acc).reshape(b, nc, chunk, h, p)
+    dyf = dy.to(acc).reshape(b, nc, chunk, h, p)
+    gif = in_scale.to(acc).reshape(b, nc, chunk, h)
+    Bf = _expand_groups(Bm.to(acc).reshape(b, nc, chunk, g, n), rep)
+    Cf = _expand_groups(Cm.to(acc).reshape(b, nc, chunk, g, n), rep)
+
+    cs = torch.cumsum(log_decay.to(acc).reshape(b, nc, chunk, h), dim=2)
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    diff = cs[:, :, :, None, :] - cs[:, :, None, :, :]      # (B,NC,Qi,Qj,H)
+    decay = torch.exp(diff.masked_fill(~causal[None, None, :, :, None], float("-inf")))
+    weights = decay * gif[:, :, None, :, :]                 # L
+    cb = torch.einsum("bcihn,bcjhn->bcijh", Cf, Bf)
+    scores = cb * weights                                   # S
+    ds = torch.einsum("bcihp,bcjhp->bcijh", dyf, xf)        # dS
+    gmat = ds * weights                                     # G
+    e = torch.exp(cs)                                       # (B,NC,Q,H)
+    el = torch.exp(cs[:, :, -1:, :] - cs)
+    w = el * gif
+    chunk_decay = torch.exp(cs[:, :, -1, :])                # (B,NC,H)
+
+    chunk_states = torch.einsum("bcjhn,bcjhp->bchnp", Bf * w[..., None], xf)
+    h_prev = h0.to(acc) if h0 is not None else torch.zeros((b, h, n, p), dtype=acc,
+                                                           device=x.device)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h_prev)
+        h_prev = h_prev * chunk_decay[:, c, :, None, None] + chunk_states[:, c]
+    hin = torch.stack(h_in, dim=1)                          # (B,NC,H,N,P)
+
+    dh = dh_final.to(acc) if dh_final is not None else torch.zeros((b, h, n, p), dtype=acc,
+                                                                   device=x.device)
+    into = torch.einsum("bcihn,bcihp->bchnp", Cf * e[..., None], dyf)
+    dh_out = [None] * nc
+    for c in reversed(range(nc)):
+        dh_out[c] = dh
+        dh = dh * chunk_decay[:, c, :, None, None] + into[:, c]
+    dhout = torch.stack(dh_out, dim=1)                      # (B,NC,H,N,P)
+
+    dx = (torch.einsum("bcijh,bcihp->bcjhp", scores, dyf)
+          + w[..., None] * torch.einsum("bcjhn,bchnp->bcjhp", Bf, dhout))
+    if D is not None:
+        dx = dx + dyf * D.to(acc)[None, None, None, :, None]
+    v = torch.einsum("bchnp,bcjhp->bcjhn", dhout, xf)       # dH x_j
+    wy = torch.einsum("bchnp,bcihp->bcihn", hin, dyf)       # H dy_i
+    dbh = torch.einsum("bcijh,bcihn->bcjhn", gmat, Cf) + w[..., None] * v
+    dch = torch.einsum("bcijh,bcjhn->bcihn", gmat, Bf) + e[..., None] * wy
+
+    # dlog_decay_t = sum_{k >= t} dcs_k, summed in a form without the
+    # cancelling whole-chunk terms: the (dS o S) pairs that straddle t (i >=
+    # t > j), the y_off terms from t on, the chunk-state terms before t,
+    # and the chunk decay's term
+    m = ds * scores
+    u = (Bf * v).sum(-1)                                    # B_j . dH x_j
+    t = w * u
+    col_suffix = torch.flip(torch.cumsum(torch.flip(m, [2]), dim=2), [2])
+    before = torch.tril(torch.ones((chunk, chunk), dtype=acc, device=x.device), diagonal=-1)
+    straddle = (col_suffix * before[None, None, :, :, None]).sum(3)
+    y_off = (Cf * e[..., None] * wy).sum(-1)
+    t_before = torch.cat([torch.zeros_like(t[:, :, :1]), torch.cumsum(t, dim=2)[:, :, :-1]], 2)
+    dld = (straddle + torch.flip(torch.cumsum(torch.flip(y_off, [2]), dim=2), [2]) + t_before
+           + (chunk_decay * (hin * dhout).sum((-1, -2)))[:, :, None, :])
+    dgi = (ds * cb * decay).sum(2) + el * u
+
+    def group_sum(t):
+        return t.reshape(b, nc, chunk, g, rep, n).sum(4).reshape(b, s, g, n)
+
+    return (
+        dx.reshape(b, s, h, p).to(x.dtype),
+        dld.reshape(b, s, h).to(log_decay.dtype),
+        dgi.reshape(b, s, h).to(in_scale.dtype),
+        group_sum(dbh).to(Bm.dtype),
+        group_sum(dch).to(Cm.dtype),
+        None if D is None else (xf * dyf).sum((0, 1, 2, 4)).to(D.dtype),
+        None if h0 is None else dh.to(h0.dtype),
+    )
+
+
 def bf16_terms(t: torch.Tensor) -> torch.Tensor:
     """An f32 tensor as the bf16 route's two bf16 terms carry it: hi + lo,
     with hi = bf16(t) and lo = bf16(t - hi)."""

@@ -1,7 +1,7 @@
 """Shared layer utilities: initializers and dense application."""
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence, Union
+from typing import Any, Callable, Dict, Sequence, Union
 
 import torch
 
@@ -40,3 +40,24 @@ def layer_slice(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
     return {
         k: layer_slice(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()
     }
+
+
+def layer_params(stacked: Dict[str, Any]) -> Callable[[int], Dict[str, Any]]:
+    """Layer i of a stacked parameter tree.  Select views, as the served
+    paths trace them; when a leaf requires grad (training), one ``unbind``
+    per leaf instead, so the leaf's gradient is one stack of the layers' and
+    not a zero-filled copy of the whole stack per layer."""
+    def leaves(t):
+        return [x for v in t.values() for x in (leaves(v) if isinstance(v, dict) else [v])]
+
+    if not any(t.requires_grad for t in leaves(stacked)):
+        return lambda i: layer_slice(stacked, i)
+
+    def unbind(t):
+        return {k: unbind(v) if isinstance(v, dict) else v.unbind(0) for k, v in t.items()}
+
+    def pick(t, i):
+        return {k: pick(v, i) if isinstance(v, dict) else v[i] for k, v in t.items()}
+
+    per_layer = unbind(stacked)
+    return lambda i: pick(per_layer, i)

@@ -46,7 +46,10 @@ def mamba2_init(
     in_dim = 2 * di + 2 * ng * cfg.ssm_state + nh
     n = math.prod(lead)
 
-    def stacked(w: torch.Tensor) -> torch.Tensor:
+    def proj(in_dim: int, out_dim: int) -> torch.Tensor:
+        if n == 0:   # an empty stack (a reduced config with no full group)
+            return torch.empty((*lead, in_dim, out_dim), dtype=dtype, device=dev)
+        w = dense_init(gen, in_dim, out_dim, dtype, layers=n)
         return w.reshape(*lead, *w.shape[1:])
 
     def const(v: torch.Tensor) -> torch.Tensor:
@@ -54,14 +57,14 @@ def mamba2_init(
 
     conv_w = torch.randn((n, D_CONV, cdim), generator=gen, device=dev) * 0.2
     return {
-        "in_proj": stacked(dense_init(gen, d, in_dim, dtype, layers=n)),
-        "conv_w": stacked(conv_w.to(dtype)),
+        "in_proj": proj(d, in_dim),
+        "conv_w": conv_w.to(dtype).reshape(*lead, *conv_w.shape[1:]),
         "conv_b": const(torch.zeros((cdim,), dtype=dtype, device=dev)),
         "A_log": const(torch.log(torch.linspace(1.0, 16.0, nh, device=dev))),
         "D": const(torch.ones((nh,), device=dev)),
         "dt_bias": const(torch.full((nh,), -2.0, device=dev)),
         "norm": const(torch.ones((di,), dtype=dtype, device=dev)),
-        "out_proj": stacked(dense_init(gen, di, d, dtype, layers=n)),
+        "out_proj": proj(di, d),
     }
 
 

@@ -44,8 +44,13 @@ def _mdims(cfg):
 
 
 def _stacked(gen, in_dim, out_dims, dtype, lead: Tuple[int, ...]) -> torch.Tensor:
-    """``dense_init`` of shape (*lead, in_dim, *out_dims)."""
-    w = dense_init(gen, in_dim, out_dims, dtype, layers=math.prod(lead))
+    """``dense_init`` of shape (*lead, in_dim, *out_dims); empty where a
+    leading axis is 0 (a reduced config with no full group)."""
+    n = math.prod(lead)
+    if n == 0:
+        outs = (out_dims,) if isinstance(out_dims, int) else tuple(out_dims)
+        return torch.empty((*lead, in_dim, *outs), dtype=dtype, device=gen.device)
+    w = dense_init(gen, in_dim, out_dims, dtype, layers=n)
     return w.reshape(*lead, *w.shape[1:])
 
 

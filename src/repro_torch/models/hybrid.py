@@ -15,7 +15,9 @@ every layer's operators.
 
 API (as ``models/lm.py``):
     init_params(cfg, seed, device)             -> params dict
-    forward(params, batch, cfg)                -> logits
+    forward(params, batch, cfg, remat=, return_hidden=) -> logits (or hidden)
+    head_weights(params, cfg)                  -> the LM head
+    loss_fn(params, batch, cfg)                -> mean next-token NLL
     init_cache(cfg, batch, max_seq, device)    -> decode cache dict
     prefill(params, batch, cfg, max_seq)       -> (last logits, cache)
     decode_step(params, token, cache, pos, cfg) -> (logits, cache)
@@ -26,6 +28,7 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -36,7 +39,7 @@ from repro_torch.layers.attention import (
     attn_init,
     init_kv_cache,
 )
-from repro_torch.layers.common import dense, dense_init, layer_slice
+from repro_torch.layers.common import dense, dense_init, layer_params, layer_slice
 from repro_torch.layers.mamba2 import (
     init_mamba2_state,
     mamba2_decode_step,
@@ -44,6 +47,7 @@ from repro_torch.layers.mamba2 import (
     mamba2_init,
 )
 from repro_torch.layers.mlp import mlp_apply, mlp_init
+from repro_torch.models.lm import next_token_nll
 
 # the shared block's KV caches hold a row per position of the bucket
 CACHE_PER_POSITION = True
@@ -90,9 +94,21 @@ def init_params(cfg: ArchConfig, seed: int = 0, device: Any = "cuda") -> Dict[st
     return p
 
 
+def head_weights(params, cfg: ArchConfig) -> torch.Tensor:
+    return params["lm_head"]
+
+
+def idle_params(cfg: ArchConfig) -> Tuple[str, ...]:
+    """The top-level parameters that the forward never reads under ``cfg``:
+    the shared block's when there is no full group."""
+    if _groups(cfg)[0]:
+        return ()
+    return ("shared_attn", "shared_attn_norm", "shared_mlp", "shared_mlp_norm")
+
+
 def _logits(params, h, cfg: ArchConfig) -> torch.Tensor:
     h = rmsnorm(h, params["final_norm"], eps=cfg.norm_eps)
-    return dense(h, params["lm_head"]).float()
+    return dense(h, head_weights(params, cfg)).float()
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -116,23 +132,50 @@ def _stack_states(states: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tens
     return {k: torch.stack([st[k] for st in states]) for k in ("conv", "ssm")}
 
 
-def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig) -> torch.Tensor:
-    """Full-sequence forward.  batch: {"tokens": (B, S) int}."""
+def _mamba_run(lp, h, cfg: ArchConfig, remat: bool) -> torch.Tensor:
+    if remat:
+        return checkpoint(_mamba_layer, lp, h, cfg, use_reentrant=False)
+    return _mamba_layer(lp, h, cfg)
+
+
+def forward(
+    params,
+    batch: Dict[str, torch.Tensor],
+    cfg: ArchConfig,
+    *,
+    remat: bool = False,
+    return_hidden: bool = False,
+) -> torch.Tensor:
+    """Full-sequence forward.  batch: {"tokens": (B, S) int}.  ``remat``
+    checkpoints each Mamba2 layer (``torch.utils.checkpoint``), the
+    reference's ``jax.checkpoint`` of its Mamba layer scan; the shared block
+    is not rematerialized, as in the reference.  ``return_hidden`` returns
+    the last layer's (B, S, D) output before the final norm."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     h = params["embed"][tokens]
     positions = _positions(b, s, h.device)
     n_full, n_rest = _groups(cfg)
+    group = layer_params(params["mamba_groups"])
     for gi in range(n_full):
-        gp = layer_slice(params["mamba_groups"], gi)
+        layer = layer_params(group(gi))
         for li in range(cfg.attn_every):
-            h = _mamba_layer(layer_slice(gp, li), h, cfg)
+            h = _mamba_run(layer(li), h, cfg, remat)
         hn = rmsnorm(h, params["shared_attn_norm"], eps=cfg.norm_eps)
         h = h + attn_forward(params["shared_attn"], hn, cfg, positions=positions)
         h = _shared_mlp(params, h, cfg)
-    for li in range(n_rest):
-        h = _mamba_layer(layer_slice(params["mamba_tail"], li), h, cfg)
+    if n_rest:
+        tail = layer_params(params["mamba_tail"])
+        for li in range(n_rest):
+            h = _mamba_run(tail(li), h, cfg, remat)
+    if return_hidden:
+        return h
     return _logits(params, h, cfg)
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *, remat: bool = True):
+    """Mean next-token NLL over the full logits (``lm.next_token_nll``)."""
+    return next_token_nll(forward(params, batch, cfg, remat=remat), batch["labels"], cfg)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device: Any = "cuda"):

@@ -19,7 +19,7 @@ API:
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
@@ -34,7 +34,7 @@ from repro_torch.layers.attention import (
     attn_init,
     init_kv_cache,
 )
-from repro_torch.layers.common import dense, dense_init, layer_slice
+from repro_torch.layers.common import dense, dense_init, layer_params, layer_slice
 from repro_torch.layers.mla import init_mla_cache, mla_decode_step, mla_forward, mla_init
 from repro_torch.layers.mlp import mlp_apply, mlp_init
 
@@ -106,27 +106,6 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
-def _layer_params(stacked: Dict[str, Any]) -> Callable[[int], Dict[str, Any]]:
-    """Layer i of the stacked blocks.  Select views, as the served paths
-    trace them; when a leaf requires grad (training), one ``unbind`` per
-    leaf instead, so the leaf's gradient is one stack of the layers' and not
-    a zero-filled copy of the whole stack per layer."""
-    def leaves(t):
-        return [x for v in t.values() for x in (leaves(v) if isinstance(v, dict) else [v])]
-
-    if not any(t.requires_grad for t in leaves(stacked)):
-        return lambda i: layer_slice(stacked, i)
-
-    def unbind(t):
-        return {k: unbind(v) if isinstance(v, dict) else v.unbind(0) for k, v in t.items()}
-
-    def pick(t, i):
-        return {k: pick(v, i) if isinstance(v, dict) else v[i] for k, v in t.items()}
-
-    per_layer = unbind(stacked)
-    return lambda i: pick(per_layer, i)
-
-
 def forward(
     params,
     batch: Dict[str, torch.Tensor],
@@ -144,7 +123,7 @@ def forward(
     b, s = tokens.shape
     h = params["embed"][tokens]
     positions = _positions(b, s, h.device)
-    layer = _layer_params(params["blocks"]["sub0"])
+    layer = layer_params(params["blocks"]["sub0"])
     for i in range(cfg.n_layers):
         if remat:
             h = checkpoint(_layer_forward, layer(i), h, cfg, positions, use_reentrant=False)
@@ -155,17 +134,21 @@ def forward(
     return _logits(params, h, cfg)
 
 
-def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *, remat: bool = True):
+def next_token_nll(logits: torch.Tensor, labels: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Mean next-token NLL over the full logits (labels -1 or >= vocab are
     masked; a negative label indexes from the end, as the reference's
-    ``take_along_axis`` does, before its mask drops it)."""
-    logits = forward(params, batch, cfg, remat=remat)
-    labels = batch["labels"].long()
+    ``take_along_axis`` does, before its mask drops it): every family's
+    ``loss_fn``."""
+    labels = labels.long()
     logp = torch.log_softmax(logits, dim=-1)
     idx = torch.where(labels < 0, labels + logp.shape[-1], labels)
     nll = -torch.gather(logp, -1, idx[..., None])[..., 0]
     mask = (labels >= 0) & (labels < cfg.vocab)
     return (nll * mask).sum() / torch.clamp(mask.sum(dtype=torch.int32), min=1)
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *, remat: bool = True):
+    return next_token_nll(forward(params, batch, cfg, remat=remat), batch["labels"], cfg)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device: Any = "cuda"):

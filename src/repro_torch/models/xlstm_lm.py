@@ -16,7 +16,9 @@ contiguous tensor, since the served app carries it.
 
 API (as ``models/lm.py``):
     init_params(cfg, seed, device)             -> params dict
-    forward(params, batch, cfg)                -> logits
+    forward(params, batch, cfg, remat=, return_hidden=) -> logits (or hidden)
+    head_weights(params, cfg)                  -> the LM head
+    loss_fn(params, batch, cfg)                -> mean next-token NLL
     init_cache(cfg, batch, max_seq, device)    -> decode cache dict
     prefill(params, batch, cfg, max_seq)       -> (last logits, cache)
     decode_step(params, token, cache, pos, cfg) -> (logits, cache)
@@ -26,11 +28,12 @@ from __future__ import annotations
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.rmsnorm import rmsnorm
-from repro_torch.layers.common import dense, dense_init, layer_slice
+from repro_torch.layers.common import dense, dense_init, layer_params
 from repro_torch.layers.xlstm import (
     init_mlstm_state,
     init_slstm_state,
@@ -41,6 +44,7 @@ from repro_torch.layers.xlstm import (
     slstm_forward,
     slstm_init,
 )
+from repro_torch.models.lm import next_token_nll
 
 # the decode cache is the recurrent state, with no row per position: a
 # generation is not bounded by the serving bucket
@@ -85,9 +89,13 @@ def init_params(cfg: ArchConfig, seed: int = 0, device: Any = "cuda") -> Dict[st
     return p
 
 
+def head_weights(params, cfg: ArchConfig) -> torch.Tensor:
+    return params["lm_head"]
+
+
 def _logits(params, h, cfg: ArchConfig) -> torch.Tensor:
     h = rmsnorm(h, params["final_norm"], eps=cfg.norm_eps)
-    return dense(h, params["lm_head"]).float()
+    return dense(h, head_weights(params, cfg)).float()
 
 
 def _m_layer(lp, x, cfg: ArchConfig, *, return_state: bool = False):
@@ -109,23 +117,50 @@ def _s_layer(sp, x, cfg: ArchConfig, *, return_state: bool = False):
 def _layers(params, cfg: ArchConfig):
     """The blocks in order as ("m", mLSTM layer params) and ("s", sLSTM
     block params): each group's mLSTMs then its sLSTM, the tail's mLSTMs
-    last."""
+    last (select views, or per-layer ``unbind``s of leaves that require
+    grad: ``layers.common.layer_params``)."""
     ng, m_per, tail = _groups(cfg)
+    group, s_block = layer_params(params["m_groups"]), layer_params(params["s_blocks"])
     for gi in range(ng):
-        gp = layer_slice(params["m_groups"], gi)
+        layer = layer_params(group(gi))
         for li in range(m_per):
-            yield "m", layer_slice(gp, li)
-        yield "s", layer_slice(params["s_blocks"], gi)
-    for li in range(tail):
-        yield "m", layer_slice(params["m_tail"], li)
+            yield "m", layer(li)
+        yield "s", s_block(gi)
+    if tail:
+        m_tail = layer_params(params["m_tail"])
+        for li in range(tail):
+            yield "m", m_tail(li)
 
 
-def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig) -> torch.Tensor:
-    """Full-sequence forward.  batch: {"tokens": (B, S) int}."""
+def forward(
+    params,
+    batch: Dict[str, torch.Tensor],
+    cfg: ArchConfig,
+    *,
+    remat: bool = False,
+    return_hidden: bool = False,
+) -> torch.Tensor:
+    """Full-sequence forward.  batch: {"tokens": (B, S) int}.  ``remat``
+    checkpoints each mLSTM layer (``torch.utils.checkpoint``), the
+    reference's ``jax.checkpoint`` of its mLSTM layer scan; the sLSTM blocks
+    are not rematerialized, as in the reference.  ``return_hidden`` returns
+    the last block's (B, S, D) output before the final norm."""
     h = params["embed"][batch["tokens"]]
     for kind, lp in _layers(params, cfg):
-        h = (_m_layer if kind == "m" else _s_layer)(lp, h, cfg)
+        if kind == "s":
+            h = _s_layer(lp, h, cfg)
+        elif remat:
+            h = checkpoint(_m_layer, lp, h, cfg, use_reentrant=False)
+        else:
+            h = _m_layer(lp, h, cfg)
+    if return_hidden:
+        return h
     return _logits(params, h, cfg)
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *, remat: bool = True):
+    """Mean next-token NLL over the full logits (``lm.next_token_nll``)."""
+    return next_token_nll(forward(params, batch, cfg, remat=remat), batch["labels"], cfg)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device: Any = "cuda"):

@@ -25,18 +25,8 @@ from repro_torch.training.optimizer import (
 )
 
 
-def _require_loss(cfg: ArchConfig):
-    model = get_model(cfg)
-    if not hasattr(model, "loss_fn"):
-        raise NotImplementedError(
-            f"training is not ported for the {cfg.family!r} family ({cfg.name}, "
-            f"{model.__name__}): its gated scan has no backward kernel yet (ROADMAP A8b)"
-        )
-    return model
-
-
 def make_loss_fn(cfg: ArchConfig, *, remat: bool = True):
-    model = _require_loss(cfg)
+    model = get_model(cfg)
 
     def loss_fn(params, batch):
         h = model.forward(params, batch, cfg, remat=remat, return_hidden=True)
@@ -88,6 +78,7 @@ def make_train_step(
     ``loss``, ``grad_norm`` and ``step``, as tensors on the params' device."""
     opt_cfg = opt_cfg or AdamWConfig()
     loss_fn = make_loss_fn(cfg, remat=remat)
+    idle = getattr(get_model(cfg), "idle_params", lambda cfg: ())(cfg)
 
     def train_step(params, opt_state, batch):
         device = leaf_paths(params)[0][1].device
@@ -95,8 +86,17 @@ def make_train_step(
         with deterministic(device):
             live = tree_map(lambda p: p.detach().requires_grad_(True), params)
             loss = loss_fn(live, batch)
-            leaves = [p for _, p in leaf_paths(live)]
-            by_leaf = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
+            paths = leaf_paths(live)
+            grads = torch.autograd.grad(loss, [p for _, p in paths], allow_unused=True)
+            # an empty leaf, or one of a block the config never runs (the
+            # shared block of a hybrid with no full group), takes a zero
+            # gradient, as under jax.grad; any other leaf must be reached
+            for (path, p), g in zip(paths, grads):
+                if g is None and p.numel() and path[0] not in idle:
+                    raise RuntimeError(f"{cfg.name}: the loss does not reach the parameter "
+                                       f"{'/'.join(path)}")
+            by_leaf = {id(p): torch.zeros_like(p) if g is None else g
+                       for (_, p), g in zip(paths, grads)}
         grads = tree_map(lambda p: by_leaf[id(p)], live)
         params, opt_state, gnorm = adamw_update(grads, opt_state, params, opt_cfg)
         metrics = {"loss": loss.detach(), "grad_norm": gnorm, "step": opt_state["step"]}
@@ -106,6 +106,5 @@ def make_train_step(
 
 
 def init_train_state(cfg: ArchConfig, seed: int = 0, device: Any = "cuda"):
-    model = _require_loss(cfg)
-    params = model.init_params(cfg, seed, device)
+    params = get_model(cfg).init_params(cfg, seed, device)
     return params, init_opt_state(params)

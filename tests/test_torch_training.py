@@ -8,18 +8,22 @@ same numpy inputs and (converted) parameters:
 * the chunked loss of one hidden state against JAX's; every gradient leaf
   of ``make_loss_fn`` against ``jax.grad`` (rtol 2e-4, atol 2e-5, the
   reference's own gradient check) for the reference's test config and f32
-  reduced minicpm3-4b (MLA); a bf16 loss at 2e-2, op by op
-  (``jax.disable_jit``); ``remat`` bitwise; three train steps at 1e-4;
+  reduced minicpm3-4b (MLA), zamba2-1.2b (the hybrid, through the gated
+  scan's backward) and xlstm-1.3b (mLSTM and sLSTM), the last two reduced
+  so that every block runs (``EVERY_BLOCK``); a bf16 loss at 2e-2, op by
+  op (``jax.disable_jit``); ``remat`` bitwise; three train steps at 1e-4;
   ``adamw_update`` at 1e-6;
 * the plain backwards of the two kernels on the training path (rmsnorm,
   flash attention) against ``jax.vjp`` of the reference's refs, f32 2e-4
   and bf16 2e-2 of the largest magnitude;
 * tests/test_checkpoint.py's ``TestTrainRestart`` and
-  tests/test_arch_smoke.py's ``test_forward_and_train_step`` on the port,
-  a restart across the packages, the families without a loss, and the
-  store's nested names.
+  tests/test_arch_smoke.py's ``test_forward_and_train_step`` on the port
+  (all four families), a restart across the packages (the dense LM and
+  the hybrid), and the store's nested names.
 The backward kernels themselves are held against these plain versions on
-the card in tests/test_torch_backward_kernels.py (``requires_cuda``)."""
+the card in tests/test_torch_backward_kernels.py and
+tests/test_torch_scan_backward.py (``requires_cuda``); the scan's plain
+backward against ``jax.vjp`` in the latter."""
 from __future__ import annotations
 
 import numpy as np
@@ -36,7 +40,7 @@ from repro.configs.base import ShapeConfig as JShapeConfig  # noqa: E402
 from repro.configs.registry import get_reduced_config as j_reduced  # noqa: E402
 from repro.kernels.flash_attention.ref import attention_chunked as j_attention  # noqa: E402
 from repro.kernels.rmsnorm.ref import rmsnorm_ref as j_rmsnorm  # noqa: E402
-from repro.models import lm as jlm  # noqa: E402
+from repro.models.registry import get_model as j_get_model  # noqa: E402
 from repro.training import data as jdata  # noqa: E402
 from repro.training.losses import chunked_lm_loss as j_chunked  # noqa: E402
 from repro.training.optimizer import AdamWConfig as JAdamWConfig  # noqa: E402
@@ -76,6 +80,10 @@ SHAPE = ShapeConfig("t", 32, 4, "train")
 J_SHAPE = JShapeConfig("t", 32, 4, "train")
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 GRAD_RTOL, GRAD_ATOL = 2e-4, 2e-5   # tests/test_training.py::test_gradients_match
+# reductions of the hybrid and the xLSTM in which every block runs: the
+# default ones have no full group (no shared attention block, no sLSTM)
+EVERY_BLOCK = {"zamba2-1.2b": dict(n_layers=5, attn_every=2),
+               "xlstm-1.3b": dict(n_layers=5, slstm_every=2)}
 
 
 def _np(t) -> np.ndarray:
@@ -90,8 +98,14 @@ def _batch(cfg=CFG, shape=SHAPE, step=0, dc=None):
 
 def _pair(j_cfg, cfg, seed=0):
     """The reference's params and the same numbers as the port's."""
-    pj = jlm.init_params(jax.random.PRNGKey(seed), j_cfg)
+    pj = j_get_model(j_cfg).init_params(jax.random.PRNGKey(seed), j_cfg)
     return pj, params_from_numpy(jax.tree.map(np.asarray, pj), cfg, "cpu")
+
+
+def _reduced(arch, dtype="float32"):
+    """The reduced config of ``arch`` in both packages (every block runs)."""
+    kw = dict(EVERY_BLOCK.get(arch, {}), dtype=dtype)
+    return j_reduced(arch, **kw), get_reduced_config(arch, **kw)
 
 
 def _grads(loss_fn, params, batch):
@@ -189,13 +203,9 @@ def test_chunked_loss_matches_the_references_on_one_hidden_state(chunk_len):
     np.testing.assert_allclose(float(ours), float(ref), rtol=1e-6, atol=1e-6)
 
 
-def _reduced_minicpm(dtype="float32"):
-    return j_reduced("minicpm3-4b", dtype=dtype), get_reduced_config("minicpm3-4b", dtype=dtype)
-
-
-@pytest.mark.parametrize("which", ["test_config", "minicpm3-4b"])
+@pytest.mark.parametrize("which", ["test_config", "minicpm3-4b", "zamba2-1.2b", "xlstm-1.3b"])
 def test_every_gradient_leaf_matches_jax_grad(which):
-    j_cfg, cfg = (J_CFG, CFG) if which == "test_config" else _reduced_minicpm()
+    j_cfg, cfg = (J_CFG, CFG) if which == "test_config" else _reduced(which)
     pj, pt = _pair(j_cfg, cfg)
     nb = synth_batch(cfg, SHAPE, 0, DataConfig())
     j_loss, j_grads = jax.value_and_grad(j_make_loss_fn(j_cfg, remat=False))(pj, nb)
@@ -209,9 +219,9 @@ def test_every_gradient_leaf_matches_jax_grad(which):
                                    err_msg=str(k))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "minicpm3-4b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "minicpm3-4b", "zamba2-1.2b", "xlstm-1.3b"])
 def test_bf16_loss_matches_the_reference_op_by_op(arch):
-    j_cfg, cfg = j_reduced(arch, dtype="bfloat16"), get_reduced_config(arch, dtype="bfloat16")
+    j_cfg, cfg = _reduced(arch, "bfloat16")
     pj, pt = _pair(j_cfg, cfg)
     nb = synth_batch(cfg, SHAPE, 0, DataConfig())
     with jax.disable_jit():
@@ -220,9 +230,9 @@ def test_bf16_loss_matches_the_reference_op_by_op(arch):
     np.testing.assert_allclose(ours, ref, rtol=TOL["bfloat16"])
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "minicpm3-4b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "minicpm3-4b", "zamba2-1.2b", "xlstm-1.3b"])
 def test_remat_is_bitwise_the_plain_forward(arch):
-    cfg = get_reduced_config(arch)
+    cfg = _reduced(arch)[1]
     params, _ = init_train_state(cfg, seed=1, device="cpu")
     batch = _batch(cfg)
     loss_a, ga = _grads(make_loss_fn(cfg, remat=True), params, batch)
@@ -238,6 +248,37 @@ def test_three_train_steps_match_the_references():
     j_opt, opt = j_init_opt(pj), init_opt_state(pt)
     for i in range(3):
         nb = synth_batch(CFG, SHAPE, i, DataConfig())
+        pj, j_opt, jm = j_step(pj, j_opt, nb)
+        pt, opt, m = step(pt, opt, nb)
+        assert int(m["step"]) == int(jm["step"]) == i + 1
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-4)
+        np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]), rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
+def test_full_logits_loss_fn_matches_the_references(arch):
+    """The hybrid's and the xLSTM's ``loss_fn`` (the full logits' NLL, with
+    ``remat``) against the reference's on the same params and batch, f32."""
+    j_cfg, cfg = _reduced(arch)
+    pj, pt = _pair(j_cfg, cfg)
+    nb = synth_batch(cfg, SHAPE, 0, DataConfig())
+    ref = float(j_get_model(j_cfg).loss_fn(pj, nb, j_cfg, remat=True))
+    ours = get_model(cfg).loss_fn(pt, batch_to_device(nb, "cpu"), cfg, remat=True)
+    np.testing.assert_allclose(float(ours), ref, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
+def test_three_train_steps_of_the_scan_families_match_the_references(arch):
+    """The hybrid and the xLSTM, reduced so that every block runs: three
+    steps of the reference's jitted train step and the port's on the same
+    params and batches, loss and grad norm at 1e-4."""
+    j_cfg, cfg = _reduced(arch)
+    pj, pt = _pair(j_cfg, cfg)
+    j_step = jax.jit(j_make_train_step(j_cfg, JAdamWConfig(lr=3e-3, warmup_steps=2)))
+    step = make_train_step(cfg, AdamWConfig(lr=3e-3, warmup_steps=2))
+    j_opt, opt = j_init_opt(pj), init_opt_state(pt)
+    for i in range(3):
+        nb = synth_batch(cfg, SHAPE, i, DataConfig())
         pj, j_opt, jm = j_step(pj, j_opt, nb)
         pt, opt, m = step(pt, opt, nb)
         assert int(m["step"]) == int(jm["step"]) == i + 1
@@ -380,29 +421,32 @@ class TestTrainRestart:
 
 def test_the_port_resumes_the_jax_trainers_checkpoint(tmp_path):
     """The JAX trainer writes step 10 and crashes; the port resumes it to
-    20; its losses follow the JAX trainer's straight run."""
+    20; its losses follow the JAX trainer's straight run.  The dense LM,
+    then the hybrid (reduced zamba2: its train state under the nested
+    store's names, the tail's Mamba2 layers and the empty group leaves)."""
     from repro.launch import train as jtrain
     from repro_torch.launch import train
 
-    ckpt = str(tmp_path / "ckpt")
-    base = ["--arch", "qwen3-0.6b", "--reduced", "--steps", "20", "--batch", "2", "--seq", "32",
-            "--log-every", "5"]
-    args = base + ["--ckpt-dir", ckpt, "--ckpt-every", "10"]
-    assert jtrain.main(args + ["--kill-at", "10"])["crashed_at"] == 10
-    resumed = train.main(args + ["--device", "cpu"])
-    straight = dict(jtrain.main(base)["losses"])
-    assert [s for s, _ in resumed["losses"]] == [10, 15, 19]
-    for s, loss in resumed["losses"]:
-        np.testing.assert_allclose(loss, straight[s], rtol=1e-4, err_msg=f"step {s}")
-    # and the reference reads the port's final checkpoint
-    pj, _ = jtrain.init_train_state(j_reduced("qwen3-0.6b"), seed=0)
-    state = jstore.restore(ckpt, 20, {"params": pj, "opt": j_init_opt(pj)})
-    assert int(state["opt"]["step"]) == 20
+    for arch in ("qwen3-0.6b", "zamba2-1.2b"):
+        ckpt = str(tmp_path / arch)
+        base = ["--arch", arch, "--reduced", "--steps", "20", "--batch", "2", "--seq", "32",
+                "--log-every", "5"]
+        args = base + ["--ckpt-dir", ckpt, "--ckpt-every", "10"]
+        assert jtrain.main(args + ["--kill-at", "10"])["crashed_at"] == 10
+        resumed = train.main(args + ["--device", "cpu"])
+        straight = dict(jtrain.main(base)["losses"])
+        assert [s for s, _ in resumed["losses"]] == [10, 15, 19]
+        for s, loss in resumed["losses"]:
+            np.testing.assert_allclose(loss, straight[s], rtol=1e-4, err_msg=f"{arch} step {s}")
+        # and the reference reads the port's final checkpoint
+        pj, _ = jtrain.init_train_state(j_reduced(arch), seed=0)
+        state = jstore.restore(ckpt, 20, {"params": pj, "opt": j_init_opt(pj)})
+        assert int(state["opt"]["step"]) == 20
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "minicpm3-4b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "minicpm3-4b", "zamba2-1.2b", "xlstm-1.3b"])
 def test_forward_and_train_step(arch):
-    cfg = get_reduced_config(arch)
+    cfg = _reduced(arch)[1]
     model = get_model(cfg)
     shape = ShapeConfig("smoke", 32, 2, "train")
     batch = synth_batch(cfg, shape, 0, DataConfig())
@@ -423,12 +467,27 @@ def test_forward_and_train_step(arch):
 
 
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
-def test_families_without_a_loss_raise(arch):
-    cfg = get_reduced_config(arch)
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        make_train_step(cfg)
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        init_train_state(cfg, device="cpu")
+def test_a_block_the_config_never_runs_takes_a_zero_gradient(arch):
+    """The default reductions run no full group: the hybrid's shared block
+    is never read and the xLSTM's group stacks are empty.  The step takes a
+    zero gradient for those leaves (AdamW's first moment stays 0 there)
+    and a nonzero one for the rest."""
+    cfg = get_reduced_config(arch, dtype="float32")
+    params, opt_state = init_train_state(cfg, seed=0, device="cpu")
+    _, opt_state, metrics = make_train_step(cfg, AdamWConfig(warmup_steps=1))(
+        params, opt_state, _batch(cfg, ShapeConfig("t", 32, 2, "train")))
+    assert np.isfinite(float(metrics["loss"]))
+    idle = getattr(get_model(cfg), "idle_params", lambda cfg: ())(cfg)
+    for path, m in leaf_paths(opt_state["m"]):
+        if m.numel():
+            assert bool(m.any()) != (path[0] in idle), "/".join(path)
+
+
+def test_a_parameter_the_loss_never_reads_raises():
+    params, _ = init_train_state(CFG, seed=0, device="cpu")
+    params["stray"] = torch.zeros((3,))
+    with pytest.raises(RuntimeError, match="stray"):
+        make_train_step(CFG)(params, init_opt_state(params), _batch())
 
 
 def test_nested_store_names_are_the_references(tmp_path):
