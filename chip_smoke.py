@@ -33,6 +33,9 @@ random weights from a seed:
 * xlstm-1.3b (phase 9: 42 mLSTM and 6 sLSTM blocks, d_model 2048, bf16):
   stateful (705 MB of recurrent state carried on the server) and stateless
   (the gated scan at a state of 1024 x 1025 in every replayed token);
+  phases 8 and 9 run in a second process on the card, started after phase
+  2 and joined before phase 15, beside phases 3-7 and 10-14 (the served
+  paths are host-bound: two processes share the card's idle time);
 * split replay (phase 10, the model cut between the mobile device and the
   edge; both placements run on the card, a device segment's time is the
   cost model's): (a) phase 3's locked qwen3-0.6b IOS at each
@@ -307,27 +310,63 @@ def close(out, ref, tol, floor=0.0) -> float:
 # relative tolerance holds either f32 result (PERF.md, PR 25)
 ROUNDING_FLOOR = 4.0
 SCAN_GRADS = ("dx", "dld", "dgi", "dB", "dC", "dD", "dh0")
+# the bf16 kernel against the mirror of its roundings
+# (``gated_scan_backward_mma_ref``), ``mirror_distances``: its f32 outputs
+# (dld, dgi, dD, dh0) element by element, |d| / (rms(mirror) + |mirror|);
+# its bf16 outputs (dx, dB, dC) by relative L2 to the mirror rounded to
+# bf16 as the kernel rounds them.  Set from the readings of
+# tools/scan_backward_terms.py (PERF.md, PR 26): the kernel reads at most
+# MIRROR_TOL / 10 on every case, a variant that drops the second bf16 term
+# of every split operand reads above it
+MIRROR_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-3}
 
 
-def hold_scan_backward(grads, refs, args, tol) -> tuple:
+def mirror_distances(grads, mirror) -> dict:
+    """Each gradient's distance to the mirror of the bf16 kernel's
+    roundings, in the measure ``MIRROR_TOL`` holds for its dtype."""
+    out = {}
+    for name, got, ref in zip(SCAN_GRADS, grads, mirror):
+        if ref is None:   # the op returns an empty dD or dh0 where D or h0 is None
+            continue
+        if got.dtype == torch.float32:
+            ref = ref.double()
+            scale = float(ref.pow(2).mean().sqrt()) + ref.abs()
+            out[name] = float(((got.double() - ref).abs() / scale).max())
+        else:
+            out[name] = rel_l2(got, ref.to(got.dtype))
+    return out
+
+
+def hold_scan_backward(grads, refs, args, tol, mirror=None) -> tuple:
     """The scan backward kernel's ``grads`` against the plain backward's
     ``refs`` on the same ``args``: each gradient within ``tol`` + tol |ref|
     + ``ROUNDING_FLOOR`` x its rounding (``close``), where its rounding is
     max |d| between the plain version in f32 and in f64
-    (``gated_scan_backward_witness``).  Returns (max |d| against the plain
-    backward, readings): per gradient its rounding and the kernel's max |d|
-    to the f64 gradient, and the elements over ``tol`` + tol |ref| alone
-    with, at those, the largest distance to the f64 gradient of the kernel
-    and of the plain version in f32."""
+    (``gated_scan_backward_witness``); with ``mirror`` (the plain mirror of
+    the bf16 kernel's roundings, ``gated_scan_backward_mma_ref``, in f32)
+    each gradient is also held within ``MIRROR_TOL`` of it
+    (``mirror_distances``).  Returns (max |d| against the plain backward,
+    readings): per gradient its rounding, the kernel's max |d| to the f64
+    gradient (and its distance to the mirror), and the elements over
+    ``tol`` + tol |ref| alone with, at those, the largest distance to the
+    f64 gradient of the kernel and of the plain version in f32."""
     from repro_torch.kernels.ssm_scan import gated_scan_backward_witness
 
     lo, hi = gated_scan_backward_witness(*args)
+    to_mirror = mirror_distances(grads, mirror) if mirror is not None else {}
     err, readings = 0.0, []
     for name, got, ref, f32, f64 in zip(SCAN_GRADS, grads, refs, lo, hi):
         if ref is None:
             continue
         rounding = float((f32.double() - f64).abs().max())
         err = max(err, close(got, ref, tol, floor=ROUNDING_FLOOR * rounding))
+        if name in to_mirror:
+            m_tol = MIRROR_TOL[got.dtype]
+            if not to_mirror[name] <= m_tol:
+                msg = f"{name} {to_mirror[name]:.3g} from the mirror of its roundings, over {m_tol}"
+                print(f"MISMATCH: {msg}", flush=True)
+                MISMATCHES.append(msg)
+            name = f"{name} (mirror {to_mirror[name]:.3g})"
         over = (got.float() - ref.float()).abs() > tol + tol * ref.float().abs()
         n = int(over.sum())
         k64 = float((got.double() - f64).abs()[over].max()) if n else 0.0
@@ -452,7 +491,6 @@ def phase_kernels(dev):
         bound_ms=b_ms, bound_by=b_by,
     ))
     del q, k, v, kt, vt
-    split_sweep(dec_case)
     kv_len_sweep(dec_case)
 
     # ---- flash attention: the served prefill, ragged/offset/window/cap, D=256
@@ -767,19 +805,50 @@ SCAN_BWD_CASES = [
 ]
 
 
+def kernel_name(key: str) -> str:
+    """A profiler record's kernel function name without its namespace,
+    template arguments and parameters."""
+    m = re.search(r"(\w+_kernel)\b", key)
+    return m.group(1) if m else key[:60]
+
+
+def launch_split(fn, reps: int = 5) -> dict:
+    """Device µs of one call of ``fn`` by kernel name, from
+    ``torch.profiler`` over ``reps`` calls after a warm-up one (the
+    launches' own times: the gaps between them are not in the sums)."""
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us() / reps
+    return dict(by_name)
+
+
 def phase_scan_backward(randn) -> tuple:
     """The gated scan's backward kernel against its plain version on the
     card (``SCAN_BWD_CASES``, each printed with its route; each gradient
-    held element by element, ``hold_scan_backward``; two launches bitwise
+    held element by element, ``hold_scan_backward``, and in bf16 also
+    against the mirror of the kernel's roundings; two launches bitwise
     equal), each case timed as a CUDA graph beside the plain version and its
-    bound; no single library call computes it."""
+    bound; no single library call computes it.  At the two training shapes
+    (the first bf16 case of each route) each launch's device µs are printed
+    from one profiled call."""
     from repro_torch.kernels.ssm_scan import (
         gated_scan_backward_op,
         gated_scan_backward_padded,
         scan_backward_plan,
     )
 
-    rows = []
+    rows, split_routes = [], set()
     for shape, dtype, with_d, with_h0, with_dh, mlstm in SCAN_BWD_CASES:
         b, s, h, p, g, n, chunk = shape
         x, ld, gi, bm, cm, d = scan_inputs(randn, b, s, h, p, g, n, dtype, mlstm=mlstm,
@@ -791,7 +860,11 @@ def phase_scan_backward(randn) -> tuple:
         grads = gated_scan_backward_op(*args)
         torch.cuda.synchronize()
         refs = gated_scan_backward_padded(*args)
-        err, readings = hold_scan_backward(grads, refs, args, TOL[dtype])
+        mirror = None
+        if dtype == torch.bfloat16:
+            mirror = gated_scan_backward_padded(
+                *(a.float() if isinstance(a, torch.Tensor) else a for a in args), mma=True)
+        err, readings = hold_scan_backward(grads, refs, args, TOL[dtype], mirror)
         same = all(torch.equal(a, c) for a, c in zip(grads, gated_scan_backward_op(*args)))
         if not same:
             MISMATCHES.append(f"ssm_scan_backward {shape} {dtype}: two launches differ")
@@ -806,8 +879,14 @@ def phase_scan_backward(randn) -> tuple:
                            if v)
         label = (f"x/dy ({b},{s},{h},{p}), B/C ({b},{s},{g},{n}) {name}, chunk {chunk}"
                  f"{', ' + extras if extras else ''} ({plan['route']})")
+        against = "the plain backward" + (
+            f" (and the mirror of the kernel's roundings within {MIRROR_TOL[torch.float32]:g} "
+            f"of f32 outputs element by element, |d| / (rms + |mirror|), and "
+            f"{MIRROR_TOL[torch.bfloat16]:g} relative L2 of bf16 outputs)"
+            if mirror is not None else "")
         print(f"ssm_scan_backward {label}: grads max|d| {err:.3g} (tol {TOL[dtype]} + "
-              f"{ROUNDING_FLOOR:g} x f32 rounding; max|d| to f64, plain f32 / kernel: "
+              f"tol |ref| + {ROUNDING_FLOOR:g} x f32 rounding, against {against}; "
+              f"max|d| to f64, plain f32 / kernel: "
               f"{'; '.join(readings)}); two launches bitwise "
               f"{same}; kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, bound "
               f"{b_ms * 1e3:.2f} us ({b_by}); grids {plan['grids']}, workspace "
@@ -815,26 +894,18 @@ def phase_scan_backward(randn) -> tuple:
               f"us at {HBM_BYTES_PER_S / 1e12:g} TB/s)")
         rows.append(dict(name="ssm_scan_backward", shape=label, max_abs_err=err, ms=ms,
                          plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by))
-        del x, dy, bm, cm, grads, refs, args
+        if dtype == torch.bfloat16 and plan["route"] not in split_routes:
+            split_routes.add(plan["route"])
+            split = launch_split(lambda: gated_scan_backward_op(*args))
+            print(f"ssm_scan_backward {label} by launch (profiled, device us a call): "
+                  + ", ".join(f"{kernel_name(k)} {v:.1f}"
+                              for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
+                  + f"; sum {sum(split.values()):.1f}")
+        del x, dy, bm, cm, grads, refs, args, mirror
         torch.cuda.empty_cache()
     row = rows[0]
     del row["name"]
     return row, rows[1:]
-
-
-def split_sweep(dec_case) -> None:
-    """Decode attention's time at split lengths around the wrapper's
-    ``SPLIT_LEN``, at the served shapes and the long cache (printed only)."""
-    from repro_torch.kernels.decode_attention import decode_attention_cuda
-
-    for args in [(1, 512, 16, 8, 128, [63], None),
-                 (1, Z_BUCKET, 32, 32, 64, [Z_PROMPT + Z_NEW - 1], None),
-                 (1, LONG_KV, 16, 8, 128, [LONG_KV - 1], None)]:
-        q, k, v, kv_len, _ = dec_case(*args, torch.bfloat16)
-        times = {n: graph_ms(lambda: decode_attention_cuda(q, k, v, kv_len, None, n), reps=10)
-                 for n in (64, 128, 256, 512, 1024)}
-        print(f"decode split sweep {args[:5]} kv_len {args[5]}: " +
-              ", ".join(f"L={n} {t * 1e3:.2f} us" for n, t in times.items()))
 
 
 def kv_len_sweep(dec_case) -> None:
@@ -1913,12 +1984,11 @@ def check_lane_order(label, run) -> None:
           f"the probe lane-orders ({len(found - probed)} missed, {len(probed - found)} extra)")
 
 
-def time_multitenant_step(v, lp, dev) -> dict:
+def time_multitenant_step(v, dev) -> dict:
     """The qwen3 step at width 4: the batched program (one vmap call over
     the four clients' stacked caches) against the four clients' solo steps,
     captured as CUDA graphs and eagerly, in turns (batched, solo, solo,
-    batched); then replay rounds of both edges in turns (vmap, loop, loop,
-    vmap) from fresh generations, the wall of each round."""
+    batched)."""
     from repro_torch.core.engine import no_vmap_fallback
 
     edge = v["m"].edge
@@ -1958,34 +2028,8 @@ def time_multitenant_step(v, lp, dev) -> dict:
     print(f"qwen3-0.6b step at width 4, in turns (batched / 4 solo / 4 solo / batched): CUDA "
           f"graph {' / '.join(f'{t:.3f}' for t in graph)} ms; eager "
           f"{' / '.join(f'{t:.1f}' for t in eager)} ms")
-
-    walls = {True: [], False: []}
-    gens = {}
-    for run in (v, lp):
-        m = run["m"]
-        gens[id(m)] = [c.start_generation(p, 4) for c, p in zip(m.clients, run["prompts"])]
-
-    def one_round(run):
-        m = run["m"]
-        gs = gens[id(m)]
-        inputs = {c.session.client_id: c.step_inputs(g) for c, g in zip(m.clients, gs)}
-        with no_vmap_fallback():
-            res = m.edge.run_round(inputs)
-        for c, g in zip(m.clients, gs):
-            c.absorb_step(g, res[c.session.client_id].outputs)
-
-    for run in (v, lp):             # the first round of a generation uploads its state
-        one_round(run)
-    for run in (v, lp, lp, v, v, lp):
-        n0 = len(run["timer"].walls)
-        one_round(run)
-        walls[run is v].append(run["timer"].walls[n0][1] * 1e3)
-    print(f"qwen3-0.6b x4 replay round wall in turns (vmap, loop, loop, vmap, vmap, loop): "
-          f"vmap {' / '.join(f'{t:.1f}' for t in walls[True])} ms, loop "
-          f"{' / '.join(f'{t:.1f}' for t in walls[False])} ms")
     return dict(graph_batched_ms=(graph[0] + graph[3]) / 2, graph_solo_ms=(graph[1] + graph[2]) / 2,
-                eager_batched_ms=(eager[0] + eager[3]) / 2, eager_solo_ms=(eager[1] + eager[2]) / 2,
-                round_vmap_ms=sum(walls[True]) / 3, round_loop_ms=sum(walls[False]) / 3)
+                eager_batched_ms=(eager[0] + eager[3]) / 2, eager_solo_ms=(eager[1] + eager[2]) / 2)
 
 
 # ---------------------------------------------------------------------------
@@ -3895,20 +3939,47 @@ def phase_train_small(dev) -> None:
 
 class ScanBackwardPlain:
     """While entered, the scan backward op computes the gradients of CUDA
-    tensors with the plain backward in place of its kernel: a comparison
-    run, outside every counted path."""
+    tensors with the plain backward in place of its kernel, or with
+    ``mma`` the mirror of the bf16 kernel's roundings
+    (``gated_scan_backward_mma_ref``): a comparison run, outside every
+    counted path."""
+
+    def __init__(self, mma: bool = False):
+        self.mma = mma
 
     def __enter__(self):
+        import functools
+
         from repro_torch.kernels.ssm_scan import ops
 
         self._saved = ops.gated_scan_backward_cuda
-        ops.gated_scan_backward_cuda = ops.gated_scan_backward_padded
+        ops.gated_scan_backward_cuda = functools.partial(ops.gated_scan_backward_padded,
+                                                         mma=self.mma)
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels.ssm_scan import ops
 
         ops.gated_scan_backward_cuda = self._saved
+        return False
+
+
+class ScanForwardPlain:
+    """While entered, the scan forward op computes CUDA tensors with the
+    plain version (``gated_scan_padded``) in place of its kernel: a
+    comparison run, outside every counted path."""
+
+    def __enter__(self):
+        from repro_torch.kernels.ssm_scan import ops
+
+        self._saved = ops.gated_scan_cuda
+        ops.gated_scan_cuda = ops.gated_scan_padded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.ssm_scan import ops
+
+        ops.gated_scan_cuda = self._saved
         return False
 
 
@@ -3927,7 +3998,15 @@ def phase_scan_backward_in_model(dev) -> None:
     kernel's run is held within ``TOL`` (relative L2) of the plain
     backward's run; each run's worst leaf against the CPU is printed, which
     tells the scan backward's share of the card's distance to the CPU from
-    the rest of the model's bf16 rounding."""
+    the rest of the model's bf16 rounding.  Each model runs once more with
+    the mirror of the bf16 kernel's roundings in place of the backward
+    (``ScanBackwardPlain(mma=True)``): its run's distance to the
+    plain-backward run, beside the kernel run's, tells whether the
+    kernel's designed roundings account for that distance; the kernel
+    run's distance to the mirror run is printed too.  Each xLSTM runs once more with
+    the scan forward's plain version in place of its kernel
+    (``ScanForwardPlain``, the backward kernel kept), which tells the
+    forward kernel's bf16 products' share of it."""
     from repro_torch.configs import get_reduced_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.models.registry import get_model
@@ -3946,18 +4025,29 @@ def phase_scan_backward_in_model(dev) -> None:
         _, g_kernel = train_grads(cfg, p_dev, nb, dev)
         with ScanBackwardPlain():
             _, g_plain = train_grads(cfg, p_dev, nb, dev)
+        with ScanBackwardPlain(mma=True):
+            _, g_mirror = train_grads(cfg, p_dev, nb, dev)
 
-        def worst(got):
-            return max((rel_l2(got[k], ref), "/".join(k)) for k, ref in g_cpu.items())
+        def worst(got, refs=g_cpu):
+            return max((rel_l2(got[k], ref), "/".join(k)) for k, ref in refs.items())
 
-        err, leaf = max((rel_l2(g_kernel[k], ref), "/".join(k)) for k, ref in g_plain.items())
+        err, leaf = worst(g_kernel, g_plain)
+        (m_err, m_leaf), (km_err, km_leaf) = worst(g_mirror, g_plain), worst(g_kernel, g_mirror)
         check(err <= tol, f"15a {cfg.name} bf16: grad {leaf} of the scan backward kernel's run "
                           f"{err:.3g} (relative L2) from the plain backward's run, over {tol}")
         (k_err, k_leaf), (p_err, p_leaf) = worst(g_kernel), worst(g_plain)
         blocks = "no sLSTM" if kw.get("slstm_every", 0) > kw["n_layers"] else "every block"
-        print(f"[15a] reduced {cfg.name} bf16 ({blocks}): kernel run vs plain-backward run worst leaf {leaf} {err:.3g} (held at {tol}); "
-              f"worst leaf vs the CPU: kernel run {k_leaf} {k_err:.3g}, plain-backward run "
-              f"{p_leaf} {p_err:.3g} (relative L2)")
+        fwd = ""
+        if name == "xlstm-1.3b":
+            with ScanForwardPlain():
+                _, g_fwd = train_grads(cfg, p_dev, nb, dev)
+            f_err, f_leaf = worst(g_fwd)
+            fwd = f", plain-forward run {f_leaf} {f_err:.3g}"
+        print(f"[15a] reduced {cfg.name} bf16 ({blocks}): kernel run vs plain-backward run "
+              f"worst leaf {leaf} {err:.3g} (held at {tol}); mirror run vs plain-backward run "
+              f"{m_leaf} {m_err:.3g}, kernel run vs mirror run {km_leaf} {km_err:.3g}; worst "
+              f"leaf vs the CPU: kernel run {k_leaf} {k_err:.3g}, plain-backward run "
+              f"{p_leaf} {p_err:.3g}{fwd} (relative L2)")
 
 
 # phase 15a: reduced zamba2-1.2b (the default reduction: two Mamba2 layers,
@@ -4010,7 +4100,9 @@ TRAIN_GROUPS = (("rmsnorm forward", ("rmsnorm_warp", "rmsnorm_block", "rmsnorm_s
                 ("scan backward", ("::cumsum_kernel", "state_pass_kernel", "scores_part_kernel",
                                    "scores_kernel", "dx_kernel",
                                    "dbc_kernel", "finish_kernel", "reduce_bc_kernel",
-                                   "reduce_d_kernel")),
+                                   "reduce_d_kernel", "pad_rows_kernel", "state_pass_mma_kernel",
+                                   "scores_part_mma_kernel", "dx_mma_kernel",
+                                   "dbc_mma_kernel")),
                 ("GEMMs", ("gemm", "Gemm", "xmma", "cutlass", "nvjet", "sm90_")))
 
 
@@ -4052,6 +4144,10 @@ def profile_train_step(step, label: str = "15c") -> dict:
         shares[group] = t / 1e3
         print(f"  share of {group}: {t / 1e3:.2f} ms ({sum(c for c, _ in hits)} records), "
               f"{100 * t / total:.1f}% of the device time")
+        if group == "scan backward" and hits:
+            split = sorted(((kernel_name(k), c, t) for k, (c, t) in by_name.items()
+                            if any(x in k for x in keys)), key=lambda kv: -kv[2])
+            print("    by launch: " + ", ".join(f"{n} {t / 1e3:.2f} ms ({c})" for n, c, t in split))
     return dict(busy_ms=total / 1e3, wall_ms=wall / 1e3, shares_ms=shares)
 
 
@@ -4481,7 +4577,68 @@ def run_path(library, label, kernels, fn):
     return m, launches
 
 
-def main() -> None:
+def phases_8_9(library, dev) -> dict:
+    """Phase 8 (minicpm3-4b) and phase 9 (xlstm-1.3b), each stateful and
+    stateless; returns their launches by path."""
+    by_path = {}
+    t0 = time.perf_counter()
+    mla = ("rmsnorm", "flash_attention")
+    m, by_path["minicpm3-4b"] = run_path(
+        library, "phase 8 minicpm3-4b stateful", mla,
+        lambda: phase_main_path(dev, "minicpm3-4b", M_PROMPT, M_NEW, M_BUCKET))
+    check_main_path(m)
+    measure_replay_step(m, dev)
+    check_prefill_vs_decode(m, dev, LOGIT_REL_TOL)
+    params = m["params"]
+    del m
+    torch.cuda.empty_cache()
+    m, by_path["minicpm3-4b stateless"] = run_path(
+        library, "phase 8 minicpm3-4b stateless", mla,
+        lambda: phase_main_path(dev, "minicpm3-4b", M_PROMPT, M_NEW, M_BUCKET, stateful=False,
+                                params=params))
+    n = m["cfg"].n_layers
+    check_main_path(m, {"flash_attention": n, "rmsnorm": 4 * n + 1})
+    measure_replay_step(m, dev)
+    del m, params
+    torch.cuda.empty_cache()
+    print(f"[phase 8] ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    print(f"host RSS before xlstm-1.3b stateful: {rss()}")
+    m, by_path["xlstm-1.3b"] = run_path(
+        library, "phase 9 xlstm-1.3b stateful", ("rmsnorm", "ssm_scan"),
+        lambda: phase_main_path(dev, "xlstm-1.3b", X_PROMPT, X_NEW, X_BUCKET))
+    print(f"host RSS after xlstm-1.3b stateful: {rss()}")
+    check_main_path(m)
+    measure_replay_step(m, dev)
+    check_xlstm_prefill_vs_decode(m, dev)
+    params = m["params"]
+    del m
+    torch.cuda.empty_cache()
+    m, by_path["xlstm-1.3b stateless"] = run_path(
+        library, "phase 9 xlstm-1.3b stateless", ("rmsnorm", "ssm_scan"),
+        lambda: phase_main_path(dev, "xlstm-1.3b", X_STATELESS_PROMPT, X_NEW, X_BUCKET,
+                                stateful=False, params=params))
+    n_m = m["cfg"].n_layers - m["cfg"].n_layers // m["cfg"].slstm_every
+    check_main_path(m, {"ssm_scan": n_m, "rmsnorm": 2 * m["cfg"].n_layers + 1})
+    measure_replay_step(m, dev)
+    del m, params
+    torch.cuda.empty_cache()
+    print(f"[phase 9] ({time.perf_counter() - t0:.1f} s)")
+    return by_path
+
+
+# phases 8 and 9 run in a second process on the card (``BESIDE``), started
+# once phase 2's kernel timings are done and joined before phase 15: the
+# served paths are host-bound (the card idle 67-92% of a replayed step), so
+# two processes share its idle time
+BESIDE = "--phases-8-9"
+BESIDE_DIR = os.path.join(ROOT, "build", "phases_8_9")
+
+
+def setup():
+    """The kernel library and the card, with TF32 and reduced-precision
+    bf16 sums off; fails where no CUDA device is present."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA device")
     from repro_torch.kernels import library
@@ -4489,7 +4646,65 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    dev = torch.device("cuda")
+    return library, torch.device("cuda")
+
+
+def start_beside():
+    """Start phases 8 and 9 in a second process on the card, its output in a
+    file that ``join_beside`` prints; the process is killed if this one
+    exits first."""
+    import atexit
+
+    os.makedirs(BESIDE_DIR, exist_ok=True)
+    log = open(os.path.join(BESIDE_DIR, "log.txt"), "w")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), BESIDE, str(os.getpid())],
+                            stdout=log, stderr=subprocess.STDOUT, cwd=ROOT,
+                            env=dict(os.environ, PYTHONUNBUFFERED="1"))
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc, log, time.perf_counter()
+
+
+def join_beside(beside) -> dict:
+    """Wait for the process of phases 8 and 9, print its output and return
+    its launches by path; fail if it failed."""
+    proc, log, t_start = beside
+    t0 = time.perf_counter()
+    rc = proc.wait()
+    log.close()
+    with open(log.name) as f:
+        print(f.read(), end="")
+    print(f"[phases 8-9] in a second process beside phases 3-7 and 10-14: exit {rc}; joined "
+          f"{t0 - t_start:.1f} s after its start, then waited {time.perf_counter() - t0:.1f} s")
+    check(rc == 0, "phases 8-9 failed (their output above)")
+    with open(os.path.join(BESIDE_DIR, "launches.json")) as f:
+        return json.load(f)
+
+
+def beside_main(parent: int) -> None:
+    """The second process: phases 8 and 9, their launches by path written
+    for ``join_beside``.  It ends with the run that started it."""
+    import ctypes
+    import signal
+
+    ctypes.CDLL(None).prctl(1, signal.SIGTERM)   # PR_SET_PDEATHSIG
+    if os.getppid() != parent:
+        fail("the run that started phases 8-9 has ended")
+    library, dev = setup()
+    by_path = phases_8_9(library, dev)
+    with open(os.path.join(BESIDE_DIR, "launches.json"), "w") as f:
+        json.dump(by_path, f)
+
+
+def main() -> None:
+    if BESIDE in sys.argv[1:]:
+        return beside_main(int(sys.argv[sys.argv.index(BESIDE) + 1]))
+    library, dev = setup()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -4503,14 +4718,17 @@ def main() -> None:
     hgmma = sass_count(str(paths["flash_attention"]), "HGMMA")
     print(f"flash_attention SASS: {hgmma} HGMMA instructions (the bf16 route's wgmma)")
     check(hgmma > 0, "flash_attention's library has no HGMMA: the tensor cores are not used")
-    for name in ("ssm_scan", "flash_attention_backward"):
+    for name in ("ssm_scan", "flash_attention_backward", "ssm_scan_backward"):
         hmma = sass_count(str(paths[name]), "HMMA")
         print(f"{name} SASS: {hmma} HMMA instructions (the bf16 route's mma.sync)")
         check(hmma > 0, f"{name}'s library has no HMMA: the tensor cores are not used")
-    spills = [line for line in library.PTXAS.get("flash_attention_backward", [])
-              if "mma_kernel" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
-    check(any("dq_mma_kernel" in line for line in library.PTXAS.get("flash_attention_backward", []))
-          and not spills, f"flash attention backward's mma kernels spill or are missing: {spills}")
+    for name, marker in (("flash_attention_backward", "dq_mma_kernel"),
+                         ("ssm_scan_backward", "dbc_mma_kernel")):
+        lines = library.PTXAS.get(name, [])
+        spills = [line for line in lines if "mma_kernel" in line
+                  and "0 bytes spill stores, 0 bytes spill loads" not in line]
+        check(any(marker in line for line in lines) and not spills,
+              f"{name}'s mma kernels spill or are missing: {spills}")
     print(f"[phase 1] kernels built in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -4521,6 +4739,7 @@ def main() -> None:
     if "--kernels-only" in sys.argv[1:]:
         print("--kernels-only: stopping before the served paths")
         sys.exit(0)
+    beside = start_beside()
 
     by_path = {}
     attn = ("rmsnorm", "decode_attention", "flash_attention")
@@ -4624,7 +4843,7 @@ def main() -> None:
                                       new_tokens=MT_NEW, bucket=BUCKET, enable_vmap=vm))
     check_multitenant(f"qwen3-0.6b x{MT_CLIENTS}", runs[True], runs[False])
     check_lane_order(f"qwen3-0.6b x{MT_CLIENTS}", runs[True])
-    step_times = time_multitenant_step(runs[True], runs[False], dev)
+    step_times = time_multitenant_step(runs[True], dev)
     del runs
     torch.cuda.empty_cache()
     runs = {}
@@ -4678,50 +4897,7 @@ def main() -> None:
     print(f"[phase 14] replay soundness verifier: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{k} {v:.1f}' for k, v in v_secs.items())})")
 
-    t0 = time.perf_counter()
-    mla = ("rmsnorm", "flash_attention")
-    m, by_path["minicpm3-4b"] = run_path(
-        library, "phase 8 minicpm3-4b stateful", mla,
-        lambda: phase_main_path(dev, "minicpm3-4b", M_PROMPT, M_NEW, M_BUCKET))
-    check_main_path(m)
-    measure_replay_step(m, dev, profile=True)
-    check_prefill_vs_decode(m, dev, LOGIT_REL_TOL)
-    params = m["params"]
-    del m
-    torch.cuda.empty_cache()
-    m, by_path["minicpm3-4b stateless"] = run_path(
-        library, "phase 8 minicpm3-4b stateless", mla,
-        lambda: phase_main_path(dev, "minicpm3-4b", M_PROMPT, M_NEW, M_BUCKET, stateful=False,
-                                params=params))
-    n = m["cfg"].n_layers
-    check_main_path(m, {"flash_attention": n, "rmsnorm": 4 * n + 1})
-    measure_replay_step(m, dev, profile=True)
-    del m, params
-    torch.cuda.empty_cache()
-    print(f"[phase 8] ({time.perf_counter() - t0:.1f} s)")
-
-    t0 = time.perf_counter()
-    print(f"host RSS before xlstm-1.3b stateful: {rss()}")
-    m, by_path["xlstm-1.3b"] = run_path(
-        library, "phase 9 xlstm-1.3b stateful", ("rmsnorm", "ssm_scan"),
-        lambda: phase_main_path(dev, "xlstm-1.3b", X_PROMPT, X_NEW, X_BUCKET))
-    print(f"host RSS after xlstm-1.3b stateful: {rss()}")
-    check_main_path(m)
-    measure_replay_step(m, dev, profile=True)
-    check_xlstm_prefill_vs_decode(m, dev)
-    params = m["params"]
-    del m
-    torch.cuda.empty_cache()
-    m, by_path["xlstm-1.3b stateless"] = run_path(
-        library, "phase 9 xlstm-1.3b stateless", ("rmsnorm", "ssm_scan"),
-        lambda: phase_main_path(dev, "xlstm-1.3b", X_STATELESS_PROMPT, X_NEW, X_BUCKET,
-                                stateful=False, params=params))
-    n_m = m["cfg"].n_layers - m["cfg"].n_layers // m["cfg"].slstm_every
-    check_main_path(m, {"ssm_scan": n_m, "rmsnorm": 2 * m["cfg"].n_layers + 1})
-    measure_replay_step(m, dev, profile=True)
-    del m, params
-    torch.cuda.empty_cache()
-    print(f"[phase 9] ({time.perf_counter() - t0:.1f} s)")
+    by_path.update(join_beside(beside))
 
     t0 = time.perf_counter()
     with PlainOnCard():

@@ -84,12 +84,12 @@ _ARGTYPES = {
     ],
     # dy, dh_final (or null), x, ld, gi, B, C, D (or null), h0 (or null), dx,
     # dld, dgi, dB, dC, dD (or null), dh0 (or null), workspace, its floats,
-    # b, s, h, p, g, n, chunk, dtype, route, scores smem bytes, stream
-    # (scan_backward_plan)
+    # b, s, h, p, g, n, chunk, dtype, route, scores smem bytes, vec, stream
+    # (scan_backward_plan, vector_flags)
     "repro_ssm_scan_backward": [
         *[_C.c_void_p] * 17, _C.c_longlong,
         _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
-        _C.c_int, _C.c_int, _C.c_void_p,
+        _C.c_int, _C.c_int, _C.c_int, _C.c_void_p,
     ],
     "repro_ssm_scan": [
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,

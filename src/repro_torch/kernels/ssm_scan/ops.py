@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import library
 from repro_torch.kernels.ssm_scan.ref import (
+    gated_scan_backward_mma_ref,
     gated_scan_backward_ref,
     gated_scan_mma_ref,
     gated_scan_ref,
@@ -85,62 +86,120 @@ def scan_plan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
     raise TypeError(f"kernels take float32 or bfloat16, not {dtype}")
 
 
-BWD_TILE = 32        # columns of P (state pass, dx) or of N (dB/dC) per backward block
-BWD_WIDE_ROWS = 64   # state rows per state-pass block on the wide backward route
+BWD_TILE = 32        # columns of P (state pass, dx) or of N (dB/dC) per f32 backward block
+BWD_WIDE_ROWS = 64   # state rows per f32 state-pass block on the wide backward route
+BWD_MMA_TILE = 64    # the bf16 kernels' tile of P or N and their slabs' width
 
 
 def scan_backward_plan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
                        dtype: torch.dtype) -> Dict[str, object]:
     """The backward kernel's launches for these shapes (``chunk`` is the
     wrapper's ``min(chunk, S)``), as its C entry point makes them: the
-    route, each launch's grid, threads and shared memory in bytes (static
-    or dynamic), and the f32 workspace in floats.  Eight launches: each
-    chunk's cumulative log-decay (in step order), the state pass (the
-    states entering and the state gradients leaving each chunk, both
-    directions in one grid, each block walking the chunks), the scores (C
-    B^T and dy x^T of each chunk), dx, dB/dC per head, the finish
-    (dlog_decay, din_scale), and the fixed-order sums of dB/dC over a
-    group's heads and of dD.
+    route, each launch's kernel, grid and shared memory in bytes (those in
+    ``dynamic`` dynamic, the rest static), the threads, and the f32
+    workspace in floats with its parts.  Each chunk's cumulative log-decay
+    (in step order), the state pass (the states entering and the state
+    gradients leaving each chunk, both directions in one grid, each block
+    walking the chunks), the scores (C B^T and dy x^T of each chunk and the
+    per-step sums they give), dx, dB/dC per head, the finish (dlog_decay,
+    din_scale), and the fixed-order sums of dB/dC over a group's heads and
+    of dD.
 
-    ``narrow`` (N <= 128): a state-pass block holds its whole N x 32 state
-    tile in registers (rows rounded to 64 or 128).  ``wide`` (N up to
-    1024): N is split into tiles of 64 rows over the state pass's blocks.
-    The wide route also splits each chunk's score sums over N and P into
-    ``splits`` ranges over as many blocks (the mLSTM has only 16 chunk-heads
-    at 1 x 512 tokens), added in range order by the scores kernel.  The
-    dtype does not change the launches: both run on the CUDA cores.
-    The workspace holds the states and their gradients (B, NC, H, N, P),
-    S and G (B, NC, H, 2, Q, Q), per-step sums, per-tile parts, each head's
-    dB and dC (B, S, H, N), dD's parts and the cumulative log-decays."""
+    ``narrow`` (N <= 128) and ``wide`` (N up to 1024).  The wide route
+    splits each chunk's score sums over N and P into ``splits`` ranges over
+    as many blocks (the mLSTM has only 16 chunk-heads at 1 x 512 tokens),
+    added in range order by the scores kernel, which writes S and G to the
+    workspace.
+
+    bf16 runs the state pass, scores, dx and dB/dC on the tensor cores
+    (``*_mma``, mma.sync): a state-pass block owns a 64 x 64 tile of the
+    state (two stages of slabs); dx and dB/dC blocks own 64 columns of P or
+    N of a chunk-head and stream N or P in slabs of 64.  On the narrow route
+    S and G never reach device memory: dx forms C B^T and dB/dC forms dy x^T
+    themselves, and dB/dC's first N tile also forms C B^T and takes the
+    per-step sums, so the route has no scores launch and its workspace no
+    (B, NC, H, 2, Q, Q) part.  Where P % 8 != 0 a first launch pads x and
+    dy's rows to a multiple of 8 in the workspace, so every slab is copied
+    16 bytes at a time.  f32 runs on the CUDA cores: a narrow state-pass
+    block holds its whole N x 32 state tile in registers (rows rounded to 64
+    or 128), the wide one 64 rows; blocks own 32 columns.
+
+    The workspace holds the padded x and dy where made, the states and their
+    gradients (B, NC, H, N, P; bf16: P padded to 4 floats so their slices
+    copy 16 bytes at a time), each head's dB and dC (B, S, H, N), S and G
+    where kept, the split sums, per-step sums, per-tile parts, dD's parts
+    and the cumulative log-decays."""
     if n > MAX_STATE:
         raise ValueError(f"state size N={n} > {MAX_STATE}")
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"kernels take float32 or bfloat16, not {dtype}")
-    nc, pt, nt = -(-s // chunk), -(-p // BWD_TILE), -(-n // BWD_TILE)
+    mma = dtype == torch.bfloat16
     narrow = n <= NARROW_STATE
-    rows = (64 if n <= 64 else 128) if narrow else BWD_WIDE_ROWS
+    tile = BWD_MMA_TILE if mma else BWD_TILE
+    nc, pt, nt = -(-s // chunk), -(-p // tile), -(-n // tile)
     q = MAX_CHUNK
-    # the wide route splits each chunk's score sums over N and P into ks
-    # ranges, enough blocks for two on each of the 132 SMs, at most 16
-    ks = 1 if narrow else max(1, min(16, -(-264 // (b * nc * h))))
-    grids = dict(cumsum=(-(-(b * nc * h) // 8),),
-                 state=(pt, 1 if narrow else -(-n // BWD_WIDE_ROWS), 2 * h * b),
-                 scores=(nc, h, b), dx=(pt, nc, h * b), dbc=(nt, nc, h * b),
+    bch = b * nc * h
+    xp = -(-p // 8) * 8 if mma else p
+    # the wide route's ranges: on the CUDA cores enough blocks for two on
+    # each of the 132 SMs, on the tensor cores about 64 blocks (at least
+    # two ranges); at most 16
+    if narrow:
+        ks = 1
+    elif mma:
+        ks = max(2, min(16, -(-64 // bch)))
+    else:
+        ks = max(1, min(16, -(-264 // bch)))
+    f32_scores = 4 * (2 * q + 2 * q * 17 + q * (q + 1))
+    grids = dict(cumsum=(-(-bch // 8),), dx=(pt, nc, h * b), dbc=(nt, nc, h * b),
                  finish=(nc, h, b))
+    if mma:
+        slab, state_slab, terms = q * (tile + 8) * 2, tile * (tile + 8) * 2, 2 * q * (q + 8) * 2
+        f32_slab = tile * (tile + 4) * 4   # a state slice as it is copied, before its split
+        per_chunk = 4 * 2 * q + 4 * 2 * 8   # cs, gi and the warps' two block sums
+        sums = 2 * 4 * 8 * q   # the warps' step-sum columns
+        kernels = dict(state="state_pass_mma", dx="dx_mma", dbc="dbc_mma")
+        grids["state"] = (pt, nt, 2 * h * b)
+        smem = dict(state=2 * (2 * slab + 4 * 2 * q), scores=f32_scores, scores_part=2 * slab,
+                    dx=terms + 2 * slab + per_chunk,
+                    dbc=terms + 4 * slab + 4 * state_slab + 2 * f32_slab + sums + per_chunk)
+        dynamic = {"state", "scores", "scores_part", "dx", "dbc"}
+        if xp != p:
+            kernels["pad"] = "pad_rows"
+            grids["pad"] = (min(4096, -(-(b * s * h * xp) // 256)),)
+        if not narrow:
+            kernels.update(scores_part="scores_part_mma", scores="scores")
+    else:
+        rows = (64 if n <= 64 else 128) if narrow else BWD_WIDE_ROWS
+        kernels = dict(state="state_pass", scores="scores", dx="dx", dbc="dbc")
+        grids["state"] = (pt, 1 if narrow else -(-n // BWD_WIDE_ROWS), 2 * h * b)
+        smem = dict(state=4 * (3 * q + 32 * rows + 32 * BWD_TILE), scores=f32_scores,
+                    scores_part=4 * 2 * q * 17,
+                    dx=4 * (2 * q + 32 * (q + 4) + 32 * BWD_TILE + 256),
+                    dbc=4 * (2 * q + 2 * 32 * (q + 4) + 2 * 32 * (BWD_TILE + 2) + 256))
+        dynamic = {"scores"}
+        if not narrow:
+            kernels["scores_part"] = "scores_part"
+    kernels.update(cumsum="cumsum", finish="finish", reduce_bc="reduce_bc", reduce_d="reduce_d")
+    if "scores" in kernels:
+        grids["scores"] = (nc, h, b)
     if ks > 1:
         grids["scores_part"] = (nc * ks, h, b)
-    smem = dict(cumsum=4 * 8 * q, state=4 * (3 * q + 32 * rows + 32 * BWD_TILE),
-                scores_part=4 * 2 * q * 17,
-                scores=4 * (2 * q + 2 * q * 17 + q * (q + 1)),
-                dx=4 * (2 * q + 32 * (q + 4) + 32 * BWD_TILE + 256),
-                dbc=4 * (2 * q + 2 * 32 * (q + 4) + 2 * 32 * (BWD_TILE + 2) + 256),
-                finish=4 * (4 * q + 1))
-    bch = b * nc * h
-    workspace = (2 * bch * n * p + bch * 2 * chunk * chunk + bch * 2 * chunk
-                 + bch * nt * 2 * chunk + bch * nt + 2 * b * s * h * n + bch * pt
-                 + (bch * ks * 2 * q * q if ks > 1 else 0) + bch * chunk)
-    return dict(route="narrow" if narrow else "wide", threads=256, finish_threads=q,
-                grids=grids, smem=smem, workspace=workspace, splits=ks)
+    smem = {k: v for k, v in smem.items() if k in grids}
+    smem.update(cumsum=4 * 8 * q, finish=4 * (4 * q + 1))
+    sp = -(-p // 4) * 4 if mma else p   # the states' rows (bf16: padded for 16-byte copies)
+    parts = dict(states=2 * bch * n * sp, head_dbc=2 * b * s * h * n, step_sums=bch * 2 * chunk,
+                 tile_parts=bch * nt * 2 * chunk, tile_hdh=bch * nt,
+                 dd_parts=bch * (1 if mma else pt),
+                 cumsum=bch * chunk)
+    if xp != p:
+        parts["padded_x_dy"] = b * s * h * xp   # two bf16 arrays
+    if not (mma and narrow):
+        parts["s_and_g"] = bch * 2 * chunk * chunk
+    if ks > 1:
+        parts["split_sums"] = bch * ks * 2 * q * q
+    return dict(route="narrow" if narrow else "wide", mma=mma, threads=256, finish_threads=q,
+                kernels=kernels, grids=grids, smem=smem, dynamic=dynamic & set(smem),
+                workspace=sum(parts.values()), workspace_parts=parts, splits=ks)
 
 
 def vector_flags(route: str, p: int, n: int, x, bm, cm, y) -> int:
@@ -149,13 +208,14 @@ def vector_flags(route: str, p: int, n: int, x, bm, cm, y) -> int:
     every pointer 16-byte aligned); the wide mma route a bit mask, bit 0 for
     x, y and the state's rows (P a multiple of 8: mLSTM's P = 1025 is not)
     and bit 1 for B and C (N a multiple of 8), each with its pointers
-    aligned.  The CUDA-core routes take none."""
+    aligned; the bf16 backward (``backward``, y standing for dy) the same
+    mask.  The CUDA-core routes take none."""
     def aligned(*ts):
         return all(t.data_ptr() % 16 == 0 for t in ts)
 
     if route == "mma":
         return int(p % 8 == 0 and n % 8 == 0 and aligned(x, bm, cm, y))
-    if route == "mma_wide":
+    if route in ("mma_wide", "backward"):
         return int(p % 8 == 0 and aligned(x, y)) | 2 * int(n % 8 == 0 and aligned(bm, cm))
     return 0
 
@@ -238,15 +298,20 @@ def gated_scan_cuda(
 
 
 def gated_scan_backward_padded(dy, dh_final, x, ld, gi, Bm, Cm, D, h0, chunk: int, *,
-                               acc: torch.dtype = torch.float32):
+                               acc: torch.dtype = torch.float32, mma: bool = False):
     """The plain backward with the forward's padding rule (identity steps,
-    and a zero cotangent on them); contiguous outputs."""
+    and a zero cotangent on them); contiguous outputs.  ``mma``: the mirror
+    of the bf16 kernel's roundings (``gated_scan_backward_mma_ref``, f32)."""
     s = x.shape[1]
     eff = min(chunk, s)
     pad = (-s) % eff
     if pad:
         dy, x, ld, gi, Bm, Cm = (_pad_seq(t, pad) for t in (dy, x, ld, gi, Bm, Cm))
-    grads = gated_scan_backward_ref(dy, dh_final, x, ld, gi, Bm, Cm, D, h0, chunk=eff, acc=acc)
+    if mma:
+        grads = gated_scan_backward_mma_ref(dy, dh_final, x, ld, gi, Bm, Cm, D, h0, chunk=eff)
+    else:
+        grads = gated_scan_backward_ref(dy, dh_final, x, ld, gi, Bm, Cm, D, h0, chunk=eff,
+                                        acc=acc)
     return tuple(None if t is None else (t[:, :s] if i < 5 else t).contiguous()
                  for i, t in enumerate(grads))
 
@@ -321,12 +386,14 @@ def gated_scan_backward_cuda(
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    vec = vector_flags("backward", p, n, x, Bm, Cm, dy) if plan["mma"] else 0
     library.check("ssm_scan_backward", fn(
         dy.data_ptr(), ptr(dh_final), x.data_ptr(), ld.data_ptr(), gi.data_ptr(),
         Bm.data_ptr(), Cm.data_ptr(), ptr(D), ptr(h0), dx.data_ptr(), dld.data_ptr(),
         dgi.data_ptr(), dB.data_ptr(), dC.data_ptr(), ptr(dD), ptr(dh0), ws.data_ptr(),
         plan["workspace"], b, s, h, p, g, n, chunk, library.dtype_code(x.dtype),
-        0 if plan["route"] == "narrow" else 1, plan["smem"]["scores"], stream,
+        0 if plan["route"] == "narrow" else 1, max(plan["smem"][k] for k in plan["dynamic"]),
+        vec, stream,
     ))
     return dx, dld, dgi, dB, dC, dD, dh0
 
@@ -475,7 +542,8 @@ ssm_step = ssm_step_ref
 __all__ = [
     "gated_scan", "gated_scan_cuda", "gated_scan_padded", "gated_step", "scan_plan",
     "scan_backward_plan", "gated_scan_backward_cuda", "gated_scan_backward_op",
-    "gated_scan_backward_padded", "gated_scan_backward_ref", "gated_scan_backward_witness",
+    "gated_scan_backward_mma_ref", "gated_scan_backward_padded", "gated_scan_backward_ref",
+    "gated_scan_backward_witness",
     "ssm_scan", "ssm_step", "gated_scan_mma_ref", "gated_scan_ref", "gated_step_ref",
     "ssm_scan_ref", "ssm_step_ref",
 ]

@@ -18,7 +18,7 @@ Returns y (B,S,H,P) in x's dtype and the final state (B,H,N,P) in f32.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -107,11 +107,14 @@ def gated_scan_backward_ref(
     *,
     chunk: int = 128,
     acc: torch.dtype = torch.float32,
+    terms: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """The gradient of :func:`gated_scan_ref`, written out in f32 over its
     chunked intermediates (a custom op's body runs below autograd, so the
     plain backward cannot be autograd of the plain forward; ``acc``
-    float64 computes the same in f64, a witness of f32's rounding).  ``dy``
+    float64 computes the same in f64, a witness of f32's rounding;
+    ``terms``, applied to each f32 operand of a product where the bf16
+    kernel rounds it, gives :func:`gated_scan_backward_mma_ref`).  ``dy``
     is the cotangent of y, ``dh_final`` that of the final state (None:
     unused).
     Returns (dx, dlog_decay, din_scale, dB, dC, dD, dh0), each in its
@@ -137,6 +140,9 @@ def gated_scan_backward_ref(
     if h % g or s % chunk:
         raise ValueError(f"heads {h} / groups {g}, seq {s} / chunk {chunk}")
     nc = s // chunk
+    if terms is None:
+        def terms(t):
+            return t
 
     xf = x.to(acc).reshape(b, nc, chunk, h, p)
     dyf = dy.to(acc).reshape(b, nc, chunk, h, p)
@@ -158,7 +164,7 @@ def gated_scan_backward_ref(
     w = el * gif
     chunk_decay = torch.exp(cs[:, :, -1, :])                # (B,NC,H)
 
-    chunk_states = torch.einsum("bcjhn,bcjhp->bchnp", Bf * w[..., None], xf)
+    chunk_states = torch.einsum("bcjhn,bcjhp->bchnp", terms(Bf * w[..., None]), xf)
     h_prev = h0.to(acc) if h0 is not None else torch.zeros((b, h, n, p), dtype=acc,
                                                            device=x.device)
     h_in = []
@@ -169,21 +175,21 @@ def gated_scan_backward_ref(
 
     dh = dh_final.to(acc) if dh_final is not None else torch.zeros((b, h, n, p), dtype=acc,
                                                                    device=x.device)
-    into = torch.einsum("bcihn,bcihp->bchnp", Cf * e[..., None], dyf)
+    into = torch.einsum("bcihn,bcihp->bchnp", terms(Cf * e[..., None]), dyf)
     dh_out = [None] * nc
     for c in reversed(range(nc)):
         dh_out[c] = dh
         dh = dh * chunk_decay[:, c, :, None, None] + into[:, c]
     dhout = torch.stack(dh_out, dim=1)                      # (B,NC,H,N,P)
 
-    dx = (torch.einsum("bcijh,bcihp->bcjhp", scores, dyf)
-          + w[..., None] * torch.einsum("bcjhn,bchnp->bcjhp", Bf, dhout))
+    dx = (torch.einsum("bcijh,bcihp->bcjhp", terms(scores), dyf)
+          + w[..., None] * torch.einsum("bcjhn,bchnp->bcjhp", Bf, terms(dhout)))
     if D is not None:
         dx = dx + dyf * D.to(acc)[None, None, None, :, None]
-    v = torch.einsum("bchnp,bcjhp->bcjhn", dhout, xf)       # dH x_j
-    wy = torch.einsum("bchnp,bcihp->bcihn", hin, dyf)       # H dy_i
-    dbh = torch.einsum("bcijh,bcihn->bcjhn", gmat, Cf) + w[..., None] * v
-    dch = torch.einsum("bcijh,bcjhn->bcihn", gmat, Bf) + e[..., None] * wy
+    v = torch.einsum("bchnp,bcjhp->bcjhn", terms(dhout), xf)       # dH x_j
+    wy = torch.einsum("bchnp,bcihp->bcihn", terms(hin), dyf)       # H dy_i
+    dbh = torch.einsum("bcijh,bcihn->bcjhn", terms(gmat), Cf) + w[..., None] * v
+    dch = torch.einsum("bcijh,bcjhn->bcihn", terms(gmat), Bf) + e[..., None] * wy
 
     # dlog_decay_t = sum_{k >= t} dcs_k, summed in a form without the
     # cancelling whole-chunk terms: the (dS o S) pairs that straddle t (i >=
@@ -279,6 +285,32 @@ def gated_scan_mma_ref(
     if D is not None:
         y = y + xf * D.to(f32)[None, None, None, :, None]
     return y.reshape(b, s, h, p).to(x.dtype), h_prev
+
+
+def gated_scan_backward_mma_ref(
+    dy: torch.Tensor,
+    dh_final: Optional[torch.Tensor],
+    x: torch.Tensor,
+    log_decay: torch.Tensor,
+    in_scale: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    D: Optional[torch.Tensor] = None,
+    h0: Optional[torch.Tensor] = None,
+    *,
+    chunk: int = 128,
+) -> Tuple[torch.Tensor, ...]:
+    """``gated_scan_backward_ref`` with the bf16 tensor-core kernel's
+    roundings: every f32 intermediate that enters a bf16 product passes
+    through ``bf16_terms``, as the kernel carries it in two bf16 terms and
+    runs each product on both: diag(w) B and diag(e) C in the state pass, S
+    before S^T dy, G before G^T C and G B, dH before B dH and x dH^T, and H
+    before dy H^T.  C B^T and dy x^T are products of the bf16 inputs; every
+    product accumulates in f32 and the states are carried in f32.  The
+    kernel's mirror up to the order of its f32 sums.  S must be a multiple
+    of ``min(chunk, S)``."""
+    return gated_scan_backward_ref(dy, dh_final, x, log_decay, in_scale, Bm, Cm, D, h0,
+                                   chunk=chunk, terms=bf16_terms)
 
 
 def ssm_scan_ref(x, dt, A, Bm, Cm, D, *, chunk: int = 128, h0=None):

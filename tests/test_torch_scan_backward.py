@@ -9,11 +9,16 @@ on the same seeded inputs and cotangents on both y and the final state:
 tests/test_torch_ssm_scan.py's shapes, G < H, P != N, the mLSTM form (P =
 N + 1, no D), a sequence that is no chunk multiple, with and without h0 and
 D, and the Mamba2 wrapper with gradients into dt and A; f32 within 2e-4,
-bf16 inputs within 2e-2 of the largest magnitude.  Autograd through the op is
+bf16 inputs within 2e-2 of the largest magnitude.  The mirror of the bf16
+kernel's roundings (``gated_scan_backward_mma_ref``) is held against the
+same ``jax.vjp`` at 2e-2 and against the plain backward's f64 witness
+within 2^-16 of each gradient's largest magnitude; the plain backward in
+f32 stays within 1e-4 (relative L2) of the mirror, where the same backward
+with the split's low terms dropped lies over 1e-3 from it.  Autograd through the op is
 the plain backward bitwise; ``torch.library.opcheck`` passes on both ops; a
 trace without grad keeps one scan node; the launch plan fits the card's
-shared memory; the plain backward's f64 witness is its f32 arithmetic in
-f64.  On the card (``requires_cuda``): the kernel against its plain version
+shared memory, and the bf16 narrow route's workspace holds no S or G; the
+plain backward's f64 witness is its f32 arithmetic in f64.  On the card (``requires_cuda``): the kernel against its plain version
 on both routes and both dtypes, each gradient element within 2e-4 (f32) or
 2e-2 (bf16) plus 4 x the plain version's own f32 rounding (its distance to
 the f64 witness), two launches bitwise equal."""
@@ -35,6 +40,7 @@ from repro_torch.kernels.ssm_scan import (  # noqa: E402
     ssm_scan,
 )
 from repro_torch.kernels.ssm_scan.ops import gated_scan_op  # noqa: E402
+from repro_torch.kernels.ssm_scan.ref import bf16_terms  # noqa: E402
 
 SMEM_MAX = 232448        # bytes of shared memory an H100 block may take
 STATIC_SMEM_MAX = 49152  # a block's static shared memory
@@ -110,16 +116,15 @@ def _port_grads(x, ld, gi, bm, cm, d, h0, dy, dh, chunk):
     return [next(grads) if t is not None else None for t in (x, ld, gi, bm, cm, d, h0)]
 
 
-@pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_plain_backward_matches_jax_vjp(jax_scan, rng, case, dtype):
+def _jax_grads(jax_scan, case, arrays, dtype):
+    """``jax.vjp`` of the reference's ``gated_scan`` (``gated_scan_ref``
+    where an initial state is given) on a case's numpy operands, inputs in
+    ``dtype``; the gradients of x, ld, gi, B, C (D) (h0)."""
     jax, jops, j_ref = jax_scan
     jnp = jax.numpy
     b, s, h, p, g, n, chunk, with_d, with_h0 = CASES[case]
-    mlstm = case.startswith("mlstm") or case == "h0_mlstm"
-    x, ld, gi, bm, cm, d, h0, dy, dh = _inputs(rng, b, s, h, p, g, n, with_d, with_h0, mlstm)
-    tdt = DTYPES[dtype]
-    jdt = jnp.bfloat16 if tdt == torch.bfloat16 else jnp.float32
+    x, ld, gi, bm, cm, d, h0, dy, dh = arrays
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
     jx, jb, jc, jdy = (jnp.asarray(a).astype(jdt) for a in (x, bm, cm, dy))
     primals = [jx, jnp.asarray(ld), jnp.asarray(gi), jb, jc] + ([jnp.asarray(d)] if with_d else [])
     if with_h0:
@@ -131,15 +136,114 @@ def test_plain_backward_matches_jax_vjp(jax_scan, rng, case, dtype):
         def fn(*a):
             return jops.gated_scan(*a[:5], a[5] if with_d else None, chunk=chunk)
     _, vjp = jax.vjp(fn, *primals)
-    ref = vjp((jdy, jnp.asarray(dh)))
+    return vjp((jdy, jnp.asarray(dh)))
+
+
+def _case_inputs(rng, case):
+    b, s, h, p, g, n, chunk, with_d, with_h0 = CASES[case]
+    mlstm = case.startswith("mlstm") or case == "h0_mlstm"
+    return _inputs(rng, b, s, h, p, g, n, with_d, with_h0, mlstm)
+
+
+def _grad_names(case):
+    with_d, with_h0 = CASES[case][7:]
+    return ["dx", "dld", "dgi", "dB", "dC"] + ["dD"] * with_d + ["dh0"] * with_h0
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_backward_matches_jax_vjp(jax_scan, rng, case, dtype):
+    arrays = _case_inputs(rng, case)
+    x, ld, gi, bm, cm, d, h0, dy, dh = arrays
+    tdt = DTYPES[dtype]
+    ref = _jax_grads(jax_scan, case, arrays, tdt)
+    chunk = CASES[case][6]
     ours = _port_grads(_t(x, tdt), _t(ld), _t(gi), _t(bm, tdt), _t(cm, tdt), _t(d), _t(h0),
                        _t(dy, tdt), _t(dh), chunk)
     ours = [t for t in ours if t is not None]
     assert len(ours) == len(ref)
-    for name, o, r in zip(("dx", "dld", "dgi", "dB", "dC", "dD" if with_d else "dh0", "dh0"),
-                          ours, ref):
+    for name, o, r in zip(_grad_names(case), ours, ref):
         _close(o, _np(r), tdt, f"{case} {dtype} {name}")
         assert o.dtype == (tdt if name in ("dx", "dB", "dC") else torch.float32), name
+
+
+def _mirror_args(arrays, chunk):
+    """The backward op's arguments on bf16 x, dy, B and C (f32 the rest)."""
+    x, ld, gi, bm, cm, d, h0, dy, dh = arrays
+    bf = torch.bfloat16
+    return (_t(dy, bf), _t(dh), _t(x, bf), _t(ld), _t(gi), _t(bm, bf), _t(cm, bf), _t(d), _t(h0),
+            chunk)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_mma_mirror_matches_jax_vjp(jax_scan, rng, case):
+    """``gated_scan_backward_mma_ref`` (through the padding wrapper, on the
+    bf16 inputs' f32 values) against ``jax.vjp`` of the reference with bf16
+    inputs, within the bf16 tolerance of 2e-2."""
+    arrays = _case_inputs(rng, case)
+    ref = _jax_grads(jax_scan, case, arrays, torch.bfloat16)
+    args = _mirror_args(arrays, CASES[case][6])
+    mirror = [t for t in gated_scan_backward_padded(
+        *(a.float() if isinstance(a, torch.Tensor) else a for a in args), mma=True)
+        if t is not None]
+    assert len(mirror) == len(ref)
+    for name, o, r in zip(_grad_names(case), mirror, ref):
+        _close(o, _np(r), torch.bfloat16, f"{case} mirror {name}")
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_mma_mirror_within_the_split_of_the_f64_witness(rng, case):
+    """The mirror against the plain backward in f64 on the same inputs: each
+    two-term operand keeps 16 significant bits (its residual is below 2^-17
+    of it), so every gradient stays within 2^-16 of its largest magnitude;
+    the witness's own f32 run is closer still.  The split runs where the mirror says: ``bf16_terms`` of an
+    f32 tensor is within 2^-17 of it."""
+    args = _mirror_args(_case_inputs(rng, case), CASES[case][6])
+    mirror = gated_scan_backward_padded(
+        *(a.float() if isinstance(a, torch.Tensor) else a for a in args), mma=True)
+    f32, f64 = gated_scan_backward_witness(*args)
+    for name, m, lo, w in zip(("dx", "dld", "dgi", "dB", "dC", "dD", "dh0"), mirror, f32, f64):
+        if w is None:
+            assert m is None, name
+            continue
+        bound = 2.0 ** -16 * float(w.abs().max())
+        err = float((m.double() - w).abs().max())
+        assert err <= bound, (case, name, err, bound)
+        assert float((lo.double() - w).abs().max()) <= err or err < 1e-5, (case, name)
+    t = torch.from_numpy(rng.normal(0, 30, (257,)).astype(np.float32))
+    assert float(((bf16_terms(t) - t).abs() / t.abs()).max()) <= 2.0 ** -17
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_mma_mirror_tells_two_terms_from_one(rng, case):
+    """What the card holds the bf16 kernel to: its distance to the mirror
+    (relative L2, gradient by gradient).  The plain backward in f32, whose
+    products take every f32 operand whole, stays within 1e-4 of the mirror
+    on every gradient; the same backward with each split operand rounded to
+    bf16 once (the second term dropped) lies over 1e-3 from it on some
+    gradient.  So a kernel that lost its low terms would not pass for the
+    mirror."""
+    from repro_torch.kernels.ssm_scan.ops import _pad_seq
+    from repro_torch.kernels.ssm_scan.ref import gated_scan_backward_ref
+
+    args = [a.float() if isinstance(a, torch.Tensor) else a
+            for a in _mirror_args(_case_inputs(rng, case), CASES[case][6])]
+    mirror = gated_scan_backward_padded(*args, mma=True)
+    plain = gated_scan_backward_padded(*args)
+    dy, dh, x, ld, gi, bm, cm, d, h0, chunk = args
+    s = x.shape[1]
+    eff = min(chunk, s)
+    padded = [_pad_seq(t, (-s) % eff) for t in (dy, x, ld, gi, bm, cm)]
+    one = gated_scan_backward_ref(padded[0], dh, *padded[1:], d, h0, chunk=eff,
+                                  terms=lambda t: t.to(torch.bfloat16).float())
+    one = [None if t is None else (t[:, :s] if i < 5 else t) for i, t in enumerate(one)]
+
+    def rel(got, ref):
+        return float((got - ref).norm() / ref.norm())
+
+    pairs = [(m, p, o) for m, p, o in zip(mirror, plain, one) if m is not None]
+    assert max(rel(p, m) for m, p, _ in pairs) <= 1e-4, case
+    assert max(rel(o, m) for m, _, o in pairs) > 1e-3, case
 
 
 @pytest.mark.parametrize("case", ["ragged", "h0_d", "mlstm_ragged"])
@@ -245,23 +349,36 @@ def test_served_trace_keeps_one_scan_node(rng):
                                    (1, 16, 4, 8, 2, 100, 16)])
 def test_scan_backward_plan_fits_shared_memory(shape, dtype):
     """Route by N (narrow up to 128, wide beyond), the grids within the
-    launch limits and covering P and N, the scores kernel's dynamic shared
-    memory within a block's and the other kernels' static arrays within
-    48 KB; the workspace holds the states and their gradients."""
+    launch limits and covering P and N (tiles of 64 on the bf16 tensor-core
+    kernels, 32 on the f32 ones), every launch's shared memory within a
+    block's (dynamic up to 227 KB, static up to 48 KB); the workspace is the
+    sum of its parts and holds the states and their gradients, and on the
+    bf16 narrow route no S or G (nor a scores launch: dB/dC takes the
+    per-step sums); bf16 x and dy are padded where P % 8 != 0."""
     b, s, h, p, g, n, chunk = shape
     plan = scan_backward_plan(b, s, h, p, g, n, chunk, dtype)
-    assert plan["route"] == ("narrow" if n <= 128 else "wide")
+    mma = dtype == torch.bfloat16
+    assert plan["route"] == ("narrow" if n <= 128 else "wide") and plan["mma"] == mma
     nc = -(-s // chunk)
+    tile = 64 if mma else 32
     grids = plan["grids"]
-    assert grids["state"][0] * 32 >= p and grids["dx"] == (grids["state"][0], nc, h * b)
-    assert grids["dbc"][0] * 32 >= n and grids["scores"] == grids["finish"] == (nc, h, b)
-    rows = 64 if n <= 64 or n > 128 else 128
+    assert grids["state"][0] * tile >= p and grids["dx"] == (grids["state"][0], nc, h * b)
+    assert grids["dbc"][0] * tile >= n and grids["finish"] == (nc, h, b)
+    bf16_narrow = mma and plan["route"] == "narrow"
+    assert grids.get("scores") == (None if bf16_narrow else (nc, h, b))
+    rows = 64 if mma or n <= 64 or n > 128 else 128
     assert grids["state"][1] * rows >= n and grids["state"][2] == 2 * h * b
     assert grids["cumsum"][0] * 8 >= nc * h * b
     assert all(max(gr[1:], default=0) <= 65535 for gr in grids.values())
-    assert plan["smem"]["scores"] <= SMEM_MAX
-    assert all(v <= STATIC_SMEM_MAX for k, v in plan["smem"].items() if k != "scores")
-    assert plan["workspace"] >= 2 * b * nc * h * n * p
+    assert set(plan["kernels"]) >= set(grids)
+    assert ("scores_part" in grids) == (plan["splits"] > 1) == (plan["route"] == "wide")
+    for k, v in plan["smem"].items():
+        assert v <= (SMEM_MAX if k in plan["dynamic"] else STATIC_SMEM_MAX), (k, v)
+    parts = plan["workspace_parts"]
+    assert plan["workspace"] == sum(parts.values())
+    assert parts["states"] == 2 * b * nc * h * n * (-(-p // 4) * 4 if mma else p)
+    assert ("s_and_g" in parts) == (not bf16_narrow)
+    assert ("padded_x_dy" in parts) == ("pad" in grids) == (mma and p % 8 != 0)
     if shape[:2] == (1, 512):
         assert plan["route"] == "wide" and grids["state"][1] == 16
 
