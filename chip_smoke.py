@@ -33,9 +33,18 @@ random weights from a seed:
 * xlstm-1.3b (phase 9: 42 mLSTM and 6 sLSTM blocks, d_model 2048, bf16):
   stateful (705 MB of recurrent state carried on the server) and stateless
   (the gated scan at a state of 1024 x 1025 in every replayed token);
-  phases 8 and 9 run in a second process on the card, started after phase
-  2 and joined before phase 15, beside phases 3-7 and 10-14 (the served
-  paths are host-bound: two processes share the card's idle time);
+* the MoE family (phase 16, after phase 9): (a) mixtral-8x7b at full
+  width and 8 of its 32 layers (8 experts of d_ff 14336, top-2, 32 query
+  heads on 8 KV heads, window 4096, bf16): ``LocalServing``, rrto and
+  ``device_only``, stateful and stateless (bucket 64), the static-capacity
+  dispatch inside every replayed token, its graph step beside the bytes of
+  every expert and of the top-2 ones, the prefill's dropped assignments
+  printed; (b) the reduced llama4-maverick (a dense layer, then top-1 of 4
+  experts beside a shared expert, f32) on the card against the CPU and
+  served rrto vs ``device_only``;
+  phases 8, 9 and 16 run in a second process on the card, started after
+  phase 2 and joined before phase 15, beside phases 3-7 and 10-14 (the
+  served paths are host-bound: two processes share the card's idle time);
 * split replay (phase 10, the model cut between the mobile device and the
   edge; both placements run on the card, a device segment's time is the
   cost model's): (a) phase 3's locked qwen3-0.6b IOS at each
@@ -176,6 +185,11 @@ X_STATELESS_PROMPT = 16                         # xlstm-1.3b stateless, bucket 6
 MLA_HEADS, MLA_D = 40, 96
 MLSTM_HEADS, MLSTM_N = 4, 1024
 LONG_KV = 16384     # the long decode row: K/V of 67 MB, more than the 50 MB L2
+# mixtral-8x7b (phase 16a): full width, 8 of its 32 layers (the card's 80 GB
+# beside the main process, and the run's time limit); 32 query heads on 8 KV
+# heads of 128, a sliding window of 4096; prompt 16, 6 new tokens, bucket 64
+MIX_LAYERS, MIX_PROMPT, MIX_NEW, MIX_BUCKET = 8, 16, 6, 64
+MIX_HEADS, MIX_KV_HEADS, MIX_WINDOW = 32, 8, 4096
 KAPAO_SIZE, KAPAO_INFERS = 640, 7
 # the other CNNs at the reference's benchmark sizes: Fig. 12's torchvision
 # set, VGG16 for Fig. 1, and the sensor models of the partitioning runs
@@ -436,7 +450,10 @@ def phase_kernels(dev):
                  (1, 4096, 16, 8, 128, [4000], None), (2, 1000, 32, 4, 64, [900, 1000], 100),
                  (1, 640, 64, 8, 128, [640], 200), (2, 300, 8, 8, 32, [1, 300], None),
                  (1, 2000, 8, 1, 256, [1999], 600), (1, 8192, 8, 2, 64, [8000], None),
-                 (1, 1200, 16, 8, 128, [600], 200)]:
+                 (1, 1200, 16, 8, 128, [600], 200),
+                 # mixtral's decode steps: n_rep 4, window 4096, kv_len 16-21
+                 (6, MIX_BUCKET, MIX_HEADS, MIX_KV_HEADS, 128,
+                  list(range(MIX_PROMPT, MIX_PROMPT + MIX_NEW)), MIX_WINDOW)]:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, kv_len, window = dec_case(*args, dtype)
             out = decode_attention(q, k, v, kv_len, window=window)
@@ -490,6 +507,26 @@ def phase_kernels(dev):
             q[:, :, None], kt, vt, enable_gqa=True), reps=10),
         bound_ms=b_ms, bound_by=b_by,
     ))
+    # mixtral's last decode step: 32 query heads on 8 KV heads, window 4096
+    n = MIX_PROMPT + MIX_NEW - 1
+    q, k, v, kv_len, _ = dec_case(1, MIX_BUCKET, MIX_HEADS, MIX_KV_HEADS, 128, [n], None,
+                                  torch.bfloat16)
+    kt, vt = k[:, :n].transpose(1, 2), v[:, :n].transpose(1, 2)
+    b_ms, b_by = bound_ms(2 * q.numel() * 2 + 2 * n * MIX_KV_HEADS * 128 * 2 + 4,
+                          4 * MIX_HEADS * n * 128, torch.bfloat16)
+    extra.append(dict(
+        name="decode_attention",
+        shape=f"q (1,{MIX_HEADS},128), K/V (1,{MIX_BUCKET},{MIX_KV_HEADS},128) bf16, kv_len {n}, "
+              f"window {MIX_WINDOW} (mixtral's step)",
+        max_abs_err=close(decode_attention(q, k, v, kv_len, window=MIX_WINDOW),
+                          decode_attention_ref(q, k, v, kv_len, window=MIX_WINDOW),
+                          TOL[torch.bfloat16]),
+        ms=graph_ms(lambda: decode_attention(q, k, v, kv_len, window=MIX_WINDOW)),
+        plain_ms=graph_ms(lambda: decode_attention_ref(q, k, v, kv_len, window=MIX_WINDOW)),
+        library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kt, vt, enable_gqa=True)),
+        bound_ms=b_ms, bound_by=b_by,
+    ))
     del q, k, v, kt, vt
     kv_len_sweep(dec_case)
 
@@ -519,7 +556,12 @@ def phase_kernels(dev):
                       ((1, M_BUCKET, M_BUCKET, MLA_HEADS, MLA_HEADS, MLA_D), dict(causal=True)),
                       ((1, M_PROMPT, M_PROMPT, MLA_HEADS, MLA_HEADS, MLA_D), dict(causal=True)),
                       ((2, 77, 77, 8, 8, MLA_D), dict(causal=True)),
-                      ((1, 50, 70, 8, 4, MLA_D), dict(causal=False))]:
+                      ((1, 50, 70, 8, 4, MLA_D), dict(causal=False)),
+                      # mixtral's prefill and stateless bucket: n_rep 4, window 4096
+                      ((1, MIX_PROMPT, MIX_PROMPT, MIX_HEADS, MIX_KV_HEADS, 128),
+                       dict(causal=True, window=MIX_WINDOW)),
+                      ((1, MIX_BUCKET, MIX_BUCKET, MIX_HEADS, MIX_KV_HEADS, 128),
+                       dict(causal=True, window=MIX_WINDOW))]:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = fl_case(*shape, dtype)
             out = flash_attention(q, k, v, **kw)
@@ -569,6 +611,27 @@ def phase_kernels(dev):
         library_ms=graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)),
         bound_ms=b_ms, bound_by=b_by,
     ))
+
+    # mixtral's prefill and stateless bucket: 32 query heads on 8 KV heads,
+    # window 4096 (wider than the sequence, so SDPA's causal mask is the
+    # same function)
+    for sq in (MIX_PROMPT, MIX_BUCKET):
+        q, k, v = fl_case(1, sq, sq, MIX_HEADS, MIX_KV_HEADS, 128, torch.bfloat16)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        b_ms, b_by = bound_ms(2 * (2 * q.numel() + 2 * k.numel()),
+                              4 * MIX_HEADS * sq * (sq + 1) / 2 * 128, torch.bfloat16)
+        extra.append(dict(
+            name="flash_attention",
+            shape=f"q (1,{sq},{MIX_HEADS},128), K/V (1,{sq},{MIX_KV_HEADS},128) bf16, causal, "
+                  f"window {MIX_WINDOW} (mixtral's)",
+            max_abs_err=close(flash_attention(q, k, v, window=MIX_WINDOW),
+                              attention_dense(q, k, v, window=MIX_WINDOW), TOL[torch.bfloat16]),
+            ms=graph_ms(lambda: flash_attention(q, k, v, window=MIX_WINDOW)),
+            plain_ms=graph_ms(lambda: attention_dense(q, k, v, window=MIX_WINDOW)),
+            library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)),
+            bound_ms=b_ms, bound_by=b_by,
+        ))
 
     # a long prefill with qwen3's heads: 16 tiles of 64 packed rows per KV head (128
     # blocks), up to 8 K/V tiles each
@@ -1183,14 +1246,16 @@ class StepTimer:
         return [n[kernel] for m, _, n in self.steps if m == mode]
 
 
-def phase_main_path(dev, name, prompt_len, new_tokens, bucket, *, stateful=True, params=None):
+def phase_main_path(dev, name, prompt_len, new_tokens, bucket, *, stateful=True, params=None,
+                    cfg=None):
     """Serve one model: ``LocalServing`` (stateful only), ``RRTOServedLM``
-    rrto and a ``device_only`` session, on one set of weights."""
+    rrto and a ``device_only`` session, on one set of weights.  ``cfg``
+    (default: the registry's ``name``) may cut the model's depth."""
     from repro_torch.configs import get_config
     from repro_torch.models.registry import get_model
     from repro_torch.serving.engine import LocalServing, RRTOServedLM
 
-    cfg = get_config(name)
+    cfg = cfg or get_config(name)
     if params is None:
         t0 = time.perf_counter()
         params = get_model(cfg).init_params(cfg, seed=0, device=dev)
@@ -1240,10 +1305,10 @@ def phase_main_path(dev, name, prompt_len, new_tokens, bucket, *, stateful=True,
 
 
 def check_main_path(m, per_step=None) -> None:
-    """The served path's checks.  ``per_step`` (stateless paths): the
-    launches of each kernel that every replayed step must make, the whole
-    bucket's forward (one scan per Mamba2 or mLSTM layer, one flash call per
-    MLA layer)."""
+    """The served path's checks.  ``per_step``: the launches of each kernel
+    that every replayed step must make (stateless: the whole bucket's
+    forward, one scan per Mamba2 or mLSTM layer, one flash call per
+    attention layer; stateful: one decode step)."""
     sess, steady, name = m["sess"], m["steady"], m["name"]
     check(np.array_equal(m["r_srv"].tokens, m["r_dev"].tokens),
           f"{name}: rrto tokens {m['r_srv'].tokens} != device_only {m['r_dev'].tokens}")
@@ -1256,6 +1321,10 @@ def check_main_path(m, per_step=None) -> None:
     check(bool(steady) and all(h.rpcs <= 3 for h in steady),
           f"{name}: steady replay rpcs {[h.rpcs for h in steady]}")
     t = m["timer"]
+    for kernel, want in (per_step or {}).items():
+        got = t.launches("replaying", kernel)
+        check(bool(got) and all(n == want for n in got),
+              f"{name}: {kernel} launches per replayed step {got}, want {want}")
     if m["stateful"]:
         check(all(h.network_bytes < m["cache_bytes"] for h in steady),
               f"{name}: carried state on the wire")
@@ -1271,12 +1340,10 @@ def check_main_path(m, per_step=None) -> None:
         print(f"{name} LocalServing vs served tokens matching: {match}/{m['new_tokens']}")
         locked = sum(dt for mode, dt, _ in t.steps if mode == "recording")
         print(f"{name}: the IOS locked after {m['n_rec']} recorded steps, {locked:.1f} s")
+        if per_step:
+            print(f"{name} launches in each replayed step: {per_step}")
     else:
         check(not sess.client.ios.carried_pairs, f"{name}: stateless app carries state")
-        for kernel, want in per_step.items():
-            got = t.launches("replaying", kernel)
-            check(bool(got) and all(n == want for n in got),
-                  f"{name}: {kernel} launches per replayed step {got}, want {want}")
         print(f"{name} stateless modes: {m['n_rec']} recording then replaying; steady "
               f"rpcs/token {max(h.rpcs for h in steady)}; wire bytes/token "
               f"{max(h.network_bytes for h in steady):.0f}; IOS {len(sess.client.ios)} records; "
@@ -3983,6 +4050,56 @@ class ScanForwardPlain:
         return False
 
 
+def scan_mirror_padded(x, ld, gi, Bm, Cm, D, h0, chunk: int):
+    """``gated_scan_mma_ref`` (the mirror of the bf16 forward kernel's
+    roundings) with the wrapper's padding rule."""
+    from repro_torch.kernels.ssm_scan.ref import gated_scan_mma_ref
+
+    s = x.shape[1]
+    eff = min(chunk, s)
+    pad = (-s) % eff
+    if pad:
+        x, ld, gi, Bm, Cm = (F.pad(t, [0, 0] * (t.dim() - 2) + [0, pad])
+                             for t in (x, ld, gi, Bm, Cm))
+    y, h = gated_scan_mma_ref(x, ld, gi, Bm, Cm, D, chunk=eff, h0=h0)
+    return y[:, :s], h
+
+
+class ScanForwardWatch:
+    """While entered, each scan forward kernel call on CUDA tensors is held
+    against the mirror of its bf16 roundings (``scan_mirror_padded``) and
+    against the plain version on the same inputs, outside every counted
+    path: the relative L2 of y and of the final state, per call."""
+
+    def __enter__(self):
+        from repro_torch.kernels.ssm_scan import ops
+
+        self._saved = ops.gated_scan_cuda
+        self.calls = []
+
+        def watched(x, ld, gi, Bm, Cm, D, h0, chunk):
+            y, h = self._saved(x, ld, gi, Bm, Cm, D, h0, chunk)
+            ym, hm = scan_mirror_padded(x, ld, gi, Bm, Cm, D, h0, chunk)
+            yp, hp = ops.gated_scan_padded(x, ld, gi, Bm, Cm, D, h0, chunk)
+            self.calls.append(dict(
+                shape=tuple(x.shape), n=Bm.shape[-1],
+                mirror=(rel_l2(y, ym), rel_l2(h, hm)), plain=(rel_l2(y, yp), rel_l2(h, hp)),
+                mirror_plain=(rel_l2(ym, yp), rel_l2(hm, hp))))
+            return y, h
+
+        ops.gated_scan_cuda = watched
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.ssm_scan import ops
+
+        ops.gated_scan_cuda = self._saved
+        return False
+
+    def worst(self, key: str) -> tuple:
+        return tuple(max(c[key][i] for c in self.calls) for i in range(2))
+
+
 def rel_l2(got, ref) -> float:
     ref = ref.float()
     norm = float(ref.norm())
@@ -4022,7 +4139,22 @@ def phase_scan_backward_in_model(dev) -> None:
         p_dev = tree_map(lambda t: t.to(dev), p_cpu)
         nb = synth_batch(cfg, ShapeConfig("phase15a", 150, 2, "train"), 0, DataConfig())
         _, g_cpu = train_grads(cfg, p_cpu, nb, "cpu")
-        _, g_kernel = train_grads(cfg, p_dev, nb, dev)
+        with ScanForwardWatch() as watch:
+            _, g_kernel = train_grads(cfg, p_dev, nb, dev)
+        if name == "xlstm-1.3b":
+            # queue C: the forward kernel inside the model against the
+            # mirror of its roundings on the same inputs
+            check(bool(watch.calls), f"15a {cfg.name}: no scan forward kernel call seen")
+            ym, hm = watch.worst("mirror")
+            (yp, hp), (mp, mhp) = watch.worst("plain"), watch.worst("mirror_plain")
+            print(f"[15a] reduced {cfg.name} bf16: {len(watch.calls)} scan forward calls "
+                  f"(x {watch.calls[0]['shape']}, N {watch.calls[0]['n']}), worst relative L2 "
+                  f"of y / final state: kernel vs mirror {ym:.3g} / {hm:.3g} (held at "
+                  f"{MIRROR_TOL[torch.bfloat16]}), kernel vs plain {yp:.3g} / {hp:.3g}, mirror "
+                  f"vs plain {mp:.3g} / {mhp:.3g}")
+            check(max(ym, hm) <= MIRROR_TOL[torch.bfloat16],
+                  f"15a {cfg.name}: the scan forward kernel {ym:.3g} / {hm:.3g} from the "
+                  f"mirror of its roundings")
         with ScanBackwardPlain():
             _, g_plain = train_grads(cfg, p_dev, nb, dev)
         with ScanBackwardPlain(mma=True):
@@ -4579,7 +4711,8 @@ def run_path(library, label, kernels, fn):
 
 def phases_8_9(library, dev) -> dict:
     """Phase 8 (minicpm3-4b) and phase 9 (xlstm-1.3b), each stateful and
-    stateless; returns their launches by path."""
+    stateless, then phase 16 (the MoE family); returns their launches by
+    path."""
     by_path = {}
     t0 = time.perf_counter()
     mla = ("rmsnorm", "flash_attention")
@@ -4625,10 +4758,229 @@ def phases_8_9(library, dev) -> dict:
     del m, params
     torch.cuda.empty_cache()
     print(f"[phase 9] ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    phase_mixtral(library, dev, by_path)
+    t1 = time.perf_counter()
+    phase_llama4_reduced(library, dev, by_path)
+    print(f"[phase 16] the MoE family: {time.perf_counter() - t0:.1f} s (16a "
+          f"{t1 - t0:.1f}, 16b {time.perf_counter() - t1:.1f})")
     return by_path
 
 
-# phases 8 and 9 run in a second process on the card (``BESIDE``), started
+# ---------------------------------------------------------------------------
+# phase 16: the MoE family (in the second process, after phase 9)
+# ---------------------------------------------------------------------------
+
+MIX_F32_LAYERS = 2   # 16a's f32 prefill/decode check: mixtral's first layers (11.6 GB in f32)
+
+
+class MoEDispatches:
+    """While entered, each MoE dispatch's plan is recorded
+    (``repro_torch.layers.moe.route`` wrapped; outside every counted path):
+    the (token, expert) pairs it dropped over capacity, and each token's
+    experts (a dropped pair reads E)."""
+
+    def __enter__(self):
+        from repro_torch.layers import moe
+
+        self._moe, self._route = moe, moe.route
+        self.calls = []
+
+        def route(p, xf, cfg, cap):
+            order, slot, weight, counts = self._route(p, xf, cfg, cap)
+            experts = torch.div(slot, cap, rounding_mode="floor").index_select(
+                0, torch.argsort(order))
+            self.calls.append(dict(
+                dropped=int(torch.clamp(counts - cap, min=0).sum()),
+                experts=experts.reshape(xf.shape[0], cfg.moe_top_k).sort(-1).values.cpu()))
+            return order, slot, weight, counts
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+        return False
+
+
+def n_moe_layers(cfg) -> int:
+    return sum(cfg.moe_layer(i) for i in range(cfg.n_layers))
+
+
+def first_layers(params, cfg, n: int) -> tuple:
+    """The LM's first ``n`` layers (whole super-blocks), the served weights'
+    own leaves, no copy."""
+    cut = {k: v for k, v in params.items() if k != "blocks"}
+    cut["blocks"] = torch.utils._pytree.tree_map(lambda t: t[:n // cfg.moe_every],
+                                                 params["blocks"])
+    return cut, dataclasses.replace(cfg, n_layers=n)
+
+
+def moe_routes(m, dev, params, cfg) -> tuple:
+    """``prefill_and_decode_logits`` with every dispatch recorded: the two
+    last-position logits, the pairs the prefill dropped by MoE layer, and
+    the (layer, token) routings whose experts differ between the prefill
+    and the decode loop."""
+    with MoEDispatches() as d:
+        a, b = prefill_and_decode_logits(m, dev, params, cfg)
+    n, s = n_moe_layers(cfg), m["prompt"].shape[1]
+    pre, dec = d.calls[:n], d.calls[n:]
+    check(len(dec) == n * s, f"{cfg.name}: {len(d.calls)} dispatches recorded")
+    flips = sum(int(not torch.equal(pre[i]["experts"][t], dec[t * n + i]["experts"][0]))
+                for i in range(n) for t in range(s))
+    return a, b, [c["dropped"] for c in pre], flips
+
+
+def check_moe_prefill_vs_decode(m, dev) -> None:
+    """16a's prefill against its token-by-token decode loop.  The prefill
+    routes the prompt's 16 tokens with a capacity of 8 pairs per expert, so
+    a pair can drop (the reference's semantics, not a fault); a decode step
+    of one token never drops.  The drops are printed.  Where nothing
+    dropped, the bf16 model's two paths agree to ``LOGIT_REL_TOL`` at its
+    full depth, and ``check_prefill_vs_decode`` holds on its first
+    ``MIX_F32_LAYERS`` layers (f32 at TOL; an f32 copy of all of them does
+    not fit the card beside the bf16 weights); where a pair dropped, the
+    check runs on the reduced mixtral (capacity factor 8: drop-free) on the
+    card instead.  Routings that differ between the two paths are
+    printed."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.layers.moe import moe_capacity
+    from repro_torch.models.registry import get_model
+
+    name, cfg, params = m["name"], m["cfg"], m["params"]
+    s = m["prompt"].shape[1]
+    a, b, dropped, flips = moe_routes(m, dev, params, cfg)
+    gap = (a - b).abs().max().item() / a.abs().max().item()
+    print(f"{name}: the prefill of {s} tokens dropped {sum(dropped)} (token, expert) "
+          f"assignments over a capacity of {moe_capacity(s, cfg)} (by layer {dropped}); "
+          f"{flips} of {s * n_moe_layers(cfg)} routings differ between the prefill and the "
+          f"decode loop (a dropped pair counts); bf16 last logits prefill vs decode loop {gap:.4g} of the largest "
+          f"(tol {LOGIT_REL_TOL})")
+    if sum(dropped) == 0:
+        check(gap <= LOGIT_REL_TOL, f"{name}: bf16 prefill and decode-loop logits disagree")
+        cut, cut_cfg = first_layers(params, cfg, MIX_F32_LAYERS)
+        check_prefill_vs_decode(dict(m, name=f"{name} first {MIX_F32_LAYERS} layers",
+                                     params=cut, cfg=cut_cfg), dev, LOGIT_REL_TOL)
+        return
+    # the kernels take head dims from 32: the reduction's 16 is raised to 32
+    rcfg = get_reduced_config("mixtral-8x7b", dtype="bfloat16", d_head=32)
+    prompt = np.random.default_rng(0).integers(0, rcfg.vocab, (1, s)).astype(np.int32)
+    rm = dict(m, name=f"reduced {rcfg.name} (d_head 32)", cfg=rcfg, prompt=prompt,
+              params=get_model(rcfg).init_params(rcfg, seed=0, device=dev))
+    _, _, r_dropped, r_flips = moe_routes(rm, dev, rm["params"], rcfg)
+    print(f"{rm['name']}: the prefill dropped {sum(r_dropped)} assignments; {r_flips} "
+          f"routings differ between the prefill and the decode loop")
+    check(sum(r_dropped) == 0, f"{rm['name']}: its prefill dropped {r_dropped}")
+    check_prefill_vs_decode(rm, dev, LOGIT_REL_TOL)
+
+
+def moe_weight_bytes(cfg, params) -> tuple:
+    """Bytes of weights one decode step reads: every weight the static
+    dispatch reads (all E experts of every MoE layer; the embedding's one
+    row unless it is the head too), and the weights top-k routing needs (k
+    of the E experts, per token)."""
+    total = expert = 0
+    for path, t in torch.utils._pytree.tree_flatten_with_path(params)[0]:
+        keys = [getattr(k, "key", None) for k in path]
+        nbytes = t.numel() * t.element_size()
+        if keys[0] == "embed" and not cfg.tie_embeddings:
+            nbytes = t.shape[1] * t.element_size()
+        total += nbytes
+        if keys[-1] in ("w_gate", "w_up", "w_down") and "shared" not in keys \
+                and t.dim() == 4:
+            expert += nbytes
+    return total, total - expert * (1 - cfg.moe_top_k / cfg.moe_experts)
+
+
+def phase_mixtral(library, dev, by_path) -> None:
+    """Phase 16a: mixtral-8x7b at full width, ``MIX_LAYERS`` of its 32
+    layers, bf16, random weights from seed 0, served stateful
+    (``LocalServing``, rrto, ``device_only``) and stateless (bucket 64), each
+    path with its launches counted and checked, its replayed step timed as
+    one CUDA graph beside two bounds at 3.35 TB/s: the weights the static
+    dispatch reads (every expert) and those top-2 routing needs."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=MIX_LAYERS)
+    name = f"mixtral-8x7b ({MIX_LAYERS} layers)"
+    n = cfg.n_layers
+    kinds = (("stateful", ("rmsnorm", "decode_attention"),
+              {"rmsnorm": 2 * n + 1, "decode_attention": n}),
+             ("stateless", ("rmsnorm", "flash_attention"),
+              {"flash_attention": n, "rmsnorm": 2 * n + 1}))
+    params = None
+    for kind, kernels, per_step in kinds:
+        t0 = time.perf_counter()
+        m, by_path[f"phase 16a {name} {kind}"] = run_path(
+            library, f"phase 16a {name} {kind}", kernels,
+            lambda: phase_main_path(dev, name, MIX_PROMPT, MIX_NEW, MIX_BUCKET,
+                                    stateful=kind == "stateful", params=params, cfg=cfg))
+        params = m["params"]
+        check_main_path(m, per_step)
+        step = measure_replay_step(m, dev)
+        every, needed = moe_weight_bytes(cfg, params)
+        print(f"{name} {kind} graph step {step['device_ms']:.3f} ms against its bounds at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s: the static dispatch's weight reads "
+              f"{every / 1e9:.3f} GB -> {every / HBM_BYTES_PER_S * 1e3:.3f} ms "
+              f"({every / HBM_BYTES_PER_S * 1e3 / step['device_ms']:.1%} of the step), the "
+              f"weights top-{cfg.moe_top_k} routing needs {needed / 1e9:.3f} GB -> "
+              f"{needed / HBM_BYTES_PER_S * 1e3:.3f} ms")
+        if kind == "stateful":
+            check_moe_prefill_vs_decode(m, dev)
+        del m
+        torch.cuda.empty_cache()
+        print(f"[phase 16a] {kind} ({time.perf_counter() - t0:.1f} s)")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_llama4_reduced(library, dev, by_path) -> None:
+    """Phase 16b: the reduced llama4-maverick (a dense layer, then a MoE
+    layer of top-1 over 4 experts beside a shared expert; f32; d_head 32, as
+    the kernels take head dims from 32) on the card against the same
+    weights on the CPU: forward, prefill and decode-step logits within TOL;
+    then served stateful and stateless, rrto bitwise ``device_only``."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models.registry import get_model
+
+    cfg = get_reduced_config("llama4-maverick-400b-a17b", d_head=32)
+    model = get_model(cfg)
+    p_cpu = model.init_params(cfg, 1, "cpu")
+    p_dev = torch.utils._pytree.tree_map(lambda t: t.to(dev), p_cpu)
+    s = 12
+    tok = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, s))
+                           .astype(np.int32))
+    n0 = len(MISMATCHES)
+    with torch.no_grad():
+        e0 = close(model.forward(p_dev, {"tokens": tok.to(dev)}, cfg).cpu(),
+                   model.forward(p_cpu, {"tokens": tok}, cfg), TOL[torch.float32])
+        l_cpu, c_cpu = model.prefill(p_cpu, {"tokens": tok}, cfg, s + 4)
+        l_dev, c_dev = model.prefill(p_dev, {"tokens": tok.to(dev)}, cfg, s + 4)
+        e1 = close(l_dev.cpu(), l_cpu, TOL[torch.float32])
+        pos, nxt = torch.tensor(s, dtype=torch.int32), tok[:, -1:]
+        d_cpu, _ = model.decode_step(p_cpu, nxt, c_cpu, pos, cfg)
+        d_dev, _ = model.decode_step(p_dev, nxt.to(dev), c_dev, pos.to(dev), cfg)
+        e2 = close(d_dev.cpu(), d_cpu, TOL[torch.float32])
+    print(f"[phase 16b] reduced {cfg.name} f32 (d_head 32) card vs cpu: forward logits max|d| "
+          f"{e0:.3g}, prefill {e1:.3g}, decode step {e2:.3g} (tol {TOL[torch.float32]})")
+    check(len(MISMATCHES) == n0, f"16b: reduced {cfg.name} logits on the card disagree with "
+                                 f"the CPU's")
+    name = f"reduced {cfg.name}"
+    n = cfg.n_layers
+    for stateful, kernels, per_step in (
+            (True, ("rmsnorm", "decode_attention"), {"rmsnorm": 2 * n + 1, "decode_attention": n}),
+            (False, ("rmsnorm", "flash_attention"), {"flash_attention": n, "rmsnorm": 2 * n + 1})):
+        kind = "stateful" if stateful else "stateless"
+        m, by_path[f"phase 16b {name} {kind}"] = run_path(
+            library, f"phase 16b {name} {kind}", kernels,
+            lambda: phase_main_path(dev, name, MIX_PROMPT, MIX_NEW, MIX_BUCKET, stateful=stateful,
+                                    params=p_dev, cfg=cfg))
+        check_main_path(m, per_step)
+        del m
+
+
+# phases 8, 9 and 16 run in a second process on the card (``BESIDE``), started
 # once phase 2's kernel timings are done and joined before phase 15: the
 # served paths are host-bound (the card idle 67-92% of a replayed step), so
 # two processes share its idle time
@@ -4650,7 +5002,7 @@ def setup():
 
 
 def start_beside():
-    """Start phases 8 and 9 in a second process on the card, its output in a
+    """Start phases 8, 9 and 16 in a second process on the card, its output in a
     file that ``join_beside`` prints; the process is killed if this one
     exits first."""
     import atexit
@@ -4671,7 +5023,7 @@ def start_beside():
 
 
 def join_beside(beside) -> dict:
-    """Wait for the process of phases 8 and 9, print its output and return
+    """Wait for the process of phases 8, 9 and 16, print its output and return
     its launches by path; fail if it failed."""
     proc, log, t_start = beside
     t0 = time.perf_counter()
@@ -4679,22 +5031,22 @@ def join_beside(beside) -> dict:
     log.close()
     with open(log.name) as f:
         print(f.read(), end="")
-    print(f"[phases 8-9] in a second process beside phases 3-7 and 10-14: exit {rc}; joined "
+    print(f"[phases 8, 9, 16] in a second process beside phases 3-7 and 10-14: exit {rc}; joined "
           f"{t0 - t_start:.1f} s after its start, then waited {time.perf_counter() - t0:.1f} s")
-    check(rc == 0, "phases 8-9 failed (their output above)")
+    check(rc == 0, "phases 8, 9 and 16 failed (their output above)")
     with open(os.path.join(BESIDE_DIR, "launches.json")) as f:
         return json.load(f)
 
 
 def beside_main(parent: int) -> None:
-    """The second process: phases 8 and 9, their launches by path written
+    """The second process: phases 8, 9 and 16, their launches by path written
     for ``join_beside``.  It ends with the run that started it."""
     import ctypes
     import signal
 
     ctypes.CDLL(None).prctl(1, signal.SIGTERM)   # PR_SET_PDEATHSIG
     if os.getppid() != parent:
-        fail("the run that started phases 8-9 has ended")
+        fail("the run that started phases 8, 9 and 16 has ended")
     library, dev = setup()
     by_path = phases_8_9(library, dev)
     with open(os.path.join(BESIDE_DIR, "launches.json"), "w") as f:

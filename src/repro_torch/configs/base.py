@@ -1,9 +1,10 @@
 """Architecture config schema of the ported families, and the reduced variant
 the CPU tests run.  An own copy of ``repro.configs.base``: the fields the
-dense decoder (GQA or MLA attention), the Mamba2 hybrid and the xLSTM LM
-read, with the same names and
-defaults, so a config built here describes the same model as its JAX
-counterpart."""
+dense and MoE decoder (GQA or MLA attention), the Mamba2 hybrid and the
+xLSTM LM read, with the same names and defaults, so a config built here
+describes the same model as its JAX counterpart.  ``moe_groups`` (the
+reference's shard-local dispatch) is not ported: one device runs one
+global dispatch."""
 from __future__ import annotations
 
 import dataclasses
@@ -19,7 +20,7 @@ def pad_to_multiple(n: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                     # dense | hybrid | ssm (the families ported so far)
+    family: str                     # dense | moe | hybrid | ssm (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -33,6 +34,13 @@ class ArchConfig:
     qk_norm: bool = False
     window: Optional[int] = None    # sliding-window attention
     rope_theta: float = 1e6
+
+    # MoE
+    moe_experts: int = 0
+    moe_top_k: int = 0
+    moe_every: int = 1              # every k-th layer is MoE (k=1: all)
+    moe_shared_expert: bool = False
+    capacity_factor: float = 1.25
 
     # MLA
     q_lora: int = 0
@@ -60,6 +68,11 @@ class ArchConfig:
     def padded_vocab(self) -> int:
         return pad_to_multiple(self.vocab, VOCAB_PAD)
 
+    def moe_layer(self, layer_idx: int) -> bool:
+        if self.moe_experts == 0:
+            return False
+        return (layer_idx + 1) % self.moe_every == 0
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:
@@ -71,7 +84,7 @@ class ShapeConfig:
 
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
     """Small same-family variant for CPU tests (the reference's rule for the
-    dense, MLA, SSM and xLSTM families)."""
+    dense, MoE, MLA, SSM and xLSTM families)."""
     base = dict(
         n_layers=2,
         d_model=64,
@@ -82,6 +95,12 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
         vocab=256,
         dtype="float32",
     )
+    if cfg.moe_experts:
+        # random-init routers are unbalanced; a high capacity factor keeps the
+        # reduced configs drop-free so decode == forward exactly
+        base.update(
+            moe_experts=4, moe_top_k=min(2, cfg.moe_top_k), capacity_factor=8.0
+        )
     if cfg.q_lora:
         base.update(q_lora=32, kv_lora=16, rope_head_dim=8, nope_head_dim=8,
                     v_head_dim=16, d_head=16)

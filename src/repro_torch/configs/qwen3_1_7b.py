@@ -1,0 +1,18 @@
+"""qwen3-1.7b [hf:Qwen/Qwen3]: 28L d2048 16H(GQA kv=8) ff6144 v151936,
+qk-norm, head_dim 128, tied embeddings."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen3-1.7b",
+    family="dense",
+    n_layers=28,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=8,
+    d_head=128,
+    d_ff=6144,
+    vocab=151936,
+    qk_norm=True,
+    rope_theta=1e6,
+    tie_embeddings=True,
+)

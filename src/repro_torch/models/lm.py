@@ -1,13 +1,19 @@
-"""Decoder-only dense LM (the qwen3 family, and minicpm3's MLA attention):
-the dense, single-device part of ``repro.models.lm``.
+"""Decoder-only LM (the qwen3 family, minicpm3's MLA attention, and the
+MoE family: mixtral-8x7b, llama4-maverick): the single-device part of
+``repro.models.lm``.
 
+Layers are grouped into super-blocks of ``moe_every`` layers (dense layers,
+then one MoE layer; one layer when ``moe_every == 1``), so an interleaved
+dense/MoE stack keeps one parameter structure per position in the block.
 Parameters keep the reference's layout so conversion is a dtype move: dense
-weights are (in, out); the layer stack is ``blocks/sub0/...`` with a leading
-layer axis; the KV cache is ``{"sub0": {"k": (L,B,S,Hkv,D), "v": ...}}``,
-and with ``attn_kind == "mla"`` the latent cache
+weights are (in, out); layer j of a super-block lives at ``blocks/sub{j}/...``
+with a leading super-block axis (a MoE layer's expert stacks are
+(n_sb, E, d_in, d_out), its router f32); the KV cache is
+``{"sub{j}": {"k": (n_sb,B,S,Hkv,D), "v": ...}}``, and with
+``attn_kind == "mla"`` the latent cache
 ``{"sub0": {"c_kv": (L,B,S,kv_lora), "k_rope": (L,B,S,rope)}}``.
-The reference runs the stack as one ``lax.scan``; here it is a Python loop
-over the layer axis, so a traced step holds every layer's operators.
+The reference runs the stack as one ``lax.scan`` over super-blocks; here it
+is a Python loop, so a traced step holds every layer's operators.
 
 API:
     init_params(cfg, seed, device)             -> params dict
@@ -37,6 +43,7 @@ from repro_torch.layers.attention import (
 from repro_torch.layers.common import dense, dense_init, layer_params, layer_slice
 from repro_torch.layers.mla import init_mla_cache, mla_decode_step, mla_forward, mla_init
 from repro_torch.layers.mlp import mlp_apply, mlp_init
+from repro_torch.layers.moe import moe_apply, moe_init
 
 # the decode cache holds a row per position of the bucket (the serving engine
 # checks a generation against it)
@@ -51,12 +58,28 @@ def _mla(cfg: ArchConfig) -> bool:
     return cfg.attn_kind == "mla"
 
 
-def _layer_forward(lp, x, cfg: ArchConfig, positions):
+def _subs(cfg: ArchConfig):
+    """The super-block's layer names, with whether each is a MoE layer."""
+    return [(f"sub{j}", cfg.moe_layer(j)) for j in range(cfg.moe_every)]
+
+
+def _n_superblocks(cfg: ArchConfig) -> int:
+    if cfg.n_layers % cfg.moe_every:
+        raise ValueError(f"{cfg.n_layers} layers are not whole super-blocks of "
+                         f"{cfg.moe_every}")
+    return cfg.n_layers // cfg.moe_every
+
+
+def _ffn(lp, h, cfg: ArchConfig, moe: bool) -> torch.Tensor:
+    return moe_apply(lp["ffn"], h, cfg) if moe else mlp_apply(lp["ffn"], h)
+
+
+def _layer_forward(lp, x, cfg: ArchConfig, moe: bool, positions):
     h = rmsnorm(x, lp["attn_norm"], eps=cfg.norm_eps)
     attend = mla_forward if _mla(cfg) else attn_forward
     x = x + attend(lp["attn"], h, cfg, positions=positions)
     h = rmsnorm(x, lp["mlp_norm"], eps=cfg.norm_eps)
-    return x + mlp_apply(lp["ffn"], h)
+    return x + _ffn(lp, h, cfg, moe)
 
 
 def _stack(caches) -> Dict[str, torch.Tensor]:
@@ -67,25 +90,27 @@ def _stack(caches) -> Dict[str, torch.Tensor]:
 def init_params(cfg: ArchConfig, seed: int = 0, device: Any = "cuda") -> Dict[str, Any]:
     """Random weights with the reference's shapes and scales, drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device``."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = _dtype(cfg)
-    n = cfg.n_layers
+    n = _n_superblocks(cfg)
     embed = torch.randn(
         (cfg.padded_vocab, cfg.d_model), generator=gen, device=dev
     ) * cfg.d_model ** -0.5
+    blocks = {}
+    for sub, moe in _subs(cfg):
+        blocks[sub] = {
+            "attn_norm": torch.ones((n, cfg.d_model), dtype=dtype, device=dev),
+            "mlp_norm": torch.ones((n, cfg.d_model), dtype=dtype, device=dev),
+            "attn": (mla_init if _mla(cfg) else attn_init)(gen, cfg, dtype, n),
+            "ffn": (moe_init(gen, cfg, dtype, n) if moe
+                    else mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, n)),
+        }
     p = {
         "embed": embed.to(dtype),
-        "blocks": {
-            "sub0": {
-                "attn_norm": torch.ones((n, cfg.d_model), dtype=dtype, device=dev),
-                "mlp_norm": torch.ones((n, cfg.d_model), dtype=dtype, device=dev),
-                "attn": (mla_init if _mla(cfg) else attn_init)(gen, cfg, dtype, n),
-                "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, n),
-            }
-        },
+        "blocks": blocks,
         "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
     }
     if not cfg.tie_embeddings:
@@ -123,12 +148,14 @@ def forward(
     b, s = tokens.shape
     h = params["embed"][tokens]
     positions = _positions(b, s, h.device)
-    layer = layer_params(params["blocks"]["sub0"])
-    for i in range(cfg.n_layers):
-        if remat:
-            h = checkpoint(_layer_forward, layer(i), h, cfg, positions, use_reentrant=False)
-        else:
-            h = _layer_forward(layer(i), h, cfg, positions)
+    layers = [(layer_params(params["blocks"][sub]), moe) for sub, moe in _subs(cfg)]
+    for i in range(_n_superblocks(cfg)):
+        for layer, moe in layers:
+            if remat:
+                h = checkpoint(_layer_forward, layer(i), h, cfg, moe, positions,
+                               use_reentrant=False)
+            else:
+                h = _layer_forward(layer(i), h, cfg, moe, positions)
     if return_hidden:
         return h
     return _logits(params, h, cfg)
@@ -153,13 +180,13 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *, remat: b
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device: Any = "cuda"):
     init = init_mla_cache if _mla(cfg) else init_kv_cache
-    one = init(cfg, batch, max_seq, _dtype(cfg), resolve_device(device))
-    return {
-        "sub0": {
-            name: leaf[None].expand(cfg.n_layers, *leaf.shape).contiguous()
-            for name, leaf in one.items()
-        }
-    }
+    n = _n_superblocks(cfg)
+    cache = {}
+    for sub, _ in _subs(cfg):
+        one = init(cfg, batch, max_seq, _dtype(cfg), resolve_device(device))
+        cache[sub] = {name: leaf[None].expand(n, *leaf.shape).contiguous()
+                      for name, leaf in one.items()}
+    return cache
 
 
 def prefill(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, max_seq: int):
@@ -169,25 +196,26 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, max_seq: in
     x = params["embed"][tokens]
     positions = _positions(b, s, x.device)
     pad = max_seq - s
-    caches = []
-    for i in range(cfg.n_layers):
-        lp = layer_slice(params["blocks"]["sub0"], i)
-        hn = rmsnorm(x, lp["attn_norm"], eps=cfg.norm_eps)
-        if _mla(cfg):
-            a, (c_kv, k_rope) = mla_forward(lp["attn"], hn, cfg, positions=positions,
-                                            return_kv=True)
-            caches.append({"c_kv": F.pad(c_kv, (0, 0, 0, pad)),
-                           "k_rope": F.pad(k_rope, (0, 0, 0, pad))})
-        else:
-            a, (k, v) = attn_forward(lp["attn"], hn, cfg, positions=positions,
-                                     return_kv=True)
-            caches.append({"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
-                           "v": F.pad(v, (0, 0, 0, 0, 0, pad))})
-        x = x + a
-        hn = rmsnorm(x, lp["mlp_norm"], eps=cfg.norm_eps)
-        x = x + mlp_apply(lp["ffn"], hn)
+    caches = {sub: [] for sub, _ in _subs(cfg)}
+    for i in range(_n_superblocks(cfg)):
+        for sub, moe in _subs(cfg):
+            lp = layer_slice(params["blocks"][sub], i)
+            hn = rmsnorm(x, lp["attn_norm"], eps=cfg.norm_eps)
+            if _mla(cfg):
+                a, (c_kv, k_rope) = mla_forward(lp["attn"], hn, cfg, positions=positions,
+                                                return_kv=True)
+                caches[sub].append({"c_kv": F.pad(c_kv, (0, 0, 0, pad)),
+                                    "k_rope": F.pad(k_rope, (0, 0, 0, pad))})
+            else:
+                a, (k, v) = attn_forward(lp["attn"], hn, cfg, positions=positions,
+                                         return_kv=True)
+                caches[sub].append({"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
+                                    "v": F.pad(v, (0, 0, 0, 0, 0, pad))})
+            x = x + a
+            hn = rmsnorm(x, lp["mlp_norm"], eps=cfg.norm_eps)
+            x = x + _ffn(lp, hn, cfg, moe)
     logits = _logits(params, x[:, -1:].contiguous(), cfg)
-    return logits, {"sub0": _stack(caches)}
+    return logits, {sub: _stack(c) for sub, c in caches.items()}
 
 
 def decode_step(params, token: torch.Tensor, cache, pos: torch.Tensor, cfg: ArchConfig):
@@ -196,15 +224,16 @@ def decode_step(params, token: torch.Tensor, cache, pos: torch.Tensor, cfg: Arch
     built once at the end, not rewritten inside every layer."""
     x = params["embed"][token]
     step = mla_decode_step if _mla(cfg) else attn_decode_step
-    caches = []
-    for i in range(cfg.n_layers):
-        lp = layer_slice(params["blocks"]["sub0"], i)
-        lc = layer_slice(cache["sub0"], i)
-        hn = rmsnorm(x, lp["attn_norm"], eps=cfg.norm_eps)
-        a, c_new = step(lp["attn"], hn, lc, pos, cfg)
-        caches.append(c_new)
-        x = x + a
-        hn = rmsnorm(x, lp["mlp_norm"], eps=cfg.norm_eps)
-        x = x + mlp_apply(lp["ffn"], hn)
+    caches = {sub: [] for sub, _ in _subs(cfg)}
+    for i in range(_n_superblocks(cfg)):
+        for sub, moe in _subs(cfg):
+            lp = layer_slice(params["blocks"][sub], i)
+            lc = layer_slice(cache[sub], i)
+            hn = rmsnorm(x, lp["attn_norm"], eps=cfg.norm_eps)
+            a, c_new = step(lp["attn"], hn, lc, pos, cfg)
+            caches[sub].append(c_new)
+            x = x + a
+            hn = rmsnorm(x, lp["mlp_norm"], eps=cfg.norm_eps)
+            x = x + _ffn(lp, hn, cfg, moe)
     logits = _logits(params, x, cfg)
-    return logits, {"sub0": _stack(caches)}
+    return logits, {sub: _stack(c) for sub, c in caches.items()}

@@ -1,6 +1,7 @@
 """Model registry: maps an ArchConfig to its family module, in the
 reference's order (a shared attention block -> the hybrid, an sLSTM period
--> the xLSTM LM, dense -> the decoder LM, GQA or MLA)."""
+-> the xLSTM LM, dense or MoE -> the decoder LM, GQA or MLA).  The audio and
+VLM families are not ported."""
 from __future__ import annotations
 
 import types
@@ -14,6 +15,6 @@ def get_model(cfg: ArchConfig) -> types.ModuleType:
         return hybrid
     if cfg.slstm_every:
         return xlstm_lm
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return lm
     raise NotImplementedError(f"family {cfg.family!r} is not ported")

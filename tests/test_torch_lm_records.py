@@ -1,9 +1,10 @@
 """The LM paths' record streams are pinned: each served step of the reduced
-qwen3 and zamba2 configs, stateful and stateless, emits a fixed number of
-``kernel:`` records and no ``cudaMemcpyDtoD``.  The interceptor records an
-``aten.clone`` of a contiguous tensor as a DtoD copy; the LM traces' clones
-all read strided views (an expanded or transposed head layout), so they stay
-kernels and the counts do not move."""
+qwen3, zamba2, mixtral and llama4 configs, stateful and stateless, emits a
+fixed number of ``kernel:`` records and no ``cudaMemcpyDtoD`` (the MoE
+configs' capacity dispatch has the same operators for every token).  The
+interceptor records an ``aten.clone`` of a contiguous tensor as a DtoD
+copy; the LM traces' clones all read strided views (an expanded or
+transposed head layout), so they stay kernels and the counts do not move."""
 from __future__ import annotations
 
 from collections import Counter
@@ -23,8 +24,13 @@ PINNED = {
     ("qwen3-0.6b", False): 221,
     ("zamba2-1.2b", True): 708,
     ("zamba2-1.2b", False): 477,
+    ("mixtral-8x7b", True): 301,
+    ("mixtral-8x7b", False): 282,
+    ("llama4-maverick-400b-a17b", True): 281,
+    ("llama4-maverick-400b-a17b", False): 260,
 }
-REDUCE = {"qwen3-0.6b": {}, "zamba2-1.2b": dict(n_layers=5, attn_every=2)}
+REDUCE = {"qwen3-0.6b": {}, "zamba2-1.2b": dict(n_layers=5, attn_every=2),
+          "mixtral-8x7b": {}, "llama4-maverick-400b-a17b": {}}
 
 
 def _per_step_counts(name: str, stateful: bool):
