@@ -42,7 +42,19 @@ random weights from a seed:
   printed; (b) the reduced llama4-maverick (a dense layer, then top-1 of 4
   experts beside a shared expert, f32) on the card against the CPU and
   served rrto vs ``device_only``;
-  phases 8, 9 and 16 run in a second process on the card, started after
+* the encoder-decoder and patch-prefix families (phase 17, after phase
+  16): (a) whisper-base at full width (6 + 6 layers, d_model 512, bf16) on
+  1,500 frames from the seed: ``LocalServing``, its prefill and decode-step
+  logits against the extended forward's, then stateful rrto and
+  ``device_only`` from the zero cross cache (the served app sends tokens
+  alone, as the reference's does), the cross cache carried off the wire;
+  (b) whisper-base trained on one batch of 2 x (1,500 frames, 448 tokens),
+  with and without ``remat``, the loss falling at each step, the flash
+  backward's calls counted by shape; (c) llava-next-34b at full width and
+  8 of its 60 layers (56 query heads on 8 KV heads) with 576 patches:
+  ``LocalServing`` decoding at ``s + num_patches``, its logits against the
+  extended forward's, then stateful rrto and ``device_only``;
+  phases 8, 9, 16 and 17 run in a second process on the card, started after
   phase 2 and joined before phase 15, beside phases 3-7 and 10-14 (the
   served paths are host-bound: two processes share the card's idle time);
 * split replay (phase 10, the model cut between the mobile device and the
@@ -112,8 +124,8 @@ random weights from a seed:
 * training (phase 15, last; phase 2 also holds the three backward kernels
   against their plain versions, two launches bitwise equal, and times them
   beside the library's autograd backward where there is one): (a) one step
-  of a reduced qwen3-0.6b, minicpm3-4b, zamba2-1.2b and xlstm-1.3b in f32
-  and bf16, every gradient leaf on the card against the CPU, then reduced
+  of a reduced qwen3-0.6b, minicpm3-4b, zamba2-1.2b, xlstm-1.3b,
+  whisper-base and llava-next-34b in f32 and bf16, every gradient leaf on the card against the CPU, then reduced
   zamba2 through the trainer straight, crashed and resumed (bitwise); (b)
   full-width qwen3-0.6b trained 4 steps at 4 x 512 tokens through
   ``repro_torch.launch.train.main``: straight, crashed after step 2 with
@@ -190,6 +202,20 @@ LONG_KV = 16384     # the long decode row: K/V of 67 MB, more than the 50 MB L2
 # heads of 128, a sliding window of 4096; prompt 16, 6 new tokens, bucket 64
 MIX_LAYERS, MIX_PROMPT, MIX_NEW, MIX_BUCKET = 8, 16, 6, 64
 MIX_HEADS, MIX_KV_HEADS, MIX_WINDOW = 32, 8, 4096
+# whisper-base (phase 17a-b): full width, 1,500 encoder frames from the seed,
+# 8 heads of 64; a 4-token prompt and 8 new tokens, the self cache's bucket
+# 64; training on one batch of 2 x (1,500 frames, 448 tokens), 4 steps with
+# and without remat
+W_PROMPT, W_NEW, W_BUCKET = 4, 8, 64
+W_HEADS, W_D, W_FRAMES = 8, 64, 1500
+W_TRAIN_BATCH, W_TRAIN_DEC, W_TRAIN_STEPS = 2, 448, 4
+# llava-next-34b (phase 17c): full width, 8 of its 60 layers (all 60 are
+# 68.8 GB in bf16 by the config's shapes, more than the card holds beside
+# the main process), 576 patches, 56 query heads on 8 KV heads of 128
+# (n_rep 7); a 16-token prompt and 6 new tokens, the served bucket 64; the
+# f32 logit check on its first 2 layers
+L_LAYERS, L_PATCHES, L_PROMPT, L_NEW, L_BUCKET = 8, 576, 16, 6, 64
+L_HEADS, L_KV_HEADS, L_F32_LAYERS = 56, 8, 2
 KAPAO_SIZE, KAPAO_INFERS = 640, 7
 # the other CNNs at the reference's benchmark sizes: Fig. 12's torchvision
 # set, VGG16 for Fig. 1, and the sensor models of the partitioning runs
@@ -657,6 +683,7 @@ def phase_kernels(dev):
     extra += bwd_extra
     rows["ssm_scan_backward"], scan_bwd_extra = phase_scan_backward(randn)
     extra += scan_bwd_extra
+    extra += phase_encdec_kernels(randn)
     for r in [dict(name=n, **r) for n, r in rows.items()] + extra:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
         print(f"time {r['name']} [{r['shape']}]: kernel {r['ms'] * 1e3:.2f} us, plain "
@@ -696,6 +723,51 @@ def autograd_ms(fwd, inputs, cot, reps: int = 20) -> float:
             - graph_ms(fwd, reps))
 
 
+def check_flash_backward(randn, shape, kw) -> None:
+    """The flash backward kernel at one case against its plain version (f32
+    and bf16; bf16 also against the emulation of its roundings), two
+    launches bitwise equal; a disagreement joins ``MISMATCHES``."""
+    from repro_torch.kernels.flash_attention import (
+        attention_chunked_backward,
+        backward_plan,
+        flash_attention,
+        flash_attention_backward_op,
+    )
+    from repro_torch.kernels.flash_attention.ref import attention_backward_bf16_products
+
+    bf = torch.bfloat16
+    b, sq, sk, hq, hkv, d = shape
+    args = (kw.get("causal", True), kw.get("window"), kw.get("logit_cap"),
+            kw.get("q_offset", 0))
+    for dtype in (torch.float32, bf):
+        q, do = randn(b, sq, hq, d, dtype=dtype), randn(b, sq, hq, d, dtype=dtype)
+        k, v = randn(b, sk, hkv, d, dtype=dtype), randn(b, sk, hkv, d, dtype=dtype)
+        out = flash_attention(q, k, v, **kw)
+        grads = flash_attention_backward_op(do, q, k, v, out, *args)
+        torch.cuda.synchronize()
+        refs = attention_chunked_backward(do, q, k, v, **kw)
+        err = max(close(g, r, TOL[dtype]) for g, r in zip(grads, refs))
+        same = all(torch.equal(a, c) for a, c in
+                   zip(grads, flash_attention_backward_op(do, q, k, v, out, *args)))
+        if not same:
+            MISMATCHES.append(f"flash_attention_backward {(b, sq, sk, hq, hkv, d)} {kw} "
+                              f"{dtype}: two launches differ")
+        route = backward_plan(b, sq, sk, hq, hkv, d, dtype)["route"]
+        note = ""
+        if dtype == bf:   # the mma route against the emulation of its roundings
+            rel = max(float((g.float() - e.float()).norm() / e.float().norm().clamp_min(1e-30))
+                      for g, e in zip(grads, attention_backward_bf16_products(
+                          do, q, k, v, out, **kw)))
+            if not rel <= BWD_EMULATION_TOL:
+                MISMATCHES.append(f"flash_attention_backward {(b, sq, sk, hq, hkv, d)} {kw}: "
+                                  f"relative L2 {rel:.3g} from its rounding's emulation")
+            note = f"; vs its rounding's emulation rel L2 {rel:.3g} (tol {BWD_EMULATION_TOL})"
+        print(f"flash_attention_backward {(b, sq, sk, hq, hkv, d)} {kw} {dtype} ({route}): "
+              f"dq/dk/dv max|d| {err:.3g} (tol {TOL[dtype]}); two launches bitwise {same}"
+              f"{note}")
+        del q, do, k, v, out, grads, refs
+
+
 def phase_backward_kernels(randn) -> tuple:
     """The two backward kernels of the training path against their plain
     versions on the card (f32 and bf16, every case, each printed with its
@@ -708,7 +780,6 @@ def phase_backward_kernels(randn) -> tuple:
         flash_attention,
         flash_attention_backward_op,
     )
-    from repro_torch.kernels.flash_attention.ref import attention_backward_bf16_products
     from repro_torch.kernels.rmsnorm import (
         rmsnorm_backward_op,
         rmsnorm_backward_plan,
@@ -738,36 +809,8 @@ def phase_backward_kernels(randn) -> tuple:
             print(f"rmsnorm_backward {shape} {dtype} offset={offset} "
                   f"({rms_route(*shape, dtype)}): max|d| {err:.3g} (tol {tol}); two launches "
                   f"bitwise {same}")
-    for (b, sq, sk, hq, hkv, d), kw in FLASH_BWD_CASES:
-        args = (kw.get("causal", True), kw.get("window"), kw.get("logit_cap"),
-                kw.get("q_offset", 0))
-        for dtype in (torch.float32, bf):
-            q, do = randn(b, sq, hq, d, dtype=dtype), randn(b, sq, hq, d, dtype=dtype)
-            k, v = randn(b, sk, hkv, d, dtype=dtype), randn(b, sk, hkv, d, dtype=dtype)
-            out = flash_attention(q, k, v, **kw)
-            grads = flash_attention_backward_op(do, q, k, v, out, *args)
-            torch.cuda.synchronize()
-            refs = attention_chunked_backward(do, q, k, v, **kw)
-            err = max(close(g, r, TOL[dtype]) for g, r in zip(grads, refs))
-            same = all(torch.equal(a, c) for a, c in
-                       zip(grads, flash_attention_backward_op(do, q, k, v, out, *args)))
-            if not same:
-                MISMATCHES.append(f"flash_attention_backward {(b, sq, sk, hq, hkv, d)} {kw} "
-                                  f"{dtype}: two launches differ")
-            route = backward_plan(b, sq, sk, hq, hkv, d, dtype)["route"]
-            note = ""
-            if dtype == bf:   # the mma route against the emulation of its roundings
-                rel = max(float((g.float() - e.float()).norm() / e.float().norm().clamp_min(1e-30))
-                          for g, e in zip(grads, attention_backward_bf16_products(
-                              do, q, k, v, out, **kw)))
-                if not rel <= BWD_EMULATION_TOL:
-                    MISMATCHES.append(f"flash_attention_backward {(b, sq, sk, hq, hkv, d)} {kw}: "
-                                      f"relative L2 {rel:.3g} from its rounding's emulation")
-                note = f"; vs its rounding's emulation rel L2 {rel:.3g} (tol {BWD_EMULATION_TOL})"
-            print(f"flash_attention_backward {(b, sq, sk, hq, hkv, d)} {kw} {dtype} ({route}): "
-                  f"dq/dk/dv max|d| {err:.3g} (tol {TOL[dtype]}); two launches bitwise {same}"
-                  f"{note}")
-            del q, do, k, v, out, grads, refs
+    for shape, kw in FLASH_BWD_CASES:
+        check_flash_backward(randn, shape, kw)
 
     rows, extra = {}, []
     for i, (n, d) in enumerate(RMSNORM_BWD_SHAPES[:3]):
@@ -828,6 +871,145 @@ def phase_backward_kernels(randn) -> tuple:
             extra.append(dict(name="flash_attention_backward", **row))
         del q, do, k, v, out, qt, kt, vt, dot
     return rows, extra
+
+
+def phase_encdec_kernels(randn) -> list:
+    """Phase 2's shapes of the encoder-decoder and patch-prefix paths (phase
+    17), each held in f32 and bf16 against its plain version (a
+    disagreement joins ``MISMATCHES``): flash attention with no mask over
+    whisper's 1,500 frames (a ragged last key tile: 1500 = 23 x 64 + 28)
+    and across from the decoder's queries to them; llava's causal prefill
+    of 576 patches and 16 tokens, whose 56 query heads on 8 KV heads
+    (n_rep 7) put parts of two queries' groups in one 64-row tile; decode
+    attention over the 1,500-key cross cache (three splits, the last
+    ragged) and at n_rep 7; the flash backward at whisper's training shapes
+    (no mask, and across). Then the bf16 rows timed beside the plain
+    version, SDPA (its backward for the backward rows) and the bound."""
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+    from repro_torch.kernels.flash_attention import (
+        attention_chunked_backward,
+        attention_dense,
+        backward_plan,
+        flash_attention,
+        flash_attention_backward_op,
+    )
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    w, l_seq = W_FRAMES, L_PATCHES + L_PROMPT
+    for (b, sq, sk, hq, hkv, d), kw in [
+            ((1, w, w, W_HEADS, W_HEADS, W_D), dict(causal=False)),
+            ((1, 7, w, W_HEADS, W_HEADS, W_D), dict(causal=False)),
+            ((W_TRAIN_BATCH, W_TRAIN_DEC, w, W_HEADS, W_HEADS, W_D), dict(causal=False)),
+            ((1, l_seq, l_seq, L_HEADS, L_KV_HEADS, 128), dict(causal=True)),
+            ((2, 45, 45, L_HEADS, L_KV_HEADS, 128), dict(causal=True)),
+            ((1, 30, 70, 14, 2, 64), dict(causal=True, q_offset=40, window=25))]:
+        for dtype in (torch.float32, bf):
+            q, k, v = (randn(b, n, h, d, dtype=dtype) for n, h in ((sq, hq), (sk, hkv), (sk, hkv)))
+            out = flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = close(out, attention_dense(q, k, v, **kw), TOL[dtype])
+            print(f"flash_attention {(b, sq, sk, hq, hkv, d)} {kw} {dtype}: max|d| {err:.3g} "
+                  f"(tol {TOL[dtype]})")
+    for b, s, hq, hkv, d, lens, window in [
+            (1, w, W_HEADS, W_HEADS, W_D, [w], None),
+            (2, w, W_HEADS, W_HEADS, W_D, [w, w], None),
+            (1, W_BUCKET, W_HEADS, W_HEADS, W_D, [W_PROMPT + W_NEW - 1], None),
+            (1, L_BUCKET, L_HEADS, L_KV_HEADS, 128, [L_PROMPT + L_NEW - 1], None),
+            (1, l_seq + L_NEW, L_HEADS, L_KV_HEADS, 128, [l_seq + L_NEW - 1], None),
+            (3, 700, L_HEADS, L_KV_HEADS, 128, [700, 1, 350], 100)]:
+        for dtype in (torch.float32, bf):
+            q, k, v = randn(b, hq, d, dtype=dtype), randn(b, s, hkv, d, dtype=dtype), \
+                randn(b, s, hkv, d, dtype=dtype)
+            kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+            out = decode_attention(q, k, v, kv_len, window=window)
+            torch.cuda.synchronize()
+            err = close(out, decode_attention_ref(q, k, v, kv_len, window=window), TOL[dtype])
+            print(f"decode_attention {(b, s, hq, hkv, d, lens, window)} {dtype}: max|d| "
+                  f"{err:.3g} (tol {TOL[dtype]})")
+    for shape, kw in [((1, w, w, W_HEADS, W_HEADS, W_D), dict(causal=False)),
+                      ((1, 7, w, W_HEADS, W_HEADS, W_D), dict(causal=False)),
+                      ((W_TRAIN_BATCH, W_TRAIN_DEC, w, W_HEADS, W_HEADS, W_D),
+                       dict(causal=False)),
+                      ((W_TRAIN_BATCH, W_TRAIN_DEC, W_TRAIN_DEC, W_HEADS, W_HEADS, W_D),
+                       dict(causal=True)),
+                      ((1, 45, 45, 14, 2, 64), dict(causal=True))]:
+        check_flash_backward(randn, shape, kw)
+
+    rows = []
+    # flash forward: whisper's encoder (no mask), its 4-token prompt across
+    # to the 1,500 frames, llava's prefill (causal, n_rep 7)
+    for (b, sq, sk, hq, hkv, d), causal, what in [
+            ((1, w, w, W_HEADS, W_HEADS, W_D), False, "whisper's encoder, no mask"),
+            ((1, W_PROMPT, w, W_HEADS, W_HEADS, W_D), False,
+             "whisper's prompt across to the encoder, no mask"),
+            ((1, l_seq, l_seq, L_HEADS, L_KV_HEADS, 128), True,
+             "llava's prefill of 576 patches + 16 tokens, causal, n_rep 7")]:
+        q, k, v = (randn(b, n, h, d, dtype=bf) for n, h in ((sq, hq), (sk, hkv), (sk, hkv)))
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        pairs = sq * (sq + 1) / 2 if causal else sq * sk
+        b_ms, b_by = bound_ms(2 * (2 * q.numel() + 2 * k.numel()), 4 * b * hq * pairs * d, bf)
+        rows.append(dict(
+            name="flash_attention",
+            shape=f"q ({b},{sq},{hq},{d}), K/V ({b},{sk},{hkv},{d}) bf16 ({what})",
+            max_abs_err=close(flash_attention(q, k, v, causal=causal),
+                              attention_dense(q, k, v, causal=causal), TOL[bf]),
+            ms=graph_ms(lambda: flash_attention(q, k, v, causal=causal)),
+            plain_ms=graph_ms(lambda: attention_dense(q, k, v, causal=causal), reps=10),
+            library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=hq != hkv)),
+            bound_ms=b_ms, bound_by=b_by))
+    # decode attention: the cross cache of 1,500 keys; llava's served step
+    for s, hq, hkv, d, n, what in [(w, W_HEADS, W_HEADS, W_D, w, "whisper's cross cache"),
+                                   (L_BUCKET, L_HEADS, L_KV_HEADS, 128, L_PROMPT + L_NEW - 1,
+                                    "llava's step, n_rep 7")]:
+        q, k, v = randn(1, hq, d, dtype=bf), randn(1, s, hkv, d, dtype=bf), \
+            randn(1, s, hkv, d, dtype=bf)
+        kv_len = torch.tensor([n], dtype=torch.int32, device=dev)
+        kt, vt = k[:, :n].transpose(1, 2), v[:, :n].transpose(1, 2)
+        b_ms, b_by = bound_ms(2 * q.numel() * 2 + 2 * n * hkv * d * 2 + 4, 4 * hq * n * d, bf)
+        rows.append(dict(
+            name="decode_attention",
+            shape=f"q (1,{hq},{d}), K/V (1,{s},{hkv},{d}) bf16, kv_len {n} ({what})",
+            max_abs_err=close(decode_attention(q, k, v, kv_len),
+                              decode_attention_ref(q, k, v, kv_len), TOL[bf]),
+            ms=graph_ms(lambda: decode_attention(q, k, v, kv_len)),
+            plain_ms=graph_ms(lambda: decode_attention_ref(q, k, v, kv_len)),
+            library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kt, vt, enable_gqa=hq != hkv)),
+            bound_ms=b_ms, bound_by=b_by))
+    # flash backward at whisper's training shapes: the encoder's self
+    # attention and the decoder's queries across to the frames, no mask
+    for b, sq, sk in ((W_TRAIN_BATCH, w, w), (W_TRAIN_BATCH, W_TRAIN_DEC, w)):
+        h, d = W_HEADS, W_D
+        q, do = randn(b, sq, h, d, dtype=bf), randn(b, sq, h, d, dtype=bf)
+        k, v = randn(b, sk, h, d, dtype=bf), randn(b, sk, h, d, dtype=bf)
+        out = flash_attention(q, k, v, causal=False)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        dot = do.transpose(1, 2)
+        b_ms, b_by = bound_ms(2 * (4 * q.numel() + 4 * k.numel()), 2.5 * 4 * b * h * sq * sk * d,
+                              bf)
+        route = backward_plan(b, sq, sk, h, h, d, bf)["route"]
+
+        def kern():
+            return flash_attention_backward_op(do, q, k, v, out, False, None, None, 0)
+
+        def lib():
+            return F.scaled_dot_product_attention(qt, kt, vt)
+
+        turns = [graph_ms(kern, reps=5), autograd_ms(lib, (qt, kt, vt), dot, reps=5),
+                 autograd_ms(lib, (qt, kt, vt), dot, reps=5), graph_ms(kern, reps=5)]
+        rows.append(dict(
+            name="flash_attention_backward",
+            shape=f"q/dO ({b},{sq},{h},{d}), K/V ({b},{sk},{h},{d}) bf16, no mask ({route}; "
+                  f"whisper's {'encoder' if sq == sk else 'cross attention'} in training)",
+            max_abs_err=max(close(g, r, TOL[bf]) for g, r in zip(
+                kern(), attention_chunked_backward(do, q, k, v, causal=False))),
+            ms=(turns[0] + turns[3]) / 2,
+            plain_ms=graph_ms(lambda: attention_chunked_backward(do, q, k, v, causal=False),
+                              reps=5),
+            library_ms=(turns[1] + turns[2]) / 2, bound_ms=b_ms, bound_by=b_by))
+        del q, do, k, v, out, qt, kt, vt, dot
+    return rows
 
 
 def scan_backward_cost(b, s, h, p, g, n, chunk, dtype, *, with_d=False, with_h0=False,
@@ -1247,10 +1429,13 @@ class StepTimer:
 
 
 def phase_main_path(dev, name, prompt_len, new_tokens, bucket, *, stateful=True, params=None,
-                    cfg=None):
+                    cfg=None, inputs=None):
     """Serve one model: ``LocalServing`` (stateful only), ``RRTOServedLM``
     rrto and a ``device_only`` session, on one set of weights.  ``cfg``
-    (default: the registry's ``name``) may cut the model's depth."""
+    (default: the registry's ``name``) may cut the model's depth;
+    ``inputs`` (an encoder-decoder's frames, a VLM's patches) join the
+    prompt in ``LocalServing``'s batch, whose cache also holds a VLM's
+    patch prefix.  The served app sends tokens alone."""
     from repro_torch.configs import get_config
     from repro_torch.models.registry import get_model
     from repro_torch.serving.engine import LocalServing, RRTOServedLM
@@ -1271,7 +1456,7 @@ def phase_main_path(dev, name, prompt_len, new_tokens, bucket, *, stateful=True,
     if stateful:
         t0 = time.perf_counter()
         local = LocalServing(cfg, params=params, device=dev).generate(
-            {"tokens": prompt}, new_tokens, max_seq=bucket)
+            {"tokens": prompt, **(inputs or {})}, new_tokens, max_seq=bucket + cfg.num_patches)
         print(f"{name} LocalServing: {new_tokens} tokens in {time.perf_counter() - t0:.2f} s")
 
     kind = "stateful" if stateful else "stateless"
@@ -3938,9 +4123,10 @@ def train_grads(cfg, params, nb, dev) -> tuple:
 
 def phase_train_small(dev) -> None:
     """Phase 15a: one training step of a reduced qwen3-0.6b, minicpm3-4b
-    (head dims the backward kernels take: 32, and MLA's 96), zamba2-1.2b and
+    (head dims the backward kernels take: 32, and MLA's 96), zamba2-1.2b,
     xlstm-1.3b (reduced so that every block runs: the shared attention block
-    at d_head 32 and the Mamba2 scan at P 32; the mLSTM and the sLSTM), the
+    at d_head 32 and the Mamba2 scan at P 32; the mLSTM and the sLSTM),
+    whisper-base and llava-next-34b (d_head 32), the
     card (kernels, forward and backward) against the CPU (plain versions) on
     the same weights and batch.  In f32 the loss and every
     gradient leaf agree within 2e-4 of the leaf's largest magnitude (only
@@ -3965,7 +4151,11 @@ def phase_train_small(dev) -> None:
                                                   v_head_dim=64, d_head=96), 300),
                              ("zamba2-1.2b", dict(n_layers=5, attn_every=2, d_head=32,
                                                   ssm_head_dim=32), 150),
-                             ("xlstm-1.3b", dict(n_layers=5, slstm_every=2), 150)):
+                             ("xlstm-1.3b", dict(n_layers=5, slstm_every=2), 150),
+                             # the decoder capped at 64 positions, 32 frames;
+                             # 16 patches before 284 text tokens
+                             ("whisper-base", dict(d_head=32), 300),
+                             ("llava-next-34b", dict(d_head=32), 300)):
         shape = ShapeConfig("phase15a", seq, 2, "train")
         for dtype in (torch.float32, torch.bfloat16):
             cfg = get_reduced_config(name, dtype=str(dtype).split(".")[1], **heads)
@@ -4296,13 +4486,14 @@ def train_flops(cfg, params, tokens: int, batch: int, seq: int, attn_layers=None
     return 6 * n_params * tokens + 3.5 * attn
 
 
-def fixed_batch(cfg, opt_cfg, nb, dev, steps: int = FIXED_STEPS) -> tuple:
-    """``steps`` steps with `remat` on the batch ``nb`` from the seed-0
-    train state: (params, opt state, losses, seconds per step)."""
+def fixed_batch(cfg, opt_cfg, nb, dev, steps: int = FIXED_STEPS, remat: bool = True) -> tuple:
+    """``steps`` steps (with `remat` unless told otherwise) on the batch
+    ``nb`` from the seed-0 train state: (params, opt state, losses, seconds
+    per step)."""
     from repro_torch.training.step import init_train_state, make_train_step
 
     params, opt = init_train_state(cfg, seed=0, device=dev)
-    step = make_train_step(cfg, opt_cfg, remat=True)
+    step = make_train_step(cfg, opt_cfg, remat=remat)
     losses, secs = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -4711,8 +4902,8 @@ def run_path(library, label, kernels, fn):
 
 def phases_8_9(library, dev) -> dict:
     """Phase 8 (minicpm3-4b) and phase 9 (xlstm-1.3b), each stateful and
-    stateless, then phase 16 (the MoE family); returns their launches by
-    path."""
+    stateless, then phase 16 (the MoE family) and phase 17 (whisper-base
+    and llava-next-34b); returns their launches by path."""
     by_path = {}
     t0 = time.perf_counter()
     mla = ("rmsnorm", "flash_attention")
@@ -4765,6 +4956,7 @@ def phases_8_9(library, dev) -> dict:
     phase_llama4_reduced(library, dev, by_path)
     print(f"[phase 16] the MoE family: {time.perf_counter() - t0:.1f} s (16a "
           f"{t1 - t0:.1f}, 16b {time.perf_counter() - t1:.1f})")
+    phase_encdec_vlm(library, dev, by_path)
     return by_path
 
 
@@ -4890,6 +5082,8 @@ def moe_weight_bytes(cfg, params) -> tuple:
         if keys[-1] in ("w_gate", "w_up", "w_down") and "shared" not in keys \
                 and t.dim() == 4:
             expert += nbytes
+    if not cfg.moe_experts:
+        return total, total
     return total, total - expert * (1 - cfg.moe_top_k / cfg.moe_experts)
 
 
@@ -4980,7 +5174,253 @@ def phase_llama4_reduced(library, dev, by_path) -> None:
         del m
 
 
-# phases 8, 9 and 16 run in a second process on the card (``BESIDE``), started
+# ---------------------------------------------------------------------------
+# phase 17: the encoder-decoder and patch-prefix families (in the second
+# process, after phase 16)
+# ---------------------------------------------------------------------------
+
+def check_extended_forward(label, model, params, cfg, batch, tokens, max_seq, dev,
+                           tol: float) -> None:
+    """The prefill's last logits and each decode step's (fed ``tokens``, at
+    ``s + num_patches + i``) against the forward over the prompt extended
+    by those tokens, position by position: the largest difference within
+    ``tol`` of the largest forward logit (printed with the positions whose
+    argmax agrees)."""
+    tokens = torch.as_tensor(tokens, device=dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    s, n = batch["tokens"].shape[1], tokens.shape[1]
+    ext = dict(batch, tokens=torch.cat([batch["tokens"], tokens[:, :-1]], dim=1))
+    with torch.no_grad():
+        full = model.forward(params, ext, cfg)[0, s - 1:, :cfg.vocab].float()
+        logits, cache = model.prefill(params, batch, cfg, max_seq)
+        steps = [logits[0, 0, :cfg.vocab].float()]
+        for i in range(n - 1):
+            pos = torch.tensor(s + cfg.num_patches + i, dtype=torch.int32, device=dev)
+            logits, cache = model.decode_step(params, tokens[:, i:i + 1], cache, pos, cfg)
+            steps.append(logits[0, 0, :cfg.vocab].float())
+    got = torch.stack(steps)
+    check(bool(torch.isfinite(got).all() and torch.isfinite(full).all()),
+          f"{label} {cfg.dtype}: non-finite logits")
+    gap = float((got - full).abs().max() / full.abs().max())
+    same = int((got.argmax(-1) == full.argmax(-1)).sum())
+    print(f"{label} {cfg.dtype}: prefill + {n - 1} decode steps vs the extended forward, "
+          f"max|d| / max|logit| {gap:.3g} (tol {tol}); argmax equal at {same}/{n} positions")
+    check(gap <= tol, f"{label} {cfg.dtype}: prefill/decode logits disagree with the "
+                      f"extended forward's")
+
+
+class FlashBackwardShapes:
+    """While entered, the shapes of every flash backward kernel launch are
+    counted: ``(q shape, k shape, causal)`` (the wrapper is wrapped; it
+    launches as before)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops
+
+        self.ops, self.inner, self.shapes = ops, ops.flash_attention_backward_cuda, Counter()
+
+        def counted(dout, q, k, v, out, causal, *rest):
+            self.shapes[(tuple(q.shape), tuple(k.shape), bool(causal))] += 1
+            return self.inner(dout, q, k, v, out, causal, *rest)
+
+        ops.flash_attention_backward_cuda = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention_backward_cuda = self.inner
+
+
+def whisper_step_bytes(cfg, params, kv_len: int) -> int:
+    """Bytes one stateful decode step of the encoder-decoder must read: the
+    decoder's weights but the cross K/V projections (the cross cache holds
+    their products), the final norm and the head, one row of the embedding
+    and of the learned positions, the cross cache, and the self cache's
+    ``kv_len`` rows."""
+    el = 2 if cfg.dtype == "bfloat16" else 4
+    total = 0
+    for path, t in torch.utils._pytree.tree_flatten_with_path(params["decoder"])[0]:
+        keys = [getattr(k, "key", None) for k in path]
+        if not (keys[0] == "cross_attn" and keys[-1] in ("wk", "wv")):
+            total += t.numel() * t.element_size()
+    total += (params["final_norm"].numel() + params["lm_head"].numel() + 2 * cfg.d_model) * el
+    total += 2 * cfg.dec_layers * (cfg.enc_seq * cfg.n_heads + kv_len * cfg.n_kv_heads) \
+        * cfg.d_head * el
+    return total
+
+
+def phase_whisper(library, dev, by_path) -> None:
+    """Phase 17a: whisper-base at full width (6 + 6 layers, d_model 512,
+    bf16, random weights from seed 0) on 1,500 frames from the seed:
+    ``LocalServing`` (the frames encoded, the cross cache filled), its
+    prefill and decode-step logits against the extended forward's in bf16
+    and in f32; then stateful ``RRTOServedLM`` rrto and ``device_only``,
+    which send tokens alone and so decode from the zero cross cache (the
+    reference's app), rrto bitwise ``device_only`` at 3 RPCs a token with
+    the cross cache carried off the wire, and the replayed step as a CUDA
+    graph beside the bytes it must read."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+
+    cfg = get_config("whisper-base")
+    model = get_model(cfg)
+    frames = np.random.default_rng(0).normal(0, 1, (1, cfg.enc_seq, cfg.d_model)).astype(
+        np.float32)
+    n = cfg.dec_layers
+    per_step = {"rmsnorm": 3 * n + 1, "decode_attention": 2 * n}
+    m, by_path["phase 17a whisper-base stateful"] = run_path(
+        library, "phase 17a whisper-base stateful",
+        ("rmsnorm", "decode_attention", "flash_attention"),
+        lambda: phase_main_path(dev, "whisper-base", W_PROMPT, W_NEW, W_BUCKET, cfg=cfg,
+                                inputs={"frames": frames}))
+    check_main_path(m, per_step)
+    leaves = m["served"]._cache_leaves
+    cross = sum(t.numel() * t.element_size() for t in leaves[:2])
+    check(tuple(leaves[0].shape) == (n, 1, cfg.enc_seq, cfg.n_heads, cfg.d_head),
+          f"whisper-base: the first cache leaf is {tuple(leaves[0].shape)}, not the cross K")
+    check(all(h.rpcs == 3 and h.network_bytes < cross for h in m["steady"]),
+          "whisper-base: the cross cache crossed the wire")
+    print(f"whisper-base: cross cache {cross} bytes (K and V, {n} layers x {cfg.enc_seq} keys), "
+          f"carried on the server; steady wire bytes/token "
+          f"{max(h.network_bytes for h in m['steady']):.0f}, rpcs/token "
+          f"{max(h.rpcs for h in m['steady'])}")
+    step = measure_replay_step(m, dev)
+    kv_len = W_PROMPT + W_NEW - 1
+    nbytes = whisper_step_bytes(cfg, m["params"], kv_len)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"whisper-base stateful graph step {step['device_ms']:.3f} ms against its byte bound "
+          f"{bound:.4f} ms ({nbytes / 1e6:.2f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s: the "
+          f"decoder's weights, the head, the cross cache, {kv_len} self-cache rows; "
+          f"{bound / step['device_ms']:.1%} of the step)")
+    batch = {"tokens": m["prompt"], "frames": frames}
+    tokens = m["local"].tokens
+    check_extended_forward("whisper-base", model, m["params"], cfg, batch, tokens, W_BUCKET, dev,
+                           LOGIT_REL_TOL)
+    p32 = torch.utils._pytree.tree_map(lambda t: t.float(), m["params"])
+    check_extended_forward("whisper-base", model, p32, dataclasses.replace(cfg, dtype="float32"),
+                           batch, tokens, W_BUCKET, dev, TOL[torch.float32])
+    del m, p32
+    torch.cuda.empty_cache()
+
+
+def encdec_train_flops(cfg, batch: int, dec_len: int) -> float:
+    """A training step's work for the encoder-decoder: 6 x each matrix's
+    parameters x the rows it multiplies (the encoder's and the cross K/V
+    projections' ``batch`` x ``enc_seq`` frames; the decoder's, the head's
+    ``batch`` x ``dec_len`` tokens), plus attention's products, 4 B H Sq Sk
+    d a layer forward (the encoder's no mask, the decoder's causal and its
+    cross attention) and 2.5 times that backward."""
+    d, f, h, dh = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.d_head
+    enc_rows, dec_rows = batch * cfg.enc_seq, batch * dec_len
+    attn, mlp = 4 * d * h * dh, 3 * d * f
+    mm = (cfg.enc_layers * (attn + mlp) * enc_rows
+          + cfg.dec_layers * ((attn + 2 * d * h * dh + mlp) * dec_rows + 2 * d * h * dh * enc_rows)
+          + d * cfg.padded_vocab * dec_rows)
+    pairs = (cfg.enc_layers * cfg.enc_seq ** 2
+             + cfg.dec_layers * (dec_len * (dec_len + 1) / 2 + dec_len * cfg.enc_seq))
+    return 6 * mm + 3.5 * 4 * batch * h * dh * pairs
+
+
+def phase_whisper_train(library, dev, by_path) -> None:
+    """Phase 17b: whisper-base at full width trained on one fixed batch of
+    2 x (1,500 frames, 448 tokens), ``W_TRAIN_STEPS`` steps with ``remat``
+    and as many without, each from the seed-0 state: the loss falls at each
+    step; ms a step (the median after the first) against the step's flop
+    bound; the launches a step by kernel, and the flash backward's by shape
+    (the encoder's 1,500 frames with no mask, the decoder's 448 causal, and
+    across). The plain versions are barred from CUDA tensors."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.training.data import DataConfig, synth_batch
+    from repro_torch.training.optimizer import AdamWConfig
+
+    cfg = get_config("whisper-base")
+    nb = synth_batch(cfg, ShapeConfig("fixed", W_TRAIN_DEC, W_TRAIN_BATCH, "train"), 0,
+                     DataConfig())
+    opt_cfg = AdamWConfig(lr=FIXED_LR, warmup_steps=1)
+    flops = encdec_train_flops(cfg, W_TRAIN_BATCH, W_TRAIN_DEC)
+    bound_ms_ = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    for remat in (True, False):
+        label = f"phase 17b whisper-base fixed batch{'' if remat else ', no remat'}"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with PlainOnCard(), FlashBackwardShapes() as fb:
+            (params, _, losses, secs), launches = run_path(
+                library, label, TRAIN_KERNELS,
+                lambda: fixed_batch(cfg, opt_cfg, nb, dev, steps=W_TRAIN_STEPS, remat=remat))
+        by_path[label] = launches
+        peak = torch.cuda.max_memory_allocated()
+        check(all(np.isfinite(v) for v in losses) and all(b < a for a, b in zip(losses, losses[1:])),
+              f"17b: the fixed batch's loss did not fall at every step: {losses}")
+        step_ms = float(np.median(secs[1:])) * 1e3
+        print(f"[17b] {label}: losses {losses}; ms per step {[round(t * 1e3, 1) for t in secs]} "
+              f"(the first builds); step {step_ms:.1f} ms, peak {peak / 1e9:.2f} GB; bound "
+              f"{flops / 1e12:.3f} TFLOP at 989 TFLOP/s = {bound_ms_:.3f} ms "
+              f"({bound_ms_ / step_ms:.2%} of the step)")
+        print(f"[17b] launches per step { {k: n / W_TRAIN_STEPS for k, n in launches.items() if n} }"
+              f"; flash backward launches by (q, k, causal): "
+              f"{ {k: n // W_TRAIN_STEPS for k, n in fb.shapes.items()} } a step")
+        check(len(fb.shapes) == 3 and all(n == W_TRAIN_STEPS * cfg.n_layers
+                                          for n in fb.shapes.values()),
+              f"17b: flash backward launches by shape {dict(fb.shapes)}")
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_llava(library, dev, by_path) -> None:
+    """Phase 17c: llava-next-34b at full width and ``L_LAYERS`` of its 60
+    layers (d_model 7168, 56 query heads on 8 KV heads, bf16, random weights
+    from seed 0) with 576 patch embeddings from the seed: ``LocalServing``
+    (the patch prefix prefilled, every decode at ``s + num_patches``), its
+    logits against the extended forward's (bf16 at its depth; f32 on its
+    first ``L_F32_LAYERS`` layers); then stateful rrto and ``device_only``,
+    which send text alone, as the reference's app does: rrto bitwise
+    ``device_only`` at 3 RPCs a token, the replayed step as a CUDA graph
+    beside the bytes of its weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+
+    cfg = dataclasses.replace(get_config("llava-next-34b"), n_layers=L_LAYERS)
+    name = f"llava-next-34b ({L_LAYERS} layers)"
+    model = get_model(cfg)
+    patches = np.random.default_rng(0).normal(0, 1, (1, cfg.num_patches, cfg.d_model)).astype(
+        np.float32)
+    n = cfg.n_layers
+    m, by_path[f"phase 17c {name} stateful"] = run_path(
+        library, f"phase 17c {name} stateful", ("rmsnorm", "decode_attention", "flash_attention"),
+        lambda: phase_main_path(dev, name, L_PROMPT, L_NEW, L_BUCKET, cfg=cfg,
+                                inputs={"patches": patches}))
+    check_main_path(m, {"rmsnorm": 2 * n + 1, "decode_attention": n})
+    step = measure_replay_step(m, dev)
+    nbytes, _ = moe_weight_bytes(cfg, m["params"])
+    print(f"{name} stateful graph step {step['device_ms']:.3f} ms against its weight reads "
+          f"{nbytes / 1e9:.3f} GB -> {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms "
+          f"({nbytes / HBM_BYTES_PER_S * 1e3 / step['device_ms']:.1%} of the step)")
+    batch = {"tokens": m["prompt"], "patches": patches}
+    max_seq = L_PROMPT + cfg.num_patches + L_NEW
+    check_extended_forward(name, model, m["params"], cfg, batch, m["local"].tokens, max_seq, dev,
+                           LOGIT_REL_TOL)
+    cut, cut_cfg = first_layers(m["params"], cfg, L_F32_LAYERS)
+    p32 = torch.utils._pytree.tree_map(lambda t: t.float(), cut)
+    check_extended_forward(f"llava-next-34b (first {L_F32_LAYERS} layers)", model, p32,
+                           dataclasses.replace(cut_cfg, dtype="float32"), batch,
+                           m["local"].tokens, max_seq, dev, TOL[torch.float32])
+    del m, cut, p32
+    torch.cuda.empty_cache()
+
+
+def phase_encdec_vlm(library, dev, by_path) -> None:
+    """Phase 17 (a, b, c), each part timed."""
+    t = [time.perf_counter()]
+    for fn in (phase_whisper, phase_whisper_train, phase_llava):
+        fn(library, dev, by_path)
+        t.append(time.perf_counter())
+    print(f"[phase 17] the encoder-decoder and patch-prefix families: {t[3] - t[0]:.1f} s (17a "
+          f"{t[1] - t[0]:.1f}, 17b {t[2] - t[1]:.1f}, 17c {t[3] - t[2]:.1f})")
+
+
+# phases 8, 9, 16 and 17 run in a second process on the card (``BESIDE``), started
 # once phase 2's kernel timings are done and joined before phase 15: the
 # served paths are host-bound (the card idle 67-92% of a replayed step), so
 # two processes share its idle time
@@ -5002,7 +5442,7 @@ def setup():
 
 
 def start_beside():
-    """Start phases 8, 9 and 16 in a second process on the card, its output in a
+    """Start phases 8, 9, 16 and 17 in a second process on the card, its output in a
     file that ``join_beside`` prints; the process is killed if this one
     exits first."""
     import atexit
@@ -5023,7 +5463,7 @@ def start_beside():
 
 
 def join_beside(beside) -> dict:
-    """Wait for the process of phases 8, 9 and 16, print its output and return
+    """Wait for the process of phases 8, 9, 16 and 17, print its output and return
     its launches by path; fail if it failed."""
     proc, log, t_start = beside
     t0 = time.perf_counter()
@@ -5031,22 +5471,22 @@ def join_beside(beside) -> dict:
     log.close()
     with open(log.name) as f:
         print(f.read(), end="")
-    print(f"[phases 8, 9, 16] in a second process beside phases 3-7 and 10-14: exit {rc}; joined "
+    print(f"[phases 8, 9, 16, 17] in a second process beside phases 3-7 and 10-14: exit {rc}; joined "
           f"{t0 - t_start:.1f} s after its start, then waited {time.perf_counter() - t0:.1f} s")
-    check(rc == 0, "phases 8, 9 and 16 failed (their output above)")
+    check(rc == 0, "phases 8, 9, 16 and 17 failed (their output above)")
     with open(os.path.join(BESIDE_DIR, "launches.json")) as f:
         return json.load(f)
 
 
 def beside_main(parent: int) -> None:
-    """The second process: phases 8, 9 and 16, their launches by path written
+    """The second process: phases 8, 9, 16 and 17, their launches by path written
     for ``join_beside``.  It ends with the run that started it."""
     import ctypes
     import signal
 
     ctypes.CDLL(None).prctl(1, signal.SIGTERM)   # PR_SET_PDEATHSIG
     if os.getppid() != parent:
-        fail("the run that started phases 8, 9 and 16 has ended")
+        fail("the run that started phases 8, 9, 16 and 17 has ended")
     library, dev = setup()
     by_path = phases_8_9(library, dev)
     with open(os.path.join(BESIDE_DIR, "launches.json"), "w") as f:

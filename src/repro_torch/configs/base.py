@@ -1,10 +1,10 @@
 """Architecture config schema of the ported families, and the reduced variant
 the CPU tests run.  An own copy of ``repro.configs.base``: the fields the
-dense and MoE decoder (GQA or MLA attention), the Mamba2 hybrid and the
-xLSTM LM read, with the same names and defaults, so a config built here
-describes the same model as its JAX counterpart.  ``moe_groups`` (the
-reference's shard-local dispatch) is not ported: one device runs one
-global dispatch."""
+dense and MoE decoder (GQA or MLA attention), the Mamba2 hybrid, the xLSTM
+LM, the whisper encoder-decoder and the llava patch-prefix LM read, with the
+same names and defaults, so a config built here describes the same model as
+its JAX counterpart.  ``moe_groups`` (the reference's shard-local dispatch)
+is not ported: one device runs one global dispatch."""
 from __future__ import annotations
 
 import dataclasses
@@ -20,7 +20,7 @@ def pad_to_multiple(n: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                     # dense | moe | hybrid | ssm (the families ported so far)
+    family: str                     # dense | moe | hybrid | ssm | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -59,6 +59,15 @@ class ArchConfig:
     slstm_every: int = 0            # xlstm: sLSTM every k blocks
     slstm_ff: int = 0
 
+    # encoder-decoder (whisper)
+    enc_layers: int = 0
+    dec_layers: int = 0
+    enc_seq: int = 0
+    max_target_positions: int = 0
+
+    # VLM
+    num_patches: int = 0
+
     # numerics
     dtype: str = "bfloat16"
     norm_eps: float = 1e-6
@@ -67,6 +76,10 @@ class ArchConfig:
     @property
     def padded_vocab(self) -> int:
         return pad_to_multiple(self.vocab, VOCAB_PAD)
+
+    @property
+    def is_encoder_decoder(self) -> bool:
+        return self.enc_layers > 0
 
     def moe_layer(self, layer_idx: int) -> bool:
         if self.moe_experts == 0:
@@ -83,8 +96,8 @@ class ShapeConfig:
 
 
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
-    """Small same-family variant for CPU tests (the reference's rule for the
-    dense, MoE, MLA, SSM and xLSTM families)."""
+    """Small same-family variant for CPU tests (the reference's rule for
+    every family)."""
     base = dict(
         n_layers=2,
         d_model=64,
@@ -108,6 +121,11 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
         base.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16)
     if cfg.slstm_ff:
         base.update(slstm_ff=128)
+    if cfg.enc_layers:
+        base.update(enc_layers=2, dec_layers=2, enc_seq=32,
+                    max_target_positions=64, n_layers=2)
+    if cfg.num_patches:
+        base.update(num_patches=16)
     if cfg.window:
         base.update(window=32)
     base.update(overrides)

@@ -1,6 +1,7 @@
-"""Decoder-only LM (the qwen3 family, minicpm3's MLA attention, and the
-MoE family: mixtral-8x7b, llama4-maverick): the single-device part of
-``repro.models.lm``.
+"""Decoder-only LM (the qwen3 family, minicpm3's MLA attention, the MoE
+family: mixtral-8x7b, llama4-maverick, and the llava VLM, whose stubbed
+vision tower's ``num_patches`` patch embeddings are prepended to the text):
+the single-device part of ``repro.models.lm``.
 
 Layers are grouped into super-blocks of ``moe_every`` layers (dense layers,
 then one MoE layer; one layer when ``moe_every == 1``), so an interleaved
@@ -90,8 +91,6 @@ def _stack(caches) -> Dict[str, torch.Tensor]:
 def init_params(cfg: ArchConfig, seed: int = 0, device: Any = "cuda") -> Dict[str, Any]:
     """Random weights with the reference's shapes and scales, drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device``."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = _dtype(cfg)
@@ -131,6 +130,15 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
+def _embed(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig) -> torch.Tensor:
+    """The tokens' embeddings, after the (B, num_patches, D) patch
+    embeddings where the config has a patch prefix."""
+    h = params["embed"][batch["tokens"]]
+    if cfg.num_patches:
+        h = torch.cat([batch["patches"].to(h.dtype), h], dim=1)
+    return h
+
+
 def forward(
     params,
     batch: Dict[str, torch.Tensor],
@@ -139,14 +147,14 @@ def forward(
     remat: bool = False,
     return_hidden: bool = False,
 ) -> torch.Tensor:
-    """Full-sequence forward.  batch: {"tokens": (B, S) int}.  ``remat``
-    checkpoints each layer (``torch.utils.checkpoint``: the backward reruns
-    the layer's forward), the reference's ``jax.checkpoint`` of its layer
-    scan; ``return_hidden`` returns the last layer's (B, S, D) output before
-    the final norm."""
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    h = params["embed"][tokens]
+    """Full-sequence forward.  batch: {"tokens": (B, S) int[, "patches":
+    (B, P, D)]}.  ``remat`` checkpoints each layer (``torch.utils.checkpoint``:
+    the backward reruns the layer's forward), the reference's
+    ``jax.checkpoint`` of its layer scan; ``return_hidden`` returns the last
+    layer's (B, S, D) output before the final norm.  The patch rows are
+    dropped before either: logits and hidden states are the text's."""
+    h = _embed(params, batch, cfg)
+    b, s = h.shape[:2]
     positions = _positions(b, s, h.device)
     layers = [(layer_params(params["blocks"][sub]), moe) for sub, moe in _subs(cfg)]
     for i in range(_n_superblocks(cfg)):
@@ -156,6 +164,8 @@ def forward(
                                use_reentrant=False)
             else:
                 h = _layer_forward(layer(i), h, cfg, moe, positions)
+    if cfg.num_patches:
+        h = h[:, cfg.num_patches:].contiguous()
     if return_hidden:
         return h
     return _logits(params, h, cfg)
@@ -190,10 +200,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device: Any = "cuda"):
 
 
 def prefill(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, max_seq: int):
-    """Run the full prompt, return (last-position logits, filled cache)."""
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = params["embed"][tokens]
+    """Run the full prompt (the patch prefix first, where the config has
+    one), return (last-position logits, filled cache)."""
+    x = _embed(params, batch, cfg)
+    b, s = x.shape[:2]
     positions = _positions(b, s, x.device)
     pad = max_seq - s
     caches = {sub: [] for sub, _ in _subs(cfg)}

@@ -1,20 +1,20 @@
 """Model registry: maps an ArchConfig to its family module, in the
-reference's order (a shared attention block -> the hybrid, an sLSTM period
--> the xLSTM LM, dense or MoE -> the decoder LM, GQA or MLA).  The audio and
-VLM families are not ported."""
+reference's order (an encoder-decoder -> ``encdec``, a shared attention
+block -> the hybrid, an sLSTM period -> the xLSTM LM, anything else -> the
+decoder LM: dense or MoE, GQA or MLA, with or without a patch prefix)."""
 from __future__ import annotations
 
 import types
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import hybrid, lm, xlstm_lm
+from repro_torch.models import encdec, hybrid, lm, xlstm_lm
 
 
 def get_model(cfg: ArchConfig) -> types.ModuleType:
+    if cfg.is_encoder_decoder:
+        return encdec
     if cfg.attn_every:
         return hybrid
     if cfg.slstm_every:
         return xlstm_lm
-    if cfg.family in ("dense", "moe"):
-        return lm
-    raise NotImplementedError(f"family {cfg.family!r} is not ported")
+    return lm

@@ -66,10 +66,18 @@ class LocalServing:
         max_new_tokens: int,
         max_seq: Optional[int] = None,
     ) -> GenerationResult:
-        tokens = torch.as_tensor(np.asarray(batch["tokens"]), device=self.device)
-        b, s = tokens.shape
+        """Prefill the whole batch (an encoder-decoder's ``frames``, a VLM's
+        ``patches`` beside the tokens), then decode greedily.  A VLM's patch
+        prefix counts in the default ``max_seq`` and in every decode
+        position: the first generated token sits at ``s + num_patches``
+        (the reference decodes at ``s`` and overwrites a prefilled row,
+        ROADMAP queue C)."""
+        batch = {k: torch.as_tensor(np.asarray(v), device=self.device)
+                 for k, v in batch.items()}
+        b, s = batch["tokens"].shape
+        s += self.cfg.num_patches
         max_seq = max_seq or (s + max_new_tokens)
-        logits, cache = self.model.prefill(self.params, {"tokens": tokens}, self.cfg, max_seq)
+        logits, cache = self.model.prefill(self.params, batch, self.cfg, max_seq)
         nxt = _greedy(logits, self.cfg)[:, None]
         out: List[np.ndarray] = []
         for i in range(max_new_tokens):
@@ -91,7 +99,14 @@ class RRTOServedLM:
     rrto system only), on the edge server's device.  ``partition`` (a
     :class:`~repro_torch.partition.PartitionConfig`) splits the replayed
     step between the device and the server; the carried state stays in the
-    server suffix."""
+    server suffix.
+
+    The app sends tokens alone, as the reference's does: a stateful
+    encoder-decoder decodes from the zero cross cache of ``init_cache`` (no
+    frames reach it), a stateful VLM decodes its text with no patch prefix,
+    and a stateless app of either, whose forward needs the frames or the
+    patches, raises ``ValueError`` before any trace (the reference raises
+    ``KeyError`` inside its trace)."""
 
     def __init__(
         self,
@@ -109,6 +124,10 @@ class RRTOServedLM:
         client_id: Optional[str] = None,
         partition: Optional[Any] = None,
     ):
+        if not stateful and (cfg.is_encoder_decoder or cfg.num_patches):
+            missing = "frames" if cfg.is_encoder_decoder else "patches"
+            raise ValueError(f"{cfg.name}: the stateless app's forward needs {missing!r}, "
+                             f"which the served app does not send")
         self.cfg = cfg
         self.bucket_len = bucket_len
         self.stateful = stateful

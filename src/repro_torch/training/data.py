@@ -2,10 +2,11 @@
 only, so its batches are the reference's bit for bit).
 
 Each batch is a pure function of (seed, step, process), so a restarted run
-regenerates the exact stream without coordination.  The port's configs are
-decoder-only LMs: the reference's encoder frames and vision patches belong
-to families not ported yet (ROADMAP A9), so a batch is tokens and their
-next-token labels.
+regenerates the exact stream without coordination.  A batch is tokens and
+their next-token labels; an encoder-decoder's also holds its encoder frames
+(the decoder length capped at ``max_target_positions``), a VLM's its patch
+embeddings (the text shortened by the patch count), drawn as the reference
+draws them.
 """
 from __future__ import annotations
 
@@ -27,15 +28,28 @@ class DataConfig:
 def synth_batch(cfg: ArchConfig, shape: ShapeConfig, step: int, dc: DataConfig) -> Dict[str, np.ndarray]:
     """Batch for one step (the full global batch, or this process's shard):
     int32 tokens (B, S) and labels, the tokens rolled by one with the last
-    set to -1 (masked by the loss)."""
+    set to -1 (masked by the loss); f32 ``frames`` (B, enc_seq, D) for an
+    encoder-decoder, f32 ``patches`` (B, num_patches, D) for a VLM, whose
+    text is then ``max(1, S - num_patches)`` long."""
     b = shape.global_batch // dc.process_count
     rng = np.random.default_rng(
         np.random.SeedSequence([dc.seed, step, dc.process_index])
     )
-    tokens = rng.integers(0, cfg.vocab, (b, shape.seq_len)).astype(np.int32)
+    s = shape.seq_len
+    out: Dict[str, np.ndarray] = {}
+    if cfg.is_encoder_decoder:
+        s = min(s, cfg.max_target_positions)
+        out["frames"] = rng.normal(0, 1, (b, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    if cfg.num_patches:
+        out["patches"] = rng.normal(0, 1, (b, cfg.num_patches, cfg.d_model)).astype(
+            np.float32)
+        s = max(1, s - cfg.num_patches)
+    tokens = rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
     labels = np.roll(tokens, -1, axis=1)
     labels[:, -1] = -1
-    return {"tokens": tokens, "labels": labels}
+    out["tokens"] = tokens
+    out["labels"] = labels
+    return out
 
 
 def data_stream(

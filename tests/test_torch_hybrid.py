@@ -290,6 +290,14 @@ class TestConvert:
 
 
 def test_unported_family_raises():
+    """Every family is ported: the registry routes by the config's fields in
+    the reference's order, as ``repro.models.registry.get_model`` does, and
+    raises for none (a family label with no shared block or sLSTM period is
+    the decoder LM)."""
+    from repro.models.registry import get_model as j_get_model
+    from repro_torch.models import lm
+
     cfg = dataclasses.replace(get_reduced_config("qwen3-0.6b"), family="ssm")
-    with pytest.raises(NotImplementedError):
-        get_model(cfg)
+    assert get_model(cfg) is lm
+    cfg_j = dataclasses.replace(j_reduced("qwen3-0.6b"), family="ssm")
+    assert j_get_model(cfg_j).__name__ == "repro.models.lm"

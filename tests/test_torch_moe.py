@@ -225,8 +225,15 @@ def test_configs_agree(name, reduce):
 
 
 def test_registry_routes_moe_and_keeps_the_rest_unported():
+    """The MoE configs route to the decoder LM; the audio and VLM families
+    are ported too (whisper to ``encdec``, llava and a bare family label to
+    the LM), so no family raises."""
+    from repro_torch.models import encdec
+
     assert get_model(get_reduced_config("mixtral-8x7b")) is lm
     assert get_model(get_reduced_config("deepseek-67b")) is lm
+    assert get_model(get_reduced_config("whisper-base")) is encdec
+    assert get_model(get_reduced_config("llava-next-34b")) is lm
     for family in ("audio", "vlm"):
-        with pytest.raises(NotImplementedError):
-            get_model(dataclasses.replace(get_reduced_config("qwen3-1.7b"), family=family))
+        assert get_model(dataclasses.replace(get_reduced_config("qwen3-1.7b"),
+                                             family=family)) is lm
