@@ -54,9 +54,22 @@ random weights from a seed:
   8 of its 60 layers (56 query heads on 8 KV heads) with 576 patches:
   ``LocalServing`` decoding at ``s + num_patches``, its logits against the
   extended forward's, then stateful rrto and ``device_only``;
-  phases 8, 9, 16 and 17 run in a second process on the card, started after
-  phase 2 and joined before phase 15, beside phases 3-7 and 10-14 (the
-  served paths are host-bound: two processes share the card's idle time);
+* the int8 KV cache and the MoE family batched (phase 18): (a) in the
+  main process after phase 14, qwen3-0.6b at full width with
+  ``kv_cache_bits=8`` (int8 K/V and f32 scales per position and head, the
+  step attending through the plain ``decode_attention_q8_ref``):
+  ``LocalServing``, rrto and ``device_only`` at phase 3's prompt and
+  bucket, rrto == ``device_only`` bitwise at 3 RPCs a token, the int8
+  cache carried off the wire, its replayed step timed beside phase 3's,
+  its tokens against the bf16 cache's on the same weights (printed); (b)
+  in the second process right after 16a, on its weights: 2 mixtral-8x7b
+  clients stateful, then 2 stateless, through ``MultiClientServedLM``,
+  each vmap-batched and looped (equal tokens), ``check_lane_order`` on
+  each batched edge;
+  phases 8, 9, 16, 18b, 17 and then 7 run in a second process on the
+  card, started after phase 2 and joined before phase 15, beside phases
+  3-6, 10-14 and 18a (the served paths are host-bound: two processes share
+  the card's idle time);
 * split replay (phase 10, the model cut between the mobile device and the
   edge; both placements run on the card, a device segment's time is the
   cost model's): (a) phase 3's locked qwen3-0.6b IOS at each
@@ -137,8 +150,17 @@ random weights from a seed:
   through the trainer and on one batch, with and without ``remat``, one
   step profiled; (f) full-width xlstm-1.3b on one batch of 1 x 512 tokens,
   every wide scan backward call of one step held against the plain
-  backward.  No plain version of the training path's kernels may run on a
-  CUDA tensor there.
+  backward; (g) mixtral-8x7b at full width and 2 of its 32 layers, 3 steps
+  with ``remat`` on one batch of 4 x 512 tokens, the loss falling at each,
+  ms a step against two bounds (the experts top-2 routing needs, the
+  static dispatch's E x C rows), the flash and rmsnorm backward launches
+  by shape.  15a also holds reduced mixtral-8x7b and llama4-maverick on the
+  card against the CPU, trains reduced mixtral through the trainer
+  straight, crashed and resumed (bitwise), and launches one of its steps
+  twice (bitwise).  Phase 2 holds and times the flash backward at
+  mixtral's training shape and the rmsnorm backward at (2048, 4096), and
+  times the plain int8 decode attention.  No plain version of the training
+  path's kernels may run on a CUDA tensor there.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after (every batched call under ``no_vmap_fallback``, so an op
@@ -216,6 +238,18 @@ W_TRAIN_BATCH, W_TRAIN_DEC, W_TRAIN_STEPS = 2, 448, 4
 # f32 logit check on its first 2 layers
 L_LAYERS, L_PATCHES, L_PROMPT, L_NEW, L_BUCKET = 8, 576, 16, 6, 64
 L_HEADS, L_KV_HEADS, L_F32_LAYERS = 56, 8, 2
+# mixtral-8x7b trained (phase 15g): full width, 2 of its 32 layers (bf16
+# weights and gradients and f32 AdamW moments of 3.17 G params; a 60.6 GB
+# peak on the card, so it runs last, alone), one
+# fixed batch of 4 x 512 tokens, 3 steps with remat; its flash backward at
+# q/dO (4,512,32,128) on K/V (4,512,8,128) and its rmsnorm backward at
+# (2048, 4096) are phase 2 rows
+MIX_TRAIN_LAYERS, MIX_TRAIN_BATCH, MIX_TRAIN_SEQ, MIX_TRAIN_STEPS = 2, 4, 512, 3
+# phase 18: (a) qwen3-0.6b with the int8 KV cache, phase 3's prompt and
+# bucket, 8 new tokens; (b) mixtral-8x7b at MIX_LAYERS layers (phase 16's
+# weights), 2 clients stateful then 2 stateless, bucket 64
+Q8_NEW = 8
+MIX_MT_CLIENTS, MIX_MT_PROMPTS, MIX_MT_NEW = 2, (5, 6), 6
 KAPAO_SIZE, KAPAO_INFERS = 640, 7
 # the other CNNs at the reference's benchmark sizes: Fig. 12's torchvision
 # set, VGG16 for Fig. 1, and the sensor models of the partitioning runs
@@ -248,19 +282,26 @@ REPLACES = {
 }
 # the backward kernels' shapes on the training path (rows, d): qwen3-0.6b's
 # d_model at batch 4 x 512 tokens, its q- and k-norm rows, a ragged 5 x 13
-# rows of 130, minicpm3's d_model, and its q and kv latents
+# rows of 130, minicpm3's d_model, and its q and kv latents, mixtral-8x7b's
+# d_model at 4 x 512 tokens; the timed ones with what they are
 RMSNORM_BWD_SHAPES = [(2048, 1024), (32768, 128), (16384, 128), (65, 130), (64, 2560),
-                      (2048, 768), (2048, 256)]
+                      (2048, 768), (2048, 256), (2048, 4096)]
+RMSNORM_BWD_TIMED = {(2048, 1024): "qwen3-0.6b's d_model rows at 4 x 512 tokens",
+                     (32768, 128): "qk-norm rows", (16384, 128): "qk-norm rows",
+                     (2048, 4096): "mixtral-8x7b's d_model rows at 4 x 512 tokens"}
 # dscale sums every row in another order than the plain version (f32: 2e-4
 # beside the rows' 1e-5), and bf16 rounds dx and dscale once (2e-2)
 RMSNORM_BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 # (B, Sq, Sk, Hq, Hkv, D), options: qwen3-0.6b's training shape, MLA's
-# d = 96, then ragged lengths at n_rep 1 / 2 / 4, a window, a soft-cap and
-# a q_offset; tolerance TOL: the kernel sums over key and query tiles in
-# another order, and bf16 rounds the products' inputs and the outputs
+# d = 96, mixtral-8x7b's training shape (its window wider than the
+# sequence), then ragged lengths at n_rep 1 / 2 / 4, a window, a soft-cap
+# and a q_offset; tolerance TOL: the kernel sums over key and query tiles in
+# another order, and bf16 rounds the products' inputs and the outputs.  The
+# first three are timed (causal: SDPA's mask is the same function)
 FLASH_BWD_CASES = [
     ((4, 512, 512, 16, 8, 128), dict(causal=True)),
     ((1, 64, 64, 40, 40, 96), dict(causal=True)),
+    ((4, 512, 512, 32, 8, 128), dict(causal=True, window=4096)),
     ((2, 77, 77, 8, 8, 64), dict(causal=True)),
     ((1, 100, 130, 8, 4, 128), dict(causal=False)),
     ((2, 45, 77, 8, 2, 64), dict(causal=True, q_offset=32, window=16, logit_cap=30.0)),
@@ -684,6 +725,7 @@ def phase_kernels(dev):
     rows["ssm_scan_backward"], scan_bwd_extra = phase_scan_backward(randn)
     extra += scan_bwd_extra
     extra += phase_encdec_kernels(randn)
+    q8_decode_lines(randn)
     for r in [dict(name=n, **r) for n, r in rows.items()] + extra:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
         print(f"time {r['name']} [{r['shape']}]: kernel {r['ms'] * 1e3:.2f} us, plain "
@@ -813,12 +855,11 @@ def phase_backward_kernels(randn) -> tuple:
         check_flash_backward(randn, shape, kw)
 
     rows, extra = {}, []
-    for i, (n, d) in enumerate(RMSNORM_BWD_SHAPES[:3]):
+    for i, ((n, d), what) in enumerate(RMSNORM_BWD_TIMED.items()):
         x, dy = randn(n, d, dtype=bf), randn(n, d, dtype=bf)
         w = (randn(d, dtype=torch.float32) * 0.1 + 1.0).to(bf)
         xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
         b_ms, b_by = bound_ms(3 * x.numel() * 2 + 2 * d * 2, 10 * x.numel(), bf)
-        what = "qwen3-0.6b's d_model rows at 4 x 512 tokens" if i == 0 else "qk-norm rows"
         row = dict(
             shape=f"dy, x ({n},{d}) bf16 ({what}; {rms_route(n, d, bf)})",
             max_abs_err=max(close(a, r, RMSNORM_BWD_TOL[bf]) for a, r in
@@ -833,10 +874,10 @@ def phase_backward_kernels(randn) -> tuple:
         else:
             extra.append(dict(name="rmsnorm_backward", **row))
 
-    for (b, sq, sk, hq, hkv, d), kw in FLASH_BWD_CASES[:2]:
+    for (b, sq, sk, hq, hkv, d), kw in FLASH_BWD_CASES[:3]:
         q, do = randn(b, sq, hq, d, dtype=bf), randn(b, sq, hq, d, dtype=bf)
         k, v = randn(b, sk, hkv, d, dtype=bf), randn(b, sk, hkv, d, dtype=bf)
-        out = flash_attention(q, k, v)
+        out = flash_attention(q, k, v, **kw)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
         dot = do.transpose(1, 2)
         pairs = sq * (sq + 1) / 2
@@ -847,7 +888,7 @@ def phase_backward_kernels(randn) -> tuple:
         route = backward_plan(b, sq, sk, hq, hkv, d, bf)["route"]
 
         def kern():
-            return flash_attention_backward_op(do, q, k, v, out, True, None, None, 0)
+            return flash_attention_backward_op(do, q, k, v, out, True, kw.get("window"), None, 0)
 
         def lib():
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
@@ -858,12 +899,14 @@ def phase_backward_kernels(randn) -> tuple:
         print(f"flash_attention_backward turns ({b},{sq},{hq},{d}) bf16 ({route}): kernel "
               f"{turns[0] * 1e3:.2f} / {turns[3] * 1e3:.2f} us, SDPA backward "
               f"{turns[1] * 1e3:.2f} / {turns[2] * 1e3:.2f} us")
+        window = f", window {kw['window']}" if "window" in kw else ""
         row = dict(
-            shape=f"q/dO ({b},{sq},{hq},{d}), K/V ({b},{sk},{hkv},{d}) bf16, causal ({route})",
+            shape=f"q/dO ({b},{sq},{hq},{d}), K/V ({b},{sk},{hkv},{d}) bf16, causal{window} "
+                  f"({route})",
             max_abs_err=max(close(g, r, TOL[bf]) for g, r in zip(
-                kern(), attention_chunked_backward(do, q, k, v))),
+                kern(), attention_chunked_backward(do, q, k, v, **kw))),
             ms=(turns[0] + turns[3]) / 2,
-            plain_ms=graph_ms(lambda: attention_chunked_backward(do, q, k, v), reps=5),
+            plain_ms=graph_ms(lambda: attention_chunked_backward(do, q, k, v, **kw), reps=5),
             library_ms=(turns[1] + turns[2]) / 2, bound_ms=b_ms, bound_by=b_by)
         if "flash_attention_backward" not in rows:
             rows["flash_attention_backward"] = row
@@ -1010,6 +1053,48 @@ def phase_encdec_kernels(randn) -> list:
             library_ms=(turns[1] + turns[2]) / 2, bound_ms=b_ms, bound_by=b_by))
         del q, do, k, v, out, qt, kt, vt, dot
     return rows
+
+
+def q8_decode_lines(randn) -> None:
+    """The int8 cache's plain ``decode_attention_q8_ref`` (no kernel: the
+    reference has none) at qwen3's step and over a 16k cache, held against
+    the plain bf16 function on the dequantized cache and timed beside the
+    bf16 kernel on the float cache it was quantized from, with its byte
+    bound at int8 width (printed, not a kernel row)."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_q8_ref,
+        decode_attention_ref,
+        quantize_kv,
+    )
+
+    bf = torch.bfloat16
+    for s_len, kv in ((BUCKET, 63), (LONG_KV, LONG_KV - 1)):
+        q = randn(1, 16, 128, dtype=bf)
+        k, v = randn(1, s_len, 8, 128, dtype=bf), randn(1, s_len, 8, 128, dtype=bf)
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        kv_len = torch.tensor([kv], dtype=torch.int32, device=q.device)
+        reps = 10 if s_len == LONG_KV else 50
+        err = close(decode_attention_q8_ref(q, kq, vq, ks, vs, kv_len),
+                    decode_attention_ref(q, kq.float() * ks[..., None], vq.float() * vs[..., None],
+                                         kv_len), TOL[bf])
+        plain = [graph_ms(lambda: decode_attention_q8_ref(q, kq, vq, ks, vs, kv_len), reps)]
+        kernel = graph_ms(lambda: decode_attention(q, k, v, kv_len), reps)
+        plain.append(graph_ms(lambda: decode_attention_q8_ref(q, kq, vq, ks, vs, kv_len), reps))
+        # the int8 K/V rows and their f32 scales up to kv_len read once, q
+        # read and the output written
+        q8_ms, q8_by = bound_ms(2 * kv * 8 * (128 + 4) + 2 * q.numel() * 2 + 4,
+                                4 * 16 * kv * 128, bf)
+        bf_ms, bf_by = bound_ms(2 * kv * 8 * 128 * 2 + 2 * q.numel() * 2 + 4,
+                                4 * 16 * kv * 128, bf)
+        print(f"time decode_attention_q8_ref (plain, no kernel) [q (1,16,128) bf16, int8 K/V "
+              f"(1,{s_len},8,128) + f32 scales, kv_len {kv}]: plain q8 {plain[0] * 1e3:.2f} / "
+              f"{plain[1] * 1e3:.2f} us (turns), bf16 kernel on the float cache "
+              f"{kernel * 1e3:.2f} us; bound at int8 width {q8_ms * 1e3:.3f} us ({q8_by}), "
+              f"at bf16 {bf_ms * 1e3:.3f} us; vs the plain bf16 function on the dequantized "
+              f"cache max|d| {err:.3g} (tol {TOL[bf]})")
+        del q, k, v, kq, ks, vq, vs
 
 
 def scan_backward_cost(b, s, h, p, g, n, chunk, dtype, *, with_d=False, with_h0=False,
@@ -2117,14 +2202,15 @@ class RoundTimer:
 
 
 def phase_multitenant(dev, name, params, *, stateful, clients, prompt_lens, new_tokens,
-                      bucket, enable_vmap):
-    """``MultiClientServedLM`` at full width, every round under
-    ``no_vmap_fallback``: ``clients`` co-tenants, one prompt length each."""
+                      bucket, enable_vmap, cfg=None):
+    """``MultiClientServedLM`` at full width (``cfg`` may cut the depth),
+    every round under ``no_vmap_fallback``: ``clients`` co-tenants, one
+    prompt length each."""
     from repro_torch.configs import get_config
     from repro_torch.core.engine import no_vmap_fallback
     from repro_torch.serving.engine import MultiClientServedLM
 
-    cfg = get_config(name)
+    cfg = cfg or get_config(name)
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, (1, n)).astype(np.int32) for n in prompt_lens]
     t0 = time.perf_counter()
@@ -4126,7 +4212,8 @@ def phase_train_small(dev) -> None:
     (head dims the backward kernels take: 32, and MLA's 96), zamba2-1.2b,
     xlstm-1.3b (reduced so that every block runs: the shared attention block
     at d_head 32 and the Mamba2 scan at P 32; the mLSTM and the sLSTM),
-    whisper-base and llava-next-34b (d_head 32), the
+    whisper-base, llava-next-34b, mixtral-8x7b and llama4-maverick (d_head
+    32; the MoE pairs routed on the f32 router, none dropped), the
     card (kernels, forward and backward) against the CPU (plain versions) on
     the same weights and batch.  In f32 the loss and every
     gradient leaf agree within 2e-4 of the leaf's largest magnitude (only
@@ -4155,7 +4242,11 @@ def phase_train_small(dev) -> None:
                              # the decoder capped at 64 positions, 32 frames;
                              # 16 patches before 284 text tokens
                              ("whisper-base", dict(d_head=32), 300),
-                             ("llava-next-34b", dict(d_head=32), 300)):
+                             ("llava-next-34b", dict(d_head=32), 300),
+                             # the MoE family: 600 tokens route through the
+                             # static dispatch (capacity factor 8: no drop)
+                             ("mixtral-8x7b", dict(d_head=32), 300),
+                             ("llama4-maverick-400b-a17b", dict(d_head=32), 300)):
         shape = ShapeConfig("phase15a", seq, 2, "train")
         for dtype in (torch.float32, torch.bfloat16):
             cfg = get_reduced_config(name, dtype=str(dtype).split(".")[1], **heads)
@@ -4168,11 +4259,21 @@ def phase_train_small(dev) -> None:
             check(abs(float(l_dev) - float(l_cpu)) <= tol * abs(float(l_cpu)),
                   f"15a {cfg.name} {dtype}: loss {float(l_dev)} on the card, {float(l_cpu)} "
                   f"on the cpu")
-            worst, worst_l2 = 0.0, 0.0
+            worst, worst_l2, gate = 0.0, 0.0, ""
             for k, ref in g_cpu.items():
                 ref, got = ref.float(), g_dev[k].float()
                 scale = float(ref.abs().max())
                 err = float((got - ref).abs().max())
+                if cfg.moe_top_k == 1 and k[-1] == "router":
+                    # top-1's renormalised gate is p / p = 1: the router's
+                    # gradient is that quotient's rounding on either side,
+                    # so it is held near zero (tests/test_torch_moe_training.py)
+                    big = max(scale, float(got.abs().max()))
+                    if dtype == torch.float32:
+                        check(big < ROUTER_ZERO, f"15a {cfg.name}: top-1 router grad {k} "
+                                                 f"max|g| {big:.3g}, not below {ROUTER_ZERO}")
+                    gate += f"; top-1 router grad {'/'.join(k)} max|g| {big:.3g}"
+                    continue
                 if dtype == torch.float32:
                     check(err <= tol * scale, f"15a {cfg.name}: grad {k} max|d| {err:.3g} over "
                                               f"{tol} x {scale:.3g}")
@@ -4190,8 +4291,8 @@ def phase_train_small(dev) -> None:
             print(f"[15a] reduced {cfg.name} {dtype}, batch 2 x {seq}: loss card "
                   f"{float(l_dev):.6f} / cpu {float(l_cpu):.6f}; {len(g_cpu)} grad leaves, worst "
                   f"max|d| / max|ref| {worst:.3g}, worst relative L2 {worst_l2:.3g} "
-                  f"({'held at ' + str(tol) if dtype == torch.float32 else 'printed'}); train "
-                  f"step loss / grad norm card {m['card']} cpu {m['cpu']} (tol {tol})")
+                  f"({'held at ' + str(tol) if dtype == torch.float32 else 'printed'}){gate}; "
+                  f"train step loss / grad norm card {m['card']} cpu {m['cpu']} (tol {tol})")
 
 
 class ScanBackwardPlain:
@@ -4410,6 +4511,102 @@ def phase_train_small_resume(library, by_path) -> None:
     check(resumed["final_loss"] == straight["final_loss"],
           f"15a: the resumed final loss {resumed['final_loss']!r} is not the straight run's "
           f"{straight['final_loss']!r}")
+
+
+# phase 15a: the top-1 router's gradient, the rounding of a gate of p / p,
+# below this on the card and the CPU in f32 (the CPU tests' absolute
+# gradient tolerance)
+ROUTER_ZERO = 2e-5
+# phase 15a: reduced mixtral-8x7b (2 MoE layers of top-2 over 4 experts;
+# d_head 32, which the kernels take) through the trainer, straight and
+# crashed at 2 and resumed; then one step launched twice from one state
+M_SMALL_TRAIN_ARGS = ["--arch", "mixtral-8x7b", "--reduced", "--batch", "2", "--seq", "256",
+                      "--steps", "4", "--log-every", "1", "--device", "cuda"]
+M_SMALL_HEADS = dict(d_head=32)
+
+
+class ReducedOverrides:
+    """While entered, the trainer's ``--reduced`` config takes ``overrides``
+    (the reduced mixtral's ``d_head`` of 16 is below the kernels' head
+    dims)."""
+
+    def __init__(self, **overrides):
+        self.overrides = overrides
+
+    def __enter__(self):
+        from repro_torch.launch import train
+
+        inner, extra = train.get_reduced_config, self.overrides
+        self._saved = inner
+        train.get_reduced_config = lambda name, **kw: inner(name, **{**extra, **kw})
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import train
+
+        train.get_reduced_config = self._saved
+        return False
+
+
+def phase_train_moe_resume(library, dev, by_path) -> None:
+    """Phase 15a, MoE part: reduced mixtral-8x7b trained 4 steps through
+    ``repro_torch.launch.train.main`` straight, then crashed after step 2
+    and resumed: the resumed final loss bitwise the straight one.  Then one
+    step launched twice from the same state: parameters and loss bitwise
+    equal.  The dispatch's backward holds two scatter-adds (the gathers'
+    ``index_select`` backward; ``index_copy``'s indices repeat at the spare
+    row only when pairs drop), which PyTorch's deterministic algorithms run
+    deterministically on the card."""
+    import tempfile
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import train
+    from repro_torch.training.data import DataConfig, synth_batch
+    from repro_torch.training.optimizer import leaf_paths, tree_map
+    from repro_torch.training.step import init_train_state, make_train_step
+
+    label = "phase 15a reduced mixtral-8x7b"
+    with ReducedOverrides(**M_SMALL_HEADS):
+        straight, by_path[f"{label} straight"] = run_path(
+            library, f"{label} straight", TRAIN_KERNELS, lambda: train.main(M_SMALL_TRAIN_ARGS))
+        with tempfile.TemporaryDirectory() as ckpt:
+            extra = ["--ckpt-every", "2", "--ckpt-dir", ckpt]
+            crashed, by_path[f"{label} crash"] = run_path(
+                library, f"{label} crash", TRAIN_KERNELS,
+                lambda: train.main(M_SMALL_TRAIN_ARGS + extra + ["--kill-at", "2"]))
+            resumed, by_path[f"{label} resume"] = run_path(
+                library, f"{label} resume", TRAIN_KERNELS,
+                lambda: train.main(M_SMALL_TRAIN_ARGS + extra))
+    losses = [v for _, v in straight["losses"] + crashed["losses"] + resumed["losses"]]
+    check(crashed.get("crashed_at") == 2 and [s for s, _ in resumed["losses"]] == [2, 3],
+          f"15a mixtral resume: crashed {crashed}, resumed {resumed}")
+    check(all(np.isfinite(v) for v in losses), f"15a mixtral: a loss is not finite: {losses}")
+    print(f"[15a] reduced mixtral-8x7b losses straight {straight['losses']}, crashed "
+          f"{crashed['losses']}, resumed {resumed['losses']}; resumed final == straight final: "
+          f"{resumed['final_loss'] == straight['final_loss']}")
+    check(resumed["final_loss"] == straight["final_loss"],
+          f"15a mixtral: the resumed final loss {resumed['final_loss']!r} is not the straight "
+          f"run's {straight['final_loss']!r}")
+
+    cfg = get_reduced_config("mixtral-8x7b", **M_SMALL_HEADS)
+    nb = synth_batch(cfg, ShapeConfig("twice", 256, 2, "train"), 0, DataConfig())
+
+    def twice():
+        params, opt = init_train_state(cfg, seed=0, device=dev)
+        outs = []
+        for _ in range(2):
+            p, o, m = make_train_step(cfg)(tree_map(torch.clone, params),
+                                           tree_map(torch.clone, opt), nb)
+            outs.append((leaf_paths(p), m["loss"]))
+        return outs
+
+    outs, by_path[f"{label} twice"] = run_path(library, f"{label} twice", TRAIN_KERNELS, twice)
+    same = torch.equal(outs[0][1], outs[1][1]) and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(outs[0][0], outs[1][0]))
+    print(f"[15a] reduced mixtral-8x7b: one step launched twice from one state, loss "
+          f"{float(outs[0][1]):.6f}; parameters and loss bitwise equal: {same}")
+    check(same, "15a mixtral: two launches of one step differ")
 
 
 TRAIN_GROUPS = (("rmsnorm forward", ("rmsnorm_warp", "rmsnorm_block", "rmsnorm_scalar")),
@@ -4902,8 +5099,9 @@ def run_path(library, label, kernels, fn):
 
 def phases_8_9(library, dev) -> dict:
     """Phase 8 (minicpm3-4b) and phase 9 (xlstm-1.3b), each stateful and
-    stateless, then phase 16 (the MoE family) and phase 17 (whisper-base
-    and llava-next-34b); returns their launches by path."""
+    stateless, then phase 16 (the MoE family; 18b on its weights), phase 17
+    (whisper-base and llava-next-34b) and phase 7 (multi-tenant serving);
+    returns their launches by path and phase 7's batched kernel rows."""
     by_path = {}
     t0 = time.perf_counter()
     mla = ("rmsnorm", "flash_attention")
@@ -4957,7 +5155,107 @@ def phases_8_9(library, dev) -> dict:
     print(f"[phase 16] the MoE family: {time.perf_counter() - t0:.1f} s (16a "
           f"{t1 - t0:.1f}, 16b {time.perf_counter() - t1:.1f})")
     phase_encdec_vlm(library, dev, by_path)
-    return by_path
+    batched_rows = phase_7(library, dev, by_path)
+    return by_path, batched_rows
+
+
+def phase_7(library, dev, by_path) -> dict:
+    """Phase 7 (in the second process, last): the vmap rules' kernel rows,
+    then ``MultiClientServedLM`` with 4 qwen3-0.6b clients stateful and 2
+    zamba2-1.2b clients stateless, on phase 3's and 4's weights (seed 0,
+    drawn again here), each batched and looped; returns the batched kernel
+    rows for the kernel table."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+
+    # as phase 6 sets them in the main process before this phase ran there
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    q_cfg, z_cfg = get_config("qwen3-0.6b"), get_config("zamba2-1.2b")
+    q_params = get_model(q_cfg).init_params(q_cfg, seed=0, device=dev)
+    params = get_model(z_cfg).init_params(z_cfg, seed=0, device=dev)
+    t0 = time.perf_counter()
+    batched_rows = phase_mt_kernels(dev)
+    check(not MISMATCHES, f"{len(MISMATCHES)} batched kernel checks disagreed")
+    print(f"[phase 7 kernels] vmap rules == lane loops ({time.perf_counter() - t0:.1f} s)")
+    runs = {}
+    for vm in (True, False):
+        label = f"phase 7 qwen3-0.6b x{MT_CLIENTS} {'vmap' if vm else 'loop'}"
+        runs[vm], by_path[label] = run_path(
+            library, label, ("rmsnorm", "decode_attention"),
+            lambda: phase_multitenant(dev, "qwen3-0.6b", q_params, stateful=True,
+                                      clients=MT_CLIENTS, prompt_lens=MT_PROMPTS,
+                                      new_tokens=MT_NEW, bucket=BUCKET, enable_vmap=vm))
+    check_multitenant(f"qwen3-0.6b x{MT_CLIENTS}", runs[True], runs[False])
+    check_lane_order(f"qwen3-0.6b x{MT_CLIENTS}", runs[True])
+    step_times = time_multitenant_step(runs[True], dev)
+    del runs
+    torch.cuda.empty_cache()
+    runs = {}
+    for vm in (True, False):
+        label = f"phase 7 zamba2-1.2b stateless x{MT_Z_CLIENTS} {'vmap' if vm else 'loop'}"
+        runs[vm], by_path[label] = run_path(
+            library, label, ("rmsnorm", "flash_attention", "ssm_scan"),
+            lambda: phase_multitenant(dev, "zamba2-1.2b", params, stateful=False,
+                                      clients=MT_Z_CLIENTS,
+                                      prompt_lens=(MT_Z_PROMPT,) * MT_Z_CLIENTS,
+                                      new_tokens=MT_Z_NEW, bucket=Z_STATELESS_BUCKET,
+                                      enable_vmap=vm))
+    check_multitenant(f"zamba2-1.2b stateless x{MT_Z_CLIENTS}", runs[True], runs[False])
+    check_lane_order(f"zamba2-1.2b stateless x{MT_Z_CLIENTS}", runs[True])
+    del runs
+    torch.cuda.empty_cache()
+    print(f"[phase 7] ({time.perf_counter() - t0:.1f} s); batched step {step_times}")
+    del q_params, params
+    torch.cuda.empty_cache()
+    return batched_rows
+
+
+
+def phase_qwen3_int8(library, dev, by_path, bf16_step: dict) -> None:
+    """Phase 18a: qwen3-0.6b at full width with ``kv_cache_bits=8`` (int8
+    K/V and f32 scales per position and head; the step attends through the
+    plain ``decode_attention_q8_ref``, as the reference does, so no decode
+    attention kernel launches), weights from seed 0: ``LocalServing`` (its
+    prefill quantizes the prompt's K/V from flash attention), rrto and
+    ``device_only`` at phase 3's prompt and bucket: rrto == ``device_only``
+    bitwise, 3 RPCs a steady token, the int8 cache carried off the wire; the
+    replayed step timed (wall, eager, CUDA graph) beside phase 3's bf16
+    step (``bf16_step``); then how many of the int8 tokens equal the bf16
+    cache's ``LocalServing`` tokens on the same weights (printed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import LocalServing
+
+    bf16 = get_config("qwen3-0.6b")
+    cfg = dataclasses.replace(bf16, kv_cache_bits=8)
+    n = cfg.n_layers
+    m, by_path["phase 18a qwen3-0.6b int8 cache"] = run_path(
+        library, "phase 18a qwen3-0.6b int8 cache", ("rmsnorm", "flash_attention"),
+        lambda: phase_main_path(dev, "qwen3-0.6b int8 cache", PROMPT_LEN, Q8_NEW, BUCKET,
+                                cfg=cfg))
+    check_main_path(m, {"rmsnorm": 4 * n + 1, "decode_attention": 0})
+    steady = m["steady"]
+    check(all(h.rpcs == 3 for h in steady), f"18a: steady rpcs {[h.rpcs for h in steady]}")
+    leaves = m["served"]._cache_leaves
+    check([t.dtype for t in leaves] == [torch.int8, torch.float32] * 2,
+          f"18a: cache leaves {[t.dtype for t in leaves]}")
+    print(f"[18a] carried pairs {len(m['sess'].client.ios.carried_pairs)} (the stacked k, ks, v, "
+          f"vs of all {n} layers: {[tuple(t.shape) for t in leaves]}), carried bytes "
+          f"{m['cache_bytes']} ({m['cache_bytes'] / 1e6:.2f} MB; the bf16 cache's: "
+          f"{2 * n * BUCKET * cfg.n_kv_heads * cfg.d_head * 2 / 1e6:.2f} MB); wire bytes a steady "
+          f"token {max(h.network_bytes for h in steady):.0f}")
+    step = measure_replay_step(m, dev)
+    print(f"[18a] replayed step, int8 / phase 3's bf16 cache: graph {step['device_ms']:.3f} / "
+          f"{bf16_step['device_ms']:.3f} ms, eager {step['eager_ms']:.1f} / "
+          f"{bf16_step['eager_ms']:.1f} ms, wall {step['wall_ms']:.1f} / "
+          f"{bf16_step['wall_ms']:.1f} ms")
+    ref = LocalServing(bf16, params=m["params"], device=dev).generate(
+        {"tokens": m["prompt"]}, Q8_NEW, max_seq=BUCKET)
+    same = int((ref.tokens == m["local"].tokens).sum())
+    print(f"[18a] int8 LocalServing tokens equal to the bf16 cache's on the same weights: "
+          f"{same}/{Q8_NEW} ({m['local'].tokens.tolist()} vs {ref.tokens.tolist()})")
+    del m
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -5125,8 +5423,41 @@ def phase_mixtral(library, dev, by_path) -> None:
         del m
         torch.cuda.empty_cache()
         print(f"[phase 16a] {kind} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    phase_mixtral_multitenant(library, dev, by_path, cfg, params)
+    print(f"[phase 18b] ({time.perf_counter() - t0:.1f} s)")
     del params
     torch.cuda.empty_cache()
+
+
+def phase_mixtral_multitenant(library, dev, by_path, cfg, params) -> None:
+    """Phase 18b, run right after 16a on its weights (so that no second
+    copy of the 23.75 GB is made, and none is held through phase 17):
+    ``MultiClientServedLM`` with ``MIX_MT_CLIENTS`` mixtral-8x7b clients,
+    stateful and then stateless, each run vmap-batched and looped under
+    ``no_vmap_fallback``: equal tokens, 3 RPCs a steady token, one program
+    built; the dispatch's ``topk``, stable ``argsort``, ``index_copy`` and
+    the expert ``bmm`` at a new batch rank all batched.  ``check_lane_order``
+    then reruns every call of the batched program on a real round, vmapped
+    and as the lane loop: the calls whose bits change must be exactly the
+    ones the probe runs per lane (their number printed)."""
+    name = f"mixtral-8x7b ({cfg.n_layers} layers)"
+    for stateful in (True, False):
+        kind = "stateful" if stateful else "stateless"
+        kernels = ("rmsnorm", "decode_attention") if stateful else ("rmsnorm", "flash_attention")
+        label = f"phase 18b {name} {kind} x{MIX_MT_CLIENTS}"
+        runs = {}
+        for vm in (True, False):
+            runs[vm], by_path[f"{label} {'vmap' if vm else 'loop'}"] = run_path(
+                library, f"{label} {'vmap' if vm else 'loop'}", kernels,
+                lambda: phase_multitenant(dev, "mixtral-8x7b", params, stateful=stateful,
+                                          clients=MIX_MT_CLIENTS, prompt_lens=MIX_MT_PROMPTS,
+                                          new_tokens=MIX_MT_NEW, bucket=MIX_BUCKET,
+                                          enable_vmap=vm, cfg=cfg))
+        check_multitenant(label, runs[True], runs[False])
+        check_lane_order(label, runs[True])
+        del runs
+        torch.cuda.empty_cache()
 
 
 def phase_llama4_reduced(library, dev, by_path) -> None:
@@ -5420,7 +5751,114 @@ def phase_encdec_vlm(library, dev, by_path) -> None:
           f"{t[1] - t[0]:.1f}, 17b {t[2] - t[1]:.1f}, 17c {t[3] - t[2]:.1f})")
 
 
-# phases 8, 9, 16 and 17 run in a second process on the card (``BESIDE``), started
+# ---------------------------------------------------------------------------
+# phase 15g: mixtral-8x7b trained at full width (main process, last)
+# ---------------------------------------------------------------------------
+
+class RmsnormBackwardShapes:
+    """While entered, the (rows, d) of every rmsnorm backward kernel launch
+    are counted (the wrapper is wrapped; it launches as before)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.rmsnorm import ops
+
+        self.ops, self.inner, self.shapes = ops, ops.rmsnorm_backward_cuda, Counter()
+
+        def counted(dy, x, *rest):
+            self.shapes[(x.numel() // x.shape[-1], x.shape[-1])] += 1
+            return self.inner(dy, x, *rest)
+
+        ops.rmsnorm_backward_cuda = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.rmsnorm_backward_cuda = self.inner
+
+
+def moe_train_flops(cfg, params, batch: int, seq: int) -> tuple:
+    """Two bounds of a MoE training step's work, 6 x parameters x tokens
+    plus attention (``train_flops``): with the experts counted as top-k
+    routing needs them (k of E per token), and as the static dispatch
+    computes them (E x C rows a layer, C the capacity)."""
+    from repro_torch.layers.moe import moe_capacity
+    from repro_torch.training.optimizer import leaf_paths
+
+    tokens = batch * seq
+    leaves = leaf_paths(params)
+    expert = sum(p.numel() for path, p in leaves if path[-1] in ("w_gate", "w_up", "w_down"))
+    dense = sum(p.numel() for _, p in leaves) - expert
+    n_moe = sum(cfg.moe_layer(j) for j in range(cfg.moe_every)) * (cfg.n_layers // cfg.moe_every)
+    per_row = expert / (n_moe * cfg.moe_experts)            # one expert's weights, one layer
+    attn = 4 * batch * cfg.n_heads * seq * (seq + 1) / 2 * cfg.d_head * cfg.n_layers
+    base = 6 * dense * tokens + 3.5 * attn
+    routed = base + 6 * per_row * tokens * cfg.moe_top_k * n_moe
+    rows = cfg.moe_experts * moe_capacity(tokens, cfg)
+    static = base + 6 * per_row * rows * n_moe
+    return routed, static, rows
+
+
+def phase_train_mixtral(library, dev, by_path) -> None:
+    """Phase 15g: mixtral-8x7b at full width (d_model 4096, 8 experts of
+    d_ff 14336, top-2, 32 query heads on 8 KV heads) and ``MIX_TRAIN_LAYERS``
+    of its 32 layers, bf16, ``MIX_TRAIN_STEPS`` steps with ``remat`` on one
+    fixed batch of 4 x 512 tokens from the seed-0 state: the loss falls at
+    each step; ms a step (the median after the first), tokens/s and the
+    peak against two bounds at 989 TFLOP/s (the experts top-2 routing
+    needs, and the static dispatch's E x C rows); the flash and rmsnorm
+    backward launches by shape.  No checkpoint (the state is 35+ GB).  The
+    plain versions are barred from CUDA tensors."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.training.data import DataConfig, synth_batch
+    from repro_torch.training.optimizer import AdamWConfig, leaf_paths
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=MIX_TRAIN_LAYERS)
+    b, s_ = MIX_TRAIN_BATCH, MIX_TRAIN_SEQ
+    nb = synth_batch(cfg, ShapeConfig("fixed", s_, b, "train"), 0, DataConfig())
+    label = f"phase 15g mixtral-8x7b ({cfg.n_layers} layers) fixed batch"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with PlainOnCard(), FlashBackwardShapes() as fb, RmsnormBackwardShapes() as rb:
+        (params, _, losses, secs), by_path[label] = run_path(
+            library, label, TRAIN_KERNELS,
+            lambda: fixed_batch(cfg, AdamWConfig(lr=FIXED_LR, warmup_steps=1), nb, dev,
+                                steps=MIX_TRAIN_STEPS, remat=True))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(v) for v in losses) and all(y < x for x, y in zip(losses, losses[1:])),
+          f"15g: the fixed batch's loss did not fall at every step: {losses}")
+    n_params = sum(p.numel() for _, p in leaf_paths(params))
+    routed, static, rows = moe_train_flops(cfg, params, b, s_)
+    step_ms = float(np.median(secs[1:])) * 1e3
+    peak_rate = PEAK_FLOPS[torch.bfloat16]
+    print(f"[15g] {label}: {n_params} params; losses {losses}; ms per step "
+          f"{[round(t * 1e3, 1) for t in secs]} (the first builds); step {step_ms:.1f} ms, "
+          f"{b * s_ / step_ms * 1e3:.0f} tokens/s, peak {peak / 1e9:.2f} GB")
+    print(f"[15g] bounds at {peak_rate / 1e12:.0f} TFLOP/s: top-{cfg.moe_top_k} routing "
+          f"{routed / 1e12:.3f} TFLOP = {routed / peak_rate * 1e3:.3f} ms "
+          f"({routed / peak_rate * 1e3 / step_ms:.2%} of the step); the static dispatch's "
+          f"{rows} rows a layer ({cfg.moe_experts} x capacity, for {b * s_ * cfg.moe_top_k} "
+          f"pairs) {static / 1e12:.3f} TFLOP = {static / peak_rate * 1e3:.3f} ms")
+    steps = MIX_TRAIN_STEPS
+    print(f"[15g] launches per step { {k: n / steps for k, n in by_path[label].items() if n} }; "
+          f"flash backward by (q, k, causal) { {k: n // steps for k, n in fb.shapes.items()} }, "
+          f"rmsnorm backward by (rows, d) { {k: n // steps for k, n in rb.shapes.items()} } a "
+          f"step")
+    want = ((b, s_, cfg.n_heads, cfg.d_head), (b, s_, cfg.n_kv_heads, cfg.d_head), True)
+    check(list(fb.shapes) == [want]
+          and fb.shapes[list(fb.shapes)[0]] == steps * cfg.n_layers,
+          f"15g: flash backward launches by shape {dict(fb.shapes)}")
+    # two norms a layer over every token; the loss's final norm once for
+    # each of its two 256-position chunks
+    check(dict(rb.shapes) == {(b * s_, cfg.d_model): steps * 2 * cfg.n_layers,
+                              (b * s_ // 2, cfg.d_model): steps * 2},
+          f"15g: rmsnorm backward launches by shape {dict(rb.shapes)}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# phases 7-9, 16, 17 and 18b run in a second process on the card (``BESIDE``), started
 # once phase 2's kernel timings are done and joined before phase 15: the
 # served paths are host-bound (the card idle 67-92% of a replayed step), so
 # two processes share its idle time
@@ -5442,7 +5880,7 @@ def setup():
 
 
 def start_beside():
-    """Start phases 8, 9, 16 and 17 in a second process on the card, its output in a
+    """Start phases 7-9, 16, 17 and 18b in a second process on the card, its output in a
     file that ``join_beside`` prints; the process is killed if this one
     exits first."""
     import atexit
@@ -5463,7 +5901,7 @@ def start_beside():
 
 
 def join_beside(beside) -> dict:
-    """Wait for the process of phases 8, 9, 16 and 17, print its output and return
+    """Wait for the process of phases 7-9, 16, 17 and 18b, print its output and return
     its launches by path; fail if it failed."""
     proc, log, t_start = beside
     t0 = time.perf_counter()
@@ -5471,26 +5909,27 @@ def join_beside(beside) -> dict:
     log.close()
     with open(log.name) as f:
         print(f.read(), end="")
-    print(f"[phases 8, 9, 16, 17] in a second process beside phases 3-7 and 10-14: exit {rc}; joined "
+    print(f"[phases 7-9, 16, 17, 18b] in a second process beside phases 3-6, 10-14 and 18a: exit {rc}; joined "
           f"{t0 - t_start:.1f} s after its start, then waited {time.perf_counter() - t0:.1f} s")
-    check(rc == 0, "phases 8, 9, 16 and 17 failed (their output above)")
+    check(rc == 0, "phases 7-9, 16, 17 and 18b failed (their output above)")
     with open(os.path.join(BESIDE_DIR, "launches.json")) as f:
-        return json.load(f)
+        out = json.load(f)
+    return out["by_path"], out["batched_rows"]
 
 
 def beside_main(parent: int) -> None:
-    """The second process: phases 8, 9, 16 and 17, their launches by path written
+    """The second process: phases 7-9, 16, 17 and 18b, their launches by path written
     for ``join_beside``.  It ends with the run that started it."""
     import ctypes
     import signal
 
     ctypes.CDLL(None).prctl(1, signal.SIGTERM)   # PR_SET_PDEATHSIG
     if os.getppid() != parent:
-        fail("the run that started phases 8, 9, 16 and 17 has ended")
+        fail("the run that started phases 7-9, 16, 17 and 18b has ended")
     library, dev = setup()
-    by_path = phases_8_9(library, dev)
+    by_path, batched_rows = phases_8_9(library, dev)
     with open(os.path.join(BESIDE_DIR, "launches.json"), "w") as f:
-        json.dump(by_path, f)
+        json.dump({"by_path": by_path, "batched_rows": batched_rows}, f)
 
 
 def main() -> None:
@@ -5539,7 +5978,7 @@ def main() -> None:
         library, "phase 3 qwen3-0.6b stateful", attn,
         lambda: phase_main_path(dev, "qwen3-0.6b", PROMPT_LEN, NEW_TOKENS, BUCKET))
     check_main_path(m)
-    measure_replay_step(m, dev)
+    q_step = measure_replay_step(m, dev)
     check_prefill_vs_decode(m, dev, LOGIT_REL_TOL)
     q_cfg, q_params, q_prompt, q_dev_tokens = m["cfg"], m["params"], m["prompt"], m["r_dev"].tokens
     t10 = time.perf_counter()
@@ -5622,39 +6061,6 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    batched_rows = phase_mt_kernels(dev)
-    check(not MISMATCHES, f"{len(MISMATCHES)} batched kernel checks disagreed")
-    print(f"[phase 7 kernels] vmap rules == lane loops ({time.perf_counter() - t0:.1f} s)")
-    runs = {}
-    for vm in (True, False):
-        label = f"phase 7 qwen3-0.6b x{MT_CLIENTS} {'vmap' if vm else 'loop'}"
-        runs[vm], by_path[label] = run_path(
-            library, label, ("rmsnorm", "decode_attention"),
-            lambda: phase_multitenant(dev, "qwen3-0.6b", q_params, stateful=True,
-                                      clients=MT_CLIENTS, prompt_lens=MT_PROMPTS,
-                                      new_tokens=MT_NEW, bucket=BUCKET, enable_vmap=vm))
-    check_multitenant(f"qwen3-0.6b x{MT_CLIENTS}", runs[True], runs[False])
-    check_lane_order(f"qwen3-0.6b x{MT_CLIENTS}", runs[True])
-    step_times = time_multitenant_step(runs[True], dev)
-    del runs
-    torch.cuda.empty_cache()
-    runs = {}
-    for vm in (True, False):
-        label = f"phase 7 zamba2-1.2b stateless x{MT_Z_CLIENTS} {'vmap' if vm else 'loop'}"
-        runs[vm], by_path[label] = run_path(
-            library, label, ("rmsnorm", "flash_attention", "ssm_scan"),
-            lambda: phase_multitenant(dev, "zamba2-1.2b", params, stateful=False,
-                                      clients=MT_Z_CLIENTS,
-                                      prompt_lens=(MT_Z_PROMPT,) * MT_Z_CLIENTS,
-                                      new_tokens=MT_Z_NEW, bucket=Z_STATELESS_BUCKET,
-                                      enable_vmap=vm))
-    check_multitenant(f"zamba2-1.2b stateless x{MT_Z_CLIENTS}", runs[True], runs[False])
-    check_lane_order(f"zamba2-1.2b stateless x{MT_Z_CLIENTS}", runs[True])
-    del runs
-    torch.cuda.empty_cache()
-    print(f"[phase 7] ({time.perf_counter() - t0:.1f} s); batched step {step_times}")
-
-    t0 = time.perf_counter()
     zamba = ("rmsnorm", "flash_attention", "ssm_scan")
     over, by_path["phase 12a zamba2-1.2b stateless overload"] = run_path(
         library, "phase 12a zamba2-1.2b stateless overload", zamba,
@@ -5689,7 +6095,12 @@ def main() -> None:
     print(f"[phase 14] replay soundness verifier: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{k} {v:.1f}' for k, v in v_secs.items())})")
 
-    by_path.update(join_beside(beside))
+    t0 = time.perf_counter()
+    phase_qwen3_int8(library, dev, by_path, q_step)
+    print(f"[phase 18a] ({time.perf_counter() - t0:.1f} s)")
+
+    beside_paths, batched_rows = join_beside(beside)
+    by_path.update(beside_paths)
 
     t0 = time.perf_counter()
     with PlainOnCard():
@@ -5697,6 +6108,7 @@ def main() -> None:
             library, "phase 15a reduced train steps",
             TRAIN_KERNELS + ("ssm_scan", "ssm_scan_backward"), lambda: phase_train_small(dev))
         phase_train_small_resume(library, by_path)
+        phase_train_moe_resume(library, dev, by_path)
     phase_scan_backward_in_model(dev)
     print(f"[15a] ({time.perf_counter() - t0:.1f} s)")
     trained = phase_train_full(library, dev, by_path)
@@ -5709,6 +6121,9 @@ def main() -> None:
     t1 = time.perf_counter()
     phase_train_xlstm(library, dev, by_path)
     print(f"[15f] ({time.perf_counter() - t1:.1f} s)")
+    t1 = time.perf_counter()
+    phase_train_mixtral(library, dev, by_path)
+    print(f"[15g] ({time.perf_counter() - t1:.1f} s)")
     print(f"[phase 15] training: {time.perf_counter() - t0:.1f} s")
     print(f"launches by path: {by_path}")
 

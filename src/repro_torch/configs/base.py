@@ -1,10 +1,11 @@
 """Architecture config schema of the ported families, and the reduced variant
 the CPU tests run.  An own copy of ``repro.configs.base``: the fields the
 dense and MoE decoder (GQA or MLA attention), the Mamba2 hybrid, the xLSTM
-LM, the whisper encoder-decoder and the llava patch-prefix LM read, with the
-same names and defaults, so a config built here describes the same model as
-its JAX counterpart.  ``moe_groups`` (the reference's shard-local dispatch)
-is not ported: one device runs one global dispatch."""
+LM, the whisper encoder-decoder and the llava patch-prefix LM read, and the
+int8 KV cache's ``kv_cache_bits``, with the same names and defaults, so a
+config built here describes the same model as its JAX counterpart.
+``moe_groups`` (the reference's shard-local dispatch) is not ported: one
+device runs one global dispatch."""
 from __future__ import annotations
 
 import dataclasses
@@ -72,6 +73,7 @@ class ArchConfig:
     dtype: str = "bfloat16"
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    kv_cache_bits: int = 16         # 8: int8 K/V cache with per-(position, head) f32 scales
 
     @property
     def padded_vocab(self) -> int:

@@ -6,3 +6,4 @@ from repro_torch.kernels.decode_attention.ops import (
     decode_attention_split_ref,
     split_plan,
 )
+from repro_torch.kernels.decode_attention.ref import decode_attention_q8_ref, quantize_kv

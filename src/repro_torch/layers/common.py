@@ -42,6 +42,12 @@ def layer_slice(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
     }
 
 
+def stack_layers(caches: Sequence[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """Per-layer cache dicts -> one dict of (L, ...) leaves, in the first
+    dict's key order (the order the served app flattens them in)."""
+    return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+
+
 def layer_params(stacked: Dict[str, Any]) -> Callable[[int], Dict[str, Any]]:
     """Layer i of a stacked parameter tree.  Select views, as the served
     paths trace them; when a leaf requires grad (training), one ``unbind``

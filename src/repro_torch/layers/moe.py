@@ -4,7 +4,8 @@
 Top-k routing on the f32 router probabilities, a stable sort of the
 (token, choice) pairs by expert, a per-expert capacity
 C = ceil(T*k/E * capacity_factor) with drop-on-overflow, a copy into an
-(E, C, D) buffer, batched per-expert SwiGLU, and a weighted combine back.
+(E, C, D) buffer (every index written once, so the copy is deterministic),
+batched per-expert SwiGLU, and a weighted combine back.
 Every shape depends only on T, so the traced operator sequence is the same
 for every input and record/replay applies to MoE steps as to dense ones.
 Nothing reads a value on the host: no ``nonzero``, no boolean-mask
@@ -91,8 +92,13 @@ def _dispatch_one(p: Dict[str, torch.Tensor], xf: torch.Tensor, cfg, cap: int) -
     k, e = cfg.moe_top_k, cfg.moe_experts
     order, slot, weight, _ = route(p, xf, cfg, cap)
     st = torch.div(order, k, rounding_mode="floor")              # sorted pair -> token
-    # mode="drop": an overflowing pair writes the spare row, which is cut off
-    buf = xf.new_zeros((e * cap + 1, d)).index_copy(0, slot, xf.index_select(0, st))
+    # mode="drop": sorted pair i, if it overflows, writes a spare row
+    # E*cap + i of its own, and the spare rows are cut off.  One spare row
+    # for every drop would take duplicate writes, whose winner the card
+    # leaves open (a batched launch and a lane's launch keep different ones)
+    spare = torch.arange(e * cap, e * cap + t * k, device=xf.device)
+    dst = torch.where(slot < e * cap, slot, spare)
+    buf = xf.new_zeros((e * cap + t * k, d)).index_copy(0, dst, xf.index_select(0, st))
     buf = buf[: e * cap].reshape(e, cap, d)
 
     # batched per-expert SwiGLU

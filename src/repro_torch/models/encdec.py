@@ -31,7 +31,6 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
@@ -44,8 +43,15 @@ from repro_torch.layers.attention import (
     attn_forward,
     attn_init,
     init_kv_cache,
+    prefill_kv_cache,
 )
-from repro_torch.layers.common import dense, dense_init, layer_params, layer_slice
+from repro_torch.layers.common import (
+    dense,
+    dense_init,
+    layer_params,
+    layer_slice,
+    stack_layers,
+)
 from repro_torch.layers.mlp import mlp_apply, mlp_init
 from repro_torch.models.lm import next_token_nll
 
@@ -224,10 +230,6 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device: Any = "cuda"):
     }
 
 
-def _stack(caches) -> Dict[str, torch.Tensor]:
-    return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
-
-
 def prefill(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, max_seq: int):
     """Encode the frames, fill each decoder layer's cross K/V, and run the
     decoder prompt to fill the self cache; returns (last logits, cache)."""
@@ -242,7 +244,7 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, max_seq: in
         hn = rmsnorm(x, lp["self_norm"], eps=cfg.norm_eps)
         a, (k, v) = attn_forward(lp["self_attn"], hn, cfg, causal=True, return_kv=True)
         x = x + a
-        selfs.append({"k": F.pad(k, (0, 0, 0, 0, 0, pad)), "v": F.pad(v, (0, 0, 0, 0, 0, pad))})
+        selfs.append(prefill_kv_cache(cfg, k, v, pad))
         hn = rmsnorm(x, lp["cross_norm"], eps=cfg.norm_eps)
         ckv = cross_kv(lp["cross_attn"], enc_out, cfg)
         crosses.append(ckv)
@@ -250,7 +252,7 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, max_seq: in
         hn = rmsnorm(x, lp["mlp_norm"], eps=cfg.norm_eps)
         x = x + mlp_apply(lp["mlp"], hn)
     logits = _logits(params, x[:, -1:].contiguous(), cfg)
-    return logits, {"cross": _stack(crosses), "self": _stack(selfs)}
+    return logits, {"cross": stack_layers(crosses), "self": stack_layers(selfs)}
 
 
 def decode_step(params, token: torch.Tensor, cache, pos: torch.Tensor, cfg: ArchConfig):
@@ -277,4 +279,4 @@ def decode_step(params, token: torch.Tensor, cache, pos: torch.Tensor, cfg: Arch
         x = x + dense(c.reshape(b, 1, -1), lp["cross_attn"]["wo"])
         hn = rmsnorm(x, lp["mlp_norm"], eps=cfg.norm_eps)
         x = x + mlp_apply(lp["mlp"], hn)
-    return _logits(params, x, cfg), {"cross": cache["cross"], "self": _stack(selfs)}
+    return _logits(params, x, cfg), {"cross": cache["cross"], "self": stack_layers(selfs)}

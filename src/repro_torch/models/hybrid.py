@@ -27,7 +27,6 @@ from __future__ import annotations
 from typing import Any, Dict, List, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
@@ -38,8 +37,15 @@ from repro_torch.layers.attention import (
     attn_forward,
     attn_init,
     init_kv_cache,
+    prefill_kv_cache,
 )
-from repro_torch.layers.common import dense, dense_init, layer_params, layer_slice
+from repro_torch.layers.common import (
+    dense,
+    dense_init,
+    layer_params,
+    layer_slice,
+    stack_layers,
+)
 from repro_torch.layers.mamba2 import (
     init_mamba2_state,
     mamba2_decode_step,
@@ -209,7 +215,7 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, max_seq: in
     positions = _positions(b, s, x.device)
     n_full, n_rest = _groups(cfg)
     pad = max_seq - s
-    groups, ks, vs = [], [], []
+    groups, kvs = [], []
     for gi in range(n_full):
         gp = layer_slice(params["mamba_groups"], gi)
         states = []
@@ -221,13 +227,12 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, max_seq: in
         a, (k, v) = attn_forward(
             params["shared_attn"], hn, cfg, positions=positions, return_kv=True
         )
-        ks.append(F.pad(k, (0, 0, 0, 0, 0, pad)))
-        vs.append(F.pad(v, (0, 0, 0, 0, 0, pad)))
+        kvs.append(prefill_kv_cache(cfg, k, v, pad))
         x = _shared_mlp(params, x + a, cfg)
     if n_full:
         cache = {
             "mamba_groups": _stack_states(groups),
-            "shared_kv": {"k": torch.stack(ks), "v": torch.stack(vs)},
+            "shared_kv": stack_layers(kvs),
         }
     else:   # no full group: the empty group and site leaves of a fresh cache
         cache = init_cache(cfg, b, max_seq, x.device)
@@ -254,7 +259,7 @@ def decode_step(params, token: torch.Tensor, cache, pos: torch.Tensor, cfg: Arch
     (the served app flattens both the same way)."""
     x = params["embed"][token]
     n_full, n_rest = _groups(cfg)
-    groups, ks, vs = [], [], []
+    groups, kvs = [], []
     for gi in range(n_full):
         gp = layer_slice(params["mamba_groups"], gi)
         gstate = layer_slice(cache["mamba_groups"], gi)
@@ -267,13 +272,12 @@ def decode_step(params, token: torch.Tensor, cache, pos: torch.Tensor, cfg: Arch
         a, kv = attn_decode_step(
             params["shared_attn"], hn, layer_slice(cache["shared_kv"], gi), pos, cfg
         )
-        ks.append(kv["k"])
-        vs.append(kv["v"])
+        kvs.append(kv)
         x = _shared_mlp(params, x + a, cfg)
     if n_full:
         new_cache = {
             "mamba_groups": _stack_states(groups),
-            "shared_kv": {"k": torch.stack(ks), "v": torch.stack(vs)},
+            "shared_kv": stack_layers(kvs),
         }
     else:
         new_cache = {k: cache[k] for k in ("mamba_groups", "shared_kv")}

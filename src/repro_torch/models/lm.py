@@ -10,7 +10,9 @@ Parameters keep the reference's layout so conversion is a dtype move: dense
 weights are (in, out); layer j of a super-block lives at ``blocks/sub{j}/...``
 with a leading super-block axis (a MoE layer's expert stacks are
 (n_sb, E, d_in, d_out), its router f32); the KV cache is
-``{"sub{j}": {"k": (n_sb,B,S,Hkv,D), "v": ...}}``, and with
+``{"sub{j}": {"k": (n_sb,B,S,Hkv,D), "v": ...}}`` (with ``kv_cache_bits ==
+8``: int8 ``k``, ``v`` and their f32 scales ``ks``, ``vs`` of
+(n_sb,B,S,Hkv), in the order k, ks, v, vs), and with
 ``attn_kind == "mla"`` the latent cache
 ``{"sub0": {"c_kv": (L,B,S,kv_lora), "k_rope": (L,B,S,rope)}}``.
 The reference runs the stack as one ``lax.scan`` over super-blocks; here it
@@ -40,8 +42,15 @@ from repro_torch.layers.attention import (
     attn_forward,
     attn_init,
     init_kv_cache,
+    prefill_kv_cache,
 )
-from repro_torch.layers.common import dense, dense_init, layer_params, layer_slice
+from repro_torch.layers.common import (
+    dense,
+    dense_init,
+    layer_params,
+    layer_slice,
+    stack_layers,
+)
 from repro_torch.layers.mla import init_mla_cache, mla_decode_step, mla_forward, mla_init
 from repro_torch.layers.mlp import mlp_apply, mlp_init
 from repro_torch.layers.moe import moe_apply, moe_init
@@ -81,11 +90,6 @@ def _layer_forward(lp, x, cfg: ArchConfig, moe: bool, positions):
     x = x + attend(lp["attn"], h, cfg, positions=positions)
     h = rmsnorm(x, lp["mlp_norm"], eps=cfg.norm_eps)
     return x + _ffn(lp, h, cfg, moe)
-
-
-def _stack(caches) -> Dict[str, torch.Tensor]:
-    """Per-layer cache dicts -> one dict of (L, ...) leaves, in key order."""
-    return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device: Any = "cuda") -> Dict[str, Any]:
@@ -219,13 +223,12 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, max_seq: in
             else:
                 a, (k, v) = attn_forward(lp["attn"], hn, cfg, positions=positions,
                                          return_kv=True)
-                caches[sub].append({"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
-                                    "v": F.pad(v, (0, 0, 0, 0, 0, pad))})
+                caches[sub].append(prefill_kv_cache(cfg, k, v, pad))
             x = x + a
             hn = rmsnorm(x, lp["mlp_norm"], eps=cfg.norm_eps)
             x = x + _ffn(lp, hn, cfg, moe)
     logits = _logits(params, x[:, -1:].contiguous(), cfg)
-    return logits, {sub: _stack(c) for sub, c in caches.items()}
+    return logits, {sub: stack_layers(c) for sub, c in caches.items()}
 
 
 def decode_step(params, token: torch.Tensor, cache, pos: torch.Tensor, cfg: ArchConfig):
@@ -246,4 +249,4 @@ def decode_step(params, token: torch.Tensor, cache, pos: torch.Tensor, cfg: Arch
             hn = rmsnorm(x, lp["mlp_norm"], eps=cfg.norm_eps)
             x = x + _ffn(lp, hn, cfg, moe)
     logits = _logits(params, x, cfg)
-    return logits, {sub: _stack(c) for sub, c in caches.items()}
+    return logits, {sub: stack_layers(c) for sub, c in caches.items()}

@@ -24,10 +24,10 @@ PINNED = {
     ("qwen3-0.6b", False): 221,
     ("zamba2-1.2b", True): 708,
     ("zamba2-1.2b", False): 477,
-    ("mixtral-8x7b", True): 301,
-    ("mixtral-8x7b", False): 282,
-    ("llama4-maverick-400b-a17b", True): 281,
-    ("llama4-maverick-400b-a17b", False): 260,
+    ("mixtral-8x7b", True): 307,
+    ("mixtral-8x7b", False): 288,
+    ("llama4-maverick-400b-a17b", True): 284,
+    ("llama4-maverick-400b-a17b", False): 263,
 }
 REDUCE = {"qwen3-0.6b": {}, "zamba2-1.2b": dict(n_layers=5, attn_every=2),
           "mixtral-8x7b": {}, "llama4-maverick-400b-a17b": {}}

@@ -5,8 +5,9 @@ built per fingerprint, cross-client batched replay (one ``torch.func.vmap``
 call, bitwise the per-client loop), padded widths, the digest cache, LRU
 and byte-aware eviction, pins and claims, persistence, single-client
 equivalence, ingress contention, a DAM deviation inside a formed round, and
-``MultiClientServedLM`` against the JAX package's on reduced qwen3 (stateful)
-and zamba2 (stateless) from the same numpy parameters.  Every multi-client
+``MultiClientServedLM`` against the JAX package's on reduced qwen3 (stateful),
+zamba2 (stateless) and mixtral (both: the MoE dispatch's ``topk``, stable
+sort and ``index_copy`` batched) from the same numpy parameters.  Every multi-client
 round runs under ``no_vmap_fallback``: an op without a batching rule fails
 the test instead of looping quietly."""
 from __future__ import annotations
@@ -866,6 +867,8 @@ class TestRecordingScaling:
 LM_CASES = {
     "qwen3-stateful": ("qwen3-0.6b", {}, True),
     "zamba2-stateless": ("zamba2-1.2b", dict(n_layers=5, attn_every=2), False),
+    "mixtral-stateful": ("mixtral-8x7b", {}, True),
+    "mixtral-stateless": ("mixtral-8x7b", {}, False),
 }
 
 
