@@ -66,7 +66,7 @@ random weights from a seed:
   clients stateful, then 2 stateless, through ``MultiClientServedLM``,
   each vmap-batched and looped (equal tokens), ``check_lane_order`` on
   each batched edge;
-  phases 8, 9, 16, 18b, 17 and then 7 run in a second process on the
+  phases 8, 9, 16, 18b, 17, 7 and then 19 run in a second process on the
   card, started after phase 2 and joined before phase 15, beside phases
   3-6, 10-14 and 18a (the served paths are host-bound: two processes share
   the card's idle time);
@@ -161,6 +161,22 @@ random weights from a seed:
   mixtral's training shape and the rmsnorm backward at (2048, 4096), and
   times the plain int8 decode attention.  No plain version of the training
   path's kernels may run on a CUDA tensor there.
+* the sharding layer (phase 19, in the second process after phase 7, at
+  world size 1: the card's one H100 moves no traffic between cards): (a)
+  full-width qwen3-0.6b through ``repro_torch.launch.serve.main``, prompt
+  8 and 8 new tokens, ``--system local`` and ``--system rrto`` (tokens
+  equal, 3 RPCs for the last token, replaying), rmsnorm, decode attention
+  and flash attention launched; (b) a one-rank NCCL group over a
+  ``FileStore`` and a (1, 1) ("data", "model") mesh: ``compressed_psum``
+  of the 151,936 x 1,024 embedding in f32 bitwise ``dequantize(quantize(x))``
+  and its error feedback ``x`` minus that, ``_sp_decode_attention`` in bf16
+  within 2e-3 of the decode kernel at qwen3's step shape over a
+  32,768-key cache with a window, and the shard-local MoE dispatch of one
+  full-width mixtral-8x7b layer, its output and the gradients of x and the
+  router, within the bf16 tolerance of the global dispatch (bitwise
+  printed); (c) ``restore(shardings=)`` of a qwen3-0.6b
+  parameter checkpoint onto the mesh, bitwise the saved tree; the group is
+  destroyed before the phase ends.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after (every batched call under ``no_vmap_fallback``, so an op
@@ -360,6 +376,20 @@ def graph_ms(fn, reps: int = 50) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (5 * reps)
+
+
+def eager_ms(fn, reps: int = 20) -> float:
+    """Wall time of one call, launched eagerly ``reps`` times after one
+    warm call, between two CUDA events (for paths a graph cannot capture,
+    such as a collective's)."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
@@ -5100,8 +5130,9 @@ def run_path(library, label, kernels, fn):
 def phases_8_9(library, dev) -> dict:
     """Phase 8 (minicpm3-4b) and phase 9 (xlstm-1.3b), each stateful and
     stateless, then phase 16 (the MoE family; 18b on its weights), phase 17
-    (whisper-base and llava-next-34b) and phase 7 (multi-tenant serving);
-    returns their launches by path and phase 7's batched kernel rows."""
+    (whisper-base and llava-next-34b), phase 7 (multi-tenant serving) and
+    phase 19 (the sharding layer); returns their launches by path and phase
+    7's batched kernel rows."""
     by_path = {}
     t0 = time.perf_counter()
     mla = ("rmsnorm", "flash_attention")
@@ -5156,7 +5187,182 @@ def phases_8_9(library, dev) -> dict:
           f"{t1 - t0:.1f}, 16b {time.perf_counter() - t1:.1f})")
     phase_encdec_vlm(library, dev, by_path)
     batched_rows = phase_7(library, dev, by_path)
+    phase_sharding(library, dev, by_path)
     return by_path, batched_rows
+
+
+SERVE_PROMPT, SERVE_NEW = 8, 8           # phase 19a: the launcher's qwen3-0.6b run
+SP_CACHE, SP_KV_LEN, SP_WINDOW = 32768, 30001, 4096   # phase 19b's decode step
+# phase 19b's SP decode against the decode kernel, max |d| over outputs of
+# about 0.026 (unit-normal q and K/V, window 4,096): the card read 4.88e-4
+SP_TOL = 2e-3
+MOE_TOKENS = 64                          # phase 19b: tokens through one mixtral layer
+
+
+def phase_serve_launcher(dev) -> None:
+    """19a: full-width qwen3-0.6b through ``repro_torch.launch.serve.main``,
+    locally and through the rrto stack, on the launcher's seeded weights."""
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "qwen3-0.6b", "--tokens", str(SERVE_NEW), "--prompt-len",
+            str(SERVE_PROMPT), "--device", dev.type]
+    t0 = time.perf_counter()
+    local = serve.main(argv + ["--system", "local"])
+    t1 = time.perf_counter()
+    rrto = serve.main(argv + ["--system", "rrto"])
+    print(f"19a serve launcher: local {t1 - t0:.1f} s, rrto {time.perf_counter() - t1:.1f} s; "
+          f"rrto rpcs first {rrto['rpcs_first']} last {rrto['rpcs_last']}, mode {rrto['mode']}")
+    check(local["tokens"] == rrto["tokens"],
+          f"19a: launcher tokens local {local['tokens']} != rrto {rrto['tokens']}")
+    check(rrto["rpcs_last"] == 3 and rrto["mode"] == "replaying",
+          f"19a: rrto last token {rrto['rpcs_last']} RPCs in mode {rrto['mode']}")
+
+
+def phase_sharding(library, dev, by_path) -> None:
+    """Phase 19: the serve launcher (19a), then a one-rank NCCL group with a
+    (1, 1) mesh: the compressed all-reduce, the sequence-parallel decode
+    attention and the shard-local MoE dispatch (19b), and the sharded
+    restore (19c)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    t_all = time.perf_counter()
+    _, by_path["phase 19a qwen3-0.6b serve launcher"] = run_path(
+        library, "phase 19a qwen3-0.6b serve launcher",
+        ("rmsnorm", "decode_attention", "flash_attention"), lambda: phase_serve_launcher(dev))
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter() - t_all
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(dev.index or 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            from repro_torch.launch.mesh import make_live_mesh
+
+            mesh = make_live_mesh((1, 1), ("data", "model"))
+            t0 = time.perf_counter()
+            phase_sharding_collectives(dev, mesh)
+            t_b = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            phase_sharded_restore(dev, mesh, tmp)
+            t_c = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    check(not dist.is_initialized(), "19: the NCCL group outlived the phase")
+    torch.cuda.empty_cache()
+    print(f"[phase 19] the sharding layer: {time.perf_counter() - t_all:.1f} s (19a {t_a:.1f}, "
+          f"19b {t_b:.1f}, 19c {t_c:.1f}); group destroyed")
+
+
+def phase_sharding_collectives(dev, mesh) -> None:
+    """19b on the one-rank group: exact identities at world size 1, and the
+    sharded layers against the single-device ones at full width."""
+    import dataclasses as dc
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.compression import compressed_psum, dequantize_int8, quantize_int8
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.layers import moe
+    from repro_torch.layers.attention import _sp_decode_attention
+    from repro_torch.models import lm
+
+    cfg = get_config("qwen3-0.6b")
+    x = lm.init_params(cfg, 0, dev)["embed"].float()
+    t0 = time.perf_counter()
+    mean, err = compressed_psum(x, mesh.group("data"))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    deq = dequantize_int8(*quantize_int8(x))
+    check(torch.equal(mean, deq), "19b: compressed_psum at world 1 is not dequantize(quantize(x))")
+    check(torch.equal(err, x - deq), "19b: compressed_psum's error feedback is not x - that")
+    print(f"19b compressed_psum {tuple(x.shape)} f32 over NCCL (world 1): bitwise "
+          f"dequantize(quantize(x)) and x - that; max|err| {float(err.abs().max()):.3g}; "
+          f"{ms:.2f} ms (first call)")
+    del x, mean, err, deq
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    b, hq, hkv, d = 1, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = torch.randn((b, hq, d), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, SP_CACHE, hkv, d), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    kv_len = torch.full((b,), SP_KV_LEN, dtype=torch.int32, device=dev)
+    sp = _sp_decode_attention(q, k, v, kv_len, SimpleNamespace(window=SP_WINDOW), mesh)
+    ref = decode_attention(q, k, v, kv_len, window=SP_WINDOW)
+    sp_err = float((sp.float() - ref.float()).abs().max())
+    print(f"19b _sp_decode_attention q {tuple(q.shape)} K/V {tuple(k.shape)} bf16, kv_len "
+          f"{SP_KV_LEN}, window {SP_WINDOW}: max|d| vs the decode kernel {sp_err:.3g} "
+          f"(tol {SP_TOL}; max|ref| {float(ref.float().abs().max()):.3g})")
+    check(sp_err <= SP_TOL, f"19b: sequence-parallel decode off the kernel by {sp_err}")
+    sp_ms = eager_ms(lambda: _sp_decode_attention(q, k, v, kv_len, SimpleNamespace(window=SP_WINDOW),
+                                                  mesh))
+    dec_ms = eager_ms(lambda: decode_attention(q, k, v, kv_len, window=SP_WINDOW))
+    kv_bytes = 2 * k.numel() * k.element_size()
+    print(f"19b SP decode {sp_ms:.4f} ms a call (eager, host included; the whole {SP_CACHE}-key "
+          f"slice, {kv_bytes / 1e6:.1f} MB of K/V, read: {kv_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+          f"at the memory rate), the decode kernel {dec_ms:.4f} ms (the window's rows)")
+    del q, k, v, sp, ref
+
+    mcfg = dc.replace(get_config("mixtral-8x7b"), n_layers=1)
+    p = {name: t[0] for name, t in moe.moe_init(g, mcfg, torch.bfloat16, 1).items()}
+    xs = (torch.randn((1, MOE_TOKENS, mcfg.d_model), generator=g, device=dev)).to(torch.bfloat16)
+    c = torch.randn(xs.shape, generator=g, device=dev).to(torch.bfloat16)
+    p["router"].requires_grad_()
+
+    def run(cfg_):
+        # the output, and the gradients of sum(y * c) for x and the router
+        x_ = xs.clone().requires_grad_()
+        y = moe.moe_apply(p, x_, cfg_)
+        gx, gr = torch.autograd.grad((y.float() * c.float()).sum(), (x_, p["router"]))
+        return y.detach(), gx, gr
+
+    glob = run(mcfg)
+    with use_mesh(mesh):
+        local = run(dc.replace(mcfg, moe_groups=1))
+    rel = [float((a.float() - b.float()).abs().max() / b.float().abs().max())
+           for a, b in zip(local, glob)]
+    print(f"19b shard-local MoE dispatch, one mixtral-8x7b layer ({mcfg.moe_experts} experts, "
+          f"d {mcfg.d_model}, ff {mcfg.d_ff}, {MOE_TOKENS} tokens, bf16): max|d| / max|global| "
+          f"of y, dx, drouter {', '.join(f'{r:.3g}' for r in rel)} (tol {LOGIT_REL_TOL}); "
+          f"bitwise the global dispatch: "
+          f"{', '.join(str(bool(torch.equal(a, b))) for a, b in zip(local, glob))}")
+    check(max(rel) <= LOGIT_REL_TOL, f"19b: the shard-local MoE dispatch is off by {rel}")
+
+
+def phase_sharded_restore(dev, mesh, tmp) -> None:
+    """19c: a qwen3-0.6b parameter checkpoint restored onto the mesh as
+    DTensors, bitwise the saved tree."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import named_sharding_tree
+    from repro_torch.models import lm
+    from repro_torch.training.optimizer import leaf_paths, tree_map
+
+    cfg = get_config("qwen3-0.6b")
+    params = lm.init_params(cfg, 0, dev)
+    t0 = time.perf_counter()
+    store.save(os.path.join(tmp, "ckpt"), 1, {"params": params})
+    t1 = time.perf_counter()
+    template = {"params": tree_map(lambda t: torch.empty(t.shape, device="meta"), params)}
+    shardings = {"params": named_sharding_tree(lm.param_specs(cfg), mesh)}
+    restored = store.restore(os.path.join(tmp, "ckpt"), 1, template, shardings=shardings)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    pairs = list(zip(leaf_paths(params), leaf_paths(restored["params"])))
+    same = [pa == pb and isinstance(b, DTensor) and b.dtype == a.dtype
+            and torch.equal(b.to_local(), a) for (pa, a), (pb, b) in pairs]
+    n_bytes = sum(a.numel() * a.element_size() for (_, a), _ in pairs)
+    print(f"19c restore(shardings=) of qwen3-0.6b params ({len(pairs)} leaves, "
+          f"{n_bytes / 1e9:.3f} GB bf16) onto the (1, 1) mesh: save {t1 - t0:.1f} s, restore "
+          f"{t2 - t1:.1f} s; {sum(same)}/{len(same)} leaves bitwise, DTensors in the "
+          f"checkpoint's dtype")
+    check(all(same), "19c: the sharded restore is not the saved tree")
 
 
 def phase_7(library, dev, by_path) -> dict:
@@ -5858,7 +6064,7 @@ def phase_train_mixtral(library, dev, by_path) -> None:
     torch.cuda.empty_cache()
 
 
-# phases 7-9, 16, 17 and 18b run in a second process on the card (``BESIDE``), started
+# phases 7-9, 16-17, 18b and 19 run in a second process on the card (``BESIDE``), started
 # once phase 2's kernel timings are done and joined before phase 15: the
 # served paths are host-bound (the card idle 67-92% of a replayed step), so
 # two processes share its idle time
@@ -5880,7 +6086,7 @@ def setup():
 
 
 def start_beside():
-    """Start phases 7-9, 16, 17 and 18b in a second process on the card, its output in a
+    """Start phases 7-9, 16-17, 18b and 19 in a second process on the card, its output in a
     file that ``join_beside`` prints; the process is killed if this one
     exits first."""
     import atexit
@@ -5901,7 +6107,7 @@ def start_beside():
 
 
 def join_beside(beside) -> dict:
-    """Wait for the process of phases 7-9, 16, 17 and 18b, print its output and return
+    """Wait for the process of phases 7-9, 16-17, 18b and 19, print its output and return
     its launches by path; fail if it failed."""
     proc, log, t_start = beside
     t0 = time.perf_counter()
@@ -5909,23 +6115,23 @@ def join_beside(beside) -> dict:
     log.close()
     with open(log.name) as f:
         print(f.read(), end="")
-    print(f"[phases 7-9, 16, 17, 18b] in a second process beside phases 3-6, 10-14 and 18a: exit {rc}; joined "
+    print(f"[phases 7-9, 16-17, 18b, 19] in a second process beside phases 3-6, 10-14 and 18a: exit {rc}; joined "
           f"{t0 - t_start:.1f} s after its start, then waited {time.perf_counter() - t0:.1f} s")
-    check(rc == 0, "phases 7-9, 16, 17 and 18b failed (their output above)")
+    check(rc == 0, "phases 7-9, 16-17, 18b and 19 failed (their output above)")
     with open(os.path.join(BESIDE_DIR, "launches.json")) as f:
         out = json.load(f)
     return out["by_path"], out["batched_rows"]
 
 
 def beside_main(parent: int) -> None:
-    """The second process: phases 7-9, 16, 17 and 18b, their launches by path written
+    """The second process: phases 7-9, 16-17, 18b and 19, their launches by path written
     for ``join_beside``.  It ends with the run that started it."""
     import ctypes
     import signal
 
     ctypes.CDLL(None).prctl(1, signal.SIGTERM)   # PR_SET_PDEATHSIG
     if os.getppid() != parent:
-        fail("the run that started phases 7-9, 16, 17 and 18b has ended")
+        fail("the run that started phases 7-9, 16-17, 18b and 19 has ended")
     library, dev = setup()
     by_path, batched_rows = phases_8_9(library, dev)
     with open(os.path.join(BESIDE_DIR, "launches.json"), "w") as f:

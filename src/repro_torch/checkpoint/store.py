@@ -12,7 +12,11 @@ Layout, the reference's file for file:
 * restartability: ``latest_step`` + ``restore`` recover the newest complete
   checkpoint, ignoring partial ``.tmp`` dirs;
 * async: ``save_async`` copies every leaf to the host first, then writes on
-  a background thread, overlapping the I/O with the next step.
+  a background thread, overlapping the I/O with the next step;
+* elasticity: a tree with DTensor leaves is gathered whole (every rank
+  takes part: ``full_tensor`` is a collective) and rank 0 writes it;
+  ``restore(shardings=)`` lays each leaf out on the current mesh, so a
+  checkpoint saved from four ranks restores onto two.
 
 Leaves are named as the reference's ``jax.tree_util.keystr`` names a dict's
 leaves: ``['key']`` in a flat dict, ``['params']['blocks']['sub0']['wq']``
@@ -33,6 +37,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.sharding import distribute, is_dtensor
 
 BFLOAT16 = "bfloat16"
 
@@ -73,10 +80,23 @@ def _from_array(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 def save(ckpt_dir: str, step: int, tree: Dict[str, Any], *, blocking: bool = True) -> threading.Thread:
     """Write a checkpoint of ``tree`` (a dict of tensors, flat or nested);
-    returns the writer thread (joined when blocking)."""
+    returns the writer thread (joined when blocking).  With DTensor leaves
+    every rank must call it: each leaf is gathered whole on every rank,
+    rank 0 writes, and a blocking save returns on every rank once the
+    checkpoint is published."""
+    named = _leaves(tree)
+    sharded = any(is_dtensor(v) for _, v in named)
+    if sharded:
+        named = [(name, v.full_tensor() if is_dtensor(v) else v) for name, v in named]
+        if dist.get_rank() != 0:
+            if blocking:
+                dist.barrier()
+            t = threading.Thread(target=lambda: None, daemon=True)
+            t.start()
+            return t
     os.makedirs(ckpt_dir, exist_ok=True)
     # snapshot to host memory synchronously, before the writer starts
-    leaves = [(name, *_host_array(v)) for name, v in _leaves(tree)]
+    leaves = [(name, *_host_array(v)) for name, v in named]
     # unique per writer: two non-blocking saves of the same step must never
     # share a staging dir
     token = f"{os.getpid()}.{next(_writer_ids)}"
@@ -115,6 +135,8 @@ def save(ckpt_dir: str, step: int, tree: Dict[str, Any], *, blocking: bool = Tru
     t.start()
     if blocking:
         t.join()
+        if sharded:
+            dist.barrier()
     return t
 
 
@@ -156,13 +178,17 @@ def load_flat(ckpt_dir: str, step: int) -> Dict[str, torch.Tensor]:
 
 
 def restore(ckpt_dir: str, step: int, template: Dict[str, Any], *,
-            device: Any = None) -> Dict[str, Any]:
+            device: Any = None, shardings: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """Restore into the structure of ``template`` (flat or nested): each
     leaf it names, checked against the template leaf's shape and given its
-    dtype, on ``device`` (the template leaf's device when None)."""
+    dtype, on ``device`` (the template leaf's device when None).
+    ``shardings`` (the template's structure, ``NamedSharding`` leaves on a
+    live mesh) lays every leaf out on that mesh as a DTensor, on the mesh's
+    device, in the checkpoint's own dtype (as the reference's
+    ``jax.device_put`` keeps it): the elastic-rescale path."""
     d, manifest = _manifest(ckpt_dir, step)
 
-    def load(name: str, leaf) -> torch.Tensor:
+    def load(name: str, leaf, sharding) -> torch.Tensor:
         meta = manifest["leaves"].get(name)
         if meta is None:
             raise KeyError(f"checkpoint missing leaf {name}")
@@ -170,13 +196,20 @@ def restore(ckpt_dir: str, step: int, template: Dict[str, Any], *,
         if tuple(t.shape) != tuple(leaf.shape):
             raise ValueError(f"shape mismatch for {name}: ckpt {tuple(t.shape)} vs "
                              f"target {tuple(leaf.shape)}")
+        if sharding is not None:
+            mesh = sharding.mesh
+            dev = (torch.device("cuda", torch.cuda.current_device())
+                   if mesh.device_type == "cuda" else torch.device("cpu"))
+            return distribute(t.to(dev), sharding)
         return t.to(device=leaf.device if device is None else device, dtype=leaf.dtype)
 
-    def walk(node: Dict[str, Any], prefix: str) -> Dict[str, Any]:
+    def walk(node: Dict[str, Any], shard: Optional[Dict[str, Any]], prefix: str) -> Dict[str, Any]:
         out = {}
         for key, leaf in node.items():
             name = f"{prefix}['{key}']"
-            out[key] = walk(leaf, name) if isinstance(leaf, dict) else load(name, leaf)
+            sub = None if shard is None else shard[key]
+            out[key] = (walk(leaf, sub, name) if isinstance(leaf, dict)
+                        else load(name, leaf, sub))
         return out
 
-    return walk(template, "")
+    return walk(template, shardings, "")

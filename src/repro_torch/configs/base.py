@@ -2,14 +2,14 @@
 the CPU tests run.  An own copy of ``repro.configs.base``: the fields the
 dense and MoE decoder (GQA or MLA attention), the Mamba2 hybrid, the xLSTM
 LM, the whisper encoder-decoder and the llava patch-prefix LM read, and the
-int8 KV cache's ``kv_cache_bits``, with the same names and defaults, so a
-config built here describes the same model as its JAX counterpart.
-``moe_groups`` (the reference's shard-local dispatch) is not ported: one
-device runs one global dispatch."""
+int8 KV cache's ``kv_cache_bits``, the sharding knobs (``moe_groups``,
+``disable_tp``, ``encoder_sp``, ``sp_decode``) and ``skip_shapes``, with the
+same names and defaults, so a config built here describes the same model as
+its JAX counterpart; and the four assigned input ``SHAPES``."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 VOCAB_PAD = 512  # vocab padded to a multiple of this (same rule as the reference)
 
@@ -73,7 +73,22 @@ class ArchConfig:
     dtype: str = "bfloat16"
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+
+    # performance knobs (the reference's hillclimb variants; defaults are the
+    # baseline).  The sharded paths they select run only under a live mesh.
+    # ``disable_tp`` and ``encoder_sp`` are kept for parity with the
+    # reference's configs and read by nothing in the port: the reference reads
+    # them only in its dry-run layouts (``disable_tp``) and in a GSPMD layout
+    # constraint on encoder activations (``encoder_sp``), and a rank-local
+    # activation needs no such constraint
+    moe_groups: int = 0             # >0: shard-local MoE dispatch (layers/moe.py)
+    disable_tp: bool = False        # replicate params (drop "tp"): small models
     kv_cache_bits: int = 16         # 8: int8 K/V cache with per-(position, head) f32 scales
+    encoder_sp: bool = False        # shard encoder activations over tp on seq
+    sp_decode: bool = False         # sequence-parallel decode over the tp-sharded KV seq
+
+    # which of the four assigned shapes apply
+    skip_shapes: Tuple[str, ...] = ()
 
     @property
     def padded_vocab(self) -> int:
@@ -95,6 +110,14 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:

@@ -13,4 +13,5 @@ CONFIG = ArchConfig(
     d_ff=22016,
     vocab=102400,
     rope_theta=1e4,
+    skip_shapes=("long_500k",),
 )

@@ -15,4 +15,5 @@ CONFIG = ArchConfig(
     vocab=64000,
     num_patches=576,
     rope_theta=5e6,
+    skip_shapes=("long_500k",),
 )

@@ -20,4 +20,5 @@ CONFIG = ArchConfig(
     v_head_dim=64,
     rope_theta=1e4,
     tie_embeddings=True,
+    skip_shapes=("long_500k",),
 )

@@ -15,4 +15,5 @@ CONFIG = ArchConfig(
     qk_norm=True,
     rope_theta=1e6,
     tie_embeddings=True,
+    skip_shapes=("long_500k",),
 )

@@ -17,4 +17,5 @@ CONFIG = ArchConfig(
     dec_layers=6,
     enc_seq=1500,
     max_target_positions=448,
+    skip_shapes=("long_500k",),
 )

@@ -1,1 +1,3 @@
-"""Distributed serving tools (``repro.distributed``): the hedged router."""
+"""Distributed tools (``repro.distributed``): the hedged router and the
+training straggler policy, the sharding layer and the int8 compressed
+all-reduce."""

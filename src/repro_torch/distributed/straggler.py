@@ -13,6 +13,10 @@ request index)`` to the completion latency (or None for a failure).  The
 default source calls :meth:`ReplicaModel.latency`, a standalone latency
 simulation; the fleet (``repro_torch.serving.fleet``) plugs in real replay
 on live edge replicas, so the same deadline arithmetic drives both.
+
+For the training path, ``SkipAndRescale`` is the drop-straggler policy: a
+step proceeds when at least a quorum of workers contributed, and the
+gradients are rescaled by the participation count.
 """
 from __future__ import annotations
 
@@ -248,3 +252,18 @@ class HedgedRouter:
         t, winner = min(candidates)
         self._settle(t, primary_won=winner != backup.name)
         return t, winner
+
+
+@dataclasses.dataclass
+class SkipAndRescale:
+    """Training-side straggler policy: proceed at quorum, rescale gradients."""
+
+    world: int
+    quorum_fraction: float = 0.9
+
+    def step(self, arrived: List[bool]) -> Tuple[bool, float]:
+        """(proceed?, gradient rescale factor = world/participants)."""
+        n = sum(arrived)
+        if n < self.quorum_fraction * self.world:
+            return False, 1.0
+        return True, self.world / max(n, 1)

@@ -3,7 +3,10 @@ RoPE, flash attention for prefill, the decode-attention kernel for
 single-token steps against a static KV cache, optional sliding window.
 With ``cfg.kv_cache_bits == 8`` the cache holds int8 K/V and f32 scales
 (``{"k", "ks", "v", "vs"}``, the reference's leaf order) and a step attends
-through the plain ``decode_attention_q8_ref``, as the reference does."""
+through the plain ``decode_attention_q8_ref``, as the reference does.
+With ``cfg.sp_decode`` under a live mesh with a "model" axis, a decode step
+is sequence-parallel (``_sp_decode_attention``): each rank holds its S/tp
+slice of the cache."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -11,6 +14,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import PartitionSpec as P
+from repro_torch.distributed.sharding import live_mesh
 from repro_torch.kernels.decode_attention import (
     decode_attention,
     decode_attention_q8_ref,
@@ -34,6 +39,19 @@ def attn_init(gen: torch.Generator, cfg, dtype, layers: int) -> Dict[str, torch.
         p["q_norm"] = torch.ones((layers, dh), dtype=dtype, device=gen.device)
         p["k_norm"] = torch.ones((layers, dh), dtype=dtype, device=gen.device)
     return p
+
+
+def attn_specs(cfg) -> Dict[str, P]:
+    s = {
+        "wq": P(None, "tp"),
+        "wk": P(None, "tp"),
+        "wv": P(None, "tp"),
+        "wo": P("tp", None),
+    }
+    if cfg.qk_norm:
+        s["q_norm"] = P(None)
+        s["k_norm"] = P(None)
+    return s
 
 
 def _project_qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor):
@@ -94,6 +112,12 @@ def init_kv_cache(cfg, batch: int, max_seq: int, dtype, device) -> Dict[str, tor
     }
 
 
+def kv_cache_specs(cfg) -> Dict[str, P]:
+    # long-context decode: shard the cache sequence dim over dp when batch
+    # cannot fill it (SP); heads over tp when divisible
+    return {"k": P(None, "dp", "tp", None), "v": P(None, "dp", "tp", None)}
+
+
 def prefill_kv_cache(cfg, k: torch.Tensor, v: torch.Tensor, pad: int) -> Dict[str, torch.Tensor]:
     """A prompt's (B, s, Hkv, Dh) K/V as one layer's decode cache, padded by
     ``pad`` rows, with the leaves of ``init_kv_cache`` (quantized with 8
@@ -104,6 +128,81 @@ def prefill_kv_cache(cfg, k: torch.Tensor, v: torch.Tensor, pad: int) -> Dict[st
         return {"k": F.pad(kq, (0, 0, 0, 0, 0, pad)), "ks": F.pad(ks, (0, 0, 0, pad)),
                 "v": F.pad(vq, (0, 0, 0, 0, 0, pad)), "vs": F.pad(vs, (0, 0, 0, pad))}
     return {"k": F.pad(k, (0, 0, 0, 0, 0, pad)), "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
+
+
+def sp_decode_specs(batch: int, mesh) -> Tuple[P, P, P]:
+    """(q, K/V cache, kv_len) layouts of the sequence-parallel decode: the
+    cache sequence over "model"; the batch over the dp axes only when it
+    is at least 16, as in the reference."""
+    dp = mesh.dp_axes() if batch >= 16 else None
+    return P(dp, None, None), P(dp, "model", None, None), P(dp)
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` over a batch, the products accumulated and returned in f32
+    (the reference's ``preferred_element_type``).  On the card a bf16
+    operand is read as it is, with no f32 copy (a strided operand is read
+    in place); on the CPU it is widened first, which is exact."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _sp_decode_attention(q, k_cache, v_cache, kv_len, cfg, mesh) -> torch.Tensor:
+    """Distributed flash-decode (the reference's ``shard_map`` body) on this
+    rank's blocks of ``sp_decode_specs``: q (B_l, Hq, D), K/V (B_l, S/tp,
+    Hkv, D) and kv_len (B_l,).  Each rank computes a local streaming-softmax
+    partial (m, l, o) over its cache slice in plain torch, masked by
+    kv_len and the window, and the combine is one all-reduce MAX of m and
+    SUM of l * corr and o * corr over "model": the split-KV reduce across
+    ranks.  Products accumulate in f32 (the reference's
+    ``preferred_element_type``) one KV head at a time, reading the cache
+    slice in its own dtype; the probabilities are rounded to V's dtype
+    before the PV product, as the reference's are."""
+    import torch.distributed as dist
+
+    b, hq, d = q.shape
+    s_local, hkv = k_cache.shape[1], k_cache.shape[2]
+    n_rep = hq // hkv
+    group = mesh.group("model")
+    start = mesh.coordinate("model") * s_local
+    scale = 1.0 / float(d) ** 0.5
+    qk = q.reshape(b, hkv, n_rep, d).to(k_cache.dtype)
+    sm = torch.stack([_bmm_f32(qk[:, g], k_cache[:, :, g].transpose(1, 2))
+                      for g in range(hkv)], 1) * scale           # (B, g, r, S_l)
+    pos = start + torch.arange(s_local, device=q.device)[None, :]
+    kvl = kv_len.to(pos.dtype)[:, None]
+    ok = pos < kvl
+    if cfg.window is not None:
+        ok &= pos >= kvl - cfg.window
+    sm = torch.where(ok[:, None, None, :], sm, torch.full_like(sm, -1e30))
+    m_loc = sm.amax(-1)                                          # (B, g, r)
+    p = torch.exp(sm - m_loc[..., None])
+    l_loc = p.sum(-1)
+    pv = p.to(v_cache.dtype)
+    o_loc = torch.stack([_bmm_f32(pv[:, g], v_cache[:, :, g]) for g in range(hkv)], 1)
+    m_g = m_loc.clone()
+    dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=group)
+    corr = torch.exp(m_loc - m_g)
+    l_g = l_loc * corr
+    o_g = o_loc * corr[..., None]
+    dist.all_reduce(l_g, group=group)
+    dist.all_reduce(o_g, group=group)
+    out = o_g / torch.clamp(l_g, min=1e-30)[..., None]
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def _sp_write(cache: torch.Tensor, row: torch.Tensor, idx: torch.Tensor, mesh) -> torch.Tensor:
+    """Write one position's row into this rank's (B, S/tp, ...) slice: the
+    rank whose slice holds ``idx`` writes it there; every other rank writes
+    its own row back, at the clamped index (no host read of ``idx``)."""
+    s_local = cache.shape[1]
+    local = idx - mesh.coordinate("model") * s_local
+    at = torch.clamp(local, 0, s_local - 1)
+    mine = (local >= 0) & (local < s_local)
+    return cache.index_copy(1, at, torch.where(mine, row, cache.index_select(1, at)))
 
 
 def attn_decode_step(
@@ -132,11 +231,20 @@ def attn_decode_step(
             kv_len, window=cfg.window,
         )
         return dense(out.reshape(b, 1, -1), p["wo"]), new
-    k_cache = cache["k"].index_copy(1, idx, k)
-    v_cache = cache["v"].index_copy(1, idx, v)
-    out = decode_attention(
-        q.reshape(b, cfg.n_heads, cfg.d_head), k_cache, v_cache, kv_len,
-        window=cfg.window,
-    )
+    mesh = live_mesh()
+    if cfg.sp_decode and mesh is not None and "model" in mesh.axis_names:
+        # the cache is this rank's slice of a length tp divides
+        k_cache = _sp_write(cache["k"], k, idx, mesh)
+        v_cache = _sp_write(cache["v"], v, idx, mesh)
+        out = _sp_decode_attention(
+            q.reshape(b, cfg.n_heads, cfg.d_head), k_cache, v_cache, kv_len, cfg, mesh,
+        )
+    else:
+        k_cache = cache["k"].index_copy(1, idx, k)
+        v_cache = cache["v"].index_copy(1, idx, v)
+        out = decode_attention(
+            q.reshape(b, cfg.n_heads, cfg.d_head), k_cache, v_cache, kv_len,
+            window=cfg.window,
+        )
     out = dense(out.reshape(b, 1, -1), p["wo"])
     return out, {"k": k_cache, "v": v_cache}

@@ -4,6 +4,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Sequence, Union
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 
 def dense_init(
@@ -21,7 +22,8 @@ def dense_init(
         out_dims = (out_dims,)
     shape = (*((layers,) if layers else ()), in_dim, *out_dims)
     w = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    if not is_fake(w):  # a shape-only init (models/registry.py) draws nothing
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (w * in_dim ** -0.5).to(dtype)
 
 

@@ -1,5 +1,5 @@
 """Mamba2 block (selective state-space duality) built on the SSD scan kernel,
-the single-device part of ``repro.layers.mamba2``.
+with its partition specs (``repro.layers.mamba2``).
 
 Block: in_proj -> (z | xBC | dt), short causal depthwise conv over xBC,
 SiLU, SSD scan over (x, dt, A, B, C), gated RMSNorm, out_proj.
@@ -18,6 +18,7 @@ from typing import Any, Dict, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import PartitionSpec as P
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_step
 from repro_torch.layers.common import dense, dense_init
@@ -65,6 +66,19 @@ def mamba2_init(
         "dt_bias": const(torch.full((nh,), -2.0, device=dev)),
         "norm": const(torch.ones((di,), dtype=dtype, device=dev)),
         "out_proj": proj(di, d),
+    }
+
+
+def mamba2_specs(cfg) -> Dict[str, P]:
+    return {
+        "in_proj": P(None, "tp"),
+        "conv_w": P(None, "tp"),
+        "conv_b": P("tp"),
+        "A_log": P(None),
+        "D": P(None),
+        "dt_bias": P(None),
+        "norm": P("tp"),
+        "out_proj": P("tp", None),
     }
 
 
@@ -127,6 +141,10 @@ def init_mamba2_state(cfg, batch: int, dtype, device) -> Dict[str, torch.Tensor]
             (batch, nh, cfg.ssm_state, cfg.ssm_head_dim), dtype=torch.float32, device=device
         ),
     }
+
+
+def mamba2_state_specs(cfg) -> Dict[str, P]:
+    return {"conv": P("dp", None, "tp"), "ssm": P("dp", "tp", None, None)}
 
 
 def mamba2_decode_step(

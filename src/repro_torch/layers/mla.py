@@ -1,5 +1,5 @@
-"""Multi-head Latent Attention (MLA, DeepSeek-V2 / MiniCPM3), the
-single-device part of ``repro.layers.mla``.
+"""Multi-head Latent Attention (MLA, DeepSeek-V2 / MiniCPM3), with its
+partition specs (``repro.layers.mla``).
 
 KV is compressed into a low-rank latent c_kv (kv_lora) plus one shared RoPE
 key head; the decode cache stores only (c_kv, k_rope), ~(kv_lora + rope) per
@@ -20,6 +20,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import PartitionSpec as P
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.layers.common import dense, dense_init
@@ -41,6 +42,18 @@ def mla_init(gen: torch.Generator, cfg, dtype, layers: int) -> Dict[str, torch.T
         "wkv_b": dense_init(gen, cfg.kv_lora, h * (cfg.nope_head_dim + cfg.v_head_dim), dtype,
                             layers=layers),
         "wo": dense_init(gen, h * cfg.v_head_dim, d, dtype, layers=layers),
+    }
+
+
+def mla_specs(cfg) -> Dict[str, P]:
+    return {
+        "wq_a": P(None, None),
+        "q_a_norm": P(None),
+        "wq_b": P(None, "tp"),
+        "wkv_a": P(None, None),
+        "kv_a_norm": P(None),
+        "wkv_b": P(None, "tp"),
+        "wo": P("tp", None),
     }
 
 
@@ -99,6 +112,10 @@ def init_mla_cache(cfg, batch: int, max_seq: int, dtype, device) -> Dict[str, to
         "c_kv": torch.zeros((batch, max_seq, cfg.kv_lora), dtype=dtype, device=device),
         "k_rope": torch.zeros((batch, max_seq, cfg.rope_head_dim), dtype=dtype, device=device),
     }
+
+
+def mla_cache_specs(cfg) -> Dict[str, P]:
+    return {"c_kv": P(None, "dp", None), "k_rope": P(None, "dp", None)}
 
 
 def mla_decode_step(

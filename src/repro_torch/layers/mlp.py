@@ -6,6 +6,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import PartitionSpec as P
 from repro_torch.layers.common import dense, dense_init
 
 
@@ -16,6 +17,14 @@ def mlp_init(
         "w_gate": dense_init(gen, d_model, d_ff, dtype, layers=layers),
         "w_up": dense_init(gen, d_model, d_ff, dtype, layers=layers),
         "w_down": dense_init(gen, d_ff, d_model, dtype, layers=layers),
+    }
+
+
+def mlp_specs() -> Dict[str, P]:
+    return {
+        "w_gate": P(None, "tp"),
+        "w_up": P(None, "tp"),
+        "w_down": P("tp", None),
     }
 
 

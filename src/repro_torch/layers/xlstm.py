@@ -1,4 +1,4 @@
-"""xLSTM blocks, the single-device part of ``repro.layers.xlstm``: mLSTM
+"""xLSTM blocks and their partition specs (``repro.layers.xlstm``): mLSTM
 (matrix memory, chunkwise-parallel through the gated-scan kernel) and sLSTM
 (scalar memory, recurrent over time).
 
@@ -27,6 +27,7 @@ from typing import Any, Dict, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import PartitionSpec as P
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.ssm_scan import gated_scan, gated_step
 from repro_torch.layers.common import dense, dense_init
@@ -76,6 +77,18 @@ def mlstm_init(gen: torch.Generator, cfg, dtype, lead: Sequence[int] = ()) -> Di
     }
 
 
+def mlstm_specs(cfg) -> Dict[str, P]:
+    return {
+        "up_proj": P(None, "tp"),
+        "wq": P(None, None, "tp"),
+        "wk": P(None, None, "tp"),
+        "wv": P(None, None, "tp"),
+        "w_gates": P(None, None),
+        "norm": P("tp"),
+        "down_proj": P("tp", None),
+    }
+
+
 def _mlstm_qkvg(p, x: torch.Tensor, cfg):
     b, s, _ = x.shape
     di, nh, dh = _mdims(cfg)
@@ -122,6 +135,14 @@ def init_mlstm_state(cfg, batch: int, device) -> torch.Tensor:
     return torch.zeros((batch, nh, dh, dh + 1), dtype=torch.float32, device=device)
 
 
+def mlstm_state_specs(cfg, batch: int = 0, dp_size: int = 16) -> P:
+    # matrix memory (B, NH, DH, DH+1): shard batch when it fills dp, else the
+    # key dim; head counts are small (4) so never sharded over tp=16
+    if batch >= dp_size:
+        return P("dp", None, "tp", None)
+    return P(None, None, "tp", None)
+
+
 def mlstm_decode_step(
     p: Dict[str, Any], x: torch.Tensor, state: torch.Tensor, cfg
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -152,6 +173,16 @@ def slstm_init(gen: torch.Generator, cfg, dtype, lead: Sequence[int] = ()) -> Di
         "norm": torch.ones((*lead, d), dtype=dtype, device=gen.device),
         "up_proj": _stacked(gen, d, 2 * cfg.slstm_ff, dtype, lead),
         "down_proj": _stacked(gen, cfg.slstm_ff, d, dtype, lead),
+    }
+
+
+def slstm_specs(cfg) -> Dict[str, P]:
+    return {
+        "w_in": P(None, "tp"),
+        "r": P("tp", None, None),
+        "norm": P(None),
+        "up_proj": P(None, "tp"),
+        "down_proj": P("tp", None),
     }
 
 
@@ -206,6 +237,11 @@ def init_slstm_state(cfg, batch: int, device) -> Tuple[torch.Tensor, ...]:
     shape = (batch, nh, cfg.d_model // nh)
     z = [torch.zeros(shape, dtype=torch.float32, device=device) for _ in range(3)]
     return (*z, torch.full(shape, M_INIT, dtype=torch.float32, device=device))
+
+
+def slstm_state_specs(cfg, batch: int = 0, dp_size: int = 16) -> Tuple[P, ...]:
+    z = P("dp" if batch >= dp_size else None, None, None)
+    return (z, z, z, z)
 
 
 def slstm_decode_step(

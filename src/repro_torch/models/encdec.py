@@ -1,5 +1,5 @@
 """Whisper-style encoder-decoder (arXiv:2212.04356), transformer backbone
-only, the single-device part of ``repro.models.encdec``: the conv audio
+only (``repro.models.encdec``, its partition specs too): the conv audio
 frontend is a stub, so the caller feeds precomputed frame embeddings
 (B, enc_seq, D).
 
@@ -18,11 +18,13 @@ loops here, so a traced step holds every layer's operators.
 
 API (as ``models/lm.py``):
     init_params(cfg, seed, device)             -> params dict
+    param_specs(cfg)                           -> same-structure PartitionSpec dict
     encode(params, frames, cfg)                -> (B, enc_seq, D)
     forward(params, batch, cfg, remat=, return_hidden=) -> logits or hidden
     head_weights(params, cfg)                  -> the LM head
     loss_fn(params, batch, cfg, remat=)        -> mean next-token NLL
     init_cache(cfg, batch, max_seq, device)    -> decode cache dict
+    cache_specs(cfg, batch, dp_size)           -> PartitionSpec dict of the cache
     prefill(params, batch, cfg, max_seq)       -> (last logits, cache)
     decode_step(params, token, cache, pos, cfg) -> (logits, cache)
 """
@@ -35,6 +37,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import PartitionSpec as P
+from repro_torch.distributed.sharding import tree_map_specs
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
@@ -42,6 +46,7 @@ from repro_torch.layers.attention import (
     attn_decode_step,
     attn_forward,
     attn_init,
+    attn_specs,
     init_kv_cache,
     prefill_kv_cache,
 )
@@ -52,8 +57,8 @@ from repro_torch.layers.common import (
     layer_slice,
     stack_layers,
 )
-from repro_torch.layers.mlp import mlp_apply, mlp_init
-from repro_torch.models.lm import next_token_nll
+from repro_torch.layers.mlp import mlp_apply, mlp_init, mlp_specs
+from repro_torch.models.lm import kv_spec, next_token_nll
 
 # the self cache holds a row per position of the bucket
 CACHE_PER_POSITION = True
@@ -180,6 +185,27 @@ def encode(params, frames: torch.Tensor, cfg: ArchConfig, *, remat: bool = False
     return rmsnorm(h, params["enc_norm"], eps=cfg.norm_eps)
 
 
+def cross_attn_specs() -> Dict[str, P]:
+    return {"wq": P(None, "tp"), "wk": P(None, "tp"), "wv": P(None, "tp"), "wo": P("tp", None)}
+
+
+def param_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    enc = {"attn_norm": P(None), "attn": attn_specs(cfg), "mlp_norm": P(None),
+           "mlp": mlp_specs()}
+    dec = {"self_norm": P(None), "self_attn": attn_specs(cfg), "cross_norm": P(None),
+           "cross_attn": cross_attn_specs(), "mlp_norm": P(None), "mlp": mlp_specs()}
+    return {
+        "embed": P("tp", None),
+        "enc_pos": P(None, None),
+        "dec_pos": P(None, None),
+        "encoder": tree_map_specs(lambda s: P(None, *s), enc),
+        "decoder": tree_map_specs(lambda s: P(None, *s), dec),
+        "enc_norm": P(None),
+        "final_norm": P(None),
+        "lm_head": P(None, "tp"),
+    }
+
+
 def _logits(params, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     h = rmsnorm(h, params["final_norm"], eps=cfg.norm_eps)
     return dense(h, params["lm_head"]).float()
@@ -228,6 +254,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device: Any = "cuda"):
                   "v": torch.zeros(cross, dtype=dtype, device=dev)},
         "self": {k: t[None].expand(n, *t.shape).contiguous() for k, t in self_kv.items()},
     }
+
+
+def cache_specs(cfg: ArchConfig, batch: int, dp_size: int = 16) -> Dict[str, Any]:
+    spec = kv_spec(cfg, batch, dp_size)
+    return {"cross": {"k": spec, "v": spec}, "self": {"k": spec, "v": spec}}
 
 
 def prefill(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, max_seq: int):

@@ -1,7 +1,7 @@
 """Zamba2-style hybrid LM: a Mamba2 backbone with ONE shared attention+MLP
 block applied every ``attn_every`` Mamba blocks (the Zamba2 weight-sharing
-pattern, arXiv:2411.15242), the single-device part of
-``repro.models.hybrid``.
+pattern, arXiv:2411.15242), ``repro.models.hybrid`` with its partition
+specs.
 
 The Mamba layers come in ``n_layers // attn_every`` full groups, each
 followed by the shared block (one parameter set, reused at every site);
@@ -15,10 +15,12 @@ every layer's operators.
 
 API (as ``models/lm.py``):
     init_params(cfg, seed, device)             -> params dict
+    param_specs(cfg)                           -> same-structure PartitionSpec dict
     forward(params, batch, cfg, remat=, return_hidden=) -> logits (or hidden)
     head_weights(params, cfg)                  -> the LM head
     loss_fn(params, batch, cfg)                -> mean next-token NLL
     init_cache(cfg, batch, max_seq, device)    -> decode cache dict
+    cache_specs(cfg, batch, dp_size)           -> PartitionSpec dict of the cache
     prefill(params, batch, cfg, max_seq)       -> (last logits, cache)
     decode_step(params, token, cache, pos, cfg) -> (logits, cache)
 """
@@ -31,11 +33,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import PartitionSpec as P
+from repro_torch.distributed.sharding import tree_map_specs
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.layers.attention import (
     attn_decode_step,
     attn_forward,
     attn_init,
+    attn_specs,
     init_kv_cache,
     prefill_kv_cache,
 )
@@ -51,9 +56,11 @@ from repro_torch.layers.mamba2 import (
     mamba2_decode_step,
     mamba2_forward,
     mamba2_init,
+    mamba2_specs,
+    mamba2_state_specs,
 )
-from repro_torch.layers.mlp import mlp_apply, mlp_init
-from repro_torch.models.lm import next_token_nll
+from repro_torch.layers.mlp import mlp_apply, mlp_init, mlp_specs
+from repro_torch.models.lm import kv_spec, next_token_nll
 
 # the shared block's KV caches hold a row per position of the bucket
 CACHE_PER_POSITION = True
@@ -98,6 +105,37 @@ def init_params(cfg: ArchConfig, seed: int = 0, device: Any = "cuda") -> Dict[st
     if n_rest:
         p["mamba_tail"] = _mamba_layers(gen, cfg, dtype, (n_rest,))
     return p
+
+
+def param_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    n_full, n_rest = _groups(cfg)
+    layer = {"norm": P(None), "mamba": mamba2_specs(cfg)}
+    specs = {
+        "embed": P("tp", None),
+        "mamba_groups": tree_map_specs(lambda s: P(None, None, *s), layer),
+        "shared_attn_norm": P(None),
+        "shared_attn": attn_specs(cfg),
+        "shared_mlp_norm": P(None),
+        "shared_mlp": mlp_specs(),
+        "final_norm": P(None),
+        "lm_head": P(None, "tp"),
+    }
+    if n_rest:
+        specs["mamba_tail"] = tree_map_specs(lambda s: P(None, *s), layer)
+    return specs
+
+
+def cache_specs(cfg: ArchConfig, batch: int, dp_size: int = 16) -> Dict[str, Any]:
+    n_full, n_rest = _groups(cfg)
+    st = mamba2_state_specs(cfg)
+    spec = kv_spec(cfg, batch, dp_size)
+    specs = {
+        "mamba_groups": tree_map_specs(lambda s: P(None, None, *s), st),
+        "shared_kv": {"k": spec, "v": spec},
+    }
+    if n_rest:
+        specs["mamba_tail"] = tree_map_specs(lambda s: P(None, *s), st)
+    return specs
 
 
 def head_weights(params, cfg: ArchConfig) -> torch.Tensor:

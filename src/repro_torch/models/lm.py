@@ -1,7 +1,7 @@
 """Decoder-only LM (the qwen3 family, minicpm3's MLA attention, the MoE
 family: mixtral-8x7b, llama4-maverick, and the llava VLM, whose stubbed
 vision tower's ``num_patches`` patch embeddings are prepended to the text):
-the single-device part of ``repro.models.lm``.
+``repro.models.lm``, with its partition specs.
 
 Layers are grouped into super-blocks of ``moe_every`` layers (dense layers,
 then one MoE layer; one layer when ``moe_every == 1``), so an interleaved
@@ -20,9 +20,11 @@ is a Python loop, so a traced step holds every layer's operators.
 
 API:
     init_params(cfg, seed, device)             -> params dict
+    param_specs(cfg)                           -> same-structure PartitionSpec dict
     forward(params, batch, cfg, remat=, return_hidden=) -> logits or hidden
     loss_fn(params, batch, cfg, remat=)        -> mean next-token NLL
     init_cache(cfg, batch, max_seq, device)    -> decode cache dict
+    cache_specs(cfg, batch, dp_size)           -> PartitionSpec dict of the cache
     prefill(params, batch, cfg, max_seq)       -> (last logits, cache)
     decode_step(params, token, cache, pos, cfg) -> (logits, cache)
 """
@@ -36,11 +38,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import PartitionSpec as P
+from repro_torch.distributed.sharding import tree_map_specs
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.layers.attention import (
     attn_decode_step,
     attn_forward,
     attn_init,
+    attn_specs,
     init_kv_cache,
     prefill_kv_cache,
 )
@@ -51,9 +56,15 @@ from repro_torch.layers.common import (
     layer_slice,
     stack_layers,
 )
-from repro_torch.layers.mla import init_mla_cache, mla_decode_step, mla_forward, mla_init
-from repro_torch.layers.mlp import mlp_apply, mlp_init
-from repro_torch.layers.moe import moe_apply, moe_init
+from repro_torch.layers.mla import (
+    init_mla_cache,
+    mla_decode_step,
+    mla_forward,
+    mla_init,
+    mla_specs,
+)
+from repro_torch.layers.mlp import mlp_apply, mlp_init, mlp_specs
+from repro_torch.layers.moe import moe_apply, moe_init, moe_specs
 
 # the decode cache holds a row per position of the bucket (the serving engine
 # checks a generation against it)
@@ -119,6 +130,23 @@ def init_params(cfg: ArchConfig, seed: int = 0, device: Any = "cuda") -> Dict[st
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab, dtype)
     return p
+
+
+def param_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    """The reference's layout of every parameter, with the super-block
+    axis (unsharded) in front of every block leaf."""
+    blocks = {}
+    for sub, moe in _subs(cfg):
+        blocks[sub] = tree_map_specs(lambda s: P(None, *s), {
+            "attn_norm": P(None),
+            "mlp_norm": P(None),
+            "attn": mla_specs(cfg) if _mla(cfg) else attn_specs(cfg),
+            "ffn": moe_specs(cfg) if moe else mlp_specs(),
+        })
+    specs = {"embed": P("tp", None), "blocks": blocks, "final_norm": P(None)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P(None, "tp")
+    return specs
 
 
 def head_weights(params, cfg: ArchConfig) -> torch.Tensor:
@@ -201,6 +229,36 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device: Any = "cuda"):
         cache[sub] = {name: leaf[None].expand(n, *leaf.shape).contiguous()
                       for name, leaf in one.items()}
     return cache
+
+
+def kv_spec(cfg: ArchConfig, batch: int, dp_size: int, tp_size: int = 16) -> P:
+    """KV cache (L, B, S, Hkv, Dh): batch over dp when it fills the axis,
+    else sequence over dp (SP); heads over tp when divisible, else sequence
+    over tp (sequence-parallel decode with partial-softmax combine)."""
+    b_ax = "dp" if batch >= dp_size else None
+    s_axes = [] if batch >= dp_size else ["dp"]
+    h_ax = "tp" if cfg.n_kv_heads % tp_size == 0 else None
+    if h_ax is None:
+        s_axes.append("tp")
+    s_ax = tuple(s_axes) if len(s_axes) > 1 else (s_axes[0] if s_axes else None)
+    return P(None, b_ax, s_ax, h_ax, None)
+
+
+def cache_specs(cfg: ArchConfig, batch: int, dp_size: int = 16) -> Dict[str, Any]:
+    """Shard batch over dp when it fills the axis, else sequence (SP); the
+    leaves in the cache's own order."""
+    if _mla(cfg):
+        # latent cache (L, B, S, C): latent dim over tp, batch/seq over dp
+        b_ax = "dp" if batch >= dp_size else None
+        s_ax = None if batch >= dp_size else "dp"
+        one = {"c_kv": P(None, b_ax, s_ax, "tp"), "k_rope": P(None, b_ax, s_ax, "tp")}
+    else:
+        spec = kv_spec(cfg, batch, dp_size)
+        one = {"k": spec, "v": spec}
+        if cfg.kv_cache_bits == 8:
+            scale_spec = P(*spec[:-1])
+            one = {"k": spec, "ks": scale_spec, "v": spec, "vs": scale_spec}
+    return {sub: dict(one) for sub, _ in _subs(cfg)}
 
 
 def prefill(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, max_seq: int):

@@ -1,5 +1,5 @@
-"""xLSTM LM (arXiv:2405.04517), the single-device part of
-``repro.models.xlstm_lm``: mLSTM blocks with an sLSTM block every
+"""xLSTM LM (arXiv:2405.04517), ``repro.models.xlstm_lm`` with its
+partition specs: mLSTM blocks with an sLSTM block every
 ``slstm_every`` positions (the paper's [7:1] ratio at 1.3B).  The mLSTM runs
 through the chunkwise gated-scan kernel; sLSTM loops over time.
 
@@ -16,10 +16,12 @@ contiguous tensor, since the served app carries it.
 
 API (as ``models/lm.py``):
     init_params(cfg, seed, device)             -> params dict
+    param_specs(cfg)                           -> same-structure PartitionSpec dict
     forward(params, batch, cfg, remat=, return_hidden=) -> logits (or hidden)
     head_weights(params, cfg)                  -> the LM head
     loss_fn(params, batch, cfg)                -> mean next-token NLL
     init_cache(cfg, batch, max_seq, device)    -> decode cache dict
+    cache_specs(cfg, batch, dp_size)           -> PartitionSpec dict of the cache
     prefill(params, batch, cfg, max_seq)       -> (last logits, cache)
     decode_step(params, token, cache, pos, cfg) -> (logits, cache)
 """
@@ -32,6 +34,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import PartitionSpec as P
+from repro_torch.distributed.sharding import tree_map_specs
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.layers.common import dense, dense_init, layer_params
 from repro_torch.layers.xlstm import (
@@ -40,9 +44,13 @@ from repro_torch.layers.xlstm import (
     mlstm_decode_step,
     mlstm_forward,
     mlstm_init,
+    mlstm_specs,
+    mlstm_state_specs,
     slstm_decode_step,
     slstm_forward,
     slstm_init,
+    slstm_specs,
+    slstm_state_specs,
 )
 from repro_torch.models.lm import next_token_nll
 
@@ -87,6 +95,32 @@ def init_params(cfg: ArchConfig, seed: int = 0, device: Any = "cuda") -> Dict[st
     if tail:
         p["m_tail"] = m_layers((tail,))
     return p
+
+
+def param_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    ng, m_per, tail = _groups(cfg)
+    m_layer = {"norm": P(None), "mlstm": mlstm_specs(cfg)}
+    specs = {
+        "embed": P("tp", None),
+        "m_groups": tree_map_specs(lambda s: P(None, None, *s), m_layer),
+        "s_blocks": tree_map_specs(lambda s: P(None, *s),
+                                   {"norm": P(None), "slstm": slstm_specs(cfg)}),
+        "final_norm": P(None),
+        "lm_head": P(None, "tp"),
+    }
+    if tail:
+        specs["m_tail"] = tree_map_specs(lambda s: P(None, *s), m_layer)
+    return specs
+
+
+def cache_specs(cfg: ArchConfig, batch: int, dp_size: int = 16) -> Dict[str, Any]:
+    ng, m_per, tail = _groups(cfg)
+    m = mlstm_state_specs(cfg, batch, dp_size)
+    s = slstm_state_specs(cfg, batch, dp_size)
+    specs = {"m_groups": P(None, None, *m), "s_blocks": tree_map_specs(lambda x: P(None, *x), s)}
+    if tail:
+        specs["m_tail"] = P(None, *m)
+    return specs
 
 
 def head_weights(params, cfg: ArchConfig) -> torch.Tensor:

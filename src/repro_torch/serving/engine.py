@@ -113,6 +113,7 @@ class RRTOServedLM:
         cfg: ArchConfig,
         *,
         system: str = "rrto",
+        environment: str = "indoor",
         bucket_len: int = 64,
         batch: int = 1,
         seed: int = 0,
@@ -185,7 +186,8 @@ class RRTOServedLM:
             )
         else:
             self.session = OffloadSession(
-                offloadable, system, min_repeats=min_repeats, device=dev, partition=partition
+                offloadable, system, environment=environment, min_repeats=min_repeats,
+                device=dev, partition=partition,
             )
 
     # -- generation ---------------------------------------------------------

@@ -5,14 +5,17 @@ the f32 step, decoupled weight decay, the update cast back to the param
 dtype.  The moments and the parameters are updated in place (one f32
 moment pair beside a model's weights is already 8 bytes a parameter), and
 the leaves are returned, so a caller reads the new values either way.
-The reference's ZeRO-1 ``opt_state_specs`` belongs to the sharded trainer
-(ROADMAP A11)."""
+``opt_state_specs`` gives the state's ZeRO-1 layout: the moments take the
+param spec plus a "dp" shard on their first divisible unsharded dim."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, List, Tuple
 
 import torch
+
+from repro_torch.distributed.sharding import PartitionSpec as P
+from repro_torch.distributed.sharding import zero1_spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +56,19 @@ def init_opt_state(params: Dict[str, Any]) -> Dict[str, Any]:
         "v": tree_map(zeros, params),
         "step": torch.zeros((), dtype=torch.int32, device=step_dev),
     }
+
+
+def opt_state_specs(param_specs_tree, params_shape, dp_axis_size: int = 16) -> Dict[str, Any]:
+    """m/v inherit the param spec plus a ZeRO-1 dp shard; step is replicated.
+    ``params_shape`` has the specs' structure, with anything that has a
+    ``shape`` at its leaves (``models.registry.params_shape``' meta tensors)."""
+    def one(spec, shape):
+        if isinstance(spec, dict):
+            return {k: one(spec[k], shape[k]) for k in spec}
+        return zero1_spec(spec, tuple(shape.shape), dp_axis_size)
+
+    mv = one(param_specs_tree, params_shape)
+    return {"m": mv, "v": mv, "step": P()}
 
 
 def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
