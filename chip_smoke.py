@@ -177,6 +177,17 @@ random weights from a seed:
   printed); (c) ``restore(shardings=)`` of a qwen3-0.6b
   parameter checkpoint onto the mesh, bitwise the saved tree; the group is
   destroyed before the phase ends.
+* the dry run held against the card (phase 20): the second process, once
+  phase 19 is done, traces with ``repro_torch.launch.dryrun`` on ``cuda``
+  (fake tensors: nothing allocated) the steps of 15c with and without
+  remat, 15e with and without, 15g, and one qwen3-0.6b ``decode_step`` at
+  phase 3's served shape; after phase 15 the main process runs that
+  decode step once, and each trace's launches a step must equal the
+  card's exactly, and its predicted peak (the step run on fake tensors
+  with eager lifetimes, the arguments live throughout, plus what was
+  allocated before the step) must lie within 2% of
+  ``torch.cuda.max_memory_allocated()``; the largest buffers at the
+  predicted peaks of 15e and 15g are printed.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after (every batched call under ``no_vmap_fallback``, so an op
@@ -4877,6 +4888,7 @@ def phase_train_full(library, dev, by_path) -> dict:
         torch.cuda.empty_cache()
         print(f"[15c] allocated before the fixed batch: {held / 1e9:.2f} GB, "
               f"{torch.cuda.memory_allocated() / 1e9:.2f} GB after gc.collect()")
+        base = torch.cuda.memory_allocated()      # no argument of the step is made yet
         torch.cuda.reset_peak_memory_stats()
         (params, opt, losses, secs), launches = run_path(
             library, "phase 15c qwen3-0.6b fixed batch", TRAIN_KERNELS,
@@ -4886,6 +4898,7 @@ def phase_train_full(library, dev, by_path) -> dict:
         check(all(b < a for a, b in zip(losses, losses[1:])),
               f"15c: the loss did not fall at every step: {losses}")
         per_step = {k: n / FIXED_STEPS for k, n in launches.items() if n}
+        out["measured"] = {"15c": dict(launches=per_step, peak=peak, other=base)}
         remat_step = make_train_step(cfg, opt_cfg, remat=True)
         out["profile"] = profile_train_step(lambda: remat_step(params, opt, nb))
 
@@ -4899,11 +4912,15 @@ def phase_train_full(library, dev, by_path) -> dict:
                 secs.append(time.perf_counter() - t0)
             return secs
 
+        nr_base = torch.cuda.memory_allocated() - tensor_bytes(params, opt)
         torch.cuda.reset_peak_memory_stats()
         nr_secs, nr_launches = run_path(library, "phase 15c qwen3-0.6b fixed batch, no remat",
                                         TRAIN_KERNELS, no_remat)
         by_path["phase 15c qwen3-0.6b fixed batch, no remat"] = nr_launches
         nr_peak = torch.cuda.max_memory_allocated()
+        out["measured"]["15c no remat"] = dict(
+            launches={k: n / NO_REMAT_STEPS for k, n in nr_launches.items() if n},
+            peak=nr_peak, other=nr_base)
         step_s = float(np.median(secs[1:]))
         nr_step_s = float(np.median(nr_secs[1:]))
         tokens = batch * seq
@@ -4969,6 +4986,7 @@ def phase_train_zamba(library, dev, by_path) -> dict:
         torch.cuda.empty_cache()
         nb = synth_batch(cfg, ShapeConfig("fixed", seq, batch, "train"), 0, DataConfig())
         opt_cfg = AdamWConfig(lr=FIXED_LR, warmup_steps=1)
+        base = torch.cuda.memory_allocated()      # no argument of the step is made yet
         torch.cuda.reset_peak_memory_stats()
         (params, opt, losses, secs), launches = run_path(
             library, "phase 15e zamba2-1.2b fixed batch", Z_TRAIN_KERNELS,
@@ -4978,6 +4996,7 @@ def phase_train_zamba(library, dev, by_path) -> dict:
         check(all(np.isfinite(v) for v in losses) and all(b < a for a, b in zip(losses, losses[1:])),
               f"15e: the fixed batch's loss did not fall at every step: {losses}")
         per_step = {k: n / Z_FIXED_STEPS for k, n in launches.items() if n}
+        out["measured"] = {"15e": dict(launches=per_step, peak=peak, other=base)}
         remat_step = make_train_step(cfg, opt_cfg, remat=True)
         out["profile"] = profile_train_step(lambda: remat_step(params, opt, nb), "15e")
 
@@ -4993,11 +5012,15 @@ def phase_train_zamba(library, dev, by_path) -> dict:
 
         gc.collect()
         torch.cuda.empty_cache()
+        nr_base = torch.cuda.memory_allocated() - tensor_bytes(params, opt)
         torch.cuda.reset_peak_memory_stats()
         nr_secs, nr_launches = run_path(library, "phase 15e zamba2-1.2b fixed batch, no remat",
                                         Z_TRAIN_KERNELS, no_remat)
         by_path["phase 15e zamba2-1.2b fixed batch, no remat"] = nr_launches
         nr_peak = torch.cuda.max_memory_allocated()
+        out["measured"]["15e no remat"] = dict(
+            launches={k: n / Z_NO_REMAT_STEPS for k, n in nr_launches.items() if n},
+            peak=nr_peak, other=nr_base)
     step_s, nr_step_s = float(np.median(secs[1:])), float(np.median(nr_secs[1:]))
     tokens = batch * seq
     flops = train_flops(cfg, params, tokens, batch, seq,
@@ -6003,7 +6026,7 @@ def moe_train_flops(cfg, params, batch: int, seq: int) -> tuple:
     return routed, static, rows
 
 
-def phase_train_mixtral(library, dev, by_path) -> None:
+def phase_train_mixtral(library, dev, by_path) -> dict:
     """Phase 15g: mixtral-8x7b at full width (d_model 4096, 8 experts of
     d_ff 14336, top-2, 32 query heads on 8 KV heads) and ``MIX_TRAIN_LAYERS``
     of its 32 layers, bf16, ``MIX_TRAIN_STEPS`` steps with ``remat`` on one
@@ -6012,7 +6035,8 @@ def phase_train_mixtral(library, dev, by_path) -> None:
     peak against two bounds at 989 TFLOP/s (the experts top-2 routing
     needs, and the static dispatch's E x C rows); the flash and rmsnorm
     backward launches by shape.  No checkpoint (the state is 35+ GB).  The
-    plain versions are barred from CUDA tensors."""
+    plain versions are barred from CUDA tensors.  Returns the launches a
+    step, the peak and the bytes allocated before the run for phase 20."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.training.data import DataConfig, synth_batch
@@ -6024,6 +6048,7 @@ def phase_train_mixtral(library, dev, by_path) -> None:
     label = f"phase 15g mixtral-8x7b ({cfg.n_layers} layers) fixed batch"
     gc.collect()
     torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()          # no argument of the step is made yet
     torch.cuda.reset_peak_memory_stats()
     with PlainOnCard(), FlashBackwardShapes() as fb, RmsnormBackwardShapes() as rb:
         (params, _, losses, secs), by_path[label] = run_path(
@@ -6062,6 +6087,156 @@ def phase_train_mixtral(library, dev, by_path) -> None:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    return {"15g": dict(launches={k: n / steps for k, n in by_path[label].items() if n},
+                        peak=peak, other=base)}
+
+
+def tensor_bytes(*trees) -> int:
+    """Bytes of the distinct storages under the tensor leaves of nested
+    dicts, tuples and lists."""
+    seen = {}
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            st = x.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                walk(v)
+
+    for t in trees:
+        walk(t)
+    return sum(seen.values())
+
+
+# phase 20: the dry run's trace of each step, held against the step on the
+# card (15c with and without remat, 15e with and without, 15g, and one
+# qwen3-0.6b decode step at phase 3's served shape)
+DRYRUN_FILE = "phase20_predictions.json"      # in BESIDE_DIR
+# predicted peak against the measured one: the eager-lifetime model read
+# within 0.01% on all six steps, a walk freeing each buffer after its last
+# reader 15-17.5% low on four of them (PERF.md)
+DRYRUN_PEAK_TOL = 0.02
+DRYRUN_TOP = ("15e", "15e no remat", "15g")    # their largest buffers printed
+
+
+def dryrun_steps():
+    """(key, arch, config overrides, shape, remat) of each step phase 20
+    predicts, at the shapes phases 3 and 15 run them."""
+    from repro_torch.configs.base import ShapeConfig
+
+    train = ShapeConfig("fixed", 512, 4, "train")
+    mix = ShapeConfig("fixed", MIX_TRAIN_SEQ, MIX_TRAIN_BATCH, "train")
+    return [
+        ("15c", "qwen3-0.6b", {}, train, True),
+        ("15c no remat", "qwen3-0.6b", {}, train, False),
+        ("15e", "zamba2-1.2b", {}, train, True),
+        ("15e no remat", "zamba2-1.2b", {}, train, False),
+        ("15g", "mixtral-8x7b", {"n_layers": MIX_TRAIN_LAYERS}, mix, True),
+        ("decode", "qwen3-0.6b", {}, ShapeConfig("served", BUCKET, 1, "decode"), True),
+    ]
+
+
+def phase_dryrun_traces(device: str = "cuda") -> dict:
+    """Phase 20, host side (in the second process: it allocates nothing on
+    the card): ``repro_torch.launch.dryrun``'s whole-program trace of each
+    step of ``dryrun_steps`` on ``device``, its launches by kernel and its
+    eager-lifetime peak with the largest buffers there, written to
+    ``DRYRUN_FILE`` for the main process."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    out = {}
+    t_all = time.perf_counter()
+    for key, arch, kw, shape, remat in dryrun_steps():
+        cfg = dataclasses.replace(get_config(arch), **kw)
+        whole, _ = dryrun.trace_cell(cfg, shape, device, remat=remat)
+        cost, live = whole["cost"], whole["liveness"]
+        out[key] = dict(launches=cost["launches"], n_nodes=cost["n_nodes"],
+                        trace_s=whole["trace_seconds"], analysis_s=whole["analysis_seconds"],
+                        peak=live["peak_bytes"], peak_op=live["peak_op"],
+                        top=live["top_buffers"], argument_bytes=live["argument_bytes"])
+        print(f"[phase 20] traced {key} ({arch} {kw or ''} {shape.global_batch} x "
+              f"{shape.seq_len} {shape.kind}{'' if remat or shape.kind != 'train' else ', no remat'}) "
+              f"on {device}: {cost['n_nodes']} nodes in {whole['trace_seconds']:.1f} s, analysis "
+              f"{whole['analysis_seconds']:.1f} s; launches {cost['launches']}; peak "
+              f"{live['peak_bytes'] / 1e9:.3f} GB, arguments {live['argument_bytes'] / 1e9:.3f} GB",
+              flush=True)
+    with open(os.path.join(BESIDE_DIR, DRYRUN_FILE), "w") as f:
+        json.dump(out, f)
+    print(f"[phase 20] traces: {time.perf_counter() - t_all:.1f} s")
+    return out
+
+
+def measure_decode_step(library, dev, by_path) -> dict:
+    """One qwen3-0.6b ``decode_step`` at phase 3's served shape (batch 1, a
+    cache of ``BUCKET``), after a first call that builds, with the launch
+    counts and the peak read around it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = get_config("qwen3-0.6b")
+    params = lm.init_params(cfg, 0, dev)
+    cache = lm.init_cache(cfg, 1, BUCKET, dev)
+    tok = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    pos = torch.tensor(PROMPT_LEN, dtype=torch.int32, device=dev)
+    lm.decode_step(params, tok, cache, pos, cfg)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    other = torch.cuda.memory_allocated() - tensor_bytes(params, cache, tok, pos)
+    torch.cuda.reset_peak_memory_stats()
+    label = "phase 20 qwen3-0.6b decode_step"
+
+    def step():
+        out = lm.decode_step(params, tok, cache, pos, cfg)
+        torch.cuda.synchronize()
+        return out
+
+    out, by_path[label] = run_path(library, label, ("rmsnorm", "decode_attention"), step)
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(out[0]).all()), "phase 20: the decode step's logits are not finite")
+    del out, params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches={k: float(n) for k, n in by_path[label].items() if n}, peak=peak,
+                other=other)
+
+
+def top_lines(buffers) -> str:
+    return "; ".join(f"{b['name']} {tuple(b['shape'])} {b['dtype']} {b['bytes'] / 1e9:.3f} GB"
+                     for b in buffers)
+
+
+def phase_dryrun_check(library, dev, by_path, measured: dict) -> None:
+    """Phase 20, card side: each step's launches by kernel from its trace
+    equal the launches a step the card made, exactly, and the predicted
+    peak (the eager-lifetime peak, the arguments live throughout, plus what
+    was allocated before the step and is not its argument) is within
+    ``DRYRUN_PEAK_TOL`` of ``torch.cuda.max_memory_allocated()``; the
+    largest buffers at the predicted peak are printed for 15e and 15g."""
+    with open(os.path.join(BESIDE_DIR, DRYRUN_FILE)) as f:
+        pred = json.load(f)
+    measured = dict(measured, decode=measure_decode_step(library, dev, by_path))
+    for key, *_ in dryrun_steps():
+        p, m = pred[key], measured[key]
+        want = {k: float(n) for k, n in p["launches"].items()}
+        predicted = p["peak"] + m["other"]
+        miss = predicted / m["peak"] - 1
+        print(f"[phase 20] {key}: launches a step traced {want}, on the card {m['launches']} "
+              f"(equal: {want == m['launches']}); peak predicted {predicted / 1e9:.3f} GB "
+              f"(traced {p['peak'] / 1e9:.3f} + allocated before {m['other'] / 1e9:.3f}; "
+              f"at {p['peak_op']}), measured {m['peak'] / 1e9:.3f} GB: {miss:+.4%}")
+        check(want == m["launches"], f"phase 20 {key}: traced launches {want} != measured "
+                                     f"{m['launches']}")
+        check(abs(miss) <= DRYRUN_PEAK_TOL,
+              f"phase 20 {key}: predicted peak {predicted} vs measured {m['peak']} ({miss:+.2%})")
+        if key in DRYRUN_TOP:
+            print(f"[phase 20] {key} largest buffers at the predicted peak: "
+                  f"{top_lines(p['top'])}")
 
 
 # phases 7-9, 16-17, 18b and 19 run in a second process on the card (``BESIDE``), started
@@ -6086,9 +6261,9 @@ def setup():
 
 
 def start_beside():
-    """Start phases 7-9, 16-17, 18b and 19 in a second process on the card, its output in a
-    file that ``join_beside`` prints; the process is killed if this one
-    exits first."""
+    """Start phases 7-9, 16-17, 18b and 19 (and phase 20's traces) in a
+    second process on the card, its output in a file that ``join_beside``
+    prints; the process is killed if this one exits first."""
     import atexit
 
     os.makedirs(BESIDE_DIR, exist_ok=True)
@@ -6125,7 +6300,8 @@ def join_beside(beside) -> dict:
 
 def beside_main(parent: int) -> None:
     """The second process: phases 7-9, 16-17, 18b and 19, their launches by path written
-    for ``join_beside``.  It ends with the run that started it."""
+    for ``join_beside``, then phase 20's traces (host only) written for
+    ``phase_dryrun_check``.  It ends with the run that started it."""
     import ctypes
     import signal
 
@@ -6136,6 +6312,7 @@ def beside_main(parent: int) -> None:
     by_path, batched_rows = phases_8_9(library, dev)
     with open(os.path.join(BESIDE_DIR, "launches.json"), "w") as f:
         json.dump({"by_path": by_path, "batched_rows": batched_rows}, f)
+    phase_dryrun_traces()
 
 
 def main() -> None:
@@ -6321,16 +6498,20 @@ def main() -> None:
     t1 = time.perf_counter()
     witness_rounding_calls(dev, trained["losses"])
     print(f"[15d] rounding witness ({time.perf_counter() - t1:.1f} s)")
+    measured = dict(trained["measured"])
     t1 = time.perf_counter()
-    phase_train_zamba(library, dev, by_path)
+    measured.update(phase_train_zamba(library, dev, by_path)["measured"])
     print(f"[15e] ({time.perf_counter() - t1:.1f} s)")
     t1 = time.perf_counter()
     phase_train_xlstm(library, dev, by_path)
     print(f"[15f] ({time.perf_counter() - t1:.1f} s)")
     t1 = time.perf_counter()
-    phase_train_mixtral(library, dev, by_path)
+    measured.update(phase_train_mixtral(library, dev, by_path))
     print(f"[15g] ({time.perf_counter() - t1:.1f} s)")
     print(f"[phase 15] training: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_dryrun_check(library, dev, by_path, measured)
+    print(f"[phase 20] the dry run against the card: {time.perf_counter() - t0:.1f} s")
     print(f"launches by path: {by_path}")
 
     kernels = []

@@ -221,8 +221,10 @@ def slstm_forward(p: Dict[str, Any], x: torch.Tensor, cfg, *, return_state: bool
     h = torch.zeros((b, nh, dh), dtype=torch.float32, device=x.device)
     state = (h, h, torch.full((b, nh, dh), M_INIT, dtype=torch.float32, device=x.device))
     hs = []
-    for t in range(s):
-        h, state = _slstm_cell(gates_x[:, t], h, state, r)
+    # one unbind, not an index a step: the backward of gates_x[:, t] is a
+    # whole (B, S, NH, DH, 4) tensor a step (S^2 traffic), unbind's one stack
+    for g_t in gates_x.unbind(1):
+        h, state = _slstm_cell(g_t, h, state, r)
         hs.append(h)
     out = _slstm_out(p, torch.stack(hs, dim=1).reshape(b, s, d), x.dtype, cfg)
     if return_state:

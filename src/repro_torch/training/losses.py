@@ -82,12 +82,15 @@ def chunked_lm_loss(h, final_norm_scale, head_w, labels, cfg, chunk_len: int = C
         labels = F.pad(labels, (0, pad), value=-1)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     count = torch.zeros((), dtype=torch.int32, device=h.device)
-    for c in range(h.shape[1] // chunk_len):
-        sl = slice(c * chunk_len, (c + 1) * chunk_len)
+    # one split, not a slice a chunk: the backward of h[:, sl] is a whole
+    # (B, S, D) tensor a chunk (S^2 / chunk_len traffic), split's one cat
+    for hc, lc in zip(h.split(chunk_len, 1), labels.split(chunk_len, 1)):
         # a chunk of the sequence is a strided view: the norm's kernel
-        # takes contiguous rows
-        hc = h[:, sl].contiguous()
-        t, n = checkpoint(_one_chunk, hc, labels[:, sl], final_norm_scale, head_w,
+        # takes contiguous rows.  A chunk that is the whole sequence is
+        # copied too, so that each chunk is the same program and a step's
+        # counts are affine in its length (the dry run extrapolates them)
+        hc = hc.clone(memory_format=torch.contiguous_format)
+        t, n = checkpoint(_one_chunk, hc, lc, final_norm_scale, head_w,
                           cfg.norm_eps, cfg.vocab, use_reentrant=False)
         total = total + t
         count = count + n
