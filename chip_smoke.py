@@ -310,12 +310,17 @@ REPLACES = {
 # the backward kernels' shapes on the training path (rows, d): qwen3-0.6b's
 # d_model at batch 4 x 512 tokens, its q- and k-norm rows, a ragged 5 x 13
 # rows of 130, minicpm3's d_model, and its q and kv latents, mixtral-8x7b's
-# d_model at 4 x 512 tokens; the timed ones with what they are
+# d_model (and zamba2-1.2b's d_inner) at 4 x 512 tokens, zamba2's d_model at
+# 4 x 512 and xlstm-1.3b's 4096-wide rows at 1 x 512; the timed ones with
+# what they are
 RMSNORM_BWD_SHAPES = [(2048, 1024), (32768, 128), (16384, 128), (65, 130), (64, 2560),
-                      (2048, 768), (2048, 256), (2048, 4096)]
+                      (2048, 768), (2048, 256), (2048, 4096), (2048, 2048), (512, 4096)]
 RMSNORM_BWD_TIMED = {(2048, 1024): "qwen3-0.6b's d_model rows at 4 x 512 tokens",
                      (32768, 128): "qk-norm rows", (16384, 128): "qk-norm rows",
-                     (2048, 4096): "mixtral-8x7b's d_model rows at 4 x 512 tokens"}
+                     (2048, 4096): "mixtral-8x7b's d_model, zamba2-1.2b's d_inner rows at "
+                                   "4 x 512 tokens",
+                     (2048, 2048): "zamba2-1.2b's d_model rows at 4 x 512 tokens",
+                     (512, 4096): "xlstm-1.3b's 4096-wide rows at 1 x 512 tokens"}
 # dscale sums every row in another order than the plain version (f32: 2e-4
 # beside the rows' 1e-5), and bf16 rounds dx and dscale once (2e-2)
 RMSNORM_BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
@@ -874,6 +879,10 @@ def phase_backward_kernels(randn) -> tuple:
         return (f"{plan['route']}, {plan['lanes']} lanes x {plan['vecs']} vectors, grid "
                 f"{plan['grid']}")
 
+    def rms_turns(fn, lib) -> list:
+        # kernel, library, library, kernel
+        return [graph_ms(fn), autograd_ms(*lib), autograd_ms(*lib), graph_ms(fn)]
+
     bf = torch.bfloat16
     for shape in RMSNORM_BWD_SHAPES:
         offset = 1.0 if shape == (65, 130) else 0.0
@@ -901,15 +910,19 @@ def phase_backward_kernels(randn) -> tuple:
         w = (randn(d, dtype=torch.float32) * 0.1 + 1.0).to(bf)
         xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
         b_ms, b_by = bound_ms(3 * x.numel() * 2 + 2 * d * 2, 10 * x.numel(), bf)
+        turns = rms_turns(lambda: rmsnorm_backward_op(dy, x, w, 1e-6, 0.0),
+                          (lambda: F.rms_norm(xg, (d,), wg, 1e-6), (xg, wg), dy))
+        print(f"rmsnorm_backward turns ({n},{d}) bf16 ({rms_route(n, d, bf)}): kernel "
+              f"{turns[0] * 1e3:.2f} / {turns[3] * 1e3:.2f} us, F.rms_norm backward "
+              f"{turns[1] * 1e3:.2f} / {turns[2] * 1e3:.2f} us; bound {b_ms * 1e3:.3f} us")
         row = dict(
             shape=f"dy, x ({n},{d}) bf16 ({what}; {rms_route(n, d, bf)})",
             max_abs_err=max(close(a, r, RMSNORM_BWD_TOL[bf]) for a, r in
                             zip(rmsnorm_backward_op(dy, x, w, 1e-6, 0.0),
                                 rmsnorm_backward_ref(dy, x, w, 1e-6, 0.0))),
-            ms=graph_ms(lambda: rmsnorm_backward_op(dy, x, w, 1e-6, 0.0)),
+            ms=(turns[0] + turns[3]) / 2,
             plain_ms=graph_ms(lambda: rmsnorm_backward_ref(dy, x, w, 1e-6, 0.0)),
-            library_ms=autograd_ms(lambda: F.rms_norm(xg, (d,), wg, 1e-6), (xg, wg), dy),
-            bound_ms=b_ms, bound_by=b_by)
+            library_ms=(turns[1] + turns[2]) / 2, bound_ms=b_ms, bound_by=b_by)
         if i == 0:
             rows["rmsnorm_backward"] = row
         else:
@@ -1438,17 +1451,16 @@ def phase_scan(dev, randn):
         ))
     row = timed[0]
     del row["name"]
-    return row, timed[1:] + [wide]
+    return row, timed[1:] + wide
 
 
-def wide_scan_checks(randn) -> dict:
+def wide_scan_checks(randn) -> list:
     """The wide-state routes (N > 128) against the plain version in f32 and
     bf16: xlstm-1.3b's mLSTM scan at the stateless bucket (S = 64, chunk 64)
     and the stateful prompt's prefill (S = 16), and a ragged N = 160, P = 161
     over three chunks of 64 from a given state (a ragged last slab of B and
-    C), the keys B at the mLSTM's scale; two runs of the bf16 kernel give the same bits (each block sums over
-    N in a fixed order); then the served shape timed in bf16 beside the
-    plain version and ``scan_cost``'s bound."""
+    C), the keys B at the mLSTM's scale; then the bf16 kernel's two timed
+    rows (``wide_scan_row``): the bucket and the training forward."""
     from repro_torch.kernels.ssm_scan import gated_scan, gated_scan_padded, scan_plan
 
     full = (1, M_BUCKET, MLSTM_HEADS, MLSTM_N + 1, MLSTM_HEADS, MLSTM_N)
@@ -1468,22 +1480,51 @@ def wide_scan_checks(randn) -> dict:
                   f"({plan['route']}, grid {plan['grid']}, {plan['smem']} B shared): max|d| "
                   f"y {close(y, y_r, TOL[dtype]):.3g}, h {close(h, h_r, TOL[dtype]):.3g} "
                   f"(tol {TOL[dtype]})")
+    return [wide_scan_row(randn, M_BUCKET, 64, "the stateless bucket"),
+            wide_scan_row(randn, X_TRAIN_SEQ, 128, "the training forward")]
+
+
+def wide_scan_row(randn, s: int, chunk: int, what: str) -> dict:
+    """xlstm-1.3b's mLSTM scan (x (1,s,4,1025), B/C (1,s,4,1024), bf16) on
+    the wide mma route: held against the plain version (``TOL``) and the
+    mirror of its roundings (``gated_scan_mma_ref``, relative L2 of y and of
+    the final state within ``MIRROR_TOL``), two runs bitwise equal (each
+    block sums over N in a fixed order), then timed beside the plain version
+    and ``scan_cost``'s bound."""
+    from repro_torch.kernels.ssm_scan import gated_scan, gated_scan_padded, scan_plan
+
     bf = torch.bfloat16
-    args = scan_inputs(randn, *full, bf, mlstm=True, key_scale=MLSTM_N ** -0.5)
-    y, h = gated_scan(*args, chunk=64)
-    y2, h2 = gated_scan(*args, chunk=64)
-    check(torch.equal(y, y2) and torch.equal(h, h2), "wide gated_scan: two runs differ")
-    y_r, h_r = gated_scan_padded(*args, None, 64)
+    shape = (1, s, MLSTM_HEADS, MLSTM_N + 1, MLSTM_HEADS, MLSTM_N)
+    args = scan_inputs(randn, *shape, bf, mlstm=True, key_scale=MLSTM_N ** -0.5)
+    y, h = gated_scan(*args, chunk=chunk)
+    y2, h2 = gated_scan(*args, chunk=chunk)
+    same = torch.equal(y, y2) and torch.equal(h, h2)
+    if not same:
+        MISMATCHES.append(f"wide gated_scan {shape} chunk {chunk}: two runs differ")
+    y_r, h_r = gated_scan_padded(*args, None, chunk)
     err = max(close(y, y_r, TOL[bf]), close(h, h_r, TOL[bf]))
-    b_ms, b_by = bound_ms(*scan_cost(*full, 64, bf), bf)
-    print("gated_scan wide: two runs bitwise equal")
-    return dict(
-        name="ssm_scan", shape=f"x (1,{M_BUCKET},{MLSTM_HEADS},{MLSTM_N + 1}), B/C "
-                               f"(1,{M_BUCKET},{MLSTM_HEADS},{MLSTM_N}) bf16, chunk 64 (mma_wide)",
-        max_abs_err=err, ms=graph_ms(lambda: gated_scan(*args, chunk=64), reps=10),
-        plain_ms=graph_ms(lambda: gated_scan_padded(*args, None, 64), reps=10),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by,
-    )
+    ym, hm = scan_mirror_padded(*args, None, chunk)
+    mirror = (rel_l2(y, ym), rel_l2(h, hm))
+    if not max(mirror) <= MIRROR_TOL[bf]:
+        MISMATCHES.append(f"wide gated_scan {shape} chunk {chunk}: relative L2 to the mirror "
+                          f"{mirror} over {MIRROR_TOL[bf]}")
+    plan = scan_plan(*shape, min(chunk, s), bf)
+    b_ms, b_by = bound_ms(*scan_cost(*shape, chunk, bf), bf)
+    reps = 10 if s <= 64 else 3
+    row = dict(
+        name="ssm_scan", shape=f"x (1,{s},{MLSTM_HEADS},{MLSTM_N + 1}), B/C "
+                               f"(1,{s},{MLSTM_HEADS},{MLSTM_N}) bf16, chunk {chunk} (mma_wide; "
+                               f"{what})",
+        max_abs_err=err, ms=graph_ms(lambda: gated_scan(*args, chunk=chunk), reps=reps),
+        plain_ms=graph_ms(lambda: gated_scan_padded(*args, None, chunk), reps=reps),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    print(f"gated_scan wide {shape} chunk {chunk} bf16 ({what}; {plan['warps']} warps, "
+          f"{plan['tile']} columns, slabs of {plan['slab']}, grid {plan['grid']}, "
+          f"{plan['smem']} B shared): max|d| {err:.3g} (tol {TOL[bf]}); relative L2 to the "
+          f"mirror y {mirror[0]:.3g}, h {mirror[1]:.3g} (tol {MIRROR_TOL[bf]}); two runs "
+          f"bitwise {same}; kernel {row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} "
+          f"us, bound {b_ms * 1e3:.3f} us ({b_by})")
+    return row
 
 
 def phase_small_reference(dev):
@@ -4988,9 +5029,11 @@ def phase_train_zamba(library, dev, by_path) -> dict:
         opt_cfg = AdamWConfig(lr=FIXED_LR, warmup_steps=1)
         base = torch.cuda.memory_allocated()      # no argument of the step is made yet
         torch.cuda.reset_peak_memory_stats()
-        (params, opt, losses, secs), launches = run_path(
-            library, "phase 15e zamba2-1.2b fixed batch", Z_TRAIN_KERNELS,
-            lambda: fixed_batch(cfg, opt_cfg, nb, dev, steps=Z_FIXED_STEPS))
+        with RmsnormBackwardShapes() as rb:
+            (params, opt, losses, secs), launches = run_path(
+                library, "phase 15e zamba2-1.2b fixed batch", Z_TRAIN_KERNELS,
+                lambda: fixed_batch(cfg, opt_cfg, nb, dev, steps=Z_FIXED_STEPS))
+        print(f"[15e] rmsnorm backward launches a step by route: {rb.by_route(Z_FIXED_STEPS)}")
         by_path["phase 15e zamba2-1.2b fixed batch"] = launches
         peak = torch.cuda.max_memory_allocated()
         check(all(np.isfinite(v) for v in losses) and all(b < a for a, b in zip(losses, losses[1:])),
@@ -5097,10 +5140,11 @@ def phase_train_xlstm(library, dev, by_path) -> dict:
                      DataConfig())
     opt_cfg = AdamWConfig(lr=FIXED_LR, warmup_steps=1)
     torch.cuda.reset_peak_memory_stats()
-    with PlainOnCard():
+    with PlainOnCard(), RmsnormBackwardShapes() as rb:
         (params, opt, losses, secs), launches = run_path(
             library, "phase 15f xlstm-1.3b fixed batch", SCAN_TRAIN_KERNELS,
             lambda: fixed_batch(cfg, opt_cfg, nb, dev, steps=X_FIXED_STEPS))
+    print(f"[15f] rmsnorm backward launches a step by route: {rb.by_route(X_FIXED_STEPS)}")
     by_path["phase 15f xlstm-1.3b fixed batch"] = launches
     peak = torch.cuda.max_memory_allocated()
     check(all(np.isfinite(v) for v in losses), f"15f: a loss is not finite: {losses}")
@@ -5986,22 +6030,35 @@ def phase_encdec_vlm(library, dev, by_path) -> None:
 
 class RmsnormBackwardShapes:
     """While entered, the (rows, d) of every rmsnorm backward kernel launch
-    are counted (the wrapper is wrapped; it launches as before)."""
+    are counted, and its (route, d) by ``rmsnorm_backward_plan`` (the
+    wrapper is wrapped; it launches as before)."""
 
     def __enter__(self):
         from repro_torch.kernels.rmsnorm import ops
 
-        self.ops, self.inner, self.shapes = ops, ops.rmsnorm_backward_cuda, Counter()
+        self.ops, self.inner = ops, ops.rmsnorm_backward_cuda
+        self.shapes, self.routes = Counter(), Counter()
 
-        def counted(dy, x, *rest):
-            self.shapes[(x.numel() // x.shape[-1], x.shape[-1])] += 1
-            return self.inner(dy, x, *rest)
+        def counted(dy, x, scale, *rest):
+            rows, d = x.numel() // x.shape[-1], x.shape[-1]
+            self.shapes[(rows, d)] += 1
+            aligned = all(t.data_ptr() % ops.VEC_BYTES == 0 for t in (dy, x, scale))
+            plan = ops.rmsnorm_backward_plan(rows, d, x.dtype, aligned=aligned)
+            self.routes[(plan["route"], d)] += 1
+            return self.inner(dy, x, scale, *rest)
 
         ops.rmsnorm_backward_cuda = counted
         return self
 
     def __exit__(self, *exc):
         self.ops.rmsnorm_backward_cuda = self.inner
+
+    def by_route(self, steps: int) -> str:
+        """The launches a step by route, and by d within each."""
+        out = {}
+        for (route, d), n in sorted(self.routes.items()):
+            out.setdefault(route, {})[d] = n / steps
+        return ", ".join(f"{route} {sum(ds.values()):g} (by d {ds})" for route, ds in out.items())
 
 
 def moe_train_flops(cfg, params, batch: int, seq: int) -> tuple:
@@ -6084,6 +6141,7 @@ def phase_train_mixtral(library, dev, by_path) -> dict:
     check(dict(rb.shapes) == {(b * s_, cfg.d_model): steps * 2 * cfg.n_layers,
                               (b * s_ // 2, cfg.d_model): steps * 2},
           f"15g: rmsnorm backward launches by shape {dict(rb.shapes)}")
+    print(f"[15g] rmsnorm backward launches a step by route: {rb.by_route(steps)}")
     del params
     gc.collect()
     torch.cuda.empty_cache()

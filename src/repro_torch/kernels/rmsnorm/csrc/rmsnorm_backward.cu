@@ -12,7 +12,7 @@
 // element; the training path's shapes (4 x 512 rows of d_model, 32k rows of
 // the qk-norm head) move megabytes.  So each row is read once, into
 // registers, with 16-byte loads, and dscale's partial sums stay in
-// registers until the block ends.  Two routes, chosen on the host
+// registers until the block ends.  Three routes, chosen on the host
 // (ops.py:rmsnorm_backward_plan, from the shape, the dtype and the
 // pointers' alignment) and passed in:
 //
@@ -24,17 +24,32 @@
 //          group loads two rows before it reduces the first.  The row's sum
 //          of squares and sum of g x r are reduced over its lanes with a xor
 //          butterfly (every lane gets the same bits).
-//   scalar (anything else up to D = 8192: longer rows, D not a multiple of
-//          the vector, or an unaligned pointer): rows_kernel, 4 warps a
-//          block, scalar loads, the row read twice (the second read hits L1).
+//   block  (1024 < D <= 8192, D a multiple of the vector, 16-byte
+//          aligned): block_rows_kernel, the whole block shares a row; 4 to
+//          16 warps, each thread holding `vecs` (1-4) vectors of x, dy and
+//          w, packed, at fixed columns for every row, so dscale's partial
+//          sums stay in its registers.  The block loads two rows before it
+//          reduces either; each row's two sums go through a xor butterfly
+//          in each warp, then the warps' sums are added in warp order from
+//          shared memory (one barrier for both rows, the slots double
+//          buffered so the next pair's writes need no second barrier).  A
+//          grid of one to four blocks an SM (132-528: about 64 KB of x and
+//          dy in flight on each SM; tools/rmsnorm_backward_grids.py times
+//          the others), so the (grid, D) f32 partial rows stay a small
+//          share of the bytes.
+//   scalar (what no other route takes: D not a multiple of the vector, or
+//          an unaligned pointer): rows_kernel, 4 warps a block, scalar
+//          loads, the row read twice (the second read hits L1).
 //
 // dscale is a sum over all rows, taken deterministically, without atomics,
 // so two launches give the same bits.  A lane owns fixed columns and adds
 // dy * x r of its rows in registers; the block adds its row slots and warps
-// in a fixed order into partial[block] (a grid of one writes dscale
-// itself), and scale_kernel, a second launch, sums the partial rows of each
-// column: 32 threads a column in fixed strides (a grid of 128 or 256 gives
-// each 4 or 8 rows), then their 32 sums added by a warp's fixed butterfly.
+// in a fixed order into partial[block] (on the block route a thread owns
+// its columns in the whole block and writes its sums as they are; a grid
+// of one writes dscale itself), and scale_kernel, a second launch, sums
+// the partial rows of each column: 32 threads a column in fixed strides (a
+// grid of 128 or 256 gives each 4 or 8 rows), then their 32 sums added by
+// a warp's fixed butterfly.
 // Finishing that sum inside the one launch (the last block to finish,
 // elected by a counter, summing every partial row) was measured slower at
 // every training shape: the one block's read of all the partial rows is a
@@ -45,12 +60,13 @@
 
 namespace {
 
-enum Route { kScalar = 0, kWarp = 1 };
+enum Route { kScalar = 0, kWarp = 1, kBlock = 2 };
 
 constexpr int kWarps = 4;       // warps of the scalar route's block
 constexpr int kGroups = 32;     // threads summing one column in scale_kernel: a warp's lanes
 static_assert(kGroups == 32, "scale_kernel's last sum is one warp's butterfly");
 constexpr int kVecWarps = 8;    // warps of the warp route's block
+constexpr int kBlockWarpsMax = 16;  // warps of the block route's block, at most
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -302,6 +318,132 @@ warp_rows_kernel(const T* __restrict__ dy, const T* __restrict__ x, const T* __r
   }
 }
 
+// ---------------------------------------------------------------- block route
+
+// the block route: the block's threads share each row, thread t holding
+// vectors t, t + T, ..., t + (V - 1) T of it (T threads), and the block
+// takes rows r0, r0 + 1, ... of its rows_per_block two at a time.  Every
+// thread takes part in every row, so the trip count and the barriers are
+// uniform; a row past the block's end loads zeros and stores nothing.
+template <typename T, int V>
+__global__ void __launch_bounds__(kBlockWarpsMax * 32)
+block_rows_kernel(const T* __restrict__ dy, const T* __restrict__ x,
+                  const T* __restrict__ scale, T* __restrict__ dx, float* __restrict__ partial,
+                  T* __restrict__ dscale, long long rows, int d, int rows_per_block, float eps,
+                  float offset) {
+  using Vt = Vec<T>;
+  constexpr int E = Vt::kN;
+  constexpr int U = 2;  // rows in flight
+  __shared__ float red[2][kBlockWarpsMax][2 * U];  // per warp: (ss, gx) of each row, two slots
+  const int nt = blockDim.x;
+  const int nwarps = nt >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nvec = d / E;
+  const float inv_d = 1.f / static_cast<float>(d);
+
+  uint4 wv[V];  // the scale (zeros past the row, where x and dy are zeros too)
+  float acc[V][E];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int vi = threadIdx.x + j * nt;
+    wv[j] = vi < nvec ? *reinterpret_cast<const uint4*>(scale + vi * E)
+                      : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[j][e] = 0.f;
+  }
+
+  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_block;
+  const long long r1 = min(rows, r0 + rows_per_block);
+  int slot = 0;
+  for (long long base = r0; base < r1; base += U) {
+    uint4 xv[U][V], gv[U][V];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long row = base + u;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int vi = threadIdx.x + j * nt;
+        if (row < r1 && vi < nvec) {
+          xv[u][j] = *reinterpret_cast<const uint4*>(x + row * d + vi * E);
+          gv[u][j] = *reinterpret_cast<const uint4*>(dy + row * d + vi * E);
+        } else {
+          xv[u][j] = gv[u][j] = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float ss = 0.f, gx = 0.f;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const float xf = Vt::at(xv[u][j], e);
+          ss += xf * xf;
+          gx += Vt::at(gv[u][j], e) * (offset + Vt::at(wv[j], e)) * xf;
+        }
+      }
+      ss = warp_sum(ss);
+      gx = warp_sum(gx);
+      if (lane == 0) {
+        red[slot][warp][2 * u] = ss;
+        red[slot][warp][2 * u + 1] = gx;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long row = base + u;
+      float ss = 0.f, gx = 0.f;
+      for (int w = 0; w < nwarps; ++w) {  // warp order: every thread gets the same bits
+        ss += red[slot][w][2 * u];
+        gx += red[slot][w][2 * u + 1];
+      }
+      const float r = rsqrtf(ss * inv_d + eps);
+      const float c_mean = gx * r * inv_d;  // mean(g * x r)
+      const bool live = row < r1;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        repack(xv[u][j]);
+        repack(gv[u][j]);
+        repack(wv[j]);
+        float out[E];
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const float gf = Vt::at(gv[u][j], e);
+          const float xn = Vt::at(xv[u][j], e) * r;
+          if (live) acc[j][e] += gf * xn;
+          out[e] = r * (gf * (offset + Vt::at(wv[j], e)) - xn * c_mean);
+        }
+        const int vi = threadIdx.x + j * nt;
+        if (live && vi < nvec) *reinterpret_cast<uint4*>(dx + row * d + vi * E) = Vt::pack(out);
+      }
+    }
+    slot ^= 1;
+  }
+
+  // the thread's columns are its own in the whole block
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int vi = threadIdx.x + j * nt;
+    if (vi < nvec) {
+      if (gridDim.x == 1) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) store(dscale + vi * E + e, acc[j][e]);
+      } else {
+        float4* part = reinterpret_cast<float4*>(
+            partial + static_cast<long long>(blockIdx.x) * d + vi * E);
+#pragma unroll
+        for (int k = 0; k < E / 4; ++k) {
+          part[k] = make_float4(acc[j][4 * k], acc[j][4 * k + 1], acc[j][4 * k + 2],
+                                acc[j][4 * k + 3]);
+        }
+      }
+    }
+  }
+}
+
 // Only the vector counts a plan can give are built: a warp route's row is
 // at most 1024 wide.
 template <typename T, int V>
@@ -359,6 +501,27 @@ cudaError_t launch(const void* dy_, const void* x_, const void* scale_, void* dx
       default:
         return cudaErrorInvalidValue;
     }
+  } else if (route == kBlock) {
+    const int nvec = d / E;
+    if (d % E != 0 || d > 8192 || threads < 32 || threads > kBlockWarpsMax * 32 ||
+        threads % 32 != 0 || rows_per_block % 2 != 0 || vecs < 1 || vecs > 4 ||
+        vecs * threads < nvec || (vecs - 1) * threads >= nvec) {
+      return cudaErrorInvalidValue;
+    }
+    const unsigned g = static_cast<unsigned>(grid);
+    switch (vecs) {
+#define REPRO_BLOCK_CASE(V)                                                            \
+  case V:                                                                              \
+    block_rows_kernel<T, V><<<g, threads, 0, st>>>(dy, x, scale, dx, partial, dscale, \
+                                                   rows, d, rows_per_block, eps, offset); \
+    break;
+      REPRO_BLOCK_CASE(1)
+      REPRO_BLOCK_CASE(2)
+      REPRO_BLOCK_CASE(3)
+      REPRO_BLOCK_CASE(4)
+#undef REPRO_BLOCK_CASE
+    }
+    err = cudaGetLastError();
   } else if (route == kScalar) {
     if (threads != kWarps * 32 || d > 8192) {
       return cudaErrorInvalidValue;
@@ -379,7 +542,7 @@ cudaError_t launch(const void* dy_, const void* x_, const void* scale_, void* dx
   }
   if (err != cudaSuccess) return err;
   // the scalar route always sums its partial rows in a second launch; a
-  // warp route's grid of one has written dscale itself
+  // warp or block route's grid of one has written dscale itself
   if (route == kScalar || grid > 1) {
     scale_kernel<T><<<(d + 31) / 32, 32 * kGroups, 0, st>>>(partial, dscale,
                                                             static_cast<int>(grid), d);
@@ -391,12 +554,13 @@ cudaError_t launch(const void* dy_, const void* x_, const void* scale_, void* dx
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (dy, x, scale, dx and dscale alike).
-// partial: f32 scratch of (grid, d).  route (0 scalar, 1 warp),
+// partial: f32 scratch of (grid, d).  route (0 scalar, 1 warp, 2 block),
 // threads, lanes, vecs, rows_per_block and grid come from
 // ops.py:rmsnorm_backward_plan; a plan that does not fit the shape returns
 // cudaErrorInvalidValue and launches nothing.
-// The warp route needs 16-byte aligned dy, x, scale and dx; the scalar
-// route takes d <= 8192 (it keeps 4 rows of d floats in shared memory).
+// The warp and block routes need 16-byte aligned dy, x, scale and dx (the
+// block route an even rows_per_block); every route takes d <= 8192 (the
+// scalar route keeps 4 rows of d floats in shared memory).
 // Returns cudaGetLastError() after the launches.
 extern "C" int repro_rmsnorm_backward(const void* dy, const void* x, const void* scale,
                                       void* dx, void* dscale, void* partial, long long rows,

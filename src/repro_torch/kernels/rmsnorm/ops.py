@@ -116,6 +116,10 @@ BWD_SMS = 132                 # the H100's streaming multiprocessors
 BWD_BLOCK_BYTES = 32 * 1024   # x and dy bytes a block should have in flight
 BWD_SCALAR_BLOCKS_MAX = 1056  # the scalar route's grid: 8 blocks on each SM
 BWD_D_MAX = 8192
+BWD_BLOCK_WARPS_MAX = 16      # warps per block of the backward's block route, at most
+BWD_BLOCK_VECS = 2            # vectors a thread of the block route holds below that
+BWD_BLOCK_SM_BYTES = 64 * 1024  # x and dy bytes the block route keeps in flight on each SM
+BWD_BLOCK_PER_SM_MAX = 4      # the block route's grid: one to four blocks on each SM
 
 
 def rmsnorm_backward_plan(rows: int, d: int, dtype: torch.dtype, *,
@@ -130,15 +134,21 @@ def rmsnorm_backward_plan(rows: int, d: int, dtype: torch.dtype, *,
     vectors, packed, of two rows at once.  Blocks take ``rows_per_block``
     consecutive rows, whole passes of the block's row groups, and there are
     about as many blocks as keep 32 KB of x and dy in flight on each of the
-    132 SMs.  Anything else (longer rows, rows that do not split into
-    vectors, unaligned pointers) takes the ``scalar`` route (4 warps a
-    block, scalar loads, each row read twice).
+    132 SMs.  The ``block`` route (1024 < d <= 8192) has the whole block
+    share a row: ``lanes`` = ``threads`` (4 to 16 warps, for two vectors a
+    thread up to 16 warps) each hold ``vecs`` vectors at fixed columns, two
+    rows at a time, and the grid is one to four blocks an SM, as many as
+    keep 64 KB of x and dy in flight on each (four at d 2048 bf16, two at
+    4096), each taking an even number of consecutive rows.  Anything else
+    (rows that do not split into vectors, unaligned pointers) takes the
+    ``scalar`` route (4 warps a block, scalar loads, each row read twice).
 
     Each block writes one f32 partial row of dscale (``smem`` bytes of
-    dynamic shared memory hold the warps' rows), and a second launch sums
-    the ``grid`` partial rows of each column in a fixed order (a grid of one
-    writes dscale itself).  The plan depends on nothing but its arguments,
-    so two launches sum in the same order."""
+    shared memory hold the warps' rows, or on the block route the warps'
+    row sums), and a second launch sums the ``grid`` partial rows of each
+    column in a fixed order (a grid of one writes dscale itself).  The
+    plan depends on nothing but its arguments, so two launches sum in the
+    same order."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"kernels take float32 or bfloat16, not {dtype}")
     elem = 4 if dtype == torch.float32 else 2
@@ -154,6 +164,14 @@ def rmsnorm_backward_plan(rows: int, d: int, dtype: torch.dtype, *,
         rpb = step * -(-rows // (step * blocks_max))
         plan = dict(route="warp", threads=BWD_WARPS * 32, lanes=lanes, vecs=vecs,
                     rows_per_block=rpb, smem=4 * BWD_WARPS * d)
+    elif vectorised and d <= BWD_D_MAX:
+        warps = min(BWD_BLOCK_WARPS_MAX, -(-nvec // (32 * BWD_BLOCK_VECS)))
+        vecs = -(-nvec // (32 * warps))
+        per_block = BWD_ROWS_IN_FLIGHT * 2 * d * elem
+        blocks_max = BWD_SMS * min(BWD_BLOCK_PER_SM_MAX, -(-BWD_BLOCK_SM_BYTES // per_block))
+        rpb = 2 * -(-rows // (2 * blocks_max))
+        plan = dict(route="block", threads=32 * warps, lanes=32 * warps, vecs=vecs,
+                    rows_per_block=rpb, smem=4 * 2 * BWD_BLOCK_WARPS_MAX * 2 * BWD_ROWS_IN_FLIGHT)
     else:
         rpb = 4 * -(-max(4, -(-rows // BWD_SCALAR_BLOCKS_MAX)) // 4)
         plan = dict(route="scalar", threads=128, lanes=32, vecs=1, rows_per_block=rpb,

@@ -81,26 +81,39 @@
 //
 // A state wider than 128 rows (mLSTM: N = 1024 key rows, P = 1025 value
 // columns with the normalizer, xlstm-1.3b) takes the wide routes.  A block
-// still owns 32 columns of P and keeps its N x 32 slice of the f32 state in
-// shared memory for the whole sequence (1024 x 36 floats, 144 KB), but B and
-// C no longer fit beside it, so each chunk streams them through shared
-// memory in slabs along N.  Per slab the rows accumulate the causal scores
-// C.B^T and C.h_prev over the slab's columns in registers (bf16) or shared
-// memory (f32); after a barrier the slab's rows of the state are updated
-// from the B slab still resident, so B and C are read once per chunk.  After
-// the last slab the scores are decayed and multiplied into X as on the
-// narrow routes.  Each block sums over N in a fixed order with no atomics
-// and no split of N across blocks: two runs give the same bits.
-//   bf16 (ssd_mma_wide_kernel): slabs of 64 columns, the same mma.sync
-//     products and two-term splits as ssd_mma_kernel (gated_scan_mma_ref
-//     mirrors both routes).
+// owns a tile of P's columns and keeps its N-row slice of the f32 state in
+// shared memory for the whole sequence, but B and C no longer fit beside
+// it, so each chunk streams them through shared memory in slabs along N.
+// Per slab the rows accumulate the causal scores C.B^T and C.h_prev over
+// the slab's columns in registers (bf16) or shared memory (f32); after a
+// barrier the slab's rows of the state are updated from the B slab still
+// resident, so B and C are read once per chunk.  After the last slab the
+// scores are decayed and multiplied into X as on the narrow routes.  Each
+// block sums over N in a fixed order with no atomics and no split of N
+// across blocks: two runs give the same bits.
+//   bf16 (ssd_mma_wide_kernel): the same mma.sync products and two-term
+//     splits as ssd_mma_kernel (gated_scan_mma_ref mirrors both routes).
+//     At xlstm-1.3b's stateless bucket (S = 64, B = 1) the bytes are the
+//     16.8 MB f32 final state, written once (a bound of ~5.6 us).  The
+//     first design (4 warps and 32 columns a block: 33 x 4 = 132 blocks,
+//     one an SM; each slab of 64 loaded and then waited on; the state
+//     stored after the loop) took 58.85 us, its latencies exposed.  Now 8
+//     warps own a block of 32 columns (one block an SM, one wave of 132);
+//     slabs pass through a two-stage ring of cp.async groups, so the next
+//     slab loads while this one's products run, one barrier a slab; slabs
+//     are 128 columns up to a chunk of 64 (8 barriers for N = 1024, and 8
+//     update units of 2 column pairs each, one a warp) and 64 beyond (a
+//     chunk of 128 fills the 227 KB); where the chunk has at most half as
+//     many 16-row strips as warps, a second warp takes each strip's odd
+//     k16 steps of the scores, its sums added to the first's after the
+//     slabs; and the last chunk's update stores each slab's rows of the
+//     final state as it forms them, so the state's write is spread over
+//     the slab loop.  16-column tiles (two blocks an SM) measured slower:
+//     each recomputes the chunk's scores and reads all of B and C
+//     (tools/wide_scan_variants.py, PERF.md).
 //   f32 (ssd_wide_kernel): slabs of 16 columns on the CUDA cores, the
 //     scores in a Q x Q shared array; served paths never take it (it runs in
 //     the f32 reference checks).
-// At xlstm-1.3b's stateless bucket (S = 64, B = 1) the grid is 33 x 4 = 132
-// blocks, one per SM; the 16.8 MB f32 state written once dominates the
-// bytes (a bound of ~5.6 us), and the slabs' loads, not pipelined, are
-// exposed latency (a simple kernel first: ROADMAP queue B).
 // Precision: S, B o w and h are f32 intermediates that enter bf16 products.
 // Rounded once to bf16 they miss the 2e-2 tolerance (max |d| / tol 1.65 at
 // zamba2's head shape; tests/test_torch_ssm_scan.py), so each is carried as
@@ -339,24 +352,27 @@ __host__ __device__ inline MmaSmem mma_smem(int q, int n) {
   return m;
 }
 
-// The pieces both mma kernels are built from.  Each block owns 32 columns
-// of P (pw of them live, in npair 16-column pairs) of one (head, batch row);
-// nt is the block's thread count.
+// The pieces both mma kernels are built from.  Each block owns kTP (32 on
+// the narrow route, 16 or 32 on the wide one) columns of P (pw of them
+// live, in npair 16-column pairs) of one (head, batch row), staged in rows
+// of kTP + 8 bf16 (x, y) and kTP + 4 floats (the state); nt is the
+// block's thread count.
 
 // the state: h0 or zeros (rows past N and columns past P stay zero)
+template <int kTP = kMmaTileP>
 __device__ __forceinline__ void mma_init_state(float* hs, const float* __restrict__ h0,
                                                long long hbase, int n, int np, int p, int pw,
                                                int tid, int nt) {
   if (h0 != nullptr) {
-    for (int idx = tid; idx < np * kMmaTileP; idx += nt) {
-      const int nn = idx / kMmaTileP;
-      const int c = idx % kMmaTileP;
-      hs[nn * kLdh + c] =
+    for (int idx = tid; idx < np * kTP; idx += nt) {
+      const int nn = idx / kTP;
+      const int c = idx % kTP;
+      hs[nn * (kTP + 4) + c] =
           (nn < n && c < pw) ? h0[hbase + static_cast<long long>(nn) * p + c] : 0.f;
     }
   } else {
-    for (int idx = tid; idx < np * (kMmaTileP / 4); idx += nt) {
-      *reinterpret_cast<float4*>(hs + idx / (kMmaTileP / 4) * kLdh + idx % (kMmaTileP / 4) * 4) =
+    for (int idx = tid; idx < np * (kTP / 4); idx += nt) {
+      *reinterpret_cast<float4*>(hs + idx / (kTP / 4) * (kTP + 4) + idx % (kTP / 4) * 4) =
           make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
@@ -364,23 +380,36 @@ __device__ __forceinline__ void mma_init_state(float* hs, const float* __restric
 
 // x (Qp x 32) as bf16, 16 bytes at a time where `vec`; rows past the chunk
 // and columns past P are zeros
+template <int kTP = kMmaTileP>
 __device__ __forceinline__ void mma_stage_x(bf16* xs, const bf16* __restrict__ xg,
                                             long long xstep, int qp, int valid, int pw, bool vec,
                                             int tid, int nt) {
   if (vec) {
-    for (int idx = tid; idx < qp * (kMmaTileP / 8); idx += nt) {
-      const int j = idx / (kMmaTileP / 8);
-      const int c = idx % (kMmaTileP / 8) * 8;
-      bf16* dst = xs + j * kLdx + c;
+    for (int idx = tid; idx < qp * (kTP / 8); idx += nt) {
+      const int j = idx / (kTP / 8);
+      const int c = idx % (kTP / 8) * 8;
+      bf16* dst = xs + j * (kTP + 8) + c;
       if (j < valid && c < pw) cp_async16(dst, xg + j * xstep + c);
       else *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
     }
   } else {
+    // plain loads, eight a thread in flight before their stores
     const bf16 zero = __float2bfloat16(0.f);
-    for (int idx = tid; idx < qp * kMmaTileP; idx += nt) {
-      const int j = idx / kMmaTileP;
-      const int c = idx % kMmaTileP;
-      xs[j * kLdx + c] = (j < valid && c < pw) ? xg[j * xstep + c] : zero;
+    const int total = qp * kTP;
+    for (int base = tid; base < total; base += 8 * nt) {
+      bf16 v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int idx = base + u * nt;
+        const int j = idx / kTP;
+        const int c = idx % kTP;
+        v[u] = (idx < total && j < valid && c < pw) ? xg[j * xstep + c] : zero;
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int idx = base + u * nt;
+        if (idx < total) xs[idx / kTP * (kTP + 8) + idx % kTP] = v[u];
+      }
     }
   }
 }
@@ -389,28 +418,30 @@ __device__ __forceinline__ void mma_stage_x(bf16* xs, const bf16* __restrict__ x
 // warp's 16 rows from i0: S = C.B^T on the column blocks on or below the
 // strip's diagonal, and C.h from the state's rows `hr` (read straight into
 // B fragments: rows 2 t4, 2 t4 + 1, + 8, + 9 of the step, column g8;
-// split) while h is not zero.  One k16 step at a time: the strip of C as
-// the A fragment, all blocks' products issued together so their
+// split) while h is not zero.  One k16 step at a time (from step kfirst in
+// strides of kstride: two warps may share a strip's steps): the strip of C
+// as the A fragment, all blocks' products issued together so their
 // accumulation chains overlap.
-template <int kWarpsT>
-__device__ __forceinline__ void mma_scores(float (&acc)[kMmaTileP / 8][4],
+template <int kWarpsT, int kTP = kMmaTileP>
+__device__ __forceinline__ void mma_scores(float (&acc)[kTP / 8][4],
                                            float (&sc)[kWarpsT][2][4], const bf16* cm,
                                            const bf16* bs, int ld, int kw, const float* hr,
-                                           bool has_h, int nkt, int npair, int i0, int lane) {
+                                           bool has_h, int nkt, int npair, int i0, int lane,
+                                           int kfirst = 0, int kstride = 1) {
   const int g8 = lane >> 2;
   const int t4 = lane & 3;
-  for (int k0 = 0; k0 < kw; k0 += 16) {
+  for (int k0 = 16 * kfirst; k0 < kw; k0 += 16 * kstride) {
     uint32_t ca[4];
     ldsm_x4(ca, cm + (i0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
     if (has_h) {
-      const float* hk = hr + (k0 + 2 * t4) * kLdh + g8;
+      const float* hk = hr + (k0 + 2 * t4) * (kTP + 4) + g8;
 #pragma unroll
-      for (int t = 0; t < kMmaTileP / 8; ++t) {
+      for (int t = 0; t < kTP / 8; ++t) {
         if (t < 2 * npair) {
           const float* h = hk + t * 8;
           uint32_t b0h, b0l, b1h, b1l;
-          split2(h[0], h[kLdh], b0h, b0l);
-          split2(h[8 * kLdh], h[9 * kLdh], b1h, b1l);
+          split2(h[0], h[(kTP + 4)], b0h, b0l);
+          split2(h[8 * (kTP + 4)], h[9 * (kTP + 4)], b1h, b1l);
           mma_bf16(acc[t], ca, b0h, b1h);
           mma_bf16(acc[t], ca, b0l, b1l);
         }
@@ -433,8 +464,8 @@ __device__ __forceinline__ void mma_scores(float (&acc)[kMmaTileP / 8][4],
 // exp(cs_i); the scores' decay and input scale (j > i zeroed before the
 // exponent), split into two bf16 terms, then Y += S.X; + D x_i, to shared
 // memory as bf16
-template <int kWarpsT>
-__device__ __forceinline__ void mma_y_rows(float (&acc)[kMmaTileP / 8][4],
+template <int kWarpsT, int kTP = kMmaTileP>
+__device__ __forceinline__ void mma_y_rows(float (&acc)[kTP / 8][4],
                                            float (&sc)[kWarpsT][2][4], const float* cs,
                                            const float* gis, const bf16* xs, bf16* ys, int ra,
                                            int nkt, int npair, bool has_h, float dh, int lane) {
@@ -444,7 +475,7 @@ __device__ __forceinline__ void mma_y_rows(float (&acc)[kMmaTileP / 8][4],
   if (has_h) {
     const float ea = exp_ftz(csa), eb = exp_ftz(csb);
 #pragma unroll
-    for (int t = 0; t < kMmaTileP / 8; ++t) {
+    for (int t = 0; t < kTP / 8; ++t) {
       acc[t][0] *= ea;
       acc[t][1] *= ea;
       acc[t][2] *= eb;
@@ -471,10 +502,10 @@ __device__ __forceinline__ void mma_y_rows(float (&acc)[kMmaTileP / 8][4],
       split2(sc[kt][1][0], sc[kt][1][1], ah[2], al[2]);
       split2(sc[kt][1][2], sc[kt][1][3], ah[3], al[3]);
 #pragma unroll
-      for (int pr = 0; pr < kMmaTileP / 16; ++pr) {
+      for (int pr = 0; pr < kTP / 16; ++pr) {
         if (pr < npair) {
           uint32_t xf[4];
-          ldsm_x4_t(xf, xs + (j0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdx + pr * 16 +
+          ldsm_x4_t(xf, xs + (j0 + (lane & 7) + ((lane >> 3) & 1) * 8) * (kTP + 8) + pr * 16 +
                             (lane >> 4) * 8);
           mma_split(acc[2 * pr], ah, al, xf[0], xf[1]);
           mma_split(acc[2 * pr + 1], ah, al, xf[2], xf[3]);
@@ -483,15 +514,15 @@ __device__ __forceinline__ void mma_y_rows(float (&acc)[kMmaTileP / 8][4],
     }
   }
 #pragma unroll
-  for (int t = 0; t < kMmaTileP / 8; ++t) {
+  for (int t = 0; t < kTP / 8; ++t) {
     if (t < 2 * npair) {
       const int c = t * 8 + 2 * t4;
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const int r = hf ? rb : ra;
         const float2 xv =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xs + r * kLdx + c));
-        *reinterpret_cast<__nv_bfloat162*>(ys + r * kLdx + c) = __floats2bfloat162_rn(
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xs + r * (kTP + 8) + c));
+        *reinterpret_cast<__nv_bfloat162*>(ys + r * (kTP + 8) + c) = __floats2bfloat162_rn(
             acc[t][2 * hf] + dh * xv.x, acc[t][2 * hf + 1] + dh * xv.y);
       }
     }
@@ -503,12 +534,18 @@ __device__ __forceinline__ void mma_y_rows(float (&acc)[kMmaTileP / 8][4],
 // cs_j) gi_j.  A unit is one 16-row tile of the state (m0) and every
 // `groups`-th 16-column pair of it; per k16 step the warp builds B^T's A
 // fragment, scaled by w and split, once and uses it for all its column
-// pairs
-template <int kWarpsT>
+// pairs.  `zero`: the entering state is zero and is not read.  With `hg`
+// (the wide route's last chunk) the new rows are the final state: they go
+// straight to device memory (hg[row * hstride + c] for rows < hrows and
+// columns < pw, scalar stores: P may be odd) and not back to hr.
+template <int kWarpsT, int kTP = kMmaTileP>
 __device__ __forceinline__ void mma_update_state(float* hr, const bf16* bs, int ld, int mtiles,
                                                  int valid, const float* cs, const float* gis,
                                                  int qp, const bf16* xs, int npair, int warp,
-                                                 int lane) {
+                                                 int lane, bool zero = false,
+                                                 float* __restrict__ hg = nullptr,
+                                                 long long hstride = 0, int hrows = 0,
+                                                 int pw = 0) {
   const int g8 = lane >> 2;
   const int t4 = lane & 3;
   const float cs_end = cs[qp - 1];   // identity steps past the end keep it
@@ -517,9 +554,9 @@ __device__ __forceinline__ void mma_update_state(float* hr, const bf16* bs, int 
   for (int u = warp; u < mtiles * groups; u += kWarpsT) {
     const int m0 = u % mtiles * 16;
     const int pr0 = u / mtiles;
-    float ha[kMmaTileP / 16][2][4];
+    float ha[kTP / 16][2][4];
 #pragma unroll
-    for (int k = 0; k < kMmaTileP / 16; ++k) {
+    for (int k = 0; k < kTP / 16; ++k) {
 #pragma unroll
       for (int v8 = 0; v8 < 2; ++v8) ha[k][v8][0] = ha[k][v8][1] = ha[k][v8][2] = ha[k][v8][3] = 0.f;
     }
@@ -542,11 +579,11 @@ __device__ __forceinline__ void mma_update_state(float* hr, const bf16* bs, int 
       v = unpack_bf16(a[3]);
       split2(v.x * w2, v.y * w3, ah[3], al[3]);
 #pragma unroll
-      for (int k = 0; k < kMmaTileP / 16; ++k) {
+      for (int k = 0; k < kTP / 16; ++k) {
         const int pr = pr0 + k * groups;
-        if (k * groups < kMmaTileP / 16 && pr < npair) {
+        if (k * groups < kTP / 16 && pr < npair) {
           uint32_t xf[4];
-          ldsm_x4_t(xf, xs + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdx + pr * 16 +
+          ldsm_x4_t(xf, xs + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * (kTP + 8) + pr * 16 +
                             (lane >> 4) * 8);
           mma_split(ha[k][0], ah, al, xf[0], xf[1]);
           mma_split(ha[k][1], ah, al, xf[2], xf[3]);
@@ -554,18 +591,26 @@ __device__ __forceinline__ void mma_update_state(float* hr, const bf16* bs, int 
       }
     }
 #pragma unroll
-    for (int k = 0; k < kMmaTileP / 16; ++k) {
+    for (int k = 0; k < kTP / 16; ++k) {
       const int pr = pr0 + k * groups;
-      if (k * groups < kMmaTileP / 16 && pr < npair) {
+      if (k * groups < kTP / 16 && pr < npair) {
 #pragma unroll
         for (int v8 = 0; v8 < 2; ++v8) {
 #pragma unroll
           for (int hf = 0; hf < 2; ++hf) {
-            float2* hp = reinterpret_cast<float2*>(hr + (m0 + g8 + hf * 8) * kLdh + pr * 16 +
-                                                   v8 * 8 + 2 * t4);
-            const float2 old = *hp;
-            *hp = make_float2(dec_end * old.x + ha[k][v8][2 * hf],
-                              dec_end * old.y + ha[k][v8][2 * hf + 1]);
+            const int row = m0 + g8 + hf * 8;
+            const int c = pr * 16 + v8 * 8 + 2 * t4;
+            float2* hp = reinterpret_cast<float2*>(hr + row * (kTP + 4) + c);
+            const float2 old = zero ? make_float2(0.f, 0.f) : *hp;
+            const float2 h = make_float2(dec_end * old.x + ha[k][v8][2 * hf],
+                                         dec_end * old.y + ha[k][v8][2 * hf + 1]);
+            if (hg == nullptr) {
+              *hp = h;
+            } else if (row < hrows) {
+              float* o = hg + row * hstride + c;
+              if (c < pw) o[0] = h.x;
+              if (c + 1 < pw) o[1] = h.y;
+            }
           }
         }
       }
@@ -574,45 +619,47 @@ __device__ __forceinline__ void mma_update_state(float* hr, const bf16* bs, int 
 }
 
 // the chunk's staged y rows to device memory
+template <int kTP = kMmaTileP>
 __device__ __forceinline__ void mma_store_y(bf16* __restrict__ yg, const bf16* ys, long long xstep,
                                             int qp, int valid, int pw, bool vec, int tid,
                                             int nt) {
   if (vec) {
-    for (int idx = tid; idx < qp * (kMmaTileP / 8); idx += nt) {
-      const int j = idx / (kMmaTileP / 8);
-      const int c = idx % (kMmaTileP / 8) * 8;
+    for (int idx = tid; idx < qp * (kTP / 8); idx += nt) {
+      const int j = idx / (kTP / 8);
+      const int c = idx % (kTP / 8) * 8;
       if (j < valid && c < pw) {
         *reinterpret_cast<uint4*>(yg + j * xstep + c) =
-            *reinterpret_cast<const uint4*>(ys + j * kLdx + c);
+            *reinterpret_cast<const uint4*>(ys + j * (kTP + 8) + c);
       }
     }
   } else {
-    for (int idx = tid; idx < qp * kMmaTileP; idx += nt) {
-      const int j = idx / kMmaTileP;
-      const int c = idx % kMmaTileP;
-      if (j < valid && c < pw) yg[j * xstep + c] = ys[j * kLdx + c];
+    for (int idx = tid; idx < qp * kTP; idx += nt) {
+      const int j = idx / kTP;
+      const int c = idx % kTP;
+      if (j < valid && c < pw) yg[j * xstep + c] = ys[j * (kTP + 8) + c];
     }
   }
 }
 
 // the final state to device memory
+template <int kTP = kMmaTileP>
 __device__ __forceinline__ void mma_store_state(float* __restrict__ hout, const float* hs,
                                                 long long hbase, int n, int p, int pw, bool vec,
                                                 int tid, int nt) {
   if (vec) {
-    for (int idx = tid; idx < n * (kMmaTileP / 4); idx += nt) {
-      const int nn = idx / (kMmaTileP / 4);
-      const int c = idx % (kMmaTileP / 4) * 4;
+    for (int idx = tid; idx < n * (kTP / 4); idx += nt) {
+      const int nn = idx / (kTP / 4);
+      const int c = idx % (kTP / 4) * 4;
       if (c < pw) {
         *reinterpret_cast<float4*>(hout + hbase + static_cast<long long>(nn) * p + c) =
-            *reinterpret_cast<const float4*>(hs + nn * kLdh + c);
+            *reinterpret_cast<const float4*>(hs + nn * (kTP + 4) + c);
       }
     }
   } else {
-    for (int idx = tid; idx < n * kMmaTileP; idx += nt) {
-      const int nn = idx / kMmaTileP;
-      const int c = idx % kMmaTileP;
-      if (c < pw) hout[hbase + static_cast<long long>(nn) * p + c] = hs[nn * kLdh + c];
+    for (int idx = tid; idx < n * kTP; idx += nt) {
+      const int nn = idx / kTP;
+      const int c = idx % kTP;
+      if (c < pw) hout[hbase + static_cast<long long>(nn) * p + c] = hs[nn * (kTP + 4) + c];
     }
   }
 }
@@ -729,40 +776,85 @@ ssd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ ld,
 // ------------------------------------------------------------------------
 // bf16, the tensor cores, a wide state (128 < N <= 1024)
 // ------------------------------------------------------------------------
-constexpr int kSlab = 64;           // columns of B and C (rows of the state) per slab
-constexpr int kLdk = kSlab + 8;     // bf16 per shared row of a B or C slab
+constexpr int kWideStages = 2;        // slabs of B and C in flight: the ring's depth
+constexpr int kWideSmemMax = 232448;  // a block's shared memory on the H100
 
-// The wide mma route's dynamic shared memory, as byte offsets
-// (ops.py:scan_plan computes the same total).
+// The wide mma route's dynamic shared memory for a chunk of q steps, state
+// size n, P tiles of tp columns and slabs of `slab` columns of B and C, as
+// byte offsets (ops.py:scan_plan computes the same total).
 struct WideSmem {
-  int qp, np;
-  int xs, ys, bs, cm, hs, cs, gis;
+  int qp, np, ldk;
+  int xs, ring, hs, cs, gis;
+  int stage;  // bytes of one stage of the ring: a B slab, then a C slab
   int bytes;
 };
 
-__host__ __device__ inline WideSmem wide_smem(int q, int n) {
+__host__ __device__ inline WideSmem wide_smem(int q, int n, int tp, int slab) {
   WideSmem m{};
   m.qp = round16(q);
   m.np = round16(n);
+  m.ldk = slab + 8;
+  m.stage = 2 * m.qp * m.ldk * 2;
   int o = 0;
-  m.xs = o; o += m.qp * kLdx * 2;   // x chunk (Qp, 32) bf16
-  m.ys = o; o += m.qp * kLdx * 2;   // y chunk (Qp, 32) bf16
-  m.bs = o; o += m.qp * kLdk * 2;   // B slab (Qp, 64) bf16
-  m.cm = o; o += m.qp * kLdk * 2;   // C slab (Qp, 64) bf16
-  m.hs = o; o += m.np * kLdh * 4;   // state (Np, 32) f32
-  m.cs = o; o += m.qp * 4;          // cumulative log-decay
-  m.gis = o; o += m.qp * 4;         // input scales
+  m.xs = o; o += m.qp * (tp + 8) * 2;      // x chunk (Qp, tp) bf16
+  m.ring = o; o += kWideStages * m.stage;  // the slabs of B and C (Qp, slab) bf16 each;
+                                           // y (Qp, tp) bf16 at its end after them
+  m.hs = o; o += m.np * (tp + 4) * 4;      // state (Np, tp) f32
+  m.cs = o; o += m.qp * 4;                 // cumulative log-decay
+  m.gis = o; o += m.qp * 4;                // input scales
   m.bytes = o;
   return m;
 }
 
+// Columns [n0, n0 + kw) of B and C into one stage of the ring (rows of ldk
+// bf16): 16-byte cp.async where `vec`, else plain loads; rows past the
+// chunk and columns past N are zeros.  Commits one group of copies.
+__device__ __forceinline__ void wide_stage_slab(bf16* bs, bf16* cm, int ldk,
+                                                const bf16* __restrict__ bg,
+                                                const bf16* __restrict__ cg, long long bstep,
+                                                int n0, int kw, int n, int qp, int valid,
+                                                bool vec, int tid, int nt) {
+  if (vec) {
+    const int nv = kw / 8;
+    for (int idx = tid; idx < qp * nv; idx += nt) {
+      const int j = idx / nv;
+      const int c = idx % nv * 8;
+      bf16* db = bs + j * ldk + c;
+      bf16* dc = cm + j * ldk + c;
+      if (j < valid && n0 + c < n) {
+        cp_async16(db, bg + j * bstep + n0 + c);
+        cp_async16(dc, cg + j * bstep + n0 + c);
+      } else {
+        *reinterpret_cast<uint4*>(db) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(dc) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  } else {
+    const bf16 zero = __float2bfloat16(0.f);
+    for (int idx = tid; idx < qp * kw; idx += nt) {
+      const int j = idx / kw;
+      const int c = idx % kw;
+      const bool ok = j < valid && n0 + c < n;
+      bs[j * ldk + c] = ok ? bg[j * bstep + n0 + c] : zero;
+      cm[j * ldk + c] = ok ? cg[j * bstep + n0 + c] : zero;
+    }
+  }
+  cp_async_commit();  // one group a slab (empty where the loads were plain)
+}
+
 // ssd_mma_kernel with B and C streamed through shared memory in slabs of
-// kSlab columns: per slab the warps' scores and C.h accumulate in
-// registers, then (after a barrier where h is read) the slab's rows of the
-// state are updated from the B slab still resident.  vec: bit 0 = x, y and
-// the state's rows move 16 bytes at a time (P a multiple of 8, x and y
-// 16-byte aligned), bit 1 = B and C do (N a multiple of 8, both aligned).
-template <int kWarpsT>
+// kSlabW columns, kTP columns of P a block.  The slabs pass through a ring
+// of kWideStages stages: while the warps form one slab's products the next
+// slab's cp.async copies are in flight, and one barrier a slab both makes
+// the slab visible and frees the stage the next copy overwrites.  Per slab
+// the warps' scores and C.h accumulate in registers, then (after a barrier
+// where h is read) the slab's rows of the state are updated from the B slab
+// still resident; in the last chunk those rows are the final state and are
+// stored to device memory there, so the state's write is spread over the
+// slab loop instead of following it.  vec: bit 0 = x and y move 16 bytes at
+// a time (P a multiple of 8, x and y 16-byte aligned), bit 1 = B and C do
+// (N a multiple of 8, both aligned).
+template <int kWarpsT, int kTP, int kSlabW>
 __global__ void __launch_bounds__(kWarpsT * 32)
 ssd_mma_wide_kernel(const bf16* __restrict__ x, const float* __restrict__ ld,
                     const float* __restrict__ gi, const bf16* __restrict__ bmat,
@@ -771,19 +863,17 @@ ssd_mma_wide_kernel(const bf16* __restrict__ x, const float* __restrict__ ld,
                     float* __restrict__ hout, int s, int nh, int p, int ng, int n, int q,
                     int vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const WideSmem m = wide_smem(q, n);
+  const WideSmem m = wide_smem(q, n, kTP, kSlabW);
   bf16* xs = reinterpret_cast<bf16*>(smem_raw + m.xs);
-  bf16* ys = reinterpret_cast<bf16*>(smem_raw + m.ys);
-  bf16* bs = reinterpret_cast<bf16*>(smem_raw + m.bs);
-  bf16* cm = reinterpret_cast<bf16*>(smem_raw + m.cm);
   float* hs = reinterpret_cast<float*>(smem_raw + m.hs);
   float* cs = reinterpret_cast<float*>(smem_raw + m.cs);
   float* gis = reinterpret_cast<float*>(smem_raw + m.gis);
-  const int qp = m.qp, np = m.np;
+  const int qp = m.qp, np = m.np, ldk = m.ldk;
   const bool vec_x = (vec & 1) != 0;
   const bool vec_bc = (vec & 2) != 0;
+  constexpr int kLh = kTP + 4;  // floats per shared row of the state
 
-  const int p0 = blockIdx.x * kMmaTileP;
+  const int p0 = blockIdx.x * kTP;
   const int head = blockIdx.y;
   const int b = blockIdx.z;
   const int grp = head / (nh / ng);
@@ -791,35 +881,63 @@ ssd_mma_wide_kernel(const bf16* __restrict__ x, const float* __restrict__ ld,
   constexpr int nthreads = kWarpsT * 32;
   const int lane = tid & 31;
   const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);  // uniform in the warp
-  const int pw = min(kMmaTileP, p - p0);
+  const int pw = min(kTP, p - p0);
   const int npair = (pw + 15) / 16;
   const float dh = dvec != nullptr ? dvec[head] : 0.f;
   const long long xstep = static_cast<long long>(nh) * p;
   const long long bstep = static_cast<long long>(ng) * n;
   const long long hbase = (static_cast<long long>(b) * nh + head) * n * p + p0;
-  const bf16 zero = __float2bfloat16(0.f);
+  const int nslab = (np + kSlabW - 1) / kSlabW;
+  // after a chunk's slabs the ring holds y at its end and, below it, the
+  // odd k16 steps' sums of the scores where two warps share a strip
+  const int ring_bytes = kWideStages * m.stage;
+  const int y_bytes = qp * (kTP + 8) * 2;
+  bf16* ys = reinterpret_cast<bf16*>(smem_raw + m.ring + ring_bytes - y_bytes);
+  float* part = reinterpret_cast<float*>(smem_raw + m.ring);
+  // the chunk's 16-row strips; where they are at most half the warps (and
+  // the sums fit), warps strips .. 2 strips - 1 take each slab's odd k16
+  // steps of the scores for the same rows as warps 0 .. strips - 1
+  constexpr int kPart = kWarpsT / 2 * 8 + kTP / 2;  // floats a thread: scores, then C.h
+  const int strips = qp / 16;
+  const bool split = kWarpsT >= 2 * strips && strips * kPart * 32 * 4 + y_bytes <= ring_bytes;
+  const int strip = split && warp >= strips ? warp - strips : warp;
+  const int half = split && warp >= strips ? 1 : 0;
 
-  mma_init_state(hs, h0, hbase, n, np, p, pw, tid, nthreads);
+  mma_init_state<kTP>(hs, h0, hbase, n, np, p, pw, tid, nthreads);
   bool has_h = h0 != nullptr;
 
   for (int t0 = 0; t0 < s; t0 += q) {
     const int valid = min(q, s - t0);
+    const bool last = t0 + q >= s;
     const long long row0 = static_cast<long long>(b) * s + t0;
     const bf16* bg = bmat + (row0 * ng + grp) * n;
     const bf16* cg = cmat + (row0 * ng + grp) * n;
     __syncthreads();  // the previous chunk is consumed: y stored, hs updated (or initialised)
     float ldv[kPer], giv[kPer];
     if (warp == 0) chunk_load(ld, gi, row0 * nh + head, nh, valid, lane, ldv, giv);
-    mma_stage_x(xs, x + (row0 * nh + head) * p + p0, xstep, qp, valid, pw, vec_x, tid, nthreads);
+    // x's copies join the first slab's group
+    mma_stage_x<kTP>(xs, x + (row0 * nh + head) * p + p0, xstep, qp, valid, pw, vec_x, tid,
+                     nthreads);
+#pragma unroll
+    for (int k = 0; k < kWideStages - 1; ++k) {
+      bf16* st = reinterpret_cast<bf16*>(smem_raw + m.ring + k * m.stage);
+      if (k < nslab) {
+        wide_stage_slab(st, st + qp * ldk, ldk, bg, cg, bstep, k * kSlabW,
+                        min(kSlabW, np - k * kSlabW), n, qp, valid, vec_bc, tid, nthreads);
+      } else {
+        cp_async_commit();
+      }
+    }
     if (warp == 0) chunk_scan(ldv, giv, qp, cs, gis, lane);
 
-    // warp w owns rows [16w, 16w + 16) of the chunk
-    const int i0 = warp * 16;
+    // warp w owns rows [16 strip, 16 strip + 16) of the chunk (warps past
+    // the strips, and past twice the strips where they split, own none)
+    const int i0 = strip * 16;
     const bool rows_live = i0 < valid;
-    const int nkt = min(warp + 1, (valid + 15) / 16);
-    float acc[kMmaTileP / 8][4];
+    const int nkt = min(strip + 1, (valid + 15) / 16);
+    float acc[kTP / 8][4];
 #pragma unroll
-    for (int t = 0; t < kMmaTileP / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+    for (int t = 0; t < kTP / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
     float sc[kWarpsT][2][4];
 #pragma unroll
     for (int kt = 0; kt < kWarpsT; ++kt) {
@@ -827,58 +945,78 @@ ssd_mma_wide_kernel(const bf16* __restrict__ x, const float* __restrict__ ld,
       for (int u = 0; u < 2; ++u) sc[kt][u][0] = sc[kt][u][1] = sc[kt][u][2] = sc[kt][u][3] = 0.f;
     }
 
-    for (int n0 = 0; n0 < np; n0 += kSlab) {
-      const int kw = min(kSlab, np - n0);   // a multiple of 16
-      // ---- stage the slab: columns [n0, n0 + kw) of B and C; rows past
-      // the chunk and columns past N zero
-      if (vec_bc) {
-        const int nv = kw / 8;
-        for (int idx = tid; idx < qp * nv; idx += nthreads) {
-          const int j = idx / nv;
-          const int c = idx % nv * 8;
-          bf16* db = bs + j * kLdk + c;
-          bf16* dc = cm + j * kLdk + c;
-          if (j < valid && n0 + c < n) {
-            cp_async16(db, bg + j * bstep + n0 + c);
-            cp_async16(dc, cg + j * bstep + n0 + c);
-          } else {
-            *reinterpret_cast<uint4*>(db) = make_uint4(0u, 0u, 0u, 0u);
-            *reinterpret_cast<uint4*>(dc) = make_uint4(0u, 0u, 0u, 0u);
-          }
-        }
+    for (int k = 0; k < nslab; ++k) {
+      const int n0 = k * kSlabW;
+      const int kw = min(kSlabW, np - n0);  // a multiple of 16
+      // this thread's copies of slab k have landed (later slabs may still be
+      // in flight); the barrier makes every thread's visible, and every warp
+      // is done with slab k - 1, whose stage the next copy takes
+      cp_async_wait_group<kWideStages - 2>();
+      __syncthreads();
+      const int kn = k + kWideStages - 1;
+      if (kn < nslab) {
+        bf16* st = reinterpret_cast<bf16*>(smem_raw + m.ring + (kn % kWideStages) * m.stage);
+        wide_stage_slab(st, st + qp * ldk, ldk, bg, cg, bstep, kn * kSlabW,
+                        min(kSlabW, np - kn * kSlabW), n, qp, valid, vec_bc, tid, nthreads);
       } else {
-        for (int idx = tid; idx < qp * kw; idx += nthreads) {
-          const int j = idx / kw;
-          const int c = idx % kw;
-          const bool ok = j < valid && n0 + c < n;
-          bs[j * kLdk + c] = ok ? bg[j * bstep + n0 + c] : zero;
-          cm[j * kLdk + c] = ok ? cg[j * bstep + n0 + c] : zero;
-        }
+        cp_async_commit();  // an empty group: one group a slab either way
       }
-      cp_async_wait_all();
-      __syncthreads();   // the slab (and, on the first, x, cs and gis) is staged
+      const bf16* bs =
+          reinterpret_cast<const bf16*>(smem_raw + m.ring + (k % kWideStages) * m.stage);
+      const bf16* cm = bs + qp * ldk;
 
       if (rows_live) {
-        mma_scores<kWarpsT>(acc, sc, cm, bs, kLdk, kw, hs + n0 * kLdh, has_h, nkt, npair, i0,
-                            lane);
+        mma_scores<kWarpsT, kTP>(acc, sc, cm, bs, ldk, kw, hs + n0 * kLh, has_h, nkt, npair, i0,
+                                 lane, half, split ? 2 : 1);
       }
       // C.h has read the slab's rows of the entering state before their update
       if (has_h) __syncthreads();
-      mma_update_state<kWarpsT>(hs + n0 * kLdh, bs, kLdk, kw / 16, valid, cs, gis, qp, xs,
-                                npair, warp, lane);
-      __syncthreads();   // the slab is consumed
+      mma_update_state<kWarpsT, kTP>(hs + n0 * kLh, bs, ldk, kw / 16, valid, cs, gis, qp, xs,
+                                     npair, warp, lane, !has_h,
+                                     last ? hout + hbase + static_cast<long long>(n0) * p
+                                          : nullptr,
+                                     p, n - n0, pw);
     }
 
-    if (rows_live) {
-      mma_y_rows<kWarpsT>(acc, sc, cs, gis, xs, ys, i0 + (lane >> 2), nkt, npair, has_h, dh,
-                          lane);
+    __syncthreads();  // every slab is consumed: the ring is free
+    if (split) {
+      // the odd steps' sums through shared memory, added to the even
+      // steps' in that order
+      float* mine = part + strip * kPart * 32 + lane;
+      if (half == 1 && rows_live) {
+#pragma unroll
+        for (int kt = 0; kt < kWarpsT / 2; ++kt) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            if (kt < nkt) mine[(kt * 8 + e) * 32] = sc[kt][e >> 2][e & 3];
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < kTP / 2; ++e) mine[(kWarpsT / 2 * 8 + e) * 32] = acc[e >> 2][e & 3];
+      }
+      __syncthreads();
+      if (half == 0 && rows_live) {
+#pragma unroll
+        for (int kt = 0; kt < kWarpsT / 2; ++kt) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            if (kt < nkt) sc[kt][e >> 2][e & 3] += mine[(kt * 8 + e) * 32];
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < kTP / 2; ++e) acc[e >> 2][e & 3] += mine[(kWarpsT / 2 * 8 + e) * 32];
+      }
+    }
+    if (rows_live && half == 0) {
+      mma_y_rows<kWarpsT, kTP>(acc, sc, cs, gis, xs, ys, i0 + (lane >> 2), nkt, npair, has_h,
+                               dh, lane);
     }
     __syncthreads();  // y is staged
-    mma_store_y(y + (row0 * nh + head) * p + p0, ys, xstep, qp, valid, pw, vec_x, tid, nthreads);
+    mma_store_y<kTP>(y + (row0 * nh + head) * p + p0, ys, xstep, qp, valid, pw, vec_x, tid,
+                     nthreads);
     has_h = true;
   }
-  __syncthreads();
-  mma_store_state(hout, hs, hbase, n, p, pw, vec_x, tid, nthreads);
+  // the last chunk's updates have stored the final state
 }
 
 // ------------------------------------------------------------------------
@@ -1041,6 +1179,35 @@ ssd_wide_kernel(const float* __restrict__ x, const float* __restrict__ ld,
 // ------------------------------------------------------------------------
 enum Route { kCudaCores = 0, kMma = 1, kMmaWide = 2, kCudaCoresWide = 3 };
 
+using WideKernel = void (*)(const bf16*, const float*, const float*, const bf16*, const bf16*,
+                            const float*, const float*, bf16*, float*, int, int, int, int, int,
+                            int, int);
+
+// The wide mma kernel of a plan's (warps, P tile, slab): the two
+// ops.py:scan_plan gives (8 warps, 32 columns, slabs of 128 up to a chunk
+// of 64 and of 64 beyond), and, built with -DREPRO_WIDE_VARIANTS
+// (tools/wide_scan_variants.py), every other combination of 4 or 8 warps,
+// 16 or 32 columns and slabs of 32 or 64, and 4 warps at slabs of 128.
+// nullptr for anything else.
+WideKernel wide_kernel(int warps, int tile, int slab) {
+#define REPRO_WIDE(W, T, K) \
+  if (warps == W && tile == T && slab == K) return ssd_mma_wide_kernel<W, T, K>;
+  REPRO_WIDE(8, 32, 128)
+  REPRO_WIDE(8, 32, 64)
+#ifdef REPRO_WIDE_VARIANTS
+  REPRO_WIDE(4, 16, 32)
+  REPRO_WIDE(4, 16, 64)
+  REPRO_WIDE(4, 32, 32)
+  REPRO_WIDE(4, 32, 64)
+  REPRO_WIDE(8, 16, 32)
+  REPRO_WIDE(8, 16, 64)
+  REPRO_WIDE(8, 32, 32)
+  REPRO_WIDE(4, 32, 128)
+#endif
+#undef REPRO_WIDE
+  return nullptr;
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -1070,8 +1237,10 @@ cudaError_t launch_cuda_cores(const float* x, const float* ld, const float* gi, 
 // dtype of x, B, C and y: 0 = float32, 1 = bfloat16.  route (0 the CUDA
 // cores: f32, N <= 128; 1 the tensor cores: bf16, N <= 128; 2 the tensor
 // cores, wide: bf16, 128 < N <= 1024; 3 the CUDA cores, wide: f32,
-// 128 < N <= 1024), warps and smem (dynamic shared memory in bytes) come
-// from ops.py:scan_plan.  vec, on route 1: P and N are multiples of 8 and x,
+// 128 < N <= 1024), warps, tile and slab (route 2's columns of P a block
+// and columns of B and C a slab; the other routes ignore them) and smem
+// (dynamic shared memory in bytes) come from ops.py:scan_plan.  vec, on
+// route 1: P and N are multiples of 8 and x,
 // B, C and y 16-byte aligned, so x, B, C and y move 16 bytes at a time; on
 // route 2 a bit mask: bit 0 for x, y and the state's rows (P a multiple of
 // 8, x and y aligned), bit 1 for B and C (N a multiple of 8, both aligned).
@@ -1080,7 +1249,8 @@ cudaError_t launch_cuda_cores(const float* x, const float* ld, const float* gi, 
 extern "C" int repro_ssm_scan(const void* x, const void* ld, const void* gi, const void* bmat,
                               const void* cmat, const void* d, const void* h0, void* y,
                               void* hout, int b, int s, int nh, int p, int ng, int n, int chunk,
-                              int dtype, int route, int warps, int smem, int vec, void* stream) {
+                              int dtype, int route, int warps, int tile, int slab, int smem,
+                              int vec, void* stream) {
   if (b <= 0 || s <= 0 || nh <= 0 || p <= 0 || ng <= 0 || nh % ng != 0 || n <= 0 ||
       n > kMaxWideState || chunk <= 0 || chunk > kMaxChunk || b > 65535 || nh > 65535) {
     return cudaErrorInvalidValue;
@@ -1116,21 +1286,23 @@ extern "C" int repro_ssm_scan(const void* x, const void* ld, const void* gi, con
     return static_cast<int>(cudaGetLastError());
   }
   if (route == kMmaWide) {
-    if (dtype != 1 || (warps != 4 && warps != 8) || warps * 16 < round16(chunk) ||
-        smem != wide_smem(chunk, n).bytes || (vec & ~3) != 0 || ((vec & 1) && p % 8 != 0) ||
-        ((vec & 2) && n % 8 != 0)) {
+    const auto kernel = wide_kernel(warps, tile, slab);
+    if (dtype != 1 || kernel == nullptr || warps * 16 < round16(chunk) ||
+        smem != wide_smem(chunk, n, tile, slab).bytes || smem > kWideSmemMax ||
+        (vec & ~3) != 0 || ((vec & 1) && p % 8 != 0) || ((vec & 2) && n % 8 != 0)) {
       return cudaErrorInvalidValue;
     }
-    static bool attr_set = false;
-    if (!attr_set) {
-      const int most = wide_smem(kMaxChunk, kMaxWideState).bytes;
-      cudaError_t err = allow_smem(ssd_mma_wide_kernel<4>, most);
-      if (err == cudaSuccess) err = allow_smem(ssd_mma_wide_kernel<8>, most);
+    constexpr int kKernels = 16;  // more than wide_kernel returns
+    static WideKernel raised[kKernels] = {};  // kernels whose shared-memory cap is raised
+    int at = 0;
+    while (at < kKernels && raised[at] != nullptr && raised[at] != kernel) ++at;
+    if (at == kKernels) return cudaErrorInvalidValue;
+    if (raised[at] == nullptr) {
+      cudaError_t err = allow_smem(kernel, kWideSmemMax);
       if (err != cudaSuccess) return static_cast<int>(err);
-      attr_set = true;
+      raised[at] = kernel;
     }
-    const dim3 grid((p + kMmaTileP - 1) / kMmaTileP, nh, b);
-    auto kernel = warps == 4 ? ssd_mma_wide_kernel<4> : ssd_mma_wide_kernel<8>;
+    const dim3 grid((p + tile - 1) / tile, nh, b);
     kernel<<<grid, warps * 32, smem, st>>>(
         static_cast<const bf16*>(x), ldf, gif, static_cast<const bf16*>(bmat),
         static_cast<const bf16*>(cmat), df, h0f, static_cast<bf16*>(y), ho, s, nh, p, ng, n, chunk,

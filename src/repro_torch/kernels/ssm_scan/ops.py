@@ -34,7 +34,12 @@ from repro_torch.kernels.ssm_scan.ref import (
 MAX_CHUNK = 128     # the kernel stages one chunk of up to 128 steps
 NARROW_STATE = 128  # up to 128 state rows (N), a whole chunk of B and C fits beside the state
 MAX_STATE = 1024    # the wide routes stream B and C in slabs along N up to 1024 rows
-WIDE_SLAB = {"mma_wide": 64, "cuda_cores_wide": 16}   # columns of B and C per slab
+WIDE_SLAB = {"cuda_cores_wide": 16}   # columns of B and C per slab of the f32 wide route
+# the bf16 wide route's slab by the longest chunk it takes: 128 columns up
+# to a chunk of 64, 64 up to 128 (where 128 would not fit beside the state)
+MMA_WIDE_SLABS = ((64, 128), (MAX_CHUNK, 64))
+MMA_WIDE_WARPS = 8  # the wide mma route's warps a block, at every chunk
+WIDE_STAGES = 2     # slabs of B and C in flight on the wide mma route
 ROUTE_CODES = {"cuda_cores": 0, "mma": 1, "mma_wide": 2, "cuda_cores_wide": 3}
 
 
@@ -56,11 +61,18 @@ def scan_plan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
     8 warps per (32 columns of P, head, batch row).
 
     A state of more than ``NARROW_STATE`` rows (mLSTM's N = 1024) takes the
-    wide routes, same grid and warps: the state slice stays resident, and B
-    and C stream through shared memory in slabs of ``WIDE_SLAB`` columns
-    (bf16: two slabs of (chunk rows padded to 16, 64 + 8) bf16 in place of
-    whole rows of B and C; f32: a (chunk, 16 + 1) and a (chunk, 16) slab
-    beside the chunk's (chunk, chunk) scores)."""
+    wide routes: the state slice stays resident, and B and C stream through
+    shared memory in slabs along N.  bf16 (``mma_wide``): 32 columns of P
+    a block (``tile``), ``MMA_WIDE_WARPS`` warps, a ring of
+    ``WIDE_STAGES`` stages of a B and a C slab of (chunk rows padded to 16,
+    ``slab`` + 8) bf16 (``MMA_WIDE_SLABS``: 128 columns up to a chunk of
+    64, 64 beyond; y staged at the ring's end after the slabs), x in rows
+    of 32 + 8 bf16 and the state in rows of 32 + 4 floats: at a chunk of
+    128 exactly a block's 227 KB.  f32: the narrow grid and warps, a
+    (chunk, 16 + 1) and a (chunk, 16) slab (``WIDE_SLAB``) beside the
+    chunk's (chunk, chunk) scores.  Only the wide mma route's plan has
+    ``tile`` and ``slab``: the C entry point reads them on that route
+    alone."""
     if n > MAX_STATE:
         raise ValueError(f"state size N={n} > {MAX_STATE}")
     grid = (-(-p // 32), h, b)
@@ -72,9 +84,11 @@ def scan_plan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
         if n <= NARROW_STATE:
             return dict(route="mma", warps=warps, grid=grid,
                         smem=xy + 2 * qp * (np_ + 8) * 2 + state)
-        slab = WIDE_SLAB["mma_wide"]
-        return dict(route="mma_wide", warps=warps, grid=grid,
-                    smem=xy + 2 * qp * (slab + 8) * 2 + state)
+        slab, tile = next(k for q, k in MMA_WIDE_SLABS if chunk <= q), 32
+        smem = (qp * (tile + 8) * 2 + WIDE_STAGES * 2 * qp * (slab + 8) * 2
+                + np_ * (tile + 4) * 4 + 2 * qp * 4)
+        return dict(route="mma_wide", warps=MMA_WIDE_WARPS, tile=tile, slab=slab,
+                    grid=grid, smem=smem)
     if dtype == torch.float32:
         if n <= NARROW_STATE:
             floats = n * 32 + chunk * 32 + chunk * (n + 1) + chunk * n + 4 * chunk + 8 * chunk
@@ -292,7 +306,8 @@ def gated_scan_cuda(
         x.data_ptr(), ld.data_ptr(), gi.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         None if D is None else D.data_ptr(), None if h0 is None else h0.data_ptr(),
         y.data_ptr(), hout.data_ptr(), b, s, h, p, g, n, chunk, dtype,
-        ROUTE_CODES[plan["route"]], plan["warps"], plan["smem"], vec, stream,
+        ROUTE_CODES[plan["route"]], plan["warps"], plan.get("tile", 0), plan.get("slab", 0),
+        plan["smem"], vec, stream,
     ))
     return y, hout
 

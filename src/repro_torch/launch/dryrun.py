@@ -278,15 +278,19 @@ def extrapolation_lengths(cfg: ArchConfig, shape: ShapeConfig) -> Optional[Tuple
     the step has no time loop or the cell is too short to need them.  Each
     is a multiple of the scan's chunk (the scan pads to it) and, for a
     train step longer than one loss chunk, of ``CHUNK_LEN`` (the loss pads
-    to it): every count is then affine in the length."""
+    to it): every count is then affine in the length.  A train step's
+    first length holds two scan chunks or more: at one chunk the product
+    that only makes the unread final state leaves the count
+    (``graph_analysis.final_state_dots``), which is then not affine."""
     if not cfg.slstm_every or shape.kind not in ("train", "prefill"):
         return None
     unit = cfg.ssm_chunk
     if shape.kind == "train" and shape.seq_len > CHUNK_LEN:
         unit = math.lcm(unit, CHUNK_LEN)
-    if shape.seq_len <= 2 * unit or shape.seq_len % unit:
+    first = 2 * unit if shape.kind == "train" and unit == cfg.ssm_chunk else unit
+    if shape.seq_len <= first + unit or shape.seq_len % unit:
         return None
-    return unit, 2 * unit
+    return first, first + unit
 
 
 def trace_cell(cfg: ArchConfig, shape: ShapeConfig, device: Any = "cuda", *,

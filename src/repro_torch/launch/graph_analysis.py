@@ -82,14 +82,26 @@ def _scan_dims(x_shape, b_shape, chunk: int) -> Tuple[int, int, int, int, int, i
     return b, s, h, p, n, q, -(-s // q)
 
 
-def scan_dot_flops(x_shape, b_shape, chunk: int) -> float:
+def scan_dot_flops(x_shape, b_shape, chunk: int, *, final_state: bool = True) -> float:
     """The products of the chunked scan (``repro/kernels/ssm_scan/ref.py``'s
     four einsums, 2 x output elements x contracted size each): the scores
     C B^T (Q x Q x N a chunk and head), the intra-chunk scores x (Q x Q x
     P), the chunk states B^T x and the carried states' contribution C h (Q
-    x N x P each), over the chunks of the sequence."""
+    x N x P each), over the chunks of the sequence.  At a single chunk the
+    one chunk state is the final state, and the reference's XLA drops its
+    product B^T x when nothing reads it: ``final_state`` False leaves it out
+    (:func:`final_state_dots`; the C h product on a zero initial state it
+    keeps)."""
     b, _, h, p, n, q, nc = _scan_dims(x_shape, b_shape, chunk)
-    return 2.0 * b * nc * h * (q * q * n + q * q * p + 2 * q * n * p)
+    dots = 2.0 * b * nc * h * (q * q * n + q * q * p + 2 * q * n * p)
+    return dots if final_state else dots - final_state_dots(x_shape, b_shape, chunk)
+
+
+def final_state_dots(x_shape, b_shape, chunk: int) -> float:
+    """B^T x of a single-chunk scan, the product only its final state needs
+    (none beyond one chunk, where each chunk state feeds the next chunk)."""
+    b, _, h, p, n, q, nc = _scan_dims(x_shape, b_shape, chunk)
+    return 2.0 * b * h * q * n * p if nc == 1 else 0.0
 
 
 def _scan_elementwise(x_shape, b_shape, chunk: int) -> float:
@@ -115,7 +127,8 @@ def _rmsnorm_backward(args, outs) -> Tuple[float, float]:
 
 
 def _gated_scan(args, outs) -> Tuple[float, float]:
-    # (x, log_decay, in_scale, Bm, Cm, D, h0, chunk)
+    # (x, log_decay, in_scale, Bm, Cm, D, h0, chunk); the final state taken
+    # as read (CostTotals defers that part until an op reads it)
     x, bm, chunk = args[0][0], args[3][0], args[7]
     dots = scan_dot_flops(x, bm, chunk)
     return dots + _scan_elementwise(x, bm, chunk), dots
@@ -124,9 +137,10 @@ def _gated_scan(args, outs) -> Tuple[float, float]:
 def _gated_scan_backward(args, outs) -> Tuple[float, float]:
     # (dy, dh_final, x, log_decay, in_scale, Bm, Cm, D, h0, chunk): every
     # einsum of the forward has both operands on the gradient's path, so
-    # the backward does two products of its size for each
+    # the backward does two products of its size for each; at a single
+    # chunk with no cotangent on the final state, none for B^T x
     x, bm, chunk = args[2][0], args[5][0], args[9]
-    dots = 2.0 * scan_dot_flops(x, bm, chunk)
+    dots = 2.0 * scan_dot_flops(x, bm, chunk, final_state=args[1] is not None)
     return dots + 2.0 * _scan_elementwise(x, bm, chunk), dots
 
 
@@ -193,12 +207,25 @@ class CostTotals:
         self.launches: Dict[str, int] = {}
         self.coll_bytes: Dict[str, float] = {}
         self.coll_counts: Dict[str, int] = {}
+        # a single-chunk scan's final state (its storage) -> the products
+        # that count once an op reads it (or the step returns it)
+        self.pending: Dict[int, float] = {}
+        self.in_backward = False   # set by the walker once the backward pass runs
+
+    def read(self, keys) -> None:
+        """The storages ``keys`` are read: their pending products count."""
+        for key in keys:
+            dots = self.pending.pop(key, 0.0)
+            self.flops += dots
+            self.dot_flops += dots
 
     def add(self, target, args, kwargs, outs: List[torch.Tensor]) -> None:
         """One op: ``target`` an aten or custom op overload, ``args`` and
         ``kwargs`` its arguments (tensors, real or fake, and constants),
         ``outs`` its output tensors."""
         self.n_ops += 1
+        if self.pending:
+            self.read([_storage_key(t) for t in _tensors(tree_leaves((args, kwargs)))])
         ns, base = _op_parts(target)
         if ns == "_c10d_functional" and base == "wait_tensor":
             return                       # the end of a functional collective
@@ -217,6 +244,14 @@ class CostTotals:
         if base in KERNEL_FLOPS:
             avals = [(tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor) else a for a in args]
             f, df = KERNEL_FLOPS[base](avals, out_av)
+            if base == "gated_scan" and not self.in_backward:
+                # a forward rematerialized in the backward keeps B^T x: the
+                # reference's jax.checkpoint recomputes behind an
+                # optimization barrier, which nothing is dropped across
+                late = final_state_dots(avals[0][0], avals[3][0], args[7])
+                if late:
+                    self.pending[_storage_key(outs[1])] = late
+                    f, df = f - late, df - late
         else:
             f = node_flops(f"{ns}.{base}.x", in_av, out_av, view)
             df = f if base in _DOT_OPS else 0.0
@@ -247,8 +282,14 @@ def _val(node: torch.fx.Node):
 def analyze_graph(gm: torch.fx.GraphModule) -> Dict[str, Any]:
     totals = CostTotals()
     for node in op_nodes(gm):
+        # the backward pass starts at the first op of a backward (a graph
+        # records the ops in the order they ran)
+        totals.in_backward |= _op_parts(node.target)[1].endswith("_backward")
         totals.add(node.target, torch.fx.node.map_arg(node.args, _val),
                    torch.fx.node.map_arg(node.kwargs, _val), _tensors(_val(node)))
+    out = next(n for n in gm.graph.nodes if n.op == "output")
+    totals.read([_storage_key(t) for t in
+                 _tensors(tree_leaves(torch.fx.node.map_arg(out.args, _val)))])
     return totals.record()
 
 
@@ -347,6 +388,7 @@ class StepMeter(TorchDispatchMode):
             self.live -= self.size.pop(key)
             del self.refs[key]
             self.events.append((key, None))
+            self.cost.pending.pop(key, None)   # a final state no op read
 
     def peak_buffers(self) -> List[Dict[str, Any]]:
         """The ``TOP_BUFFERS`` largest buffers alive at the peak, replayed
@@ -368,6 +410,7 @@ class StepMeter(TorchDispatchMode):
         if not outs:
             return out     # a query (a device, a value read out): no node in a trace
         # a trace records a constant's lift as a copy
+        self.cost.in_backward = torch._C._current_graph_task_id() != -1
         self.cost.add(_LIFT_AS.get(func, func), args, kwargs, outs)
         for t in outs:
             self.hold(t, str(func))
@@ -392,6 +435,7 @@ def metered(args: tuple):
     rec: Dict[str, Any] = {}
     with meter:
         yield rec
+    meter.cost.read(list(meter.refs))   # the final states the step returns
     rec["cost"] = meter.cost.record()
     rec["liveness"] = dict(peak_bytes=meter.peak, peak_op=meter.peak_op,
                            argument_bytes=args_bytes, temp_bytes=meter.peak - args_bytes,
@@ -408,5 +452,6 @@ def measure_step(fn: Callable, args: tuple) -> Dict[str, Any]:
     # arguments' mode (real ones for real arguments)
     fake_mode = getattr(leaves[0], "fake_mode", None) or contextlib.nullcontext()
     with fake_mode, metered(args) as rec:
-        fn(*args)
+        out = fn(*args)    # held to the block's end: what the step returns counts as read
+    del out
     return rec

@@ -120,12 +120,14 @@ def test_served_trace_keeps_one_node_per_kernel(rng):
 
 
 @pytest.mark.parametrize("rows,d", [(2048, 1024), (32768, 128), (16384, 128), (65, 130),
-                                    (64, 2560), (3, 8192)])
+                                    (64, 2560), (3, 8192), (2048, 2048), (2048, 4096),
+                                    (512, 4096), (2048, 2560)])
 def test_rmsnorm_backward_plan(rows, d):
-    """The route by dtype, shape and alignment (aligned rows of at most 1024
-    that split into 16-byte vectors take the warp route, the rest the scalar
-    one); the grid covers the rows with no empty block; the warp route's
-    lanes and vectors cover the row; shared memory fits."""
+    """The route by dtype, shape and alignment: aligned rows that split into
+    16-byte vectors take the warp route up to d 1024 and the block route up
+    to 8192, the rest the scalar one; the grid covers the rows with no empty
+    block, within its cap; the lanes and vectors cover the row; shared
+    memory fits."""
     for dtype in (torch.float32, torch.bfloat16):
         per_vec = 4 if dtype == torch.float32 else 8
         for aligned in (True, False):
@@ -133,12 +135,21 @@ def test_rmsnorm_backward_plan(rows, d):
             assert plan["grid"] == -(-rows // plan["rows_per_block"])
             assert (plan["grid"] - 1) * plan["rows_per_block"] < rows
             assert plan["smem"] <= SMEM_MAX
-            if not aligned or d % per_vec or d > 1024:
+            if not aligned or d % per_vec:
                 assert plan["route"] == "scalar"
                 assert plan["rows_per_block"] % 4 == 0 and plan["grid"] <= 1056
                 assert plan["smem"] == 16 * d
                 continue
             nvec = d // per_vec
+            if d > 1024:
+                # the whole block on a row: 4 to 16 warps, 1 to 4 vectors a
+                # thread, two rows at a time, 1 to 4 blocks an SM
+                threads, vecs = plan["threads"], plan["vecs"]
+                assert plan["route"] == "block" and plan["lanes"] == threads
+                assert threads % 32 == 0 and 96 <= threads <= 512 and 1 <= vecs <= 4
+                assert (vecs - 1) * threads < nvec <= vecs * threads
+                assert plan["rows_per_block"] % 2 == 0 and plan["grid"] <= 4 * 132
+                continue
             assert plan["route"] == "warp" and plan["threads"] == 256
             lanes = plan["lanes"]
             assert lanes & (lanes - 1) == 0 and lanes <= min(32, nvec) < 2 * lanes
@@ -147,6 +158,13 @@ def test_rmsnorm_backward_plan(rows, d):
             assert plan["rows_per_block"] % step == 0 and plan["smem"] == 32 * d
     assert rmsnorm_backward_plan(32768, 128, torch.bfloat16)["lanes"] == 16   # two rows a warp
     assert rmsnorm_backward_plan(2048, 1024, torch.bfloat16)["vecs"] == 4     # 32 values a lane
+    # the training shapes above d 1024, as timed (tools/rmsnorm_backward_grids.py): two
+    # vectors a thread, 64 KB of x and dy in flight on each SM
+    bf = torch.bfloat16
+    assert {k: rmsnorm_backward_plan(2048, 4096, bf)[k] for k in ("threads", "vecs", "grid")} \
+        == dict(threads=256, vecs=2, grid=256)
+    assert {k: rmsnorm_backward_plan(2048, 2048, bf)[k] for k in ("threads", "vecs", "grid")} \
+        == dict(threads=128, vecs=2, grid=512)
 
 
 @pytest.mark.parametrize("d", [32, 64, 96, 128])

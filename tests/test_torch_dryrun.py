@@ -35,8 +35,8 @@ from repro_torch.launch import dryrun
 # with a full group (the default reduction has none, so its shared block
 # never runs and the reference's zero-trip group loop still takes the
 # block's weights as arguments), xlstm with an sLSTM block and 4 scan
-# chunks a sequence (every real cell has many: at a single chunk the
-# reference's XLA drops the products of the zero initial state)
+# chunks a sequence (every real cell has many; the single-chunk cells are
+# pinned by ONE_CHUNK_XLSTM)
 CASES = {
     "qwen3": ("qwen3-0.6b", {}),
     "minicpm3": ("minicpm3-4b", {}),
@@ -193,6 +193,22 @@ def test_per_rank_bytes_match_reference_memory_analysis(cells, name, kind):
 @pytest.mark.parametrize("name", HERE)
 def test_dot_flops_match_reference_hlo(cells, name, kind):
     check_dot_flops(cells, name, kind)
+
+
+# the reference's hlo_weighted.dot_flops of the default reduced xlstm (2
+# mLSTM layers) at seq 64, batch 4, where its scan chunk of 128 is one chunk
+# a sequence: XLA drops the unread final state's product B^T x from the
+# train step's forward but not from its rematerialized forward (behind
+# jax.checkpoint's optimization barrier), and keeps C h on the zero state
+ONE_CHUNK_XLSTM = {"train": 303_693_824, "prefill": 64_749_568, "decode": 935_936}
+
+
+@pytest.mark.parametrize("kind", sorted(ONE_CHUNK_XLSTM))
+def test_one_chunk_scan_dot_flops_match_reference(kind):
+    cfg = get_reduced_config("xlstm-1.3b")
+    assert cfg.ssm_chunk >= 64
+    tr = dryrun.trace_step(cfg, ShapeConfig(kind, 64, 4, kind), "cpu")
+    assert tr.metered["cost"]["dot_flops"] == ONE_CHUNK_XLSTM[kind]
 
 
 def test_named_gaps_are_real_gaps():

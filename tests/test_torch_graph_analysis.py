@@ -27,6 +27,7 @@ from repro_torch.launch.graph_analysis import (
     KERNEL_FLOPS,
     alias_bytes,
     analyze_graph,
+    final_state_dots,
     measure_step,
     needed_nodes,
     op_nodes,
@@ -153,6 +154,45 @@ def test_kernel_flop_rules():
     dots = KERNEL_FLOPS["convolution_backward"](
         [g, xin, w, [0], [1], [0], [1], False, [0], 10, [True, True, False]], [])[1]
     assert dots == 2 * 3 * 10 * 23 * 4 + 2 * 10 * 4 * (3 * 20)
+
+
+@pytest.mark.parametrize("s", [16, 96])
+def test_single_chunk_scan_counts_its_final_state_when_read(s):
+    """At a single chunk B^T x only makes the final state: it counts when an
+    op reads the final state or the step returns it, as the reference's XLA
+    keeps it then; the backward counts none of its two products without a
+    cotangent on the final state.  Beyond one chunk every product counts.
+    The trace's metered pass and the graph walk agree."""
+    from repro_torch.kernels.ssm_scan import gated_scan
+
+    b, h, p, n, chunk = 2, 4, 8, 16, 32 if s > 32 else 128
+    x, bm = torch.ones(b, s, h, p), torch.ones(b, s, 1, n)
+    ld, gi = torch.zeros(b, s, h), torch.ones(b, s, h)
+    late = final_state_dots(tuple(x.shape), tuple(bm.shape), chunk)
+    assert (late > 0) == (s <= chunk)
+    full = scan_dot_flops(tuple(x.shape), tuple(bm.shape), chunk)
+
+    def y_only(x, ld, gi, bm):
+        return gated_scan(x, ld, gi, bm, bm, chunk=chunk)[0]
+
+    def h_read(x, ld, gi, bm):
+        y, hf = gated_scan(x, ld, gi, bm, bm, chunk=chunk)
+        return y.sum() + hf.sum()
+
+    def h_returned(x, ld, gi, bm):
+        return gated_scan(x, ld, gi, bm, bm, chunk=chunk)
+
+    args = (x, ld, gi, bm)
+    for fn, dots in ((y_only, full - late), (h_read, full), (h_returned, full)):
+        assert analyze_graph(_trace(fn, *args))["dot_flops"] == dots
+        assert measure_step(fn, args)["cost"]["dot_flops"] == dots
+    f32 = torch.float32
+    xa, ba = (tuple(x.shape), f32), (tuple(bm.shape), f32)
+    bwd = KERNEL_FLOPS["gated_scan_backward"]([xa, None, xa, xa, xa, ba, ba, None, None,
+                                               chunk], [])[1]
+    with_dh = KERNEL_FLOPS["gated_scan_backward"]([xa, xa, xa, xa, xa, ba, ba, None, None,
+                                                   chunk], [])[1]
+    assert (bwd, with_dh) == (2 * (full - late), 2 * full)
 
 
 class OpCalls(TorchDispatchMode):

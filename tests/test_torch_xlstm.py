@@ -334,16 +334,20 @@ class TestWideScan:
         np.testing.assert_allclose(h_m.numpy(), np.asarray(h_pl), rtol=TOL["bfloat16"],
                                    atol=TOL["bfloat16"])
 
-    @pytest.mark.parametrize("s,chunk,warps", [(64, 64, 4), (16, 16, 4), (300, 128, 8)])
-    def test_plan_at_xlstm_shape(self, s, chunk, warps):
+    @pytest.mark.parametrize("s,chunk,slab", [(64, 64, 128), (16, 16, 128), (300, 128, 64)])
+    def test_plan_at_xlstm_shape(self, s, chunk, slab):
         """xlstm-1.3b's stateless bucket, its prefill and chunks of 128:
         P = 1025 over 33 tiles of 32 columns (the last holds the normalizer
-        column alone), one block per (tile, head, batch row), the state slice
-        resident and B/C in slabs of 64, under the 227 KB a block may take."""
+        column alone), one block of 8 warps per (tile, head, batch row), the
+        state slice resident and B/C in two stages of slabs (128 columns up
+        to a chunk of 64, 64 beyond), x and y beside them, under the 227 KB a
+        block may take."""
         plan = scan_plan(1, s, 4, 1025, 4, 1024, chunk, torch.bfloat16)
         qp = -(-chunk // 16) * 16
-        assert plan == dict(route="mma_wide", warps=warps, grid=(33, 4, 1),
-                            smem=2 * qp * 40 * 2 + 2 * qp * 72 * 2 + 1024 * 36 * 4 + 2 * qp * 4)
+        assert plan == dict(route="mma_wide", warps=8, tile=32, slab=slab, grid=(33, 4, 1),
+                            smem=qp * 40 * 2 + 2 * 2 * qp * (slab + 8) * 2 + 1024 * 36 * 4
+                            + 2 * qp * 4)
+        assert plan["smem"] <= 232448
         assert plan["smem"] <= SMEM_MAX
         f32 = scan_plan(1, s, 4, 1025, 4, 1024, chunk, torch.float32)
         assert (f32["route"], f32["grid"]) == ("cuda_cores_wide", (33, 4, 1))

@@ -2,9 +2,12 @@
 repo on one NVIDIA GPU, one process per checkout, in the order given.
 
     python3 tools/lm_host_ab.py PARENT . . PARENT
+    python3 tools/lm_host_ab.py --xlstm-stateless PARENT . . PARENT
 
 Each ROOT is a checkout with its own ``chip_smoke.py``: the script builds
-that checkout's kernels and runs its qwen3-0.6b stateful path
+that checkout's kernels and runs its qwen3-0.6b stateful path, or with
+``--xlstm-stateless`` phase 9's xlstm-1.3b stateless path (the bucket's
+whole forward a token: 42 wide scans)
 (``phase_main_path``, ``check_main_path``, ``measure_replay_step``), so a
 token's wall time splits into the replay program dispatched eagerly and the
 host's interception of its records, beside the step as one CUDA graph.
@@ -22,9 +25,9 @@ import sys
 TAG = "LM_HOST_AB "
 
 
-def one(root: str) -> None:
-    """Run the qwen3-0.6b path of the checkout at ``root`` and print its
-    numbers as one JSON line."""
+def one(root: str, xlstm: bool) -> None:
+    """Run the qwen3-0.6b path (or xlstm-1.3b's stateless one) of the
+    checkout at ``root`` and print its numbers as one JSON line."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import chip_smoke as cs
@@ -39,7 +42,11 @@ def one(root: str) -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
     library.build_all()
-    m = cs.phase_main_path(dev, "qwen3-0.6b", cs.PROMPT_LEN, cs.NEW_TOKENS, cs.BUCKET)
+    if xlstm:
+        m = cs.phase_main_path(dev, "xlstm-1.3b", cs.X_STATELESS_PROMPT, cs.X_NEW, cs.X_BUCKET,
+                               stateful=False)
+    else:
+        m = cs.phase_main_path(dev, "qwen3-0.6b", cs.PROMPT_LEN, cs.NEW_TOKENS, cs.BUCKET)
     cs.check_main_path(m)
     r = cs.measure_replay_step(m, dev)
     replayed = [1e3 * t for mode, t, _ in m["timer"].steps if mode == "replaying"][1:]
@@ -50,13 +57,13 @@ def one(root: str) -> None:
     )), flush=True)
 
 
-def main(roots) -> None:
+def main(roots, xlstm: bool) -> None:
     if not roots:
-        sys.exit("usage: tools/lm_host_ab.py ROOT [ROOT ...]")
+        sys.exit("usage: tools/lm_host_ab.py [--xlstm-stateless] ROOT [ROOT ...]")
     rows = []
     for root in roots:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root],
-                              capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root]
+                              + ["--xlstm-stateless"] * xlstm, capture_output=True, text=True)
         sys.stderr.write(proc.stderr[-4000:])
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(TAG)]
         if proc.returncode or not lines:
@@ -77,7 +84,10 @@ def main(roots) -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--one"]:
-        one(sys.argv[2])
+    args = sys.argv[1:]
+    xlstm = "--xlstm-stateless" in args
+    args = [a for a in args if a != "--xlstm-stateless"]
+    if args[:1] == ["--one"]:
+        one(args[1], xlstm)
     else:
-        main(sys.argv[1:])
+        main(args, xlstm)
