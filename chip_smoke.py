@@ -1519,7 +1519,7 @@ def wide_scan_row(randn, s: int, chunk: int, what: str) -> dict:
         plain_ms=graph_ms(lambda: gated_scan_padded(*args, None, chunk), reps=reps),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
     print(f"gated_scan wide {shape} chunk {chunk} bf16 ({what}; {plan['warps']} warps, "
-          f"{plan['tile']} columns, slabs of {plan['slab']}, grid {plan['grid']}, "
+          f"32 columns, slabs of {plan['slab']}, grid {plan['grid']}, "
           f"{plan['smem']} B shared): max|d| {err:.3g} (tol {TOL[bf]}); relative L2 to the "
           f"mirror y {mirror[0]:.3g}, h {mirror[1]:.3g} (tol {MIRROR_TOL[bf]}); two runs "
           f"bitwise {same}; kernel {row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} "
@@ -4692,7 +4692,7 @@ def phase_train_moe_resume(library, dev, by_path) -> None:
 
 
 TRAIN_GROUPS = (("rmsnorm forward", ("rmsnorm_warp", "rmsnorm_block", "rmsnorm_scalar")),
-                ("rmsnorm backward", ("warp_rows_kernel", "rows_kernel", "scale_kernel")),
+                ("rmsnorm backward", ("vector_rows_kernel", "rows_kernel", "scale_kernel")),
                 ("flash forward", ("wgmma_kernel", "core_kernel")),
                 ("flash backward", ("dq_mma_kernel", "dkv_mma_kernel", "dq_kernel",
                                     "dkv_kernel")),

@@ -64,9 +64,9 @@ _ARGTYPES = {
         _C.c_int, _C.c_int, _C.c_float, _C.c_int, _C.c_int, _C.c_void_p,
     ],
     # x, ld, gi, B, C, D (or null), h0 (or null), y, h_out, b, s, h, p, g, n,
-    # chunk, dtype, route, warps, tile, slab, smem bytes, vec, stream: x, B,
-    # C and y in the working dtype, the rest f32; route, warps, tile, slab
-    # and smem from scan_plan
+    # chunk, dtype, route, warps, slab, smem bytes, vec, stream: x, B, C and
+    # y in the working dtype, the rest f32; route, warps, slab and smem from
+    # scan_plan
     # dy, x, scale, dx, dscale, partial (f32 (grid, d) scratch), rows, d, eps,
     # offset, dtype, route, threads, lanes, vecs, rows_per_block, grid,
     # stream (rmsnorm_backward_plan)
@@ -96,7 +96,7 @@ _ARGTYPES = {
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
         _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
-        _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_void_p,
+        _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_void_p,
     ],
 }
 

@@ -12,44 +12,39 @@
 // element; the training path's shapes (4 x 512 rows of d_model, 32k rows of
 // the qk-norm head) move megabytes.  So each row is read once, into
 // registers, with 16-byte loads, and dscale's partial sums stay in
-// registers until the block ends.  Three routes, chosen on the host
+// registers until the block ends.  Two routes, chosen on the host
 // (ops.py:rmsnorm_backward_plan, from the shape, the dtype and the
 // pointers' alignment) and passed in:
 //
-//   warp   (D <= 1024, D a multiple of the vector, 16-byte aligned): 8 warps
-//          a block; `lanes` lanes share a row (32 from 32 vectors up, else
-//          the largest power of two <= the row's vectors, so at the
-//          qk-norm's D = 128 a warp holds two bf16 rows or one f32 row),
-//          each lane holding `vecs` vectors of x, dy and w, packed; a row
-//          group loads two rows before it reduces the first.  The row's sum
-//          of squares and sum of g x r are reduced over its lanes with a xor
-//          butterfly (every lane gets the same bits).
-//   block  (1024 < D <= 8192, D a multiple of the vector, 16-byte
-//          aligned): block_rows_kernel, the whole block shares a row; 4 to
-//          16 warps, each thread holding `vecs` (1-4) vectors of x, dy and
-//          w, packed, at fixed columns for every row, so dscale's partial
-//          sums stay in its registers.  The block loads two rows before it
-//          reduces either; each row's two sums go through a xor butterfly
-//          in each warp, then the warps' sums are added in warp order from
-//          shared memory (one barrier for both rows, the slots double
-//          buffered so the next pair's writes need no second barrier).  A
-//          grid of one to four blocks an SM (132-528: about 64 KB of x and
-//          dy in flight on each SM; tools/rmsnorm_backward_grids.py times
-//          the others), so the (grid, D) f32 partial rows stay a small
-//          share of the bytes.
-//   scalar (what no other route takes: D not a multiple of the vector, or
-//          an unaligned pointer): rows_kernel, 4 warps a block, scalar
-//          loads, the row read twice (the second read hits L1).
+//   vector (D a multiple of the vector, 16-byte aligned, D <= 8192):
+//          vector_rows_kernel; `lanes` threads share a row, each holding
+//          `vecs` vectors of x, dy and w, packed, at fixed columns for
+//          every row, so dscale's partial sums stay in its registers; a row
+//          group loads two rows before it reduces the first.  Up to D 1024
+//          a block has 8 warps and a row's lanes are in one warp (32 from
+//          32 vectors up, else the largest power of two <= the row's
+//          vectors, so at the qk-norm's D = 128 a warp holds two bf16 rows
+//          or one f32 row), its two sums reduced over them with a xor
+//          butterfly (every lane gets the same bits).  Beyond, the whole
+//          block (4 to 16 warps, 1-4 vectors a thread) shares a row: each
+//          warp's butterfly, then the warps' sums added in warp order from
+//          shared memory, with a grid of one to four blocks an SM (132-528:
+//          about 64 KB of x and dy in flight on each SM;
+//          tools/rmsnorm_backward_grids.py times the others), so the
+//          (grid, D) f32 partial rows stay a small share of the bytes.
+//   scalar (what the vector route does not take: D not a multiple of the
+//          vector, or an unaligned pointer): rows_kernel, 4 warps a block,
+//          scalar loads, the row read twice (the second read hits L1).
 //
 // dscale is a sum over all rows, taken deterministically, without atomics,
 // so two launches give the same bits.  A lane owns fixed columns and adds
-// dy * x r of its rows in registers; the block adds its row slots and warps
-// in a fixed order into partial[block] (on the block route a thread owns
-// its columns in the whole block and writes its sums as they are; a grid
-// of one writes dscale itself), and scale_kernel, a second launch, sums
-// the partial rows of each column: 32 threads a column in fixed strides (a
-// grid of 128 or 256 gives each 4 or 8 rows), then their 32 sums added by
-// a warp's fixed butterfly.
+// dy * x r of its rows in registers; the block adds its row groups and
+// warps in a fixed order into partial[block] (where the block shares a row
+// a thread owns its columns in the whole block and writes its sums as they
+// are; a grid of one writes dscale itself), and scale_kernel, a second
+// launch, sums the partial rows of each column: 32 threads a column in
+// fixed strides (a grid of 128 or 256 gives each 4 or 8 rows), then their
+// 32 sums added by a warp's fixed butterfly.
 // Finishing that sum inside the one launch (the last block to finish,
 // elected by a counter, summing every partial row) was measured slower at
 // every training shape: the one block's read of all the partial rows is a
@@ -60,13 +55,14 @@
 
 namespace {
 
-enum Route { kScalar = 0, kWarp = 1, kBlock = 2 };
+enum Route { kScalar = 0, kVector = 1 };
 
 constexpr int kWarps = 4;       // warps of the scalar route's block
 constexpr int kGroups = 32;     // threads summing one column in scale_kernel: a warp's lanes
 static_assert(kGroups == 32, "scale_kernel's last sum is one warp's butterfly");
-constexpr int kVecWarps = 8;    // warps of the warp route's block
-constexpr int kBlockWarpsMax = 16;  // warps of the block route's block, at most
+constexpr int kVecWarps = 8;    // warps of a vector block whose warps hold whole rows
+constexpr int kBlockWarpsMax = 16;  // warps of a vector block that shares a row, at most
+constexpr int kDMax = 8192;     // the longest row
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -189,29 +185,45 @@ scale_kernel(const float* __restrict__ partial, T* __restrict__ dscale, int bloc
   if (lane == 0 && blockIdx.x * 32 + group < d) store(dscale + blockIdx.x * 32 + group, t);
 }
 
-// ---------------------------------------------------------------- warp route
+// ---------------------------------------------------------------- vector route
 
-// the warp route: row group (warp, slot) = `lanes` lanes takes rows
-// r0 + group, r0 + group + groups, ... of its block's rows, two at a time.
-// x, dy and the scale stay packed in registers (converted element by
-// element, `repack` keeping the compiler from holding them all as floats),
-// so a thread holds two rows and dscale's sums in ~130 registers.
-template <typename T, int V>
-__global__ void __launch_bounds__(kVecWarps * 32)
-warp_rows_kernel(const T* __restrict__ dy, const T* __restrict__ x, const T* __restrict__ scale,
-                 T* __restrict__ dx, float* __restrict__ partial, T* __restrict__ dscale,
-                 long long rows, int d, int lanes, int rows_per_block, float eps,
-                 float offset) {
+// The vector route: `lanes` threads share a row, each holding vectors li,
+// li + lanes, ..., li + (V - 1) lanes of it.  Either lanes <= 32, a power
+// of two: row groups of `lanes` lanes side by side in a warp, each row's
+// sums a xor butterfly over its lanes; or lanes = the block's threads
+// (whole warps): one row group, each warp's butterfly, then the warps'
+// sums added in warp order from shared memory (one barrier for both rows
+// in flight, the slots double buffered so the next pair's writes need no
+// second barrier).  Group g takes rows r0 + g, r0 + g + groups, ... of its
+// block's rows, two at a time.  The trip count is the block's, so every
+// thread takes part in every shuffle and barrier; a row past the block's
+// end loads zeros and stores nothing.  x, dy and the scale stay packed in
+// registers (converted element by element, `repack` keeping the compiler
+// from holding them all as floats), and a thread's columns are the same
+// for every row, so dscale's sums stay in its registers.  kSharedRow (the
+// block shares each row) is a template argument, so each form is compiled
+// alone, without the other's registers: a warp holding whole rows has 8
+// warps and up to 8 vectors a thread, a block sharing a row up to 16 warps
+// and 4 vectors.
+template <typename T, int V, bool kSharedRow>
+__global__ void __launch_bounds__(kSharedRow ? kBlockWarpsMax * 32 : kVecWarps * 32)
+vector_rows_kernel(const T* __restrict__ dy, const T* __restrict__ x,
+                   const T* __restrict__ scale, T* __restrict__ dx, float* __restrict__ partial,
+                   T* __restrict__ dscale, long long rows, int d, int lanes, int rows_per_block,
+                   float eps, float offset) {
   using Vt = Vec<T>;
   constexpr int E = Vt::kN;
-  constexpr int U = 2;           // rows a group has in flight
-  extern __shared__ float red[];  // (kVecWarps, d)
+  constexpr int U = 2;  // rows a group has in flight
+  // a shared row: each warp's (ss, gx) of both rows, two slots
+  __shared__ float rsum[2][kSharedRow ? kBlockWarpsMax : 1][2 * U];
+  extern __shared__ float red[];  // rows within a warp: the warps' dscale sums, (warps, d)
+  const int nwarps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int slots = 32 / lanes;  // rows side by side in a warp
-  const int slot = lane / lanes;
-  const int li = lane % lanes;
-  const int groups = kVecWarps * slots;
+  const int span = kSharedRow ? 32 : lanes;  // a row's lanes in one warp
+  const int groups = blockDim.x / lanes;
+  const int g = threadIdx.x / lanes;
+  const int li = threadIdx.x % lanes;
   const int nvec = d / E;
   const float inv_d = 1.f / static_cast<float>(d);
 
@@ -228,13 +240,12 @@ warp_rows_kernel(const T* __restrict__ dy, const T* __restrict__ x, const T* __r
 
   const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_block;
   const long long r1 = min(rows, r0 + rows_per_block);
-  // warp-uniform trip count: every lane takes part in the shuffles
-  for (long long base = r0 + warp * slots; base < r1;
-       base += static_cast<long long>(groups) * U) {
+  int buf = 0;
+  for (long long base = r0; base < r1; base += static_cast<long long>(groups) * U) {
     uint4 xv[U][V], gv[U][V];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const long long row = base + slot + static_cast<long long>(u) * groups;
+      const long long row = base + g + static_cast<long long>(u) * groups;
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         const int vi = li + j * lanes;
@@ -246,23 +257,9 @@ warp_rows_kernel(const T* __restrict__ dy, const T* __restrict__ x, const T* __r
         }
       }
     }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const long long row = base + slot + static_cast<long long>(u) * groups;
-      float ss = 0.f, gx = 0.f;
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          const float xf = Vt::at(xv[u][j], e);
-          ss += xf * xf;
-          gx += Vt::at(gv[u][j], e) * (offset + Vt::at(wv[j], e)) * xf;
-        }
-      }
-      for (int o = lanes >> 1; o > 0; o >>= 1) {
-        ss += __shfl_xor_sync(0xffffffffu, ss, o);
-        gx += __shfl_xor_sync(0xffffffffu, gx, o);
-      }
+    // row u's dx from its two sums, and its share of dscale
+    auto finish = [&](int u, float ss, float gx) {
+      const long long row = base + g + static_cast<long long>(u) * groups;
       const float r = rsqrtf(ss * inv_d + eps);
       const float c_mean = gx * r * inv_d;  // mean(g * x r)
       const bool live = row < r1;           // a row past the block's end adds nothing
@@ -282,11 +279,75 @@ warp_rows_kernel(const T* __restrict__ dy, const T* __restrict__ x, const T* __r
         const int vi = li + j * lanes;
         if (live && vi < nvec) *reinterpret_cast<uint4*>(dx + row * d + vi * E) = Vt::pack(out);
       }
+    };
+    // each row's sums over its lanes (a xor butterfly in each warp); rows
+    // within a warp are finished there, one after the other
+    float ss[U], gx[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      ss[u] = gx[u] = 0.f;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const float xf = Vt::at(xv[u][j], e);
+          ss[u] += xf * xf;
+          gx[u] += Vt::at(gv[u][j], e) * (offset + Vt::at(wv[j], e)) * xf;
+        }
+      }
+      for (int o = span >> 1; o > 0; o >>= 1) {
+        ss[u] += __shfl_xor_sync(0xffffffffu, ss[u], o);
+        gx[u] += __shfl_xor_sync(0xffffffffu, gx[u], o);
+      }
+      if constexpr (!kSharedRow) finish(u, ss[u], gx[u]);
+    }
+    if constexpr (kSharedRow) {
+      // the warps' sums of both rows, then each row's total in warp order
+      if (lane == 0) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          rsum[buf][warp][2 * u] = ss[u];
+          rsum[buf][warp][2 * u + 1] = gx[u];
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float st = 0.f, gt = 0.f;
+        for (int w = 0; w < nwarps; ++w) {  // every thread gets the same bits
+          st += rsum[buf][w][2 * u];
+          gt += rsum[buf][w][2 * u + 1];
+        }
+        finish(u, st, gt);
+      }
+      buf ^= 1;
     }
   }
 
-  // the warp's row slots into slot 0 (a fixed butterfly), then the warps in
-  // warp order
+  float* part = partial + static_cast<long long>(blockIdx.x) * d;
+  if constexpr (kSharedRow) {
+    // one row group: the thread's columns are its own in the whole block
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int vi = li + j * lanes;
+      if (vi < nvec) {
+        if (gridDim.x == 1) {
+#pragma unroll
+          for (int e = 0; e < E; ++e) store(dscale + vi * E + e, acc[j][e]);
+        } else {
+          float4* pv = reinterpret_cast<float4*>(part + vi * E);
+#pragma unroll
+          for (int k = 0; k < E / 4; ++k) {
+            pv[k] = make_float4(acc[j][4 * k], acc[j][4 * k + 1], acc[j][4 * k + 2],
+                                acc[j][4 * k + 3]);
+          }
+        }
+      }
+    }
+    return;
+  }
+  // the warp's row groups into its first (a fixed butterfly), then the
+  // warps in warp order
   for (int o = lanes; o < 32; o <<= 1) {
 #pragma unroll
     for (int j = 0; j < V; ++j) {
@@ -294,7 +355,7 @@ warp_rows_kernel(const T* __restrict__ dy, const T* __restrict__ x, const T* __r
       for (int e = 0; e < E; ++e) acc[j][e] += __shfl_xor_sync(0xffffffffu, acc[j][e], o);
     }
   }
-  if (slot == 0) {
+  if (lane < lanes) {
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       const int vi = li + j * lanes;
@@ -305,10 +366,9 @@ warp_rows_kernel(const T* __restrict__ dy, const T* __restrict__ x, const T* __r
     }
   }
   __syncthreads();
-  float* part = partial + static_cast<long long>(blockIdx.x) * d;
   for (int c = threadIdx.x; c < d; c += blockDim.x) {
     float s = 0.f;
-#pragma unroll
+#pragma unroll  // such a block has kVecWarps warps: their loads issued together
     for (int k = 0; k < kVecWarps; ++k) s += red[k * d + c];
     if (gridDim.x == 1) {
       store(dscale + c, s);
@@ -318,142 +378,17 @@ warp_rows_kernel(const T* __restrict__ dy, const T* __restrict__ x, const T* __r
   }
 }
 
-// ---------------------------------------------------------------- block route
-
-// the block route: the block's threads share each row, thread t holding
-// vectors t, t + T, ..., t + (V - 1) T of it (T threads), and the block
-// takes rows r0, r0 + 1, ... of its rows_per_block two at a time.  Every
-// thread takes part in every row, so the trip count and the barriers are
-// uniform; a row past the block's end loads zeros and stores nothing.
-template <typename T, int V>
-__global__ void __launch_bounds__(kBlockWarpsMax * 32)
-block_rows_kernel(const T* __restrict__ dy, const T* __restrict__ x,
-                  const T* __restrict__ scale, T* __restrict__ dx, float* __restrict__ partial,
-                  T* __restrict__ dscale, long long rows, int d, int rows_per_block, float eps,
-                  float offset) {
-  using Vt = Vec<T>;
-  constexpr int E = Vt::kN;
-  constexpr int U = 2;  // rows in flight
-  __shared__ float red[2][kBlockWarpsMax][2 * U];  // per warp: (ss, gx) of each row, two slots
-  const int nt = blockDim.x;
-  const int nwarps = nt >> 5;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int nvec = d / E;
-  const float inv_d = 1.f / static_cast<float>(d);
-
-  uint4 wv[V];  // the scale (zeros past the row, where x and dy are zeros too)
-  float acc[V][E];
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-    const int vi = threadIdx.x + j * nt;
-    wv[j] = vi < nvec ? *reinterpret_cast<const uint4*>(scale + vi * E)
-                      : make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[j][e] = 0.f;
-  }
-
-  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_block;
-  const long long r1 = min(rows, r0 + rows_per_block);
-  int slot = 0;
-  for (long long base = r0; base < r1; base += U) {
-    uint4 xv[U][V], gv[U][V];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const long long row = base + u;
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const int vi = threadIdx.x + j * nt;
-        if (row < r1 && vi < nvec) {
-          xv[u][j] = *reinterpret_cast<const uint4*>(x + row * d + vi * E);
-          gv[u][j] = *reinterpret_cast<const uint4*>(dy + row * d + vi * E);
-        } else {
-          xv[u][j] = gv[u][j] = make_uint4(0u, 0u, 0u, 0u);
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float ss = 0.f, gx = 0.f;
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          const float xf = Vt::at(xv[u][j], e);
-          ss += xf * xf;
-          gx += Vt::at(gv[u][j], e) * (offset + Vt::at(wv[j], e)) * xf;
-        }
-      }
-      ss = warp_sum(ss);
-      gx = warp_sum(gx);
-      if (lane == 0) {
-        red[slot][warp][2 * u] = ss;
-        red[slot][warp][2 * u + 1] = gx;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const long long row = base + u;
-      float ss = 0.f, gx = 0.f;
-      for (int w = 0; w < nwarps; ++w) {  // warp order: every thread gets the same bits
-        ss += red[slot][w][2 * u];
-        gx += red[slot][w][2 * u + 1];
-      }
-      const float r = rsqrtf(ss * inv_d + eps);
-      const float c_mean = gx * r * inv_d;  // mean(g * x r)
-      const bool live = row < r1;
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        repack(xv[u][j]);
-        repack(gv[u][j]);
-        repack(wv[j]);
-        float out[E];
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          const float gf = Vt::at(gv[u][j], e);
-          const float xn = Vt::at(xv[u][j], e) * r;
-          if (live) acc[j][e] += gf * xn;
-          out[e] = r * (gf * (offset + Vt::at(wv[j], e)) - xn * c_mean);
-        }
-        const int vi = threadIdx.x + j * nt;
-        if (live && vi < nvec) *reinterpret_cast<uint4*>(dx + row * d + vi * E) = Vt::pack(out);
-      }
-    }
-    slot ^= 1;
-  }
-
-  // the thread's columns are its own in the whole block
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-    const int vi = threadIdx.x + j * nt;
-    if (vi < nvec) {
-      if (gridDim.x == 1) {
-#pragma unroll
-        for (int e = 0; e < E; ++e) store(dscale + vi * E + e, acc[j][e]);
-      } else {
-        float4* part = reinterpret_cast<float4*>(
-            partial + static_cast<long long>(blockIdx.x) * d + vi * E);
-#pragma unroll
-        for (int k = 0; k < E / 4; ++k) {
-          part[k] = make_float4(acc[j][4 * k], acc[j][4 * k + 1], acc[j][4 * k + 2],
-                                acc[j][4 * k + 3]);
-        }
-      }
-    }
-  }
-}
-
-// Only the vector counts a plan can give are built: a warp route's row is
-// at most 1024 wide.
-template <typename T, int V>
-cudaError_t launch_warp(const T* dy, const T* x, const T* scale, T* dx, float* partial,
-                        T* dscale, long long rows, int d, int lanes, int rpb, long long grid,
-                        float eps, float offset, int smem, cudaStream_t st) {
-  if constexpr ((V - 1) * 32 * Vec<T>::kN >= 1024) {
+// Only the vector counts a plan can give are built: rows within a warp are
+// at most 1024 wide, and a thread of a block that shares a row holds at
+// most 4 vectors.
+template <typename T, int V, bool kSharedRow>
+cudaError_t launch_vector(const T* dy, const T* x, const T* scale, T* dx, float* partial,
+                          T* dscale, long long rows, int d, int threads, int lanes, int rpb,
+                          long long grid, float eps, float offset, int smem, cudaStream_t st) {
+  if constexpr (kSharedRow ? V > 4 : (V - 1) * 32 * Vec<T>::kN >= 1024) {
     return cudaErrorInvalidValue;
   } else {
-    warp_rows_kernel<T, V><<<static_cast<unsigned>(grid), kVecWarps * 32, smem, st>>>(
+    vector_rows_kernel<T, V, kSharedRow><<<static_cast<unsigned>(grid), threads, smem, st>>>(
         dy, x, scale, dx, partial, dscale, rows, d, lanes, rpb, eps, offset);
     return cudaGetLastError();
   }
@@ -476,61 +411,47 @@ cudaError_t launch(const void* dy_, const void* x_, const void* scale_, void* dx
     return cudaErrorInvalidValue;
   }
   cudaError_t err;
-  if (route == kWarp) {
-    const bool pow2 = lanes >= 1 && lanes <= 32 && (lanes & (lanes - 1)) == 0;
-    if (threads != kVecWarps * 32 || !pow2 || d % E != 0 || d > 1024 || vecs < 1 ||
-        vecs * lanes * E < d || (vecs - 1) * lanes * E >= d) {
+  if (route == kVector) {
+    const bool in_warp = lanes <= 32;  // else the block shares each row
+    const bool pow2 = lanes >= 1 && (lanes & (lanes - 1)) == 0;
+    if (d % E != 0 || d > kDMax || vecs < 1 || vecs * lanes * E < d ||
+        (vecs - 1) * lanes * E >= d ||
+        (in_warp ? !pow2 || threads != kVecWarps * 32
+                 : threads != lanes || threads % 32 != 0 || threads > kBlockWarpsMax * 32)) {
       return cudaErrorInvalidValue;
     }
-    const int smem = kVecWarps * d * 4;  // the warps' partial rows
+    const int smem = in_warp ? kVecWarps * d * 4 : 0;  // the warps' dscale rows
     switch (vecs) {
-#define REPRO_WARP_CASE(V)                                                                    \
-  case V:                                                                                     \
-    err = launch_warp<T, V>(dy, x, scale, dx, partial, dscale, rows, d, lanes, rows_per_block, \
-                            grid, eps, offset, smem, st);                                     \
+#define REPRO_VECTOR_ARGS \
+  dy, x, scale, dx, partial, dscale, rows, d, threads, lanes, rows_per_block, grid, eps, offset, \
+      smem, st
+#define REPRO_VECTOR_CASE(V)                                                     \
+  case V:                                                                        \
+    err = in_warp ? launch_vector<T, V, false>(REPRO_VECTOR_ARGS)                \
+                  : launch_vector<T, V, true>(REPRO_VECTOR_ARGS);                \
     break;
-      REPRO_WARP_CASE(1)
-      REPRO_WARP_CASE(2)
-      REPRO_WARP_CASE(3)
-      REPRO_WARP_CASE(4)
-      REPRO_WARP_CASE(5)
-      REPRO_WARP_CASE(6)
-      REPRO_WARP_CASE(7)
-      REPRO_WARP_CASE(8)
-#undef REPRO_WARP_CASE
+      REPRO_VECTOR_CASE(1)
+      REPRO_VECTOR_CASE(2)
+      REPRO_VECTOR_CASE(3)
+      REPRO_VECTOR_CASE(4)
+      REPRO_VECTOR_CASE(5)
+      REPRO_VECTOR_CASE(6)
+      REPRO_VECTOR_CASE(7)
+      REPRO_VECTOR_CASE(8)
+#undef REPRO_VECTOR_CASE
+#undef REPRO_VECTOR_ARGS
       default:
         return cudaErrorInvalidValue;
     }
-  } else if (route == kBlock) {
-    const int nvec = d / E;
-    if (d % E != 0 || d > 8192 || threads < 32 || threads > kBlockWarpsMax * 32 ||
-        threads % 32 != 0 || rows_per_block % 2 != 0 || vecs < 1 || vecs > 4 ||
-        vecs * threads < nvec || (vecs - 1) * threads >= nvec) {
-      return cudaErrorInvalidValue;
-    }
-    const unsigned g = static_cast<unsigned>(grid);
-    switch (vecs) {
-#define REPRO_BLOCK_CASE(V)                                                            \
-  case V:                                                                              \
-    block_rows_kernel<T, V><<<g, threads, 0, st>>>(dy, x, scale, dx, partial, dscale, \
-                                                   rows, d, rows_per_block, eps, offset); \
-    break;
-      REPRO_BLOCK_CASE(1)
-      REPRO_BLOCK_CASE(2)
-      REPRO_BLOCK_CASE(3)
-      REPRO_BLOCK_CASE(4)
-#undef REPRO_BLOCK_CASE
-    }
-    err = cudaGetLastError();
   } else if (route == kScalar) {
-    if (threads != kWarps * 32 || d > 8192) {
+    if (threads != kWarps * 32 || d > kDMax) {
       return cudaErrorInvalidValue;
     }
     const int smem = kWarps * d * static_cast<int>(sizeof(float));
     static bool attr_set = false;  // raise the dynamic shared-memory cap once, to d = 8192's
     if (!attr_set) {
       err = cudaFuncSetAttribute(rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 kWarps * 8192 * 4);
+                                 kWarps * kDMax * 4);
       if (err != cudaSuccess) return err;
       attr_set = true;
     }
@@ -542,7 +463,7 @@ cudaError_t launch(const void* dy_, const void* x_, const void* scale_, void* dx
   }
   if (err != cudaSuccess) return err;
   // the scalar route always sums its partial rows in a second launch; a
-  // warp or block route's grid of one has written dscale itself
+  // vector route's grid of one has written dscale itself
   if (route == kScalar || grid > 1) {
     scale_kernel<T><<<(d + 31) / 32, 32 * kGroups, 0, st>>>(partial, dscale,
                                                             static_cast<int>(grid), d);
@@ -554,13 +475,13 @@ cudaError_t launch(const void* dy_, const void* x_, const void* scale_, void* dx
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (dy, x, scale, dx and dscale alike).
-// partial: f32 scratch of (grid, d).  route (0 scalar, 1 warp, 2 block),
-// threads, lanes, vecs, rows_per_block and grid come from
+// partial: f32 scratch of (grid, d).  route (0 scalar, 1 vector), threads,
+// lanes, vecs, rows_per_block and grid come from
 // ops.py:rmsnorm_backward_plan; a plan that does not fit the shape returns
 // cudaErrorInvalidValue and launches nothing.
-// The warp and block routes need 16-byte aligned dy, x, scale and dx (the
-// block route an even rows_per_block); every route takes d <= 8192 (the
-// scalar route keeps 4 rows of d floats in shared memory).
+// The vector route needs 16-byte aligned dy, x, scale and dx; every route
+// takes d <= 8192 (the scalar route keeps 4 rows of d floats in shared
+// memory).
 // Returns cudaGetLastError() after the launches.
 extern "C" int repro_rmsnorm_backward(const void* dy, const void* x, const void* scale,
                                       void* dx, void* dscale, void* partial, long long rows,

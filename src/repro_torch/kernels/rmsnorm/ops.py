@@ -110,16 +110,17 @@ def _rmsnorm_vmap(info, in_dims, x, scale, eps, offset):
 
 torch.library.register_vmap(rmsnorm_op, _rmsnorm_vmap)
 
-BWD_WARPS = 8                 # warps per block of the backward's warp route
-BWD_ROWS_IN_FLIGHT = 2        # rows a row group of the warp route loads at once
+BWD_ROUTE_CODES = {"scalar": 0, "vector": 1}
+BWD_WARPS = 8                 # warps per block of the vector route where a warp holds whole rows
+BWD_ROWS_IN_FLIGHT = 2        # rows a row group of the vector route loads at once
 BWD_SMS = 132                 # the H100's streaming multiprocessors
 BWD_BLOCK_BYTES = 32 * 1024   # x and dy bytes a block should have in flight
 BWD_SCALAR_BLOCKS_MAX = 1056  # the scalar route's grid: 8 blocks on each SM
 BWD_D_MAX = 8192
-BWD_BLOCK_WARPS_MAX = 16      # warps per block of the backward's block route, at most
-BWD_BLOCK_VECS = 2            # vectors a thread of the block route holds below that
-BWD_BLOCK_SM_BYTES = 64 * 1024  # x and dy bytes the block route keeps in flight on each SM
-BWD_BLOCK_PER_SM_MAX = 4      # the block route's grid: one to four blocks on each SM
+BWD_BLOCK_WARPS_MAX = 16      # warps per block where the block shares a row, at most
+BWD_BLOCK_VECS = 2            # vectors a thread of such a block holds below that
+BWD_BLOCK_SM_BYTES = 64 * 1024  # x and dy bytes such blocks keep in flight on each SM
+BWD_BLOCK_PER_SM_MAX = 4      # their grid: one to four blocks on each SM
 
 
 def rmsnorm_backward_plan(rows: int, d: int, dtype: torch.dtype, *,
@@ -127,26 +128,26 @@ def rmsnorm_backward_plan(rows: int, d: int, dtype: torch.dtype, *,
     """The backward's launch for ``rows`` rows of ``d``, from the shape, the
     dtype and whether every pointer is 16-byte aligned (``aligned``).
 
-    Rows that split into 16-byte vectors are read once into registers.  The
-    ``warp`` route (d <= 1024) runs blocks of 8 warps in which ``lanes``
-    lanes share a row (32, or the largest power of two up to the row's
-    vectors: two bf16 rows a warp at d = 128) and each holds ``vecs``
-    vectors, packed, of two rows at once.  Blocks take ``rows_per_block``
+    Rows that split into 16-byte vectors take the ``vector`` route and are
+    read once into registers: ``lanes`` threads share a row, each holding
+    ``vecs`` vectors, packed, at fixed columns for every row, two rows at
+    once.  Up to d 1024 blocks have 8 warps and a row's lanes are in one
+    warp (32, or the largest power of two up to the row's vectors: two
+    bf16 rows a warp at d = 128); blocks take ``rows_per_block``
     consecutive rows, whole passes of the block's row groups, and there are
     about as many blocks as keep 32 KB of x and dy in flight on each of the
-    132 SMs.  The ``block`` route (1024 < d <= 8192) has the whole block
-    share a row: ``lanes`` = ``threads`` (4 to 16 warps, for two vectors a
-    thread up to 16 warps) each hold ``vecs`` vectors at fixed columns, two
-    rows at a time, and the grid is one to four blocks an SM, as many as
-    keep 64 KB of x and dy in flight on each (four at d 2048 bf16, two at
+    132 SMs.  Beyond, up to 8192, the whole block shares a row:
+    ``lanes`` = ``threads`` (4 to 16 warps, for two vectors a thread up to
+    16 warps), and the grid is one to four blocks an SM, as many as keep
+    64 KB of x and dy in flight on each (four at d 2048 bf16, two at
     4096), each taking an even number of consecutive rows.  Anything else
     (rows that do not split into vectors, unaligned pointers) takes the
     ``scalar`` route (4 warps a block, scalar loads, each row read twice).
 
     Each block writes one f32 partial row of dscale (``smem`` bytes of
-    shared memory hold the warps' rows, or on the block route the warps'
-    row sums), and a second launch sums the ``grid`` partial rows of each
-    column in a fixed order (a grid of one writes dscale itself).  The
+    shared memory hold the warps' rows, or where the block shares a row the
+    warps' row sums), and a second launch sums the ``grid`` partial rows of
+    each column in a fixed order (a grid of one writes dscale itself).  The
     plan depends on nothing but its arguments, so two launches sum in the
     same order."""
     if dtype not in (torch.float32, torch.bfloat16):
@@ -162,7 +163,7 @@ def rmsnorm_backward_plan(rows: int, d: int, dtype: torch.dtype, *,
         per_block = BWD_WARPS * 32 * vecs * BWD_ROWS_IN_FLIGHT * 2 * VEC_BYTES
         blocks_max = BWD_SMS * max(1, -(-BWD_BLOCK_BYTES // per_block))
         rpb = step * -(-rows // (step * blocks_max))
-        plan = dict(route="warp", threads=BWD_WARPS * 32, lanes=lanes, vecs=vecs,
+        plan = dict(route="vector", threads=BWD_WARPS * 32, lanes=lanes, vecs=vecs,
                     rows_per_block=rpb, smem=4 * BWD_WARPS * d)
     elif vectorised and d <= BWD_D_MAX:
         warps = min(BWD_BLOCK_WARPS_MAX, -(-nvec // (32 * BWD_BLOCK_VECS)))
@@ -170,7 +171,7 @@ def rmsnorm_backward_plan(rows: int, d: int, dtype: torch.dtype, *,
         per_block = BWD_ROWS_IN_FLIGHT * 2 * d * elem
         blocks_max = BWD_SMS * min(BWD_BLOCK_PER_SM_MAX, -(-BWD_BLOCK_SM_BYTES // per_block))
         rpb = 2 * -(-rows // (2 * blocks_max))
-        plan = dict(route="block", threads=32 * warps, lanes=32 * warps, vecs=vecs,
+        plan = dict(route="vector", threads=32 * warps, lanes=32 * warps, vecs=vecs,
                     rows_per_block=rpb, smem=4 * 2 * BWD_BLOCK_WARPS_MAX * 2 * BWD_ROWS_IN_FLIGHT)
     else:
         rpb = 4 * -(-max(4, -(-rows // BWD_SCALAR_BLOCKS_MAX)) // 4)
@@ -207,7 +208,7 @@ def rmsnorm_backward_cuda(
     library.check("rmsnorm_backward", fn(
         dy.data_ptr(), x.data_ptr(), scale.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
         partial.data_ptr(), rows, d, float(eps), float(offset), dtype,
-        ROUTE_CODES[plan["route"]], plan["threads"], plan["lanes"], plan["vecs"],
+        BWD_ROUTE_CODES[plan["route"]], plan["threads"], plan["lanes"], plan["vecs"],
         plan["rows_per_block"], plan["grid"], stream,
     ))
     return dx, dscale

@@ -81,7 +81,7 @@
 //
 // A state wider than 128 rows (mLSTM: N = 1024 key rows, P = 1025 value
 // columns with the normalizer, xlstm-1.3b) takes the wide routes.  A block
-// owns a tile of P's columns and keeps its N-row slice of the f32 state in
+// owns 32 columns of P and keeps its N-row slice of the f32 state in
 // shared memory for the whole sequence, but B and C no longer fit beside
 // it, so each chunk streams them through shared memory in slabs along N.
 // Per slab the rows accumulate the causal scores C.B^T and C.h_prev over
@@ -352,27 +352,24 @@ __host__ __device__ inline MmaSmem mma_smem(int q, int n) {
   return m;
 }
 
-// The pieces both mma kernels are built from.  Each block owns kTP (32 on
-// the narrow route, 16 or 32 on the wide one) columns of P (pw of them
-// live, in npair 16-column pairs) of one (head, batch row), staged in rows
-// of kTP + 8 bf16 (x, y) and kTP + 4 floats (the state); nt is the
-// block's thread count.
+// The pieces both mma kernels are built from.  Each block owns 32 columns
+// of P (pw of them live, in npair 16-column pairs) of one (head, batch row);
+// nt is the block's thread count.
 
 // the state: h0 or zeros (rows past N and columns past P stay zero)
-template <int kTP = kMmaTileP>
 __device__ __forceinline__ void mma_init_state(float* hs, const float* __restrict__ h0,
                                                long long hbase, int n, int np, int p, int pw,
                                                int tid, int nt) {
   if (h0 != nullptr) {
-    for (int idx = tid; idx < np * kTP; idx += nt) {
-      const int nn = idx / kTP;
-      const int c = idx % kTP;
-      hs[nn * (kTP + 4) + c] =
+    for (int idx = tid; idx < np * kMmaTileP; idx += nt) {
+      const int nn = idx / kMmaTileP;
+      const int c = idx % kMmaTileP;
+      hs[nn * kLdh + c] =
           (nn < n && c < pw) ? h0[hbase + static_cast<long long>(nn) * p + c] : 0.f;
     }
   } else {
-    for (int idx = tid; idx < np * (kTP / 4); idx += nt) {
-      *reinterpret_cast<float4*>(hs + idx / (kTP / 4) * (kTP + 4) + idx % (kTP / 4) * 4) =
+    for (int idx = tid; idx < np * (kMmaTileP / 4); idx += nt) {
+      *reinterpret_cast<float4*>(hs + idx / (kMmaTileP / 4) * kLdh + idx % (kMmaTileP / 4) * 4) =
           make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
@@ -380,35 +377,34 @@ __device__ __forceinline__ void mma_init_state(float* hs, const float* __restric
 
 // x (Qp x 32) as bf16, 16 bytes at a time where `vec`; rows past the chunk
 // and columns past P are zeros
-template <int kTP = kMmaTileP>
 __device__ __forceinline__ void mma_stage_x(bf16* xs, const bf16* __restrict__ xg,
                                             long long xstep, int qp, int valid, int pw, bool vec,
                                             int tid, int nt) {
   if (vec) {
-    for (int idx = tid; idx < qp * (kTP / 8); idx += nt) {
-      const int j = idx / (kTP / 8);
-      const int c = idx % (kTP / 8) * 8;
-      bf16* dst = xs + j * (kTP + 8) + c;
+    for (int idx = tid; idx < qp * (kMmaTileP / 8); idx += nt) {
+      const int j = idx / (kMmaTileP / 8);
+      const int c = idx % (kMmaTileP / 8) * 8;
+      bf16* dst = xs + j * kLdx + c;
       if (j < valid && c < pw) cp_async16(dst, xg + j * xstep + c);
       else *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
     }
   } else {
     // plain loads, eight a thread in flight before their stores
     const bf16 zero = __float2bfloat16(0.f);
-    const int total = qp * kTP;
+    const int total = qp * kMmaTileP;
     for (int base = tid; base < total; base += 8 * nt) {
       bf16 v[8];
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
         const int idx = base + u * nt;
-        const int j = idx / kTP;
-        const int c = idx % kTP;
+        const int j = idx / kMmaTileP;
+        const int c = idx % kMmaTileP;
         v[u] = (idx < total && j < valid && c < pw) ? xg[j * xstep + c] : zero;
       }
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
         const int idx = base + u * nt;
-        if (idx < total) xs[idx / kTP * (kTP + 8) + idx % kTP] = v[u];
+        if (idx < total) xs[idx / kMmaTileP * kLdx + idx % kMmaTileP] = v[u];
       }
     }
   }
@@ -422,8 +418,8 @@ __device__ __forceinline__ void mma_stage_x(bf16* xs, const bf16* __restrict__ x
 // strides of kstride: two warps may share a strip's steps): the strip of C
 // as the A fragment, all blocks' products issued together so their
 // accumulation chains overlap.
-template <int kWarpsT, int kTP = kMmaTileP>
-__device__ __forceinline__ void mma_scores(float (&acc)[kTP / 8][4],
+template <int kWarpsT>
+__device__ __forceinline__ void mma_scores(float (&acc)[kMmaTileP / 8][4],
                                            float (&sc)[kWarpsT][2][4], const bf16* cm,
                                            const bf16* bs, int ld, int kw, const float* hr,
                                            bool has_h, int nkt, int npair, int i0, int lane,
@@ -434,14 +430,14 @@ __device__ __forceinline__ void mma_scores(float (&acc)[kTP / 8][4],
     uint32_t ca[4];
     ldsm_x4(ca, cm + (i0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
     if (has_h) {
-      const float* hk = hr + (k0 + 2 * t4) * (kTP + 4) + g8;
+      const float* hk = hr + (k0 + 2 * t4) * kLdh + g8;
 #pragma unroll
-      for (int t = 0; t < kTP / 8; ++t) {
+      for (int t = 0; t < kMmaTileP / 8; ++t) {
         if (t < 2 * npair) {
           const float* h = hk + t * 8;
           uint32_t b0h, b0l, b1h, b1l;
-          split2(h[0], h[(kTP + 4)], b0h, b0l);
-          split2(h[8 * (kTP + 4)], h[9 * (kTP + 4)], b1h, b1l);
+          split2(h[0], h[kLdh], b0h, b0l);
+          split2(h[8 * kLdh], h[9 * kLdh], b1h, b1l);
           mma_bf16(acc[t], ca, b0h, b1h);
           mma_bf16(acc[t], ca, b0l, b1l);
         }
@@ -464,8 +460,8 @@ __device__ __forceinline__ void mma_scores(float (&acc)[kTP / 8][4],
 // exp(cs_i); the scores' decay and input scale (j > i zeroed before the
 // exponent), split into two bf16 terms, then Y += S.X; + D x_i, to shared
 // memory as bf16
-template <int kWarpsT, int kTP = kMmaTileP>
-__device__ __forceinline__ void mma_y_rows(float (&acc)[kTP / 8][4],
+template <int kWarpsT>
+__device__ __forceinline__ void mma_y_rows(float (&acc)[kMmaTileP / 8][4],
                                            float (&sc)[kWarpsT][2][4], const float* cs,
                                            const float* gis, const bf16* xs, bf16* ys, int ra,
                                            int nkt, int npair, bool has_h, float dh, int lane) {
@@ -475,7 +471,7 @@ __device__ __forceinline__ void mma_y_rows(float (&acc)[kTP / 8][4],
   if (has_h) {
     const float ea = exp_ftz(csa), eb = exp_ftz(csb);
 #pragma unroll
-    for (int t = 0; t < kTP / 8; ++t) {
+    for (int t = 0; t < kMmaTileP / 8; ++t) {
       acc[t][0] *= ea;
       acc[t][1] *= ea;
       acc[t][2] *= eb;
@@ -502,10 +498,10 @@ __device__ __forceinline__ void mma_y_rows(float (&acc)[kTP / 8][4],
       split2(sc[kt][1][0], sc[kt][1][1], ah[2], al[2]);
       split2(sc[kt][1][2], sc[kt][1][3], ah[3], al[3]);
 #pragma unroll
-      for (int pr = 0; pr < kTP / 16; ++pr) {
+      for (int pr = 0; pr < kMmaTileP / 16; ++pr) {
         if (pr < npair) {
           uint32_t xf[4];
-          ldsm_x4_t(xf, xs + (j0 + (lane & 7) + ((lane >> 3) & 1) * 8) * (kTP + 8) + pr * 16 +
+          ldsm_x4_t(xf, xs + (j0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdx + pr * 16 +
                             (lane >> 4) * 8);
           mma_split(acc[2 * pr], ah, al, xf[0], xf[1]);
           mma_split(acc[2 * pr + 1], ah, al, xf[2], xf[3]);
@@ -514,15 +510,15 @@ __device__ __forceinline__ void mma_y_rows(float (&acc)[kTP / 8][4],
     }
   }
 #pragma unroll
-  for (int t = 0; t < kTP / 8; ++t) {
+  for (int t = 0; t < kMmaTileP / 8; ++t) {
     if (t < 2 * npair) {
       const int c = t * 8 + 2 * t4;
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const int r = hf ? rb : ra;
         const float2 xv =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xs + r * (kTP + 8) + c));
-        *reinterpret_cast<__nv_bfloat162*>(ys + r * (kTP + 8) + c) = __floats2bfloat162_rn(
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xs + r * kLdx + c));
+        *reinterpret_cast<__nv_bfloat162*>(ys + r * kLdx + c) = __floats2bfloat162_rn(
             acc[t][2 * hf] + dh * xv.x, acc[t][2 * hf + 1] + dh * xv.y);
       }
     }
@@ -538,7 +534,7 @@ __device__ __forceinline__ void mma_y_rows(float (&acc)[kTP / 8][4],
 // (the wide route's last chunk) the new rows are the final state: they go
 // straight to device memory (hg[row * hstride + c] for rows < hrows and
 // columns < pw, scalar stores: P may be odd) and not back to hr.
-template <int kWarpsT, int kTP = kMmaTileP>
+template <int kWarpsT>
 __device__ __forceinline__ void mma_update_state(float* hr, const bf16* bs, int ld, int mtiles,
                                                  int valid, const float* cs, const float* gis,
                                                  int qp, const bf16* xs, int npair, int warp,
@@ -554,9 +550,9 @@ __device__ __forceinline__ void mma_update_state(float* hr, const bf16* bs, int 
   for (int u = warp; u < mtiles * groups; u += kWarpsT) {
     const int m0 = u % mtiles * 16;
     const int pr0 = u / mtiles;
-    float ha[kTP / 16][2][4];
+    float ha[kMmaTileP / 16][2][4];
 #pragma unroll
-    for (int k = 0; k < kTP / 16; ++k) {
+    for (int k = 0; k < kMmaTileP / 16; ++k) {
 #pragma unroll
       for (int v8 = 0; v8 < 2; ++v8) ha[k][v8][0] = ha[k][v8][1] = ha[k][v8][2] = ha[k][v8][3] = 0.f;
     }
@@ -579,11 +575,11 @@ __device__ __forceinline__ void mma_update_state(float* hr, const bf16* bs, int 
       v = unpack_bf16(a[3]);
       split2(v.x * w2, v.y * w3, ah[3], al[3]);
 #pragma unroll
-      for (int k = 0; k < kTP / 16; ++k) {
+      for (int k = 0; k < kMmaTileP / 16; ++k) {
         const int pr = pr0 + k * groups;
-        if (k * groups < kTP / 16 && pr < npair) {
+        if (k * groups < kMmaTileP / 16 && pr < npair) {
           uint32_t xf[4];
-          ldsm_x4_t(xf, xs + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * (kTP + 8) + pr * 16 +
+          ldsm_x4_t(xf, xs + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdx + pr * 16 +
                             (lane >> 4) * 8);
           mma_split(ha[k][0], ah, al, xf[0], xf[1]);
           mma_split(ha[k][1], ah, al, xf[2], xf[3]);
@@ -591,16 +587,16 @@ __device__ __forceinline__ void mma_update_state(float* hr, const bf16* bs, int 
       }
     }
 #pragma unroll
-    for (int k = 0; k < kTP / 16; ++k) {
+    for (int k = 0; k < kMmaTileP / 16; ++k) {
       const int pr = pr0 + k * groups;
-      if (k * groups < kTP / 16 && pr < npair) {
+      if (k * groups < kMmaTileP / 16 && pr < npair) {
 #pragma unroll
         for (int v8 = 0; v8 < 2; ++v8) {
 #pragma unroll
           for (int hf = 0; hf < 2; ++hf) {
             const int row = m0 + g8 + hf * 8;
             const int c = pr * 16 + v8 * 8 + 2 * t4;
-            float2* hp = reinterpret_cast<float2*>(hr + row * (kTP + 4) + c);
+            float2* hp = reinterpret_cast<float2*>(hr + row * kLdh + c);
             const float2 old = zero ? make_float2(0.f, 0.f) : *hp;
             const float2 h = make_float2(dec_end * old.x + ha[k][v8][2 * hf],
                                          dec_end * old.y + ha[k][v8][2 * hf + 1]);
@@ -619,47 +615,45 @@ __device__ __forceinline__ void mma_update_state(float* hr, const bf16* bs, int 
 }
 
 // the chunk's staged y rows to device memory
-template <int kTP = kMmaTileP>
 __device__ __forceinline__ void mma_store_y(bf16* __restrict__ yg, const bf16* ys, long long xstep,
                                             int qp, int valid, int pw, bool vec, int tid,
                                             int nt) {
   if (vec) {
-    for (int idx = tid; idx < qp * (kTP / 8); idx += nt) {
-      const int j = idx / (kTP / 8);
-      const int c = idx % (kTP / 8) * 8;
+    for (int idx = tid; idx < qp * (kMmaTileP / 8); idx += nt) {
+      const int j = idx / (kMmaTileP / 8);
+      const int c = idx % (kMmaTileP / 8) * 8;
       if (j < valid && c < pw) {
         *reinterpret_cast<uint4*>(yg + j * xstep + c) =
-            *reinterpret_cast<const uint4*>(ys + j * (kTP + 8) + c);
+            *reinterpret_cast<const uint4*>(ys + j * kLdx + c);
       }
     }
   } else {
-    for (int idx = tid; idx < qp * kTP; idx += nt) {
-      const int j = idx / kTP;
-      const int c = idx % kTP;
-      if (j < valid && c < pw) yg[j * xstep + c] = ys[j * (kTP + 8) + c];
+    for (int idx = tid; idx < qp * kMmaTileP; idx += nt) {
+      const int j = idx / kMmaTileP;
+      const int c = idx % kMmaTileP;
+      if (j < valid && c < pw) yg[j * xstep + c] = ys[j * kLdx + c];
     }
   }
 }
 
 // the final state to device memory
-template <int kTP = kMmaTileP>
 __device__ __forceinline__ void mma_store_state(float* __restrict__ hout, const float* hs,
                                                 long long hbase, int n, int p, int pw, bool vec,
                                                 int tid, int nt) {
   if (vec) {
-    for (int idx = tid; idx < n * (kTP / 4); idx += nt) {
-      const int nn = idx / (kTP / 4);
-      const int c = idx % (kTP / 4) * 4;
+    for (int idx = tid; idx < n * (kMmaTileP / 4); idx += nt) {
+      const int nn = idx / (kMmaTileP / 4);
+      const int c = idx % (kMmaTileP / 4) * 4;
       if (c < pw) {
         *reinterpret_cast<float4*>(hout + hbase + static_cast<long long>(nn) * p + c) =
-            *reinterpret_cast<const float4*>(hs + nn * (kTP + 4) + c);
+            *reinterpret_cast<const float4*>(hs + nn * kLdh + c);
       }
     }
   } else {
-    for (int idx = tid; idx < n * kTP; idx += nt) {
-      const int nn = idx / kTP;
-      const int c = idx % kTP;
-      if (c < pw) hout[hbase + static_cast<long long>(nn) * p + c] = hs[nn * (kTP + 4) + c];
+    for (int idx = tid; idx < n * kMmaTileP; idx += nt) {
+      const int nn = idx / kMmaTileP;
+      const int c = idx % kMmaTileP;
+      if (c < pw) hout[hbase + static_cast<long long>(nn) * p + c] = hs[nn * kLdh + c];
     }
   }
 }
@@ -777,11 +771,12 @@ ssd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ ld,
 // bf16, the tensor cores, a wide state (128 < N <= 1024)
 // ------------------------------------------------------------------------
 constexpr int kWideStages = 2;        // slabs of B and C in flight: the ring's depth
+constexpr int kWideWarps = 8;         // warps a block
 constexpr int kWideSmemMax = 232448;  // a block's shared memory on the H100
 
 // The wide mma route's dynamic shared memory for a chunk of q steps, state
-// size n, P tiles of tp columns and slabs of `slab` columns of B and C, as
-// byte offsets (ops.py:scan_plan computes the same total).
+// size n and slabs of `slab` columns of B and C, as byte offsets
+// (ops.py:scan_plan computes the same total).
 struct WideSmem {
   int qp, np, ldk;
   int xs, ring, hs, cs, gis;
@@ -789,17 +784,17 @@ struct WideSmem {
   int bytes;
 };
 
-__host__ __device__ inline WideSmem wide_smem(int q, int n, int tp, int slab) {
+__host__ __device__ inline WideSmem wide_smem(int q, int n, int slab) {
   WideSmem m{};
   m.qp = round16(q);
   m.np = round16(n);
   m.ldk = slab + 8;
   m.stage = 2 * m.qp * m.ldk * 2;
   int o = 0;
-  m.xs = o; o += m.qp * (tp + 8) * 2;      // x chunk (Qp, tp) bf16
+  m.xs = o; o += m.qp * kLdx * 2;          // x chunk (Qp, 32) bf16
   m.ring = o; o += kWideStages * m.stage;  // the slabs of B and C (Qp, slab) bf16 each;
-                                           // y (Qp, tp) bf16 at its end after them
-  m.hs = o; o += m.np * (tp + 4) * 4;      // state (Np, tp) f32
+                                           // y (Qp, 32) bf16 at its end after them
+  m.hs = o; o += m.np * kLdh * 4;          // state (Np, 32) f32
   m.cs = o; o += m.qp * 4;                 // cumulative log-decay
   m.gis = o; o += m.qp * 4;                // input scales
   m.bytes = o;
@@ -843,7 +838,7 @@ __device__ __forceinline__ void wide_stage_slab(bf16* bs, bf16* cm, int ldk,
 }
 
 // ssd_mma_kernel with B and C streamed through shared memory in slabs of
-// kSlabW columns, kTP columns of P a block.  The slabs pass through a ring
+// kSlabW columns, kWideWarps warps a block.  The slabs pass through a ring
 // of kWideStages stages: while the warps form one slab's products the next
 // slab's cp.async copies are in flight, and one barrier a slab both makes
 // the slab visible and frees the stage the next copy overwrites.  Per slab
@@ -854,8 +849,8 @@ __device__ __forceinline__ void wide_stage_slab(bf16* bs, bf16* cm, int ldk,
 // slab loop instead of following it.  vec: bit 0 = x and y move 16 bytes at
 // a time (P a multiple of 8, x and y 16-byte aligned), bit 1 = B and C do
 // (N a multiple of 8, both aligned).
-template <int kWarpsT, int kTP, int kSlabW>
-__global__ void __launch_bounds__(kWarpsT * 32)
+template <int kSlabW>
+__global__ void __launch_bounds__(kWideWarps * 32)
 ssd_mma_wide_kernel(const bf16* __restrict__ x, const float* __restrict__ ld,
                     const float* __restrict__ gi, const bf16* __restrict__ bmat,
                     const bf16* __restrict__ cmat, const float* __restrict__ dvec,
@@ -863,7 +858,8 @@ ssd_mma_wide_kernel(const bf16* __restrict__ x, const float* __restrict__ ld,
                     float* __restrict__ hout, int s, int nh, int p, int ng, int n, int q,
                     int vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const WideSmem m = wide_smem(q, n, kTP, kSlabW);
+  constexpr int kWarpsT = kWideWarps;
+  const WideSmem m = wide_smem(q, n, kSlabW);
   bf16* xs = reinterpret_cast<bf16*>(smem_raw + m.xs);
   float* hs = reinterpret_cast<float*>(smem_raw + m.hs);
   float* cs = reinterpret_cast<float*>(smem_raw + m.cs);
@@ -871,9 +867,8 @@ ssd_mma_wide_kernel(const bf16* __restrict__ x, const float* __restrict__ ld,
   const int qp = m.qp, np = m.np, ldk = m.ldk;
   const bool vec_x = (vec & 1) != 0;
   const bool vec_bc = (vec & 2) != 0;
-  constexpr int kLh = kTP + 4;  // floats per shared row of the state
 
-  const int p0 = blockIdx.x * kTP;
+  const int p0 = blockIdx.x * kMmaTileP;
   const int head = blockIdx.y;
   const int b = blockIdx.z;
   const int grp = head / (nh / ng);
@@ -881,7 +876,7 @@ ssd_mma_wide_kernel(const bf16* __restrict__ x, const float* __restrict__ ld,
   constexpr int nthreads = kWarpsT * 32;
   const int lane = tid & 31;
   const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);  // uniform in the warp
-  const int pw = min(kTP, p - p0);
+  const int pw = min(kMmaTileP, p - p0);
   const int npair = (pw + 15) / 16;
   const float dh = dvec != nullptr ? dvec[head] : 0.f;
   const long long xstep = static_cast<long long>(nh) * p;
@@ -891,19 +886,19 @@ ssd_mma_wide_kernel(const bf16* __restrict__ x, const float* __restrict__ ld,
   // after a chunk's slabs the ring holds y at its end and, below it, the
   // odd k16 steps' sums of the scores where two warps share a strip
   const int ring_bytes = kWideStages * m.stage;
-  const int y_bytes = qp * (kTP + 8) * 2;
+  const int y_bytes = qp * kLdx * 2;
   bf16* ys = reinterpret_cast<bf16*>(smem_raw + m.ring + ring_bytes - y_bytes);
   float* part = reinterpret_cast<float*>(smem_raw + m.ring);
   // the chunk's 16-row strips; where they are at most half the warps (and
   // the sums fit), warps strips .. 2 strips - 1 take each slab's odd k16
   // steps of the scores for the same rows as warps 0 .. strips - 1
-  constexpr int kPart = kWarpsT / 2 * 8 + kTP / 2;  // floats a thread: scores, then C.h
+  constexpr int kPart = kWarpsT / 2 * 8 + kMmaTileP / 2;  // floats a thread: scores, then C.h
   const int strips = qp / 16;
   const bool split = kWarpsT >= 2 * strips && strips * kPart * 32 * 4 + y_bytes <= ring_bytes;
   const int strip = split && warp >= strips ? warp - strips : warp;
   const int half = split && warp >= strips ? 1 : 0;
 
-  mma_init_state<kTP>(hs, h0, hbase, n, np, p, pw, tid, nthreads);
+  mma_init_state(hs, h0, hbase, n, np, p, pw, tid, nthreads);
   bool has_h = h0 != nullptr;
 
   for (int t0 = 0; t0 < s; t0 += q) {
@@ -916,8 +911,8 @@ ssd_mma_wide_kernel(const bf16* __restrict__ x, const float* __restrict__ ld,
     float ldv[kPer], giv[kPer];
     if (warp == 0) chunk_load(ld, gi, row0 * nh + head, nh, valid, lane, ldv, giv);
     // x's copies join the first slab's group
-    mma_stage_x<kTP>(xs, x + (row0 * nh + head) * p + p0, xstep, qp, valid, pw, vec_x, tid,
-                     nthreads);
+    mma_stage_x(xs, x + (row0 * nh + head) * p + p0, xstep, qp, valid, pw, vec_x, tid,
+                nthreads);
 #pragma unroll
     for (int k = 0; k < kWideStages - 1; ++k) {
       bf16* st = reinterpret_cast<bf16*>(smem_raw + m.ring + k * m.stage);
@@ -935,9 +930,9 @@ ssd_mma_wide_kernel(const bf16* __restrict__ x, const float* __restrict__ ld,
     const int i0 = strip * 16;
     const bool rows_live = i0 < valid;
     const int nkt = min(strip + 1, (valid + 15) / 16);
-    float acc[kTP / 8][4];
+    float acc[kMmaTileP / 8][4];
 #pragma unroll
-    for (int t = 0; t < kTP / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+    for (int t = 0; t < kMmaTileP / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
     float sc[kWarpsT][2][4];
 #pragma unroll
     for (int kt = 0; kt < kWarpsT; ++kt) {
@@ -966,16 +961,15 @@ ssd_mma_wide_kernel(const bf16* __restrict__ x, const float* __restrict__ ld,
       const bf16* cm = bs + qp * ldk;
 
       if (rows_live) {
-        mma_scores<kWarpsT, kTP>(acc, sc, cm, bs, ldk, kw, hs + n0 * kLh, has_h, nkt, npair, i0,
-                                 lane, half, split ? 2 : 1);
+        mma_scores<kWarpsT>(acc, sc, cm, bs, ldk, kw, hs + n0 * kLdh, has_h, nkt, npair, i0,
+                            lane, half, split ? 2 : 1);
       }
       // C.h has read the slab's rows of the entering state before their update
       if (has_h) __syncthreads();
-      mma_update_state<kWarpsT, kTP>(hs + n0 * kLh, bs, ldk, kw / 16, valid, cs, gis, qp, xs,
-                                     npair, warp, lane, !has_h,
-                                     last ? hout + hbase + static_cast<long long>(n0) * p
-                                          : nullptr,
-                                     p, n - n0, pw);
+      mma_update_state<kWarpsT>(hs + n0 * kLdh, bs, ldk, kw / 16, valid, cs, gis, qp, xs,
+                                npair, warp, lane, !has_h,
+                                last ? hout + hbase + static_cast<long long>(n0) * p : nullptr,
+                                p, n - n0, pw);
     }
 
     __syncthreads();  // every slab is consumed: the ring is free
@@ -992,7 +986,9 @@ ssd_mma_wide_kernel(const bf16* __restrict__ x, const float* __restrict__ ld,
           }
         }
 #pragma unroll
-        for (int e = 0; e < kTP / 2; ++e) mine[(kWarpsT / 2 * 8 + e) * 32] = acc[e >> 2][e & 3];
+        for (int e = 0; e < kMmaTileP / 2; ++e) {
+          mine[(kWarpsT / 2 * 8 + e) * 32] = acc[e >> 2][e & 3];
+        }
       }
       __syncthreads();
       if (half == 0 && rows_live) {
@@ -1004,16 +1000,18 @@ ssd_mma_wide_kernel(const bf16* __restrict__ x, const float* __restrict__ ld,
           }
         }
 #pragma unroll
-        for (int e = 0; e < kTP / 2; ++e) acc[e >> 2][e & 3] += mine[(kWarpsT / 2 * 8 + e) * 32];
+        for (int e = 0; e < kMmaTileP / 2; ++e) {
+          acc[e >> 2][e & 3] += mine[(kWarpsT / 2 * 8 + e) * 32];
+        }
       }
     }
     if (rows_live && half == 0) {
-      mma_y_rows<kWarpsT, kTP>(acc, sc, cs, gis, xs, ys, i0 + (lane >> 2), nkt, npair, has_h,
-                               dh, lane);
+      mma_y_rows<kWarpsT>(acc, sc, cs, gis, xs, ys, i0 + (lane >> 2), nkt, npair, has_h, dh,
+                          lane);
     }
     __syncthreads();  // y is staged
-    mma_store_y<kTP>(y + (row0 * nh + head) * p + p0, ys, xstep, qp, valid, pw, vec_x, tid,
-                     nthreads);
+    mma_store_y(y + (row0 * nh + head) * p + p0, ys, xstep, qp, valid, pw, vec_x, tid,
+                nthreads);
     has_h = true;
   }
   // the last chunk's updates have stored the final state
@@ -1183,27 +1181,14 @@ using WideKernel = void (*)(const bf16*, const float*, const float*, const bf16*
                             const float*, const float*, bf16*, float*, int, int, int, int, int,
                             int, int);
 
-// The wide mma kernel of a plan's (warps, P tile, slab): the two
-// ops.py:scan_plan gives (8 warps, 32 columns, slabs of 128 up to a chunk
-// of 64 and of 64 beyond), and, built with -DREPRO_WIDE_VARIANTS
-// (tools/wide_scan_variants.py), every other combination of 4 or 8 warps,
-// 16 or 32 columns and slabs of 32 or 64, and 4 warps at slabs of 128.
-// nullptr for anything else.
-WideKernel wide_kernel(int warps, int tile, int slab) {
-#define REPRO_WIDE(W, T, K) \
-  if (warps == W && tile == T && slab == K) return ssd_mma_wide_kernel<W, T, K>;
-  REPRO_WIDE(8, 32, 128)
-  REPRO_WIDE(8, 32, 64)
-#ifdef REPRO_WIDE_VARIANTS
-  REPRO_WIDE(4, 16, 32)
-  REPRO_WIDE(4, 16, 64)
-  REPRO_WIDE(4, 32, 32)
-  REPRO_WIDE(4, 32, 64)
-  REPRO_WIDE(8, 16, 32)
-  REPRO_WIDE(8, 16, 64)
-  REPRO_WIDE(8, 32, 32)
-  REPRO_WIDE(4, 32, 128)
-#endif
+// The wide mma kernel of a plan's slab: 128 columns up to a chunk of 64,
+// 64 beyond (ops.py:MMA_WIDE_SLABS); nullptr for any other width.
+#define REPRO_WIDE_SLABS(X) X(128) X(64)
+
+WideKernel wide_kernel(int slab) {
+#define REPRO_WIDE(K) \
+  if (slab == K) return ssd_mma_wide_kernel<K>;
+  REPRO_WIDE_SLABS(REPRO_WIDE)
 #undef REPRO_WIDE
   return nullptr;
 }
@@ -1237,11 +1222,10 @@ cudaError_t launch_cuda_cores(const float* x, const float* ld, const float* gi, 
 // dtype of x, B, C and y: 0 = float32, 1 = bfloat16.  route (0 the CUDA
 // cores: f32, N <= 128; 1 the tensor cores: bf16, N <= 128; 2 the tensor
 // cores, wide: bf16, 128 < N <= 1024; 3 the CUDA cores, wide: f32,
-// 128 < N <= 1024), warps, tile and slab (route 2's columns of P a block
-// and columns of B and C a slab; the other routes ignore them) and smem
-// (dynamic shared memory in bytes) come from ops.py:scan_plan.  vec, on
-// route 1: P and N are multiples of 8 and x,
-// B, C and y 16-byte aligned, so x, B, C and y move 16 bytes at a time; on
+// 128 < N <= 1024), warps, slab (route 2's columns of B and C a slab; the
+// other routes ignore it) and smem (dynamic shared memory in bytes) come
+// from ops.py:scan_plan.  vec, on route 1: P and N are multiples of 8 and
+// x, B, C and y 16-byte aligned, so x, B, C and y move 16 bytes at a time; on
 // route 2 a bit mask: bit 0 for x, y and the state's rows (P a multiple of
 // 8, x and y aligned), bit 1 for B and C (N a multiple of 8, both aligned).
 // A plan that does not match the shapes returns cudaErrorInvalidValue and
@@ -1249,7 +1233,7 @@ cudaError_t launch_cuda_cores(const float* x, const float* ld, const float* gi, 
 extern "C" int repro_ssm_scan(const void* x, const void* ld, const void* gi, const void* bmat,
                               const void* cmat, const void* d, const void* h0, void* y,
                               void* hout, int b, int s, int nh, int p, int ng, int n, int chunk,
-                              int dtype, int route, int warps, int tile, int slab, int smem,
+                              int dtype, int route, int warps, int slab, int smem,
                               int vec, void* stream) {
   if (b <= 0 || s <= 0 || nh <= 0 || p <= 0 || ng <= 0 || nh % ng != 0 || n <= 0 ||
       n > kMaxWideState || chunk <= 0 || chunk > kMaxChunk || b > 65535 || nh > 65535) {
@@ -1286,23 +1270,23 @@ extern "C" int repro_ssm_scan(const void* x, const void* ld, const void* gi, con
     return static_cast<int>(cudaGetLastError());
   }
   if (route == kMmaWide) {
-    const auto kernel = wide_kernel(warps, tile, slab);
-    if (dtype != 1 || kernel == nullptr || warps * 16 < round16(chunk) ||
-        smem != wide_smem(chunk, n, tile, slab).bytes || smem > kWideSmemMax ||
+    const auto kernel = wide_kernel(slab);
+    if (dtype != 1 || kernel == nullptr || warps != kWideWarps || warps * 16 < round16(chunk) ||
+        smem != wide_smem(chunk, n, slab).bytes || smem > kWideSmemMax ||
         (vec & ~3) != 0 || ((vec & 1) && p % 8 != 0) || ((vec & 2) && n % 8 != 0)) {
       return cudaErrorInvalidValue;
     }
-    constexpr int kKernels = 16;  // more than wide_kernel returns
-    static WideKernel raised[kKernels] = {};  // kernels whose shared-memory cap is raised
-    int at = 0;
-    while (at < kKernels && raised[at] != nullptr && raised[at] != kernel) ++at;
-    if (at == kKernels) return cudaErrorInvalidValue;
-    if (raised[at] == nullptr) {
-      cudaError_t err = allow_smem(kernel, kWideSmemMax);
+    static bool attr_set = false;  // raise every wide kernel's shared-memory cap once
+    if (!attr_set) {
+      cudaError_t err = cudaSuccess;
+#define REPRO_WIDE(K) \
+  if (err == cudaSuccess) err = allow_smem(ssd_mma_wide_kernel<K>, kWideSmemMax);
+      REPRO_WIDE_SLABS(REPRO_WIDE)
+#undef REPRO_WIDE
       if (err != cudaSuccess) return static_cast<int>(err);
-      raised[at] = kernel;
+      attr_set = true;
     }
-    const dim3 grid((p + tile - 1) / tile, nh, b);
+    const dim3 grid((p + kMmaTileP - 1) / kMmaTileP, nh, b);
     kernel<<<grid, warps * 32, smem, st>>>(
         static_cast<const bf16*>(x), ldf, gif, static_cast<const bf16*>(bmat),
         static_cast<const bf16*>(cmat), df, h0f, static_cast<bf16*>(y), ho, s, nh, p, ng, n, chunk,

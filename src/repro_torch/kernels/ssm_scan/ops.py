@@ -63,16 +63,15 @@ def scan_plan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
     A state of more than ``NARROW_STATE`` rows (mLSTM's N = 1024) takes the
     wide routes: the state slice stays resident, and B and C stream through
     shared memory in slabs along N.  bf16 (``mma_wide``): 32 columns of P
-    a block (``tile``), ``MMA_WIDE_WARPS`` warps, a ring of
+    a block, ``MMA_WIDE_WARPS`` warps, a ring of
     ``WIDE_STAGES`` stages of a B and a C slab of (chunk rows padded to 16,
     ``slab`` + 8) bf16 (``MMA_WIDE_SLABS``: 128 columns up to a chunk of
     64, 64 beyond; y staged at the ring's end after the slabs), x in rows
     of 32 + 8 bf16 and the state in rows of 32 + 4 floats: at a chunk of
     128 exactly a block's 227 KB.  f32: the narrow grid and warps, a
     (chunk, 16 + 1) and a (chunk, 16) slab (``WIDE_SLAB``) beside the
-    chunk's (chunk, chunk) scores.  Only the wide mma route's plan has
-    ``tile`` and ``slab``: the C entry point reads them on that route
-    alone."""
+    chunk's (chunk, chunk) scores.  Only the wide mma route's plan has a
+    ``slab``: the C entry point reads it on that route alone."""
     if n > MAX_STATE:
         raise ValueError(f"state size N={n} > {MAX_STATE}")
     grid = (-(-p // 32), h, b)
@@ -84,11 +83,9 @@ def scan_plan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
         if n <= NARROW_STATE:
             return dict(route="mma", warps=warps, grid=grid,
                         smem=xy + 2 * qp * (np_ + 8) * 2 + state)
-        slab, tile = next(k for q, k in MMA_WIDE_SLABS if chunk <= q), 32
-        smem = (qp * (tile + 8) * 2 + WIDE_STAGES * 2 * qp * (slab + 8) * 2
-                + np_ * (tile + 4) * 4 + 2 * qp * 4)
-        return dict(route="mma_wide", warps=MMA_WIDE_WARPS, tile=tile, slab=slab,
-                    grid=grid, smem=smem)
+        slab = next(k for q, k in MMA_WIDE_SLABS if chunk <= q)
+        smem = xy // 2 + WIDE_STAGES * 2 * qp * (slab + 8) * 2 + state
+        return dict(route="mma_wide", warps=MMA_WIDE_WARPS, slab=slab, grid=grid, smem=smem)
     if dtype == torch.float32:
         if n <= NARROW_STATE:
             floats = n * 32 + chunk * 32 + chunk * (n + 1) + chunk * n + 4 * chunk + 8 * chunk
@@ -306,8 +303,8 @@ def gated_scan_cuda(
         x.data_ptr(), ld.data_ptr(), gi.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         None if D is None else D.data_ptr(), None if h0 is None else h0.data_ptr(),
         y.data_ptr(), hout.data_ptr(), b, s, h, p, g, n, chunk, dtype,
-        ROUTE_CODES[plan["route"]], plan["warps"], plan.get("tile", 0), plan.get("slab", 0),
-        plan["smem"], vec, stream,
+        ROUTE_CODES[plan["route"]], plan["warps"], plan.get("slab", 0), plan["smem"], vec,
+        stream,
     ))
     return y, hout
 

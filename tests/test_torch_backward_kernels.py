@@ -124,10 +124,10 @@ def test_served_trace_keeps_one_node_per_kernel(rng):
                                     (512, 4096), (2048, 2560)])
 def test_rmsnorm_backward_plan(rows, d):
     """The route by dtype, shape and alignment: aligned rows that split into
-    16-byte vectors take the warp route up to d 1024 and the block route up
-    to 8192, the rest the scalar one; the grid covers the rows with no empty
-    block, within its cap; the lanes and vectors cover the row; shared
-    memory fits."""
+    16-byte vectors take the vector route up to d 8192 (a row's lanes in
+    one warp up to d 1024, the whole block beyond), the rest the scalar
+    one; the grid covers the rows with no empty block, within its cap; the
+    lanes and vectors cover the row; shared memory fits."""
     for dtype in (torch.float32, torch.bfloat16):
         per_vec = 4 if dtype == torch.float32 else 8
         for aligned in (True, False):
@@ -145,12 +145,12 @@ def test_rmsnorm_backward_plan(rows, d):
                 # the whole block on a row: 4 to 16 warps, 1 to 4 vectors a
                 # thread, two rows at a time, 1 to 4 blocks an SM
                 threads, vecs = plan["threads"], plan["vecs"]
-                assert plan["route"] == "block" and plan["lanes"] == threads
+                assert plan["route"] == "vector" and plan["lanes"] == threads
                 assert threads % 32 == 0 and 96 <= threads <= 512 and 1 <= vecs <= 4
                 assert (vecs - 1) * threads < nvec <= vecs * threads
                 assert plan["rows_per_block"] % 2 == 0 and plan["grid"] <= 4 * 132
                 continue
-            assert plan["route"] == "warp" and plan["threads"] == 256
+            assert plan["route"] == "vector" and plan["threads"] == 256
             lanes = plan["lanes"]
             assert lanes & (lanes - 1) == 0 and lanes <= min(32, nvec) < 2 * lanes
             assert (plan["vecs"] - 1) * lanes < nvec <= plan["vecs"] * lanes

@@ -235,6 +235,10 @@ def test_traced_launches_equal_an_eager_steps_op_calls(arch, remat):
 METER_CASES = {
     "qwen3 train": ("qwen3-0.6b", {}, "train"),
     "xlstm train": ("xlstm-1.3b", {"n_layers": 3, "slstm_every": 3, "ssm_chunk": 16}, "train"),
+    # one scan chunk a sequence (48 steps, chunk 64), its forward recomputed
+    # in the backward: only there does B^T x of the unread final state count
+    "xlstm train one chunk": ("xlstm-1.3b", {"n_layers": 3, "slstm_every": 3, "ssm_chunk": 64},
+                              "train"),
     "mixtral prefill": ("mixtral-8x7b", {}, "prefill"),
     "zamba2 decode": ("zamba2-1.2b", {"n_layers": 5, "attn_every": 2}, "decode"),
 }

@@ -300,16 +300,15 @@ class TestScanPlan:
             for q in range(1, MAX_CHUNK + 1):
                 plan = scan_plan(2, MAX_CHUNK, 4, 1025, 4, n, q, torch.bfloat16)
                 qp, slab = -(-q // 16) * 16, 128 if q <= 64 else 64
-                assert (plan["route"], plan["warps"], plan["tile"], plan["slab"]) == \
-                    ("mma_wide", 8, 32, slab)
+                assert (plan["route"], plan["warps"], plan["slab"]) == ("mma_wide", 8, slab)
                 assert plan["grid"] == (33, 4, 2) and plan["warps"] * 16 >= qp
                 assert plan["smem"] == (qp * 40 * 2 + 2 * 2 * qp * (slab + 8) * 2
                                         + np_ * 36 * 4 + 2 * qp * 4) <= SMEM_MAX
         bucket = scan_plan(1, 64, 4, 1025, 4, 1024, 64, torch.bfloat16)
         train = scan_plan(1, 512, 4, 1025, 4, 1024, 128, torch.bfloat16)
-        assert bucket == dict(route="mma_wide", warps=8, tile=32, slab=128, grid=(33, 4, 1),
+        assert bucket == dict(route="mma_wide", warps=8, slab=128, grid=(33, 4, 1),
                               smem=222720)
-        assert train == dict(route="mma_wide", warps=8, tile=32, slab=64, grid=(33, 4, 1),
+        assert train == dict(route="mma_wide", warps=8, slab=64, grid=(33, 4, 1),
                              smem=SMEM_MAX)
 
 

@@ -344,7 +344,7 @@ class TestWideScan:
         block may take."""
         plan = scan_plan(1, s, 4, 1025, 4, 1024, chunk, torch.bfloat16)
         qp = -(-chunk // 16) * 16
-        assert plan == dict(route="mma_wide", warps=8, tile=32, slab=slab, grid=(33, 4, 1),
+        assert plan == dict(route="mma_wide", warps=8, slab=slab, grid=(33, 4, 1),
                             smem=qp * 40 * 2 + 2 * 2 * qp * (slab + 8) * 2 + 1024 * 36 * 4
                             + 2 * qp * 4)
         assert plan["smem"] <= 232448

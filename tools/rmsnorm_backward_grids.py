@@ -1,4 +1,4 @@
-"""Time the rmsnorm backward's block route at other launches of it on one NVIDIA GPU.
+"""Time the rmsnorm backward's long rows at other launches of its vector route on one NVIDIA GPU.
 
     python3 tools/rmsnorm_backward_grids.py
 
@@ -6,9 +6,9 @@ At the training path's rows longer than 1024 (bf16: zamba2-1.2b's d_model
 2048 and d_inner 4096, minicpm3's 2560 and mixtral-8x7b's 4096 at 4 x 512
 tokens, and 512 rows of 4096) the library's C entry point is launched with
 ``rmsnorm_backward_plan``'s plan and with other launches of the same
-kernel: the block route at 4, 8 and 16 warps (the vectors a thread to
-match) and one, two and four blocks an SM, and the scalar route (which
-every row longer than 1024 took before the block route).  Each launch is
+kernel: the vector route with the whole block on a row at 4, 8 and 16
+warps (the vectors a thread to match) and one, two and four blocks an SM,
+and the scalar route (which every row longer than 1024 took before).  Each launch is
 held against ``rmsnorm_backward_ref`` within 2e-2 and against a second
 launch, bitwise, and timed as a CUDA graph of 20 launches, in turns with
 ``F.rms_norm``'s autograd backward (library first and last).  Prints one
@@ -63,7 +63,7 @@ def plans(rows: int, d: int) -> dict:
         for per_sm in (1, 2, 4):
             rpb = 2 * -(-rows // (2 * SMS * per_sm))
             out[f"{warps} warps x {vecs} vectors, {per_sm} an SM"] = dict(
-                route="block", threads=32 * warps, lanes=32 * warps, vecs=vecs,
+                route="vector", threads=32 * warps, lanes=32 * warps, vecs=vecs,
                 rows_per_block=rpb, grid=-(-rows // rpb))
     out["scalar route"] = rmsnorm_backward_plan(rows, d, torch.bfloat16, aligned=False)
     return out
@@ -73,7 +73,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     from repro_torch.kernels import library
-    from repro_torch.kernels.rmsnorm.ops import ROUTE_CODES
+    from repro_torch.kernels.rmsnorm.ops import BWD_ROUTE_CODES
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_ref
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -103,7 +103,7 @@ def main() -> None:
             def call(plan=plan, dx=dx, dw=dw, partial=partial):
                 library.check("rmsnorm_backward", fn(
                     dy.data_ptr(), x.data_ptr(), w.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-                    partial.data_ptr(), rows, d, 1e-6, 0.0, 1, ROUTE_CODES[plan["route"]],
+                    partial.data_ptr(), rows, d, 1e-6, 0.0, 1, BWD_ROUTE_CODES[plan["route"]],
                     plan["threads"], plan["lanes"], plan["vecs"], plan["rows_per_block"],
                     plan["grid"], torch.cuda.current_stream().cuda_stream))
 

@@ -146,7 +146,7 @@ def main() -> None:
                 y, hout = torch.empty_like(x), torch.empty(b, h, n, p, device="cuda")
                 args = (x.data_ptr(), ld.data_ptr(), dt.data_ptr(), bm.data_ptr(), cm.data_ptr(),
                         d.data_ptr(), None, y.data_ptr(), hout.data_ptr(), b, s, h, p, g, n,
-                        chunk, 1, 1, warps, 32, 0, smem_bytes(vs[name][1], chunk, n), 1)
+                        chunk, 1, 1, warps, 0, smem_bytes(vs[name][1], chunk, n), 1)
 
                 def call(fn=fn, args=args):
                     # the stream of the moment: a graph captures on its own stream

@@ -1,22 +1,24 @@
 """Time the wide gated scan's bf16 kernel at each (warps, P tile, slab) on one NVIDIA GPU.
 
-    python3 tools/wide_scan_variants.py [--parent DIR]
+    python3 tools/wide_scan_variants.py [--parent DIR] [--phases]
 
-Builds ``src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu`` from this
-checkout with ``-DREPRO_WIDE_VARIANTS``, which adds to the plan's two wide
-kernels every other combination of 4 or 8 warps, P tiles of 16 or 32
-columns and slabs of 32 or 64 columns of B and C (and 32 columns at slabs
-of 128).  Each combination that
-fits (16 rows of the chunk a warp, a block's shared memory) is launched
-through the C entry point at xlstm-1.3b's two shapes of the mLSTM scan: the
-stateless bucket (x (1,64,4,1025), B/C (1,64,4,1024), chunk 64) and the
-training forward (x (1,512,4,1025), chunk 128).  Each is held against
-``gated_scan_mma_ref`` (relative L2 of y and of the final state, within
-1e-3), two launches bitwise equal, and timed as a CUDA graph of 20 launches,
-in turns: the list forward, then backward.  ``--parent DIR``: a checkout of
-an earlier tree (unpack it under ``build/``), whose wide kernel is built
-from its own source and timed in the same turns at its own plan (its entry
-point has no tile and slab arguments).  ``--phases``: also builds the
+The kernel in ``src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu`` has 8
+warps and 32 columns of P a block, and slabs of 128 or 64 columns of B and
+C.  For each other combination of 4 or 8 warps and P tiles of 16 or 32
+columns this tool writes a copy of the source with those constants changed
+(``kWideWarps``, ``kMmaTileP``) and slabs of 32, 64 and 128 instantiated,
+and builds every copy at once.  Each combination that fits (16 rows of the
+chunk a warp, a block's shared memory; no 16-column tile at slabs of 128)
+is launched through the C entry point at xlstm-1.3b's two shapes of the
+mLSTM scan: the stateless bucket (x (1,64,4,1025), B/C (1,64,4,1024), chunk
+64) and the training forward (x (1,512,4,1025), chunk 128).  Each is held
+against ``gated_scan_mma_ref`` (relative L2 of y and of the final state,
+within 1e-3; at 16 columns the kernel keeps the same sums, so the same
+mirror), two launches bitwise equal, and timed as a CUDA graph of 20
+launches, in turns: the list forward, then backward.  ``--parent DIR``: a
+checkout of an earlier tree (unpack it under ``build/``), whose wide kernel
+is built from its own source and timed in the same turns at its own plan
+(its entry point has no slab argument).  ``--phases``: also builds the
 kernel with each phase compiled out (the scores, the state update, the
 slabs' copies, the staging of x, the y rows and their store; and an empty
 kernel of the same grid) and times those at the combinations named in
@@ -27,6 +29,7 @@ card's name and power limit first.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import ctypes
 import os
 import subprocess
@@ -42,18 +45,25 @@ import torch.nn.functional as F  # noqa: E402
 SMEM_MAX = 232448
 # (start, end) of each phase of the wide kernel's source, compiled out by a macro
 PHASES = {
-    "NO_SCORES": ("      if (rows_live) {\n        mma_scores<kWarpsT, kTP>(",
+    "NO_SCORES": ("      if (rows_live) {\n        mma_scores<kWarpsT>(",
                   "      // C.h has read the slab's rows"),
-    "NO_UPDATE": ("      mma_update_state<kWarpsT, kTP>(hs + n0 * kLh",
+    "NO_UPDATE": ("      mma_update_state<kWarpsT>(hs + n0 * kLdh",
                   "    }\n\n    __syncthreads();  // every slab is consumed"),
-    "NO_COPIES": ("  if (vec) {\n    const int nv = kw / 8;", "  cp_async_commit();  // one group a slab"),
-    "NO_X": ("    mma_stage_x<kTP>(xs, x + (row0 * nh + head) * p + p0", "#pragma unroll\n    for (int k = 0; k < kWideStages - 1"),
-    "NO_Y": ("    if (rows_live && half == 0) {\n      mma_y_rows<kWarpsT, kTP>(",
+    "NO_COPIES": ("  if (vec) {\n    const int nv = kw / 8;",
+                  "  cp_async_commit();  // one group a slab"),
+    "NO_X": ("    mma_stage_x(xs, x + (row0 * nh + head) * p + p0",
+             "#pragma unroll\n    for (int k = 0; k < kWideStages - 1"),
+    "NO_Y": ("    if (rows_live && half == 0) {\n      mma_y_rows<kWarpsT>(",
              "    has_h = true;\n  }\n  // the last chunk"),
 }
-PHASE_AT = ((8, 32, 64), (8, 32, 128))
+PHASE_AT = ((8, 32, 64), (8, 32, 128))   # the kernel's own (warps, tile): the source as it is
 SHAPES = ((64, 64), (512, 128))   # (S, chunk) at B 1, H = G 4, P 1025, N 1024
+SLABS = (32, 64, 128)
 REL_TOL = 1e-3
+# the constants a variant's copy of the source changes, as the source has them
+WARPS_LINE = "constexpr int kWideWarps = 8;"
+TILE_LINE = "constexpr int kMmaTileP = 32;"
+SLABS_LINE = "#define REPRO_WIDE_SLABS(X) X(128) X(64)"
 
 
 def build(src: str, out: str, defines=()) -> ctypes.CDLL:
@@ -66,6 +76,17 @@ def build(src: str, out: str, defines=()) -> ctypes.CDLL:
     return ctypes.CDLL(out)
 
 
+def variant_source(src: str, warps: int, tile: int) -> str:
+    """The source with ``warps`` warps and ``tile`` columns of P a wide
+    block, and every slab of ``SLABS`` instantiated."""
+    for line in (WARPS_LINE, TILE_LINE, SLABS_LINE):
+        assert src.count(line) == 1, line
+    slabs = " ".join(f"X({k})" for k in SLABS)
+    return (src.replace(WARPS_LINE, f"constexpr int kWideWarps = {warps};")
+            .replace(TILE_LINE, f"constexpr int kMmaTileP = {tile};")
+            .replace(SLABS_LINE, f"#define REPRO_WIDE_SLABS(X) {slabs}"))
+
+
 def phase_source(src: str) -> str:
     """The source with each phase of the wide kernel inside ``#ifndef`` of
     its macro, and ``EMPTY`` returning at the kernel's start."""
@@ -73,7 +94,7 @@ def phase_source(src: str) -> str:
         i = src.index(start)
         j = src.index(end, i)
         src = src[:i] + f"#ifndef {macro}\n" + src[i:j] + "#endif\n" + src[j:]
-    head = "  const WideSmem m = wide_smem(q, n, kTP, kSlabW);\n"
+    head = "  const WideSmem m = wide_smem(q, n, kSlabW);\n"
     assert src.count(head) == 1
     return src.replace(head, "#ifdef EMPTY\n  return;\n#endif\n" + head)
 
@@ -97,8 +118,8 @@ def graph_ms(fn, reps: int = 20) -> float:
 
 
 def wide_smem(q: int, n: int, tile: int, slab: int) -> int:
-    """The C source's wide_smem at another tile and slab (two stages, y in
-    the free one)."""
+    """The C source's wide_smem at a tile and slab (two stages, y in the
+    free one)."""
     qp, np_ = -(-q // 16) * 16, -(-n // 16) * 16
     return qp * (tile + 8) * 2 + 2 * 2 * qp * (slab + 8) * 2 + np_ * (tile + 4) * 4 + 2 * qp * 4
 
@@ -130,32 +151,44 @@ def main() -> None:
                          capture_output=True, text=True).stdout.strip()
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}", flush=True)
     argtypes = library._ARGTYPES["repro_ssm_scan"]
+    with open(library.source_path("ssm_scan")) as f:
+        source = f.read()
+    csrc = os.path.dirname(library.source_path("ssm_scan"))
+    # every copy beside the source (it includes mma_bf16.cuh), built at once
+    jobs = {(w, t): (variant_source(source, w, t), ()) for w in (4, 8) for t in (16, 32)}
+    if args.phases:
+        for macro in (*PHASES, "EMPTY"):
+            jobs[macro.lower()] = (phase_source(source), (f"-D{macro}",))
+    if args.parent:
+        jobs["parent"] = (None, ())
     with tempfile.TemporaryDirectory() as workdir:
-        lib = build(str(library.source_path("ssm_scan")), os.path.join(workdir, "libv.so"),
-                    ("-DREPRO_WIDE_VARIANTS",))
-        fn = lib.repro_ssm_scan
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        phased = {}
-        if args.phases:
-            with open(library.source_path("ssm_scan")) as f:
-                text = phase_source(f.read())
-            src = os.path.join(os.path.dirname(library.source_path("ssm_scan")), ".phased.cu")
-            with open(src, "w") as f:
-                f.write(text)
-            try:
-                for macro in (*PHASES, "EMPTY"):
-                    pf = build(src, os.path.join(workdir, f"lib{macro}.so"),
-                               ("-DREPRO_WIDE_VARIANTS", f"-D{macro}")).repro_ssm_scan
-                    pf.argtypes, pf.restype = argtypes, ctypes.c_int
-                    phased[macro.lower()] = pf
-            finally:
-                os.remove(src)
-        old = None
-        if args.parent:
-            src = os.path.join(args.parent, "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu")
-            old = build(src, os.path.join(workdir, "libparent.so")).repro_ssm_scan
-            old.argtypes = argtypes[:19] + argtypes[21:]   # no tile, no slab
-            old.restype = ctypes.c_int
+        srcs = []
+        try:
+            def build_job(key):
+                text, defines = jobs[key]
+                tag = key if isinstance(key, str) else f"w{key[0]}t{key[1]}"
+                if text is None:
+                    src = os.path.join(args.parent,
+                                       "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu")
+                else:
+                    src = os.path.join(csrc, f".variant_{tag}.cu")
+                    srcs.append(src)
+                    with open(src, "w") as f:
+                        f.write(text)
+                fn = build(src, os.path.join(workdir, f"lib{tag}.so"), defines).repro_ssm_scan
+                # the parent's entry point has no slab argument
+                fn.argtypes = argtypes[:19] + argtypes[20:] if text is None else argtypes
+                fn.restype = ctypes.c_int
+                return key, fn
+
+            with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+                built = dict(pool.map(build_job, jobs))
+        finally:
+            for src in srcs:
+                if os.path.exists(src):
+                    os.remove(src)
+        old = built.pop("parent", None)
+        phased = {k: v for k, v in built.items() if isinstance(k, str)}
         gen = torch.Generator(device="cuda").manual_seed(0)
 
         def randn(*shape):
@@ -174,7 +207,7 @@ def main() -> None:
             calls = {}
             for warps in (4, 8):
                 for tile in (16, 32):
-                    for slab in (32, 64, 128):
+                    for slab in SLABS:
                         smem = wide_smem(chunk, n, tile, slab)
                         if slab == 128 and tile == 16:
                             continue
@@ -184,11 +217,11 @@ def main() -> None:
                         vec = vector_flags("mma_wide", p, n, x, bm, cm, y)
                         cargs = (x.data_ptr(), ld.data_ptr(), gi.data_ptr(), bm.data_ptr(),
                                  cm.data_ptr(), None, None, y.data_ptr(), hout.data_ptr(),
-                                 b, s, h, p, g, n, chunk, 1, 2, warps, tile, slab, smem, vec)
-                        mine = (warps, tile, slab) == (plan["warps"], plan["tile"], plan["slab"])
+                                 b, s, h, p, g, n, chunk, 1, 2, warps, slab, smem, vec)
+                        mine = (warps, tile, slab) == (plan["warps"], 32, plan["slab"])
                         name = f"{warps} warps, {tile} columns, slabs of {slab}" + \
                             (" (plan)" if mine else "")
-                        calls[name] = (fn, cargs, y, hout, smem, tile)
+                        calls[name] = (built[(warps, tile)], cargs, y, hout, smem, tile)
                         if (warps, tile, slab) in PHASE_AT:
                             for pname, pf in phased.items():
                                 calls[f"{warps} warps, {tile} columns, slabs of {slab}, "
